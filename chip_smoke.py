@@ -1,0 +1,443 @@
+#!/usr/bin/env python3
+"""Drive paddle_tpu_torch's serving path once on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, each failing the run (non-zero exit, no final ``ok`` line) on
+any failed check:
+
+1. build   — every CUDA kernel, from the sources in this checkout, with
+             nvcc for sm_90a (all builds started together);
+2. kernels — each kernel against its plain PyTorch version on the card:
+             ragged lengths (0, 1, page edges, ~2000), shuffled pages,
+             float32 (tolerance 2e-5) and bfloat16 pools (2e-2), at the
+             serving width (H=12, D=64, page 16) and a narrow one (H=2,
+             D=8); zero-length lanes exactly 0;
+3. engine  — the main path at the full width of gpt_small (vocab 50304,
+             12 heads x 64): 16 requests, prompts of 128-2048 tokens from
+             RandomState(0), 32 new tokens each, through ``submit`` and
+             ``run`` over a 4096-page float32 pool; tokens must equal the
+             dense oracle on the card, every decode step must launch the
+             paged kernel once, the pool must balance and usage telescope;
+4. preempt — the same model over a 64-page pool that forces preemption,
+             with the same checks;
+5. timing  — the paged kernel, its plain version and gather + SDPA at
+             the engine's decode shape, beside the bandwidth bound, plus
+             the per-step host sync (logits to the host for the argmax).
+
+It prints the card's name and power limit, a ``{"kernels": [...]}``
+line, and as its last line ``{"ok": true, "device": {...}}``. Without a
+CUDA device, or away from the repo, it exits non-zero and prints no
+result.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+FULL = dict(vocab_size=50304, num_heads=12, head_dim=64)  # gpt_small
+POOL = dict(num_pages=4096, page_size=16)                  # README's pool
+F32_TOL = 2e-5
+BF16_TOL = 2e-2
+LOGIT_TOL = 1e-5   # float32 logits (magnitude ~0.02), engine vs oracle
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def check(cond, what):
+    if not cond:
+        raise CheckFailed(what)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def gpu_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# -- phase 2: kernels against their plain versions ---------------------------
+
+
+def paged_inputs(lengths, H, D, page, P, pool_dtype, seed, pools=None):
+    """Random q and pools (unless given), distinct shuffled pages per
+    lane, table width the engine's bucket of the longest lane."""
+    import torch
+
+    from paddle_tpu_torch.serving.engine import _len_bucket
+
+    g = torch.Generator().manual_seed(seed)
+    B = len(lengths)
+    need = [-(-n // page) for n in lengths]
+    W = _len_bucket(max(max(need), 1), 1)
+    check(sum(need) < P, "kernel case needs more pages than the pool")
+    q = torch.randn(B, H, D, generator=g).cuda()
+    if pools is None:
+        pools = tuple(torch.randn(P, page, H, D, generator=g).to(
+            "cuda", pool_dtype) for _ in range(2))
+    perm = torch.randperm(P - 1, generator=g) + 1
+    table = torch.zeros(B, W, dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(need):
+        table[b, :n] = perm[used:used + n].int()
+        used += n
+    lengths = torch.tensor(lengths, dtype=torch.int32)
+    return (q, pools[0], pools[1], table.cuda(), lengths.cuda())
+
+
+def kernel_phase():
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    ragged = [0, 1, 15, 16, 17, 31, 32, 33, 2000, 1999, 2048, 0, 777, 64,
+              5, 1024]
+    cases = [("full", ragged, 12, 64, 16, 4096),
+             ("narrow", ragged, 2, 8, 16, 4096),
+             ("narrow-page4", [0, 1, 3, 4, 5, 9, 23, 0], 2, 8, 4, 64)]
+    errs = {}
+    for name, lengths, H, D, page, P in cases:
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            args = paged_inputs(lengths, H, D, page, P, dtype, seed=len(errs))
+            out = pa.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            ref = pa.paged_decode_attention_reference(*args)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            bound = (tol + tol * ref.abs()).sub((out - ref).abs()).min()
+            zero = args[4] == 0
+            log(f"kernel paged_decode_attention {name} H={H} D={D} "
+                f"page={page} pool={str(dtype).split('.')[-1]} "
+                f"max_abs_err={err:.3e} (tol {tol})")
+            check(bool(torch.isfinite(out).all()), f"{name}: non-finite")
+            check(bound.item() >= 0, f"{name} {dtype}: kernel disagrees "
+                  f"with its plain version (max abs err {err})")
+            check(bool((out[zero] == 0).all()),
+                  f"{name}: zero-length lane is not exactly 0")
+            errs[(name, dtype)] = err
+    return errs
+
+
+# -- phases 3 and 4: the serving main path -----------------------------------
+
+
+class LogitRows:
+    """The engine's ``sample_fn`` for this run: picks the argmax as the
+    engine's default does, and keeps the logits it was given at 512
+    fixed probe positions (a copy of 2 KB, so the step's timing stays
+    the engine's own) under the request they went to — the request
+    whose ``generated`` grew right after the call. In this model the
+    tied embedding's residual dominates the argmax, so tokens alone say
+    little about attention; the logits do."""
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+        self.probe = np.sort(np.random.RandomState(7).choice(
+            vocab, min(512, vocab), replace=False))
+        self.rows, self._reqs, self._lens, self._pending = {}, [], [], None
+
+    def track(self, reqs):
+        self._reqs, self._lens = list(reqs), [0] * len(reqs)
+
+    def settle(self):
+        if self._pending is None:
+            return
+        for j, r in enumerate(self._reqs):
+            if len(r.generated) > self._lens[j]:
+                self._lens[j] = len(r.generated)
+                self.rows.setdefault(r.rid, []).append(self._pending)
+                self._pending = None
+                return
+        raise CheckFailed("a logits row went to no request")
+
+    def __call__(self, row):
+        self.settle()
+        check(row.shape == (self.vocab,), f"logits row of shape {row.shape}")
+        self._pending = row[self.probe].copy()
+        return int(np.argmax(row))
+
+
+def oracle_logits(model, ctx):
+    """Dense (unpaged) logits for the next token after ``ctx``."""
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import dense_decode_reference
+
+    with torch.inference_mode():
+        ids = torch.tensor(ctx, device=model.device)
+        emb, q, k, v = model.qkv(ids)
+        attn = dense_decode_reference(q[-1:], k[None], v[None])[0]
+        return model.head(attn[None], emb[-1:])[0].cpu().numpy()
+
+
+def oracle_check(model, req, prompt, max_new, rows, probe):
+    """Tokens must equal the dense oracle's greedy decode, and the
+    logits the engine chose each token from must equal the oracle's for
+    the same context, at the probe positions. Returns the largest
+    logits error."""
+    ref = model.reference_generate(prompt, max_new)
+    if req.generated != ref:
+        i = next(j for j, (a, b) in enumerate(zip(req.generated, ref))
+                 if a != b)
+        top = np.sort(oracle_logits(model, prompt + ref[:i]))[-2:]
+        raise CheckFailed(
+            f"{req.rid}: token {i} is {req.generated[i]}, oracle "
+            f"{ref[i]}; oracle top-2 logit gap {top[1] - top[0]:.3e}")
+    check(len(rows) == len(ref), f"{req.rid}: {len(rows)} logits rows "
+          f"for {len(ref)} tokens")
+    worst = 0.0
+    for i, row in enumerate(rows):
+        want = oracle_logits(model, prompt + ref[:i])[probe]
+        err = float(np.abs(row - want).max())
+        check(bool(np.isfinite(row).all()) and row.shape == want.shape
+              and np.allclose(row, want, atol=LOGIT_TOL, rtol=LOGIT_TOL),
+              f"{req.rid}: logits of token {i} differ from the oracle's "
+              f"by {err:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def serve(model, cache, budget, prompts, max_new, label):
+    """One run of the main path with the launch counts zeroed just
+    before and read just after. Returns the engine, its requests and the
+    counts."""
+    import torch
+
+    from paddle_tpu_torch.obs import trace
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import Scheduler, ServeEngine
+
+    rows = LogitRows(model.vocab_size)
+    eng = ServeEngine(model, cache, sample_fn=rows,
+                      scheduler=Scheduler(cache, token_budget=budget))
+    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    rows.track(reqs)
+    trace.clear_trace()
+    trace.enable_tracing()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    trace.disable_tracing()
+    rows.settle()
+    spans = {}
+    for ev in trace.trace_events():
+        spans.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+    st = eng.stats()
+    dec = sorted(spans.get("serving.decode", []))
+    log(f"{label}: {len(prompts)} requests, {st['steps']} steps "
+        f"({eng.usage.prefills} prefills, {eng.usage.decode_steps} decode "
+        f"steps), {st['preemptions']} preemptions, wall {wall * 1e3:.1f} ms;"
+        f" prefill total {sum(spans.get('serving.prefill', [])):.1f} ms, "
+        f"decode total {sum(dec):.1f} ms, decode step p50 "
+        f"{dec[len(dec) // 2] if dec else float('nan'):.3f} ms")
+    log(f"{label}: launches {launches}")
+    check(all(r.state == "FINISHED" for r in reqs),
+          f"{label}: not every request finished")
+    check(launches["paged_decode_attention"] == eng.usage.decode_steps > 0,
+          f"{label}: {launches} kernel launches for "
+          f"{eng.usage.decode_steps} decode steps")
+    logit_err = max(oracle_check(model, r, p, max_new, rows.rows[r.rid],
+                                 rows.probe)
+                    for r, p in zip(reqs, prompts))
+    check(cache.verify() and cache.stats()["used_pages"] == 0,
+          f"{label}: pool does not balance: {cache.stats()}")
+    u = eng.usage
+    check(u.verify() and u.busy_ns == sum(u.device_ns.values()) > 0,
+          f"{label}: usage does not telescope")
+    log(f"{label}: tokens equal the dense oracle for all {len(reqs)} "
+        f"requests, logits within {logit_err:.3e} of it (tol "
+        f"{LOGIT_TOL}); pool balanced; usage telescopes")
+    return eng, reqs, launches
+
+
+# -- phase 5: timing ---------------------------------------------------------
+
+
+def paged_bound_ms(lengths, page, H, D, itemsize, W):
+    """Least time for one decode attention call: each live K/V row read
+    once, q/table/lengths read and the output written once, against the
+    float32 operations it needs."""
+    B = len(lengths)
+    live_rows = sum(-(-n // page) * page for n in lengths)
+    nbytes = (2 * live_rows * H * D * itemsize + 2 * B * H * D * 4
+              + B * W * 4 + B * 4)
+    flops = 4 * sum(lengths) * H * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes
+
+
+def gather_sdpa(q, k_pages, v_pages, table, lengths):
+    """The library yardstick: gather the pages, then one SDPA call."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, D = q.shape
+    page = k_pages.shape[1]
+    L = table.shape[1] * page
+    k = k_pages[table.long()].reshape(B, L, H, D).transpose(1, 2)
+    v = v_pages[table.long()].reshape(B, L, H, D).transpose(1, 2)
+    mask = torch.arange(L, device=q.device)[None, :] < lengths[:, None]
+    return F.scaled_dot_product_attention(
+        q[:, :, None, :], k, v, attn_mask=mask[:, None, None, :])[:, :, 0]
+
+
+def timing_phase(cache, prompt_lens, vocab, gpu):
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    # the engine's first full decode step: 16 lanes, each prompt + 1
+    lengths = [n + 1 for n in prompt_lens]
+    H, D, page = cache.num_heads, cache.head_dim, cache.page_size
+    args = paged_inputs(lengths, H, D, page, cache.num_pages,
+                        torch.float32, seed=99,
+                        pools=(cache.k_pages[0], cache.v_pages[0]))
+    out = pa.paged_decode_attention(*args)
+    ref = pa.paged_decode_attention_reference(*args)
+    lib = gather_sdpa(*args)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    check(err <= F32_TOL * (1 + ref.abs().max().item()),
+          f"engine-shape kernel disagrees with plain version: {err}")
+    lib_err = (lib - ref).abs().max().item()
+    ms = cuda_ms(lambda: pa.paged_decode_attention(*args), 50)
+    plain_ms = cuda_ms(lambda: pa.paged_decode_attention_reference(*args),
+                       10)
+    lib_ms = cuda_ms(lambda: gather_sdpa(*args), 10)
+    ms2 = cuda_ms(lambda: pa.paged_decode_attention(*args), 50)
+    bound, bound_by, nbytes = paged_bound_ms(
+        lengths, page, H, D, 4, args[3].shape[1])
+    # the per-step host sync: (16, V) float32 logits to the host and the
+    # numpy argmax the engine runs there
+    logits = torch.randn(len(lengths), vocab, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        host = logits.cpu().numpy()
+        np.argmax(host, axis=-1)
+    sync_ms = (time.perf_counter() - t0) / 20 * 1e3
+    log(f"timing paged_decode_attention B={len(lengths)} H={H} D={D} "
+        f"page={page} W={args[3].shape[1]} context={sum(lengths)} tokens: "
+        f"kernel {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} ms, "
+        f"gather+SDPA {lib_ms:.4f} ms (max abs err vs plain {lib_err:.2e}),"
+        f" bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 "
+        f"TB/s) = {bound / ms * 100:.1f}% of roofline; host sync "
+        f"{sync_ms:.3f} ms per step ({len(lengths)} x {vocab} float32 "
+        f"logits + numpy argmax) [{gpu}]")
+    return dict(max_abs_err=err, ms=min(ms, ms2), plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    try:
+        from paddle_tpu_torch.ops import kernels
+        from paddle_tpu_torch.ops.kernels import _build
+        from paddle_tpu_torch.serving import PagedKVCache, TinyLM
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    check(not any(m.split(".")[0] in ("jax", "paddle_tpu")
+                  for m in sys.modules), "the JAX side was imported")
+    # float32 products in full float32: no TF32 anywhere on this path
+    torch.backends.cudnn.allow_tf32 = False
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on")
+    check(torch.get_float32_matmul_precision() == "highest",
+          "float32 matmul precision is not 'highest'")
+    gpu = gpu_line()
+    log(f"device: {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    libs = _build.build()
+    log(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
+        f" in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(p.name for p in libs))
+
+    errs = kernel_phase()
+
+    rng = np.random.RandomState(0)
+    prompt_lens = [int(n) for n in rng.randint(128, 2049, 16)]
+    prompts = [[int(t) for t in rng.randint(0, FULL["vocab_size"], n)]
+               for n in prompt_lens]
+    t0 = time.perf_counter()
+    model = TinyLM(**FULL, seed=0)
+    cache = PagedKVCache(**POOL, num_heads=FULL["num_heads"],
+                         head_dim=FULL["head_dim"])
+    log(f"engine: TinyLM {FULL} + pool {POOL} float32 ready in "
+        f"{time.perf_counter() - t0:.1f} s; prompt lengths {prompt_lens}")
+    _, _, launches = serve(model, cache, 8192, prompts, 32, "engine")
+
+    # 63 usable pages of 16: three 320-token prompts (20 pages each, 21
+    # with the admission headroom) fill the pool to 3 free pages, and
+    # their growth past 336 tokens must preempt
+    small = PagedKVCache(64, 16, FULL["num_heads"], FULL["head_dim"])
+    prng = np.random.RandomState(1)
+    pprompts = [[int(t) for t in prng.randint(0, FULL["vocab_size"], 320)]
+                for _ in range(4)]
+    eng, _, _ = serve(model, small, 2048, pprompts, 48, "preempt")
+    check(eng.scheduler.preemptions > 0, "preempt: no preemption happened")
+
+    t = timing_phase(cache, prompt_lens, FULL["vocab_size"], gpu)
+    # the worst disagreement of any comparison this run made
+    t["max_abs_err"] = max([t["max_abs_err"], *errs.values()])
+    pa = kernels.KERNELS["paged_decode_attention"]
+    log(gpu)
+    print(json.dumps({"kernels": [{
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": pa.SOURCE, "replaces": pa.REPLACES,
+        "launches": launches["paged_decode_attention"], **t}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,24 @@
+"""paddle_tpu_torch: the PyTorch/CUDA counterpart of ``paddle_tpu``.
+
+A package of its own beside the JAX one, with the same module layout so
+each module's counterpart is easy to find. It imports ``torch`` and
+numpy, never ``jax`` and nothing of ``paddle_tpu``. Every Pallas kernel
+on a ported path is a kernel written by hand for Hopper (``sm_90a``),
+under ``csrc/``, built with ``nvcc`` at first use.
+
+What is ported so far is the serving path:
+
+- ``serving``: paged KV cache, continuous-batching scheduler and
+  ``ServeEngine`` with the one-layer ``TinyLM``;
+- ``ops.kernels.paged_attention``: the paged decode attention kernel
+  (CUDA C++) with its plain PyTorch version;
+- ``obs`` and ``resilience``: the metrics, lockdep, trace, journal,
+  usage, retry and chaos pieces the serve loop calls;
+- ``convert``: weights of the JAX ``TinyLM`` into this package's.
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``; without a card they raise instead of falling back.
+"""
+from ._device import resolve_device, resolve_dtype
+
+__all__ = ["resolve_device", "resolve_dtype"]
