@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path once on one NVIDIA H100.
+"""Drive paddle_tpu_torch's serving path and its training step once on
+one NVIDIA H100.
 
     python3 chip_smoke.py
 
 Phases, each failing the run (non-zero exit, no final ``ok`` line) on
 any failed check:
 
-1. build   — every CUDA kernel, from the sources in this checkout, with
-             nvcc for sm_90a (all builds started together);
+1. build   — every CUDA kernel library (paged attention, LayerNorm,
+             softmax-cross-entropy), from the sources in this checkout,
+             with nvcc for sm_90a (all builds started together);
 2. kernels — each kernel against its plain PyTorch version on the card:
              ragged lengths (0, 1, page edges, ~2000), shuffled pages,
              float32 (tolerance 2e-5) and bfloat16 pools (2e-2), at the
@@ -24,6 +26,28 @@ any failed check:
 5. timing  — the paged kernel, its plain version and gather + SDPA at
              the engine's decode shape, beside the bandwidth bound, plus
              the per-step host sync (logits to the host for the argmax).
+6. train-kernels — the LayerNorm and softmax-cross-entropy kernels,
+             forward and backward, against their plain versions on the
+             card: LN at (8192, 768), (8, 128) and N = 8191 (not a
+             multiple of a CTA's rows); CE at (8192, 50304), (8, 128),
+             V = 1000 (a ragged tail), all rows ignore_index, logits of
+             magnitude ~1e3; float32 (tolerance 1e-5) and bfloat16
+             (2e-2), dgamma/dbeta and dlogits relative to the magnitudes
+             of each entry's terms; dgamma/dbeta bitwise equal across
+             two runs;
+7. train   — the training main path: ``gpt_small`` at full width and
+             depth (12 x 768, vocab 50304), dropout 0.1, float32, batch
+             8 x 1024 from RandomState(0), AdamW(1e-4, decay 0.01) with
+             global-norm clip 1.0 through ``TrainStep``, 4 steps; every
+             loss finite, the first near ln(50304), launches exactly
+             25/25/1/1 a step (LN fwd/bwd, CE fwd/bwd); then the same 4
+             steps from the same weights and dropout seed through the
+             plain versions (``plain_versions()``, zero launches) must
+             give the same losses within TRAIN_LOSS_TOL;
+8. train-timing — each training kernel at the path's shape: kernel,
+             plain version and library call (``F.layer_norm`` and
+             ``F.cross_entropy(reduction="none")``, forward and autograd
+             backward) beside the bound from the bytes moved.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -45,6 +69,14 @@ BF16_TOL = 2e-2
 LOGIT_TOL = 1e-5   # float32 logits (magnitude ~0.02), engine vs oracle
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
+TRAIN_F32_TOL = 1e-5
+# losses of the kernel run vs the plain-version run on the card, absolute
+# on each of the 4 steps: two float32 spacings at ~10.9. Seen on an H100
+# 80GB HBM3 (700 W): 0 on every step. tools/torch_planted_faults.py plants
+# dgamma = 0 (diffs 0, 5.7e-6, 9.5e-6, 6.3e-5) and dbeta = 0 (0, 6.4e-5,
+# 2.0e-4, 2.4e-4) in the LayerNorm backward: both fail
+TRAIN_LOSS_TOL = 2e-6
+LOSS_NEAR_LN_V = 0.5   # logits of std ~0.55 at init: loss ~ ln V + 0.15
 
 
 class CheckFailed(RuntimeError):
@@ -362,6 +394,303 @@ def timing_phase(cache, prompt_lens, vocab, gpu):
                 bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
 
 
+# -- phase 6: training kernels against their plain versions ------------------
+
+
+def within(out, ref, tol, scale=None):
+    """``|out - ref| <= tol * (1 + |ref|)`` elementwise, or ``tol *
+    scale`` (plus the least normal float32, below which a float has no
+    relative precision) for a value whose terms have magnitudes summing
+    to ``scale``. Returns ``(ok, max abs err)``."""
+    import torch
+
+    err = (out.float() - ref.float()).abs()
+    bound = (tol * (1 + ref.float().abs()) if scale is None else
+             tol * scale + torch.finfo(torch.float32).tiny)
+    return bool((err <= bound).all()), err.max().item()
+
+
+def ce_bwd_scale(x, lab, lse, g):
+    """The magnitudes of each dlogits entry's two terms, ``p * g +
+    onehot * g`` with ``p = exp(x - lse)``, 0 on ignore_index rows. Most
+    entries are ~g/V, far below 1, so the bound must scale with each
+    entry: a bound of ``tol * (1 + |ref|)`` would pass a kernel that
+    wrote 0 everywhere off the label column."""
+    import torch
+
+    valid = lab != -100
+    gv = g.float() * valid
+    scale = torch.exp(x.float() - lse[:, None]) * gv[:, None]
+    rows = valid.nonzero()[:, 0]
+    scale[rows, lab[rows].long()] += gv[rows]
+    return scale
+
+
+def train_kernel_phase():
+    """Each LN and CE kernel against its plain version; returns the
+    largest abs error of each kernel over every case."""
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import layernorm as ln
+    from paddle_tpu_torch.ops.kernels import softmax_ce as ce
+
+    errs = dict.fromkeys(("layer_norm_fwd", "layer_norm_bwd",
+                          "softmax_ce_fwd", "softmax_ce_bwd"), 0.0)
+
+    def note(kernel, label, what, res):
+        ok, err = res
+        errs[kernel] = max(errs[kernel], err)
+        check(ok, f"{kernel} {label}: {what} disagrees with the plain "
+              f"version (max abs err {err:.3e})")
+        return err
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for N, D in ((8192, 768), (8, 128), (8191, 768)):
+        for dtype, tol in ((torch.float32, TRAIN_F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            label = f"({N}, {D}) {str(dtype).split('.')[-1]}"
+            x = (torch.randn(N, D, generator=g, device="cuda") * 2
+                 + 0.5).to(dtype)
+            dy = torch.randn(N, D, generator=g, device="cuda").to(dtype)
+            gamma, beta = (torch.randn(D, generator=g, device="cuda")
+                           .to(dtype) for _ in range(2))
+            y, mean, rstd = ln.layer_norm_fwd(x, gamma, beta, 1e-5)
+            dx, dg, db = ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
+            dx2, dg2, db2 = ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
+            torch.cuda.synchronize()
+            yr, mr, rr = ln.layer_norm_fwd_reference(x, gamma, beta, 1e-5)
+            dxr, dgr, dbr = ln.layer_norm_bwd_reference(x, gamma, mean,
+                                                        rstd, dy)
+            e = [note("layer_norm_fwd", label, "y", within(y, yr, tol)),
+                 note("layer_norm_fwd", label, "mean",
+                      within(mean, mr, TRAIN_F32_TOL)),
+                 note("layer_norm_fwd", label, "rstd",
+                      within(rstd, rr, TRAIN_F32_TOL)),
+                 note("layer_norm_bwd", label, "dx", within(dx, dxr, tol))]
+            xhat = (x.float() - mean) * rstd
+            e.append(note("layer_norm_bwd", label, "dgamma", within(
+                dg, dgr, tol, (dy.float() * xhat).abs().sum(0))))
+            e.append(note("layer_norm_bwd", label, "dbeta", within(
+                db, dbr, tol, dy.float().abs().sum(0))))
+            check(torch.equal(dg, dg2) and torch.equal(db, db2)
+                  and torch.equal(dx, dx2),
+                  f"layer_norm_bwd {label}: two runs differ")
+            log(f"train-kernel layer_norm {label}: max abs err y/mean/rstd/"
+                f"dx/dgamma/dbeta " + " ".join(f"{v:.2e}" for v in e)
+                + f" (tol {tol}); dgamma/dbeta bitwise equal across runs")
+    cases = [("full", 8192, 50304, 1.0, False), ("narrow", 8, 128, 3.0,
+                                                  False),
+             ("tail", 16, 1000, 3.0, False), ("ignored", 8, 128, 3.0, True),
+             ("large", 64, 4096, 1e3, False)]
+    for name, N, V, scale, all_ignored in cases:
+        for dtype, tol in ((torch.float32, TRAIN_F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            label = f"{name} ({N}, {V}) {str(dtype).split('.')[-1]}"
+            x = (torch.randn(N, V, generator=g, device="cuda")
+                 * scale).to(dtype)
+            lab = torch.randint(0, V, (N,), generator=g, device="cuda")
+            lab[::5] = -100
+            if all_ignored:
+                lab[:] = -100
+            gl = torch.rand(N, generator=g, device="cuda")
+            loss, lse = ce.softmax_ce_fwd(x, lab)
+            dx = ce.softmax_ce_bwd(x, lab, lse, gl)
+            torch.cuda.synchronize()
+            lr, lser = ce.softmax_ce_fwd_reference(x, lab)
+            # the backward's inputs are the forward kernel's lse, held to
+            # the plain lse above
+            dxr = ce.softmax_ce_bwd_reference(x, lab, lse, gl)
+            e = [note("softmax_ce_fwd", label, "loss",
+                      within(loss, lr, TRAIN_F32_TOL)),
+                 note("softmax_ce_fwd", label, "lse",
+                      within(lse, lser, TRAIN_F32_TOL)),
+                 note("softmax_ce_bwd", label, "dlogits",
+                      within(dx, dxr, tol, ce_bwd_scale(x, lab, lse, gl)))]
+            ign = lab == -100
+            check(bool((loss[ign] == 0).all() and (dx[ign] == 0).all()),
+                  f"softmax_ce {label}: ignore_index rows are not 0")
+            check(bool(torch.isfinite(loss).all()
+                       and torch.isfinite(dx.float()).all()),
+                  f"softmax_ce {label}: non-finite output")
+            log(f"train-kernel softmax_ce {label}: max abs err loss/lse/"
+                f"dlogits " + " ".join(f"{v:.2e}" for v in e)
+                + f" (tol {tol}); {int(ign.sum())} ignore_index rows 0")
+            del x, dx, dxr
+    return errs
+
+
+# -- phase 7: the training main path -----------------------------------------
+
+
+def train_run(model, init, ids, labels, steps, plain):
+    """``steps`` TrainStep calls from the weights ``init`` with the
+    dropout generator reseeded, launch counts zeroed just before and
+    read just after. Returns (losses, launches, step walls in ms)."""
+    import contextlib
+
+    import torch
+
+    from paddle_tpu_torch import core, optim
+    from paddle_tpu_torch.framework import TrainStep
+    from paddle_tpu_torch.models.nlp.gpt import gpt_loss
+    from paddle_tpu_torch.ops import kernels
+
+    model.load_state_dict(init)
+    core.seed(1)
+    opt = optim.AdamW(parameters=model.named_parameters(),
+                      learning_rate=1e-4, weight_decay=0.01,
+                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, opt, gpt_loss)
+    losses, walls = [], []
+    with kernels.plain_versions() if plain else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step(ids, labels)))   # syncs on the loss
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = kernels.launches()
+    return losses, launches, walls
+
+
+def train_phase(gpu):
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.models.nlp import gpt
+
+    cfg = gpt.gpt_small(dropout=0.1)
+    B, L, steps = 8, cfg.max_seq, 4
+    t0 = time.perf_counter()
+    model = gpt.GPT(cfg, generator=torch.Generator(device="cuda")
+                    .manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (B, L))
+    labels = np.roll(ids, -1, axis=1)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"train: gpt_small {n_params / 1e6:.1f}M parameters (12 x 768, "
+        f"vocab {cfg.vocab_size}), dropout {cfg.dropout}, float32, batch "
+        f"{B} x {L}, ready in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    losses, launches, walls = train_run(model, init, ids, labels, steps,
+                                        plain=False)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"paged_decode_attention": 0,
+            "layer_norm_fwd": (2 * cfg.layers + 1) * steps,
+            "layer_norm_bwd": (2 * cfg.layers + 1) * steps,
+            "softmax_ce_fwd": steps, "softmax_ce_bwd": steps}
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    log(f"train: kernel run losses {losses}; step wall ms "
+        + " ".join(f"{w:.1f}" for w in walls)
+        + f" (median of steps 2-{steps}: {steady:.1f} ms = "
+        f"{B * L / steady * 1e3:.0f} tokens/s); peak memory {peak:.1f} GiB;"
+        f" launches {launches} [{gpu}]")
+    check(all(math.isfinite(x) for x in losses), "train: non-finite loss")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(losses[0] - ln_v) < LOSS_NEAR_LN_V,
+          f"train: first loss {losses[0]} is not within {LOSS_NEAR_LN_V} "
+          f"of ln {cfg.vocab_size} = {ln_v:.4f}")
+    check(launches == want, f"train: launches {launches}, want {want}")
+    plain, plain_launches, plain_walls = train_run(model, init, ids, labels,
+                                                   steps, plain=True)
+    diffs = [abs(a - b) for a, b in zip(losses, plain)]
+    log(f"train: plain-version run losses {plain}; |diff| "
+        + " ".join(f"{d:.2e}" for d in diffs) + f" (tol {TRAIN_LOSS_TOL}); "
+        f"step wall ms " + " ".join(f"{w:.1f}" for w in plain_walls)
+        + f"; launches {plain_launches}")
+    check(set(plain_launches.values()) == {0},
+          f"train: the plain-version run launched {plain_launches}")
+    check(all(d <= TRAIN_LOSS_TOL for d in diffs),
+          "train: the kernel run's losses differ from the plain versions'")
+    del model, init
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 8: training kernels timed at the path's shape ---------------------
+
+
+def train_timing_phase(gpu):
+    """Kernel, plain version and library call for each training kernel at
+    the train path's shape (N = 8 x 1024 rows, D = 768, V = 50304,
+    float32), beside the least time the card could take: the bytes each
+    must move (every input read once, every output written once) over
+    3.35 TB/s against its float32 operations over 67 TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import layernorm as ln
+    from paddle_tpu_torch.ops.kernels import softmax_ce as ce
+
+    N, D, V = 8192, 768, 50304
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(N, D, generator=g, device="cuda")
+    dy = torch.randn(N, D, generator=g, device="cuda")
+    gamma = torch.randn(D, generator=g, device="cuda")
+    beta = torch.randn(D, generator=g, device="cuda")
+    logits = torch.randn(N, V, generator=g, device="cuda")
+    lab = torch.randint(0, V, (N,), generator=g, device="cuda")
+    gl = torch.full((N,), 1.0 / N, device="cuda")
+    _, mean, rstd = ln.layer_norm_fwd(x, gamma, beta, 1e-5)
+    _, lse = ce.softmax_ce_fwd(logits, lab)
+
+    xl = x.clone().requires_grad_()
+    wl, bl = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+    yl = F.layer_norm(xl, (D,), wl, bl, 1e-5)
+    cl = logits.clone().requires_grad_()
+    lossl = F.cross_entropy(cl, lab, reduction="none")
+
+    f4 = 4
+    rows = {
+        # name: (kernel, plain, library, bytes, float32 operations)
+        "layer_norm_fwd": (
+            lambda: ln.layer_norm_fwd(x, gamma, beta, 1e-5),
+            lambda: ln.layer_norm_fwd_reference(x, gamma, beta, 1e-5),
+            lambda: F.layer_norm(x, (D,), gamma, beta, 1e-5),
+            f4 * (2 * N * D + 2 * D + 2 * N), 8 * N * D),
+        "layer_norm_bwd": (
+            lambda: ln.layer_norm_bwd(x, gamma, mean, rstd, dy),
+            lambda: ln.layer_norm_bwd_reference(x, gamma, mean, rstd, dy),
+            lambda: torch.autograd.grad(yl, (xl, wl, bl), dy,
+                                        retain_graph=True),
+            f4 * (3 * N * D + 3 * D + 2 * N), 12 * N * D),
+        "softmax_ce_fwd": (
+            lambda: ce.softmax_ce_fwd(logits, lab),
+            lambda: ce.softmax_ce_fwd_reference(logits, lab),
+            lambda: F.cross_entropy(logits, lab, reduction="none"),
+            f4 * (N * V + 3 * N), 4 * N * V),
+        "softmax_ce_bwd": (
+            lambda: ce.softmax_ce_bwd(logits, lab, lse, gl),
+            lambda: ce.softmax_ce_bwd_reference(logits, lab, lse, gl),
+            lambda: torch.autograd.grad(lossl, cl, gl, retain_graph=True),
+            f4 * (2 * N * V + 3 * N), 4 * N * V),
+    }
+    out = {}
+    for name, (kern, plain, lib, nbytes, flops) in rows.items():
+        iters = 50 if name.startswith("layer") else 10
+        ms = cuda_ms(kern, iters)
+        plain_ms = cuda_ms(plain, max(iters // 5, 2))
+        lib_ms = cuda_ms(lib, iters)
+        ms2 = cuda_ms(kern, iters)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"timing {name} N={N} D={D if 'layer' in name else V} float32:"
+            f" kernel {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} "
+            f"ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s) = "
+            f"{bound / min(ms, ms2) * 100:.1f}% of roofline [{gpu}]")
+        out[name] = dict(ms=min(ms, ms2), plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=bound_by,
+                         library_ms=lib_ms)
+    return out
+
+
+
 def main():
     try:
         import torch
@@ -427,12 +756,26 @@ def main():
     t = timing_phase(cache, prompt_lens, FULL["vocab_size"], gpu)
     # the worst disagreement of any comparison this run made
     t["max_abs_err"] = max([t["max_abs_err"], *errs.values()])
+    del eng, model, cache, small
+    torch.cuda.empty_cache()
+
+    train_errs = train_kernel_phase()
+    train_launches = train_phase(gpu)
+    train_t = train_timing_phase(gpu)
+
     pa = kernels.KERNELS["paged_decode_attention"]
+    rows = [{"name": "paged_decode_attention", "route": "cuda",
+             "source": pa.SOURCE, "replaces": pa.REPLACES,
+             "launches": launches["paged_decode_attention"], **t}]
+    for name, tt in train_t.items():
+        mod = kernels.KERNELS[name]
+        rows.append({"name": name, "route": "cuda", "source": mod.SOURCE,
+                     "replaces": mod.REPLACES_BWD if name.endswith("bwd")
+                     else mod.REPLACES,
+                     "launches": train_launches[name],
+                     "max_abs_err": train_errs[name], **tt})
     log(gpu)
-    print(json.dumps({"kernels": [{
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": pa.SOURCE, "replaces": pa.REPLACES,
-        "launches": launches["paged_decode_attention"], **t}]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,7 @@ numpy, never ``jax`` and nothing of ``paddle_tpu``. Every Pallas kernel
 on a ported path is a kernel written by hand for Hopper (``sm_90a``),
 under ``csrc/``, built with ``nvcc`` at first use.
 
-What is ported so far is the serving path:
+What is ported so far is the serving path and the GPT training step:
 
 - ``serving``: paged KV cache, continuous-batching scheduler and
   ``ServeEngine`` with the one-layer ``TinyLM``;
@@ -14,7 +14,15 @@ What is ported so far is the serving path:
   (CUDA C++) with its plain PyTorch version;
 - ``obs`` and ``resilience``: the metrics, lockdep, trace, journal,
   usage, retry and chaos pieces the serve loop calls;
-- ``convert``: weights of the JAX ``TinyLM`` into this package's.
+- ``models.nlp.gpt`` with ``nn`` (layers, functional ops, initializers),
+  ``dist.tp_layers`` (single device), ``optim`` (Adam, AdamW, global-norm
+  clip), ``framework.TrainStep`` and ``core.random``: the eager training
+  step of the GPT decoder;
+- ``ops.kernels.layernorm`` and ``ops.kernels.softmax_ce``: the
+  LayerNorm and softmax-cross-entropy kernels, forward and backward
+  (CUDA C++), with their plain PyTorch versions;
+- ``convert``: weights of the JAX ``TinyLM`` and ``GPT`` into this
+  package's.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.

@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["tinylm_params_from_jax"]
+__all__ = ["tinylm_params_from_jax", "gpt_params_from_jax"]
 
 _TINYLM = ("embedding", "wq", "wk", "wv", "wo")
 
@@ -30,3 +30,44 @@ def tinylm_params_from_jax(params):
             raise ValueError(f"{k} has shape {arrs[k].shape}, expected "
                              f"({E}, {E}) for embed dim {E}")
     return {k: torch.from_numpy(a.copy()) for k, a in arrs.items()}
+
+
+# a GPT block's arrays: name -> shape in units of the hidden width E
+_GPT_BLOCK = {"ln1.weight": (1,), "ln1.bias": (1,),
+              "attn.qkv.weight": (1, 3), "attn.qkv.bias": (3,),
+              "attn.proj.weight": (1, 1), "attn.proj.bias": (1,),
+              "ln2.weight": (1,), "ln2.bias": (1,),
+              "fc1.weight": (1, 4), "fc1.bias": (4,),
+              "fc2.weight": (4, 1), "fc2.bias": (1,)}
+
+
+def gpt_params_from_jax(state):
+    """The JAX ``GPT``'s ``state_dict`` — names to numpy arrays (or
+    anything ``np.asarray`` takes) — as a state dict for the port's
+    ``GPT`` (float32 CPU tensors under the same names; ``load_state_dict``
+    moves them to the model's device). Vocabulary, width, depth and
+    ``max_seq`` are read from the arrays. Raises ``ValueError`` on a
+    missing or extra name or a shape that does not fit the others."""
+    arrs = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    if "wte.weight" not in arrs or arrs["wte.weight"].ndim != 2:
+        raise ValueError("expected a (vocab, hidden) array wte.weight")
+    V, E = arrs["wte.weight"].shape
+    blocks = {k.split(".")[1] for k in arrs if k.startswith("blocks.")}
+    layers = len(blocks)
+    if blocks != {str(i) for i in range(layers)}:
+        raise ValueError(f"blocks must be numbered 0..{layers - 1}, got "
+                         f"{sorted(blocks)}")
+    max_seq = arrs["wpe.weight"].shape[0] if "wpe.weight" in arrs else 0
+    want = {"wte.weight": (V, E), "wpe.weight": (max_seq, E),
+            "ln_f.weight": (E,), "ln_f.bias": (E,)}
+    for i in range(layers):
+        for k, units in _GPT_BLOCK.items():
+            want[f"blocks.{i}.{k}"] = tuple(u * E for u in units)
+    if set(arrs) != set(want):
+        raise ValueError(f"missing {sorted(set(want) - set(arrs))}, extra "
+                         f"{sorted(set(arrs) - set(want))}")
+    for k, shape in want.items():
+        if arrs[k].shape != shape:
+            raise ValueError(f"{k} has shape {arrs[k].shape}, expected "
+                             f"{shape} for vocab {V}, hidden {E}")
+    return {k: torch.from_numpy(arrs[k].copy()) for k in want}

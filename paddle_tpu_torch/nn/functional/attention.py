@@ -1,0 +1,70 @@
+"""Attention: ``sdpa_bhld``, scaled-dot-product attention in the
+``(B, H, L, D)`` layout.
+
+The counterpart of ``paddle_tpu/nn/functional/attention.py``. Its
+``_flash_ok`` gate stays with the same conditions: no mask, no dropout,
+``Lq % 128 == 0``, ``Lk % 128 == 0``, ``D % 64 == 0`` and ``D <= 256``.
+Where the gate holds the JAX package runs its flash kernel, which is not
+ported yet: on a CUDA tensor this module raises ``NotImplementedError``
+there rather than run dense attention in its place. The dense path is
+the flash kernel's plain version: it runs on the CPU, inside
+``plain_versions()``, and wherever the gate does not hold — at dropout
+> 0 in training, as ``gpt_small`` trains.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...ops.kernels import _route
+from ...ops.random_ops import dropout
+
+__all__ = ["sdpa_bhld", "flash_ok"]
+
+NEG_INF = -1e30
+
+
+def flash_ok(q, k, dropout_p, mask):
+    """True when the JAX package sends this attention to its flash kernel
+    (``attention.py:21-30``, without the platform switch)."""
+    if mask is not None or dropout_p > 0.0:
+        return False
+    Lq, D = q.shape[-2], q.shape[-1]
+    Lk = k.shape[-2]
+    return Lq % 128 == 0 and Lk % 128 == 0 and D % 64 == 0 and D <= 256
+
+
+def _dense(q, k, v, mask, scale, is_causal, dropout_p, generator):
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if is_causal:
+        Lq, Lk = scores.shape[-2], scores.shape[-1]
+        causal = torch.ones(Lq, Lk, dtype=torch.bool,
+                            device=q.device).tril(Lk - Lq)
+        scores = scores.masked_fill(~causal, NEG_INF)
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            scores = scores.masked_fill(~mask, NEG_INF)
+        else:
+            scores = scores + mask.float()
+    p = torch.softmax(scores, dim=-1)
+    # dropout on the attention *weights*, before the V product, with
+    # upscale-in-train normalisation (the reference's semantics)
+    p = dropout(p, dropout_p, training=True, generator=generator)
+    return torch.matmul(p.to(v.dtype), v)
+
+
+def sdpa_bhld(query, key, value, attn_mask=None, scale=None,
+              is_causal=False, dropout_p=0.0, training=True, generator=None):
+    """Attention over ``(B, H, L, D)`` tensors; ``is_causal`` aligns the
+    last query with the last key (offset ``Lk - Lq``). Dropout, in
+    training only, draws from ``generator`` (default: the device's)."""
+    if scale is None:
+        scale = 1.0 / (query.shape[-1] ** 0.5)
+    p = float(dropout_p) if dropout_p > 0.0 and training else 0.0
+    if flash_ok(query, key, p, attn_mask) and not _route.plain(query):
+        raise NotImplementedError(
+            "this attention takes the flash-attention kernel (no mask, no "
+            "dropout, Lq and Lk multiples of 128, head_dim a multiple of "
+            "64 up to 256), which is not ported to CUDA yet; it comes in "
+            "the next slice of the port")
+    return _dense(query, key, value, attn_mask, float(scale),
+                  bool(is_causal), p, generator)

@@ -2,16 +2,24 @@
 
 Each kernel module holds the wrapper (which launches the kernel on CUDA
 tensors and counts its launches in ``<wrapper>.launches``), the plain
-PyTorch version the wrapper uses for CPU tensors, and ``SOURCE`` /
-``REPLACES``: the kernel's source in the repo and the Pallas kernel it
-replaces. ``KERNELS`` maps each kernel's name to its module.
+PyTorch version the wrapper uses for CPU tensors (and inside
+``plain_versions()``), and ``SOURCE`` / ``REPLACES``: the kernel's
+source in the repo and the Pallas kernel it replaces (``REPLACES_BWD``
+for a backward). ``KERNELS`` maps each kernel's name — its wrapper's
+name — to its module.
 """
-from . import paged_attention
+from . import layernorm, paged_attention, softmax_ce
+from ._route import plain_versions
+from .layernorm import fused_layer_norm, layer_norm_bwd, layer_norm_fwd
 from .paged_attention import (dense_decode_reference,
                               paged_decode_attention,
                               paged_decode_attention_reference)
+from .softmax_ce import (softmax_ce_bwd, softmax_ce_fwd,
+                         softmax_cross_entropy)
 
-KERNELS = {"paged_decode_attention": paged_attention}
+KERNELS = {"paged_decode_attention": paged_attention,
+           "layer_norm_fwd": layernorm, "layer_norm_bwd": layernorm,
+           "softmax_ce_fwd": softmax_ce, "softmax_ce_bwd": softmax_ce}
 
 
 def reset_launches():
@@ -26,6 +34,8 @@ def launches():
             for name, module in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "reset_launches", "launches",
+__all__ = ["KERNELS", "reset_launches", "launches", "plain_versions",
            "paged_decode_attention", "paged_decode_attention_reference",
-           "dense_decode_reference"]
+           "dense_decode_reference", "layer_norm_fwd", "layer_norm_bwd",
+           "fused_layer_norm", "softmax_ce_fwd", "softmax_ce_bwd",
+           "softmax_cross_entropy"]

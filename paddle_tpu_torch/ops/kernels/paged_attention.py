@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, _route
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
            "dense_decode_reference", "check_kernel_args", "SOURCE",
@@ -156,9 +156,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     pool); lengths: ``(B,)`` context length per sequence (the query's
     own position is ``lengths - 1``). Returns ``(B, H, D)`` in q's dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise — there is no fallback between the two."""
-    if q.device.type == "cpu":
+    CPU tensors (or ``plain_versions()``) take the plain version; CUDA
+    tensors launch the kernel or raise — there is no fallback between
+    the two."""
+    if _route.plain(q):
         return paged_decode_attention_reference(
             q, k_pages, v_pages, page_table, lengths, scale=scale)
     if q.device.type != "cuda":

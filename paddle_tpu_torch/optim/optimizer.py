@@ -1,0 +1,141 @@
+"""Optimizers: the ``Optimizer`` base, ``Adam`` and ``AdamW``.
+
+The counterparts of ``paddle_tpu/optim/optimizer.py``'s (:36-131,
+:280-336), with the reference's update order, in float32:
+
+- Adam: ``m = b1*m + (1-b1)*g``, ``v = b2*v + (1-b2)*g*g``,
+  ``p -= lr * (m / (1-b1^t)) / (sqrt(v / (1-b2^t)) + eps)``;
+- AdamW: the Adam step, then decoupled decay ``p -= lr*coeff*p_old``
+  on every parameter that ``apply_decay_param_fun(name)`` does not
+  exclude, with ``lr`` scaled by ``lr_ratio(name)`` when given.
+
+``torch.optim.AdamW`` decays before the step and folds the bias
+corrections differently, so it is not this update. The powers
+``b1^t``/``b2^t`` are kept per parameter as float32 host scalars, as
+the reference keeps them in float32. Parameters are updated in place.
+The learning rate is a float: LR schedulers are not ported yet.
+
+``parameters`` is an iterable of tensors or of ``(name, tensor)`` pairs
+(``model.named_parameters()``); the names are what
+``apply_decay_param_fun`` and ``lr_ratio`` see (``param_<i>`` when none
+are given).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["Optimizer", "Adam", "AdamW"]
+
+
+def _named(parameters):
+    out = []
+    for i, item in enumerate(parameters):
+        if isinstance(item, tuple):
+            out.append(item)
+        else:
+            out.append((f"param_{i}", item))
+    return out
+
+
+class Optimizer:
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None):
+        if parameters is None:
+            raise ValueError("optimizer constructed without parameters")
+        if not isinstance(learning_rate, (int, float)):
+            raise NotImplementedError("learning-rate schedulers are not "
+                                      "ported yet: pass a float")
+        self._named_params = _named(parameters)
+        self._learning_rate = float(learning_rate)
+        # a float weight_decay is L2 regularisation added to the gradient
+        self._l2 = None if weight_decay is None else float(weight_decay)
+        self._grad_clip = grad_clip
+        self._accumulators = {}
+        self._global_step = 0
+
+    def get_lr(self):
+        return self._learning_rate
+
+    def _state_for(self, name, p):
+        if name not in self._accumulators:
+            self._accumulators[name] = self._init_state(p)
+        return self._accumulators[name]
+
+    def _init_state(self, p):
+        return {}
+
+    def _update(self, name, p, g, s, lr):
+        """The new value of ``p`` (float32) for gradient ``g``; updates
+        the state ``s`` in place."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self):
+        """Clip the gradients, then update every trainable parameter that
+        has one, in place."""
+        named = [(name, p) for name, p in self._named_params
+                 if p.requires_grad and p.grad is not None]
+        pgs = [(p, p.grad) for _, p in named]
+        if self._grad_clip is not None:
+            pgs = self._grad_clip(pgs)
+        lr = self.get_lr()
+        for (name, _), (p, g) in zip(named, pgs):
+            g = g.float()
+            if self._l2 is not None:
+                g = g + self._l2 * p.float()
+            new_p = self._update(name, p, g, self._state_for(name, p), lr)
+            p.copy_(new_p.to(p.dtype))
+        self._global_step += 1
+
+    def clear_grad(self):
+        for _, p in self._named_params:
+            p.grad = None
+
+
+class Adam(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _init_state(self, p):
+        return {"moment1": torch.zeros(p.shape, dtype=torch.float32,
+                                       device=p.device),
+                "moment2": torch.zeros(p.shape, dtype=torch.float32,
+                                       device=p.device),
+                "beta1_pow": np.float32(1.0), "beta2_pow": np.float32(1.0)}
+
+    def _update(self, name, p, g, s, lr):
+        b1, b2 = self._beta1, self._beta2
+        s["beta1_pow"] = b1p = s["beta1_pow"] * np.float32(b1)
+        s["beta2_pow"] = b2p = s["beta2_pow"] * np.float32(b2)
+        s["moment1"] = m = b1 * s["moment1"] + (1 - b1) * g
+        s["moment2"] = v = b2 * s["moment2"] + (1 - b2) * g * g
+        mhat = m / float(np.float32(1) - b1p)
+        vhat = v / float(np.float32(1) - b2p)
+        step = float(np.float32(lr)) * mhat / (torch.sqrt(vhat)
+                                               + self._epsilon)
+        return p.float() - step
+
+
+class AdamW(Adam):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         None, grad_clip)
+        self._coeff = float(weight_decay)
+        self._apply_decay_fn = apply_decay_param_fun
+        self._lr_ratio = lr_ratio
+
+    def _update(self, name, p, g, s, lr):
+        if self._lr_ratio is not None:
+            lr = lr * float(self._lr_ratio(name))
+        new_p = super()._update(name, p, g, s, lr)
+        if self._apply_decay_fn is not None and \
+                not self._apply_decay_fn(name):
+            return new_p
+        decay = float(np.float32(lr) * np.float32(self._coeff))
+        return new_p - decay * p.float()

@@ -1,4 +1,5 @@
-"""paddle_tpu_torch on the card: the CUDA kernel and the engine on CUDA.
+"""paddle_tpu_torch on the card: the CUDA kernels, the engine and the GPT
+training step on CUDA.
 
 Every test here needs a Hopper card and skips without one (the
 decision is made inside the ``hopper`` fixture). The file imports
@@ -7,14 +8,25 @@ PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: 2e-5 (atol and rtol) for float32 pools, 2e-2 for bfloat16
-pools, kernel against its plain PyTorch version on the same inputs.
+Tolerances, kernel against its plain PyTorch version on the same
+inputs (atol and rtol): paged attention 2e-5 for float32 pools, 2e-2 for
+bfloat16 pools; LayerNorm and softmax-cross-entropy 1e-5 in float32 and
+2e-2 in bfloat16, with dgamma/dbeta (sums over N rows) and dlogits
+(``p * g - onehot * g``, most entries ~g/V) held at that tolerance times
+the sum of the magnitudes of their terms.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import optim
+from paddle_tpu_torch.framework import TrainStep
+from paddle_tpu_torch.models.nlp import gpt
+from paddle_tpu_torch.nn.functional import sdpa_bhld
+from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.ops.kernels import layernorm as ln
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
+from paddle_tpu_torch.ops.kernels import softmax_ce as ce
 from paddle_tpu_torch.serving import (ManualClock, PagedKVCache,
                                       Scheduler, ServeEngine, TinyLM)
 
@@ -22,6 +34,7 @@ pytestmark = pytest.mark.cuda
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
+TRAIN_TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
 
 
 @pytest.fixture
@@ -100,3 +113,130 @@ def test_engine_on_card_matches_its_oracle(hopper):
     for r, prompt in pairs:
         assert r.generated == model.reference_generate(prompt, 8)
     assert cache.stats()["used_pages"] == 0 and cache.verify()
+
+
+def _close(out, ref, tol, scale=None):
+    """|out - ref| <= tol * (1 + |ref|), or tol * scale (plus the least
+    normal float32) for a value whose terms' magnitudes sum to scale."""
+    err = (out.float() - ref.float()).abs()
+    bound = (tol * (1 + ref.float().abs()) if scale is None else
+             tol * scale + torch.finfo(torch.float32).tiny)
+    assert bool((err <= bound).all()), f"max abs err {err.max().item()}"
+
+
+def _ce_bwd_scale(x, lab, lse, g):
+    """p * g + onehot * g per dlogits entry, p = exp(x - lse); 0 on
+    ignore_index rows."""
+    valid = lab != -100
+    gv = g.float() * valid
+    scale = torch.exp(x.float() - lse[:, None]) * gv[:, None]
+    rows = valid.nonzero()[:, 0]
+    scale[rows, lab[rows].long()] += gv[rows]
+    return scale
+
+
+@pytest.mark.parametrize("dtype, tol", TRAIN_TOLS)
+@pytest.mark.parametrize("N, D", [(8, 128), (13, 768), (1024, 256)])
+def test_layer_norm_kernels_match_plain_versions(hopper, N, D, dtype, tol):
+    g = torch.Generator().manual_seed(N + D)
+    x, dy = ((torch.randn(N, D, generator=g) * 2 + 0.5).to(hopper, dtype)
+             for _ in range(2))
+    gamma, beta = (torch.randn(D, generator=g).to(hopper, dtype)
+                   for _ in range(2))
+    before = kernels.launches()
+    y, mean, rstd = ln.layer_norm_fwd(x, gamma, beta, 1e-5)
+    dx, dg, db = ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
+    dx2, dg2, db2 = ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert after["layer_norm_fwd"] == before["layer_norm_fwd"] + 1
+    assert after["layer_norm_bwd"] == before["layer_norm_bwd"] + 2
+    yr, mr, rr = ln.layer_norm_fwd_reference(x, gamma, beta, 1e-5)
+    dxr, dgr, dbr = ln.layer_norm_bwd_reference(x, gamma, mean, rstd, dy)
+    _close(y, yr, tol)
+    _close(mean, mr, 1e-5)
+    _close(rstd, rr, 1e-5)
+    _close(dx, dxr, tol)
+    xhat = (x.float() - mean) * rstd
+    _close(dg, dgr, tol, (dy.float() * xhat).abs().sum(0))
+    _close(db, dbr, tol, dy.float().abs().sum(0))
+    # no atomics: the same bits on every run
+    assert torch.equal(dg, dg2) and torch.equal(db, db2)
+    assert torch.equal(dx, dx2)
+
+
+@pytest.mark.parametrize("dtype, tol", TRAIN_TOLS)
+@pytest.mark.parametrize("N, V, scale", [(16, 384, 3.0), (7, 1000, 3.0),
+                                         (8, 4096, 1e3)])
+def test_softmax_ce_kernels_match_plain_versions(hopper, N, V, scale, dtype,
+                                                 tol):
+    g = torch.Generator().manual_seed(N + V)
+    x = (torch.randn(N, V, generator=g) * scale).to(hopper, dtype)
+    lab = torch.randint(0, V, (N,), generator=g)
+    lab[::3] = -100
+    lab = lab.to(hopper)
+    grad = torch.rand(N, generator=g).to(hopper)
+    before = kernels.launches()
+    loss, lse = ce.softmax_ce_fwd(x, lab)        # int64 labels
+    dx = ce.softmax_ce_bwd(x, lab, lse, grad)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert after["softmax_ce_fwd"] == before["softmax_ce_fwd"] + 1
+    assert after["softmax_ce_bwd"] == before["softmax_ce_bwd"] + 1
+    lr, lser = ce.softmax_ce_fwd_reference(x, lab)
+    _close(loss, lr, 1e-5)
+    _close(lse, lser, 1e-5)
+    _close(dx, ce.softmax_ce_bwd_reference(x, lab, lse, grad), tol,
+           _ce_bwd_scale(x, lab, lse, grad))
+    assert torch.all(loss[::3] == 0) and torch.all(dx[::3] == 0)
+
+
+def test_train_kernel_wrappers_raise_on_bad_arguments(hopper):
+    x = torch.randn(8, 128, device=hopper)
+    with pytest.raises(ValueError):
+        ln.layer_norm_fwd(x.double(), torch.ones(128, device=hopper),
+                          torch.zeros(128, device=hopper))
+    with pytest.raises(ValueError):
+        ln.layer_norm_fwd(x.t(), torch.ones(8, device=hopper),
+                          torch.zeros(8, device=hopper))
+    with pytest.raises(ValueError):
+        ce.softmax_ce_fwd(x, torch.zeros(8, device=hopper))  # float labels
+
+
+def _tiny_gpt(hopper, dropout):
+    cfg = gpt.GPTConfig(vocab_size=512, hidden=128, layers=2, heads=2,
+                        max_seq=128, dropout=dropout)
+    return gpt.GPT(cfg, device=hopper, generator=torch.Generator(
+        device=hopper).manual_seed(0))
+
+
+def test_tiny_gpt_step_launches_every_training_kernel(hopper):
+    """One step at dropout 0.1: 2 LayerNorms a block plus ln_f, forward
+    and backward; one cross-entropy forward and backward."""
+    m = _tiny_gpt(hopper, 0.1)
+    ids = np.random.RandomState(0).randint(0, 512, (8, 128))
+    opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=1e-3,
+                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
+    step = TrainStep(m, opt, gpt.gpt_loss)
+    kernels.reset_launches()
+    loss = step(ids, np.roll(ids, -1, axis=1))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    assert kernels.launches() == {
+        "paged_decode_attention": 0, "layer_norm_fwd": 5,
+        "layer_norm_bwd": 5, "softmax_ce_fwd": 1, "softmax_ce_bwd": 1}
+
+
+def test_flash_gate_raises_on_cuda(hopper):
+    """Where the JAX package would run its flash kernel (no mask, no
+    dropout, flash-friendly shapes) the port raises on the card instead
+    of running dense attention; the plain versions run it densely."""
+    q = torch.randn(1, 2, 128, 64, device=hopper)
+    with pytest.raises(NotImplementedError, match="flash"):
+        sdpa_bhld(q, q, q, is_causal=True)
+    m = _tiny_gpt(hopper, 0.1).eval()
+    ids = torch.zeros(2, 128, dtype=torch.long, device=hopper)
+    with pytest.raises(NotImplementedError, match="flash"):
+        m(ids)
+    with kernels.plain_versions(), torch.no_grad():
+        assert torch.isfinite(m(ids)).all()

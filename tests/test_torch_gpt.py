@@ -1,0 +1,300 @@
+"""paddle_tpu_torch's GPT training step against the JAX package's.
+
+The configuration of ``tests/test_pallas_routing.py`` (vocab 512, hidden
+128, 2 layers, 2 heads, seq 128, batch 8, AdamW at 3e-3, global-norm
+clip 1.0, dropout 0): the JAX ``GPT``'s weights go to the port through
+``convert.gpt_params_from_jax``, the same numpy token ids go through
+both, and the port (on the CPU: the kernels' plain versions) is held to
+the JAX package on the logits, every parameter's gradient after one
+backward, and the 8-step ``TrainStep`` loss trajectory — with the JAX
+package's dense paths and with its Pallas kernels (interpret mode,
+``pallas.set_enabled(True)``) as its live path.
+
+Tolerances (atol and rtol): logits 1e-5 (float32, |logit| < 2; the two
+differ in summation order only); gradients 1e-5 relative to the
+largest entry of each (float32 sums over 1024 tokens); losses 5e-5 over
+8 steps (AdamW's first steps turn tiny gradient differences into
+parameter steps of ~lr, which the later losses carry; the observed gap
+is ~5e-6).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as pt
+from paddle_tpu import optim as joptim
+from paddle_tpu.models.nlp import gpt as jgpt
+from paddle_tpu.ops import pallas as pk
+from paddle_tpu_torch import convert, core, optim
+from paddle_tpu_torch.framework import TrainStep
+from paddle_tpu_torch.models.nlp import gpt
+from paddle_tpu_torch.nn import Dropout
+from paddle_tpu_torch.nn.functional import sdpa_bhld
+from paddle_tpu_torch.ops import kernels
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = dict(vocab_size=512, hidden=128, layers=2, heads=2, max_seq=128,
+           dropout=0.0)
+LOGIT_TOL = 1e-5
+GRAD_TOL = 1e-5
+LOSS_TOL = 5e-5
+
+
+def _batch():
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, CFG["vocab_size"], (8, 128)).astype("int32")
+    return ids, np.roll(ids, -1, axis=1).astype("int32")
+
+
+def _pair(seed=0):
+    """A JAX GPT from ``seed`` and the port's GPT (CPU) with its weights."""
+    pt.seed(seed)
+    jm = jgpt.GPT(jgpt.GPTConfig(**CFG))
+    sd = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
+    m = gpt.GPT(gpt.GPTConfig(**CFG), device="cpu")
+    m.load_state_dict(convert.gpt_params_from_jax(sd))
+    return jm, m
+
+
+@pytest.fixture(params=[False, True], ids=["jax-dense", "jax-pallas"])
+def pallas(request):
+    pk.set_enabled(request.param)
+    yield request.param
+    pk.set_enabled(None)
+
+
+def test_logits_match(pallas):
+    jm, m = _pair()
+    ids, _ = _batch()
+    want = np.asarray(jm(pt.to_tensor(ids))._data)
+    with torch.no_grad():
+        got = m(torch.from_numpy(ids)).numpy()
+    assert got.shape == (8, 128, CFG["vocab_size"])
+    np.testing.assert_allclose(got, want, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+
+
+def test_every_gradient_matches(pallas):
+    jm, m = _pair()
+    ids, labels = _batch()
+    jl = jgpt.gpt_loss(jm, pt.to_tensor(ids), pt.to_tensor(labels))
+    jl.backward()
+    want = {n: np.asarray(p.grad._data) for n, p in jm.named_parameters()}
+    loss = gpt.gpt_loss(m, torch.from_numpy(ids), torch.from_numpy(labels))
+    loss.backward()
+    got = {n: p.grad.numpy() for n, p in m.named_parameters()}
+    assert sorted(got) == sorted(want)
+    np.testing.assert_allclose(float(loss.detach()),
+                               float(np.asarray(jl._data)), rtol=LOGIT_TOL)
+    for n in want:
+        scale = np.abs(want[n]).max()
+        np.testing.assert_allclose(got[n], want[n], rtol=GRAD_TOL,
+                                   atol=GRAD_TOL * scale, err_msg=n)
+
+
+def test_train_step_trajectory_matches(pallas):
+    jm, m = _pair()
+    ids, labels = _batch()
+    jopt = joptim.AdamW(parameters=jm.parameters(), learning_rate=3e-3,
+                        grad_clip=joptim.ClipGradByGlobalNorm(1.0))
+    jstep = pt.TrainStep(jm, jopt, jgpt.gpt_loss)
+    opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=3e-3,
+                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
+    step = TrainStep(m, opt, gpt.gpt_loss)
+    want = [float(np.asarray(jstep(ids, labels)._data)) for _ in range(8)]
+    got = [float(step(ids, labels)) for _ in range(8)]
+    np.testing.assert_allclose(got, want, atol=LOSS_TOL, rtol=LOSS_TOL)
+    assert got[-1] < got[0] - 0.5          # it learns
+    assert not bool(step.last_found_inf)
+
+
+def test_train_step_runs_no_kernel_on_the_cpu():
+    _, m = _pair()
+    ids, labels = _batch()
+    opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=3e-3)
+    kernels.reset_launches()
+    TrainStep(m, opt, gpt.gpt_loss)(ids, labels)
+    assert set(kernels.launches().values()) == {0}
+
+
+def test_check_nan_flags_and_raises():
+    _, m = _pair()
+    ids, labels = _batch()
+    opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=3e-3)
+    step = TrainStep(m, opt, gpt.gpt_loss, check_nan=True)
+    step(ids, labels)
+    assert not bool(step.last_found_inf)
+    with torch.no_grad():
+        m.blocks[0].fc1.weight[0, 0] = float("nan")
+    with pytest.raises(FloatingPointError):
+        step(ids, labels)
+    assert bool(step.last_found_inf)
+
+
+# -- optimizer and clip against the JAX package ------------------------------
+
+
+def _grads(rng, shapes, scale):
+    return [(rng.randn(*s) * scale).astype(np.float32) for s in shapes]
+
+
+@pytest.mark.parametrize("clip_norm, scale", [(1.0, 1.0), (100.0, 0.01)])
+def test_clip_by_global_norm_matches(clip_norm, scale):
+    rng = np.random.RandomState(3)
+    gs = _grads(rng, [(4, 5), (7,), (3, 3)], scale)
+    want = joptim.ClipGradByGlobalNorm(clip_norm)._apply(
+        [(None, pt.to_tensor(g)._data) for g in gs])
+    got = optim.ClipGradByGlobalNorm(clip_norm)(
+        [(None, torch.from_numpy(g)) for g in gs])
+    for (_, a), (_, b) in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["adam_l2", "adamw", "adamw_excluded",
+                                  "adamw_lr_ratio"])
+def test_optimizer_update_matches(kind):
+    """Three updates of one parameter through each update rule."""
+    import jax.numpy as jnp
+
+    class Named:
+        name = "ln.bias"
+
+    rng = np.random.RandomState(4)
+    p0 = rng.randn(6, 5).astype(np.float32)
+    gs = _grads(rng, [(6, 5)] * 3, 0.1)
+    kw = {}
+    if kind == "adam_l2":
+        jopt = joptim.Adam(learning_rate=0.01, parameters=[],
+                           weight_decay=0.1)
+        p = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+        opt = optim.Adam(learning_rate=0.01, parameters=[("ln.bias", p)],
+                         weight_decay=0.1)
+    else:
+        if kind == "adamw_excluded":
+            kw["apply_decay_param_fun"] = lambda n: n != "ln.bias"
+        if kind == "adamw_lr_ratio":
+            kw["lr_ratio"] = lambda n: 0.5
+        jkw = dict(kw)
+        if "lr_ratio" in jkw:
+            jkw["lr_ratio"] = lambda prm: 0.5
+        jopt = joptim.AdamW(learning_rate=0.01, parameters=[],
+                            weight_decay=0.05, **jkw)
+        p = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+        opt = optim.AdamW(learning_rate=0.01, parameters=[("ln.bias", p)],
+                          weight_decay=0.05, **kw)
+    jopt._current_param = Named()
+    jp, js = jnp.asarray(p0), jopt._init_state(jnp.asarray(p0))
+    for g in gs:
+        jg = jnp.asarray(g)
+        if kind == "adam_l2":
+            jg = jopt._regularization(jp, jg)
+        jp, js = jopt._update(jp, jg, js, 0.01)
+        p.grad = torch.from_numpy(g.copy())
+        opt.step()
+    np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp),
+                               rtol=1e-6, atol=1e-7)
+
+
+# -- weights, dropout, device ------------------------------------------------
+
+
+def test_gpt_params_from_jax_rejects_what_does_not_fit():
+    jm, _ = _pair()
+    sd = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
+    assert set(convert.gpt_params_from_jax(sd)) == set(sd)
+    missing = dict(sd)
+    del missing["blocks.1.fc2.bias"]
+    extra = dict(sd, **{"blocks.1.extra": np.zeros(3, np.float32)})
+    bad = dict(sd, **{"blocks.0.attn.qkv.weight": np.zeros((128, 128),
+                                                           np.float32)})
+    gap = {k.replace("blocks.1.", "blocks.2."): v for k, v in sd.items()}
+    for wrong in (missing, extra, bad, gap):
+        with pytest.raises(ValueError):
+            convert.gpt_params_from_jax(wrong)
+
+
+def test_dropout_is_reproducible_from_one_seed_and_off_in_eval():
+    cfg = gpt.GPTConfig(**dict(CFG, dropout=0.1))
+    ids, labels = (torch.from_numpy(a) for a in _batch())
+
+    def losses(seed):
+        core.seed(seed)
+        m = gpt.GPT(cfg, device="cpu")
+        opt = optim.AdamW(parameters=m.named_parameters(),
+                          learning_rate=3e-3)
+        step = TrainStep(m, opt, gpt.gpt_loss)
+        return [float(step(ids, labels)) for _ in range(2)], m
+
+    a, m = losses(5)
+    b, _ = losses(5)
+    c, _ = losses(6)
+    assert a == b and a != c
+    m.eval()
+    x = torch.randn(4, 8)
+    assert Dropout(0.5).eval()(x) is x
+    with torch.no_grad():
+        # eval takes the dense path on the CPU: no dropout, same logits
+        assert torch.equal(m(ids[:1]), m(ids[:1]))
+
+
+def test_attention_dropout_applies_to_the_weights():
+    q, k, v = (torch.randn(2, 3, 16, 8, generator=torch.Generator()
+                           .manual_seed(i)) for i in range(3))
+    out = sdpa_bhld(q, k, v, is_causal=True, dropout_p=0.25,
+                    generator=torch.Generator().manual_seed(9))
+    scores = torch.matmul(q, k.transpose(-1, -2)) / 8 ** 0.5
+    causal = torch.ones(16, 16, dtype=torch.bool).tril()
+    w = torch.softmax(scores.masked_fill(~causal, -1e30), dim=-1)
+    keep = torch.rand(w.shape, generator=torch.Generator().manual_seed(9)) \
+        < 0.75
+    want = torch.matmul(torch.where(keep, w / 0.75, torch.zeros(())), v)
+    torch.testing.assert_close(out, want, atol=1e-6, rtol=1e-6)
+    # in eval, or at p = 0, the same call is plain attention
+    plain = torch.matmul(w, v)
+    torch.testing.assert_close(
+        sdpa_bhld(q, k, v, is_causal=True, dropout_p=0.25, training=False),
+        plain, atol=1e-6, rtol=1e-6)
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpt.GPT(gpt.GPTConfig(**CFG))
+
+
+_JAX_FREE = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from paddle_tpu_torch import convert, core, optim
+from paddle_tpu_torch.framework import TrainStep
+from paddle_tpu_torch.models.nlp import gpt
+from paddle_tpu_torch.nn import functional
+from paddle_tpu_torch.ops import kernels, norm_ops, random_ops, activation
+from paddle_tpu_torch.dist import tp_layers
+core.seed(0)
+m = gpt.GPT(gpt.GPTConfig(vocab_size=256, hidden=128, layers=1, heads=2,
+                          max_seq=16, dropout=0.1), device="cpu")
+opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=1e-3,
+                  grad_clip=optim.ClipGradByGlobalNorm(1.0))
+ids = np.random.RandomState(0).randint(0, 256, (8, 16))
+loss = TrainStep(m, opt, gpt.gpt_loss)(ids, np.roll(ids, -1, 1))
+assert np.isfinite(float(loss))
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+assert not bad, bad
+print("JAX-FREE OK")
+"""
+
+
+def test_training_modules_import_neither_jax_nor_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _JAX_FREE, REPO],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=REPO, env=dict(os.environ, PYTHONPATH=""))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "JAX-FREE OK" in out.stdout

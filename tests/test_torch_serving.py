@@ -396,7 +396,7 @@ class TestPortEngine:
             clock.advance(0.01)
         kernels.reset_launches()
         eng.run()
-        assert kernels.launches() == {"paged_decode_attention": 0}
+        assert kernels.launches() == dict.fromkeys(kernels.KERNELS, 0)
         assert eng.usage.decode_steps > 0
         for r, prompt in pairs:
             assert r.generated == model.reference_generate(prompt, 9)

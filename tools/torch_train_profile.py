@@ -1,0 +1,168 @@
+#!/usr/bin/env python3
+"""Where the port's training step time goes on the card.
+
+    python3 tools/torch_train_profile.py [--json PATH] [--steps N]
+
+Builds ``gpt_small`` (12 x 768, vocab 50304, dropout 0.1, float32) of
+``paddle_tpu_torch`` on the card and trains it on the main path of
+``chip_smoke.py`` (batch 8 x 1024 from RandomState(0), AdamW(1e-4,
+decay 0.01), global-norm clip 1.0). After two warm steps it times
+``--steps`` steps with CUDA events between the forward, the backward
+and the optimizer (clip + AdamW), then profiles one more step under
+``torch.profiler`` and prints device time by kernel group (the
+LayerNorm and cross-entropy kernels, matrix products, the attention
+softmax, dropout's random numbers, other elementwise and reduction
+kernels, memory copies and sets) and the device's busy share of that
+step's wall time. ``--json`` also writes the numbers to a file. Needs
+one CUDA card.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+GROUPS = (("layer_norm", ("ln_fwd_kernel", "ln_bwd_kernel",
+                          "ln_bwd_reduce_kernel")),
+          ("softmax_ce", ("ce_fwd_kernel", "ce_bwd_kernel")),
+          ("matmul", ("gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")),
+          ("attention_softmax", ("softmax",)),
+          ("dropout_random", ("philox", "distribution", "rand")),
+          ("reduce", ("reduce_kernel",)),
+          ("elementwise", ("elementwise", "vectorized", "unrolled")),
+          ("copy", ("Memcpy", "memcpy", "Memset")))
+
+
+def _group(name):
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--json", help="also write the numbers here")
+    ap.add_argument("--steps", type=int, default=3,
+                    help="steps timed with CUDA events (default 3)")
+    args = ap.parse_args(argv)
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from paddle_tpu_torch import core, optim
+    from paddle_tpu_torch.models.nlp import gpt
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = gpt.gpt_small(dropout=0.1)
+    B, L = 8, cfg.max_seq
+    core.seed(1)
+    model = gpt.GPT(cfg, generator=torch.Generator(device="cuda")
+                    .manual_seed(0))
+    rng = np.random.RandomState(0)
+    ids_np = rng.randint(0, cfg.vocab_size, (B, L))
+    ids = torch.from_numpy(ids_np).cuda()
+    labels = torch.from_numpy(np.roll(ids_np, -1, axis=1)).cuda()
+    opt = optim.AdamW(parameters=model.named_parameters(),
+                      learning_rate=1e-4, weight_decay=0.01,
+                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
+
+    def step(events=None):
+        # TrainStep.step's body, with an event between its phases
+        opt.clear_grad()
+        if events:
+            events[0].record()
+        loss = gpt.gpt_loss(model, ids, labels)
+        if events:
+            events[1].record()
+        loss.backward()
+        if events:
+            events[2].record()
+        opt.step()
+        if events:
+            events[3].record()
+        return loss
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    phases = {"forward": [], "backward": [], "optimizer": []}
+    walls = []
+    for _ in range(args.steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        step(ev)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        for i, k in enumerate(phases):
+            phases[k].append(ev[i].elapsed_time(ev[i + 1]))
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launches()
+    device, top = {}, []
+    for e in prof.key_averages():
+        # device-side events only: a CPU op's self device time is its
+        # kernels' time again
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        if us > 0:
+            device[_group(e.key)] = device.get(_group(e.key), 0.0) + us
+            top.append((us, e.count, e.key))
+    busy_ms = sum(device.values()) / 1e3
+    med = {k: sorted(v)[len(v) // 2] for k, v in phases.items()}
+    wall = sorted(walls)[len(walls) // 2]
+    out = {
+        "device": torch.cuda.get_device_name(0),
+        "batch": [B, L],
+        "step_wall_ms": walls,
+        "phase_ms_median": med,
+        "tokens_per_s": B * L / wall * 1e3,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "profiled_step_wall_ms": prof_wall,
+        "launches": launches,
+        "device_ms": {k: v / 1e3 for k, v in sorted(device.items())},
+        "device_busy_ms": busy_ms if busy_ms else None,
+        "device_busy_share": busy_ms / prof_wall if busy_ms else None,
+    }
+    print(f"train step (gpt_small, batch {B} x {L}, dropout 0.1, float32): "
+          f"wall ms " + " ".join(f"{w:.1f}" for w in walls)
+          + f" = {out['tokens_per_s']:.0f} tokens/s at the median; phases "
+          f"(CUDA events, median): " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in med.items())
+          + f"; peak memory {out['peak_memory_gib']:.1f} GiB")
+    print(f"profiled step: wall {prof_wall:.1f} ms; launches {launches}")
+    if busy_ms:
+        print(f"device busy {busy_ms:.1f} ms = "
+              f"{out['device_busy_share'] * 100:.1f}% of wall; by group: "
+              + ", ".join(f"{k} {v:.2f} ms"
+                          for k, v in out["device_ms"].items()))
+        for us, count, key in sorted(top, reverse=True)[:15]:
+            print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    else:
+        print("device time: not measured (the profiler saw no device "
+              "activity)")
+    if args.json:
+        d = os.path.dirname(args.json)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
