@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path and its training step once on
-one NVIDIA H100.
+"""Drive paddle_tpu_torch's serving path and its two training steps once
+on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,9 @@ Phases, each failing the run (non-zero exit, no final ``ok`` line) on
 any failed check:
 
 1. build   — every CUDA kernel library (paged attention, LayerNorm,
-             softmax-cross-entropy), from the sources in this checkout,
-             with nvcc for sm_90a (all builds started together);
+             softmax-cross-entropy, flash attention), from the sources in
+             this checkout, with nvcc for sm_90a (all builds started
+             together);
 2. kernels — each kernel against its plain PyTorch version on the card:
              ragged lengths (0, 1, page edges, ~2000), shuffled pages,
              float32 (tolerance 2e-5) and bfloat16 pools (2e-2), at the
@@ -28,13 +29,14 @@ any failed check:
              the per-step host sync (logits to the host for the argmax).
 6. train-kernels — the LayerNorm and softmax-cross-entropy kernels,
              forward and backward, against their plain versions on the
-             card: LN at (8192, 768), (8, 128) and N = 8191 (not a
-             multiple of a CTA's rows); CE at (8192, 50304), (8, 128),
+             card: LN at (8192, 768), (8, 128), N = 8191 (not a
+             multiple of a CTA's rows) and bench_gpt's (16384, 768); CE
+             at (8192, 50304), bench_gpt's (16384, 50304), (8, 128),
              V = 1000 (a ragged tail), all rows ignore_index, logits of
              magnitude ~1e3; float32 (tolerance 1e-5) and bfloat16
-             (2e-2), dgamma/dbeta and dlogits relative to the magnitudes
-             of each entry's terms; dgamma/dbeta bitwise equal across
-             two runs;
+             (2e-2; bench_gpt's shapes in bfloat16 only), dgamma/dbeta
+             and dlogits relative to the magnitudes of each entry's
+             terms; dgamma/dbeta bitwise equal across two runs;
 7. train   — the training main path: ``gpt_small`` at full width and
              depth (12 x 768, vocab 50304), dropout 0.1, float32, batch
              8 x 1024 from RandomState(0), AdamW(1e-4, decay 0.01) with
@@ -44,10 +46,33 @@ any failed check:
              steps from the same weights and dropout seed through the
              plain versions (``plain_versions()``, zero launches) must
              give the same losses within TRAIN_LOSS_TOL;
-8. train-timing — each training kernel at the path's shape: kernel,
-             plain version and library call (``F.layer_norm`` and
-             ``F.cross_entropy(reduction="none")``, forward and autograd
-             backward) beside the bound from the bytes moved.
+8. train-timing — each training kernel at the float32 path's shape
+             (8192 rows, float32) and at bench_gpt's (16384 rows,
+             bfloat16): kernel, plain version and library call
+             (``F.layer_norm`` and ``F.cross_entropy(reduction="none")``,
+             forward and autograd backward) beside the bound from the
+             bytes moved;
+9. flash-kernels — the flash-attention forward, dQ and dK/dV kernels
+             against their plain versions on the card: the bench_gpt
+             shape (B*H = 192, L = 1024, D = 64, bfloat16, causal),
+             float32 and bfloat16, causal and not, Lq = Lk and Lq < Lk,
+             D = 64, 128, 192 and 256, and L = 200 and 100/300 (not
+             multiples of the kernels' 64-row tile), each within
+             FLASH tolerances (``flash_close``); dQ, dK and dV bitwise
+             equal across two runs;
+10. train-bf16 — bench_gpt's configuration (``bench.py:bench_gpt``):
+             ``gpt_small`` at full width and depth, dropout 0,
+             ``model.bfloat16()``, batch 16 x 1024 from RandomState(0),
+             AdamW(1e-4, multi_precision) with global-norm clip 1.0,
+             through ``TrainStep`` for 4 steps; every loss finite, the
+             first near ln(50304), launches exactly 25/25/1/1/12/12/12 a
+             step (LN fwd/bwd, CE fwd/bwd, flash fwd/dQ/dKV); then the
+             same steps through the plain versions (zero launches) must
+             give the same losses within BF16_TRAIN_LOSS_TOL;
+11. flash-timing — each flash kernel at the path's shape: kernel, plain
+             version and ``F.scaled_dot_product_attention(is_causal=True)``
+             (forward; its autograd backward for both backward kernels),
+             beside the bound at the bfloat16 tensor-core rate.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -69,6 +94,7 @@ BF16_TOL = 2e-2
 LOGIT_TOL = 1e-5   # float32 logits (magnitude ~0.02), engine vs oracle
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # bfloat16 tensor cores, dense
 TRAIN_F32_TOL = 1e-5
 # losses of the kernel run vs the plain-version run on the card, absolute
 # on each of the 4 steps: two float32 spacings at ~10.9. Seen on an H100
@@ -77,6 +103,27 @@ TRAIN_F32_TOL = 1e-5
 # 2.0e-4, 2.4e-4) in the LayerNorm backward: both fail
 TRAIN_LOSS_TOL = 2e-6
 LOSS_NEAR_LN_V = 0.5   # logits of std ~0.55 at init: loss ~ ln V + 0.15
+# flash kernels against their plain versions (flash_close): float32 sums
+# in another order; in bfloat16 also one rounding step of the output
+FLASH_F32_TOL = 1e-5
+FLASH_BF16_STEP = 2 ** -7      # a bfloat16 keeps 8 significant bits
+# losses of the bf16 kernel run vs its plain-version run, absolute on each
+# of the 4 steps. Seen on an H100 80GB HBM3 (700 W): 6.1e-5, 4.0e-5,
+# 7.9e-4, 2.8e-4 (bfloat16 roundings that flip between the two runs).
+# tools/torch_planted_faults.py plants dV = 0 in the flash dK/dV kernel:
+# its losses leave the honest run's by 0, 7.2e-2, 3.6e-1, 5.3e-1 and fail
+BF16_TRAIN_LOSS_TOL = 1e-2
+# the training configurations of the main path, driven by phases 7 and 10
+# and profiled by tools/torch_train_profile.py: gpt_small at full width and
+# depth, batch x 1024 ids from RandomState(0), AdamW(1e-4, decay 0.01) with
+# global-norm clip 1.0 (train_model, train_optimizer)
+TRAIN_CONFIGS = {
+    # name: dropout, model.bfloat16(), batch, AdamW's multi_precision
+    "dropout0.1-float32": dict(dropout=0.1, bfloat16=False, batch=8,
+                               multi_precision=False),
+    "bench_gpt": dict(dropout=0.0, bfloat16=True, batch=16,
+                      multi_precision=True),
+}
 
 
 class CheckFailed(RuntimeError):
@@ -444,10 +491,14 @@ def train_kernel_phase():
               f"version (max abs err {err:.3e})")
         return err
 
+    both = ((torch.float32, TRAIN_F32_TOL), (torch.bfloat16, BF16_TOL))
+    bf16 = both[1:]
     g = torch.Generator(device="cuda").manual_seed(11)
-    for N, D in ((8192, 768), (8, 128), (8191, 768)):
-        for dtype, tol in ((torch.float32, TRAIN_F32_TOL),
-                           (torch.bfloat16, BF16_TOL)):
+    # (16384, 768) bfloat16 is bench_gpt's shape: its own CTA partition of
+    # the dgamma/dbeta partials and their reduce
+    for N, D, dtypes in ((8192, 768, both), (8, 128, both),
+                         (8191, 768, both), (16384, 768, bf16)):
+        for dtype, tol in dtypes:
             label = f"({N}, {D}) {str(dtype).split('.')[-1]}"
             x = (torch.randn(N, D, generator=g, device="cuda") * 2
                  + 0.5).to(dtype)
@@ -478,13 +529,14 @@ def train_kernel_phase():
             log(f"train-kernel layer_norm {label}: max abs err y/mean/rstd/"
                 f"dx/dgamma/dbeta " + " ".join(f"{v:.2e}" for v in e)
                 + f" (tol {tol}); dgamma/dbeta bitwise equal across runs")
-    cases = [("full", 8192, 50304, 1.0, False), ("narrow", 8, 128, 3.0,
-                                                  False),
-             ("tail", 16, 1000, 3.0, False), ("ignored", 8, 128, 3.0, True),
-             ("large", 64, 4096, 1e3, False)]
-    for name, N, V, scale, all_ignored in cases:
-        for dtype, tol in ((torch.float32, TRAIN_F32_TOL),
-                           (torch.bfloat16, BF16_TOL)):
+    cases = [("full", 8192, 50304, 1.0, False, both),
+             ("path-bf16", 16384, 50304, 1.0, False, bf16),   # bench_gpt's
+             ("narrow", 8, 128, 3.0, False, both),
+             ("tail", 16, 1000, 3.0, False, both),
+             ("ignored", 8, 128, 3.0, True, both),
+             ("large", 64, 4096, 1e3, False, both)]
+    for name, N, V, scale, all_ignored, dtypes in cases:
+        for dtype, tol in dtypes:
             label = f"{name} ({N}, {V}) {str(dtype).split('.')[-1]}"
             x = (torch.randn(N, V, generator=g, device="cuda")
                  * scale).to(dtype)
@@ -522,25 +574,60 @@ def train_kernel_phase():
 # -- phase 7: the training main path -----------------------------------------
 
 
-def train_run(model, init, ids, labels, steps, plain):
+def train_launches(cfg, steps, flash):
+    """The launches ``steps`` training steps of ``cfg`` must make: two
+    LayerNorms a block and ln_f, forward and backward; one cross-entropy
+    forward and backward; with ``flash``, each flash kernel once a
+    block."""
+    ln = (2 * cfg.layers + 1) * steps
+    fl = cfg.layers * steps if flash else 0
+    return {"paged_decode_attention": 0, "layer_norm_fwd": ln,
+            "layer_norm_bwd": ln, "softmax_ce_fwd": steps,
+            "softmax_ce_bwd": steps, "flash_attention_fwd": fl,
+            "flash_attention_bwd_dq": fl, "flash_attention_bwd_dkv": fl}
+
+
+def train_model(config):
+    """``gpt_small`` in ``TRAIN_CONFIGS[config]`` on the card, weights
+    from seed 0."""
+    import torch
+
+    from paddle_tpu_torch.models.nlp import gpt
+
+    c = TRAIN_CONFIGS[config]
+    model = gpt.GPT(gpt.gpt_small(dropout=c["dropout"]),
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    return model.bfloat16() if c["bfloat16"] else model
+
+
+def train_optimizer(model, config):
+    """AdamW(1e-4, decay 0.01, global-norm clip 1.0) over ``model``, with
+    ``TRAIN_CONFIGS[config]``'s multi_precision."""
+    from paddle_tpu_torch import optim
+
+    return optim.AdamW(
+        parameters=model.named_parameters(), learning_rate=1e-4,
+        weight_decay=0.01, grad_clip=optim.ClipGradByGlobalNorm(1.0),
+        multi_precision=TRAIN_CONFIGS[config]["multi_precision"])
+
+
+def train_run(model, config, init, ids, labels, steps, plain):
     """``steps`` TrainStep calls from the weights ``init`` with the
-    dropout generator reseeded, launch counts zeroed just before and
-    read just after. Returns (losses, launches, step walls in ms)."""
+    dropout generator reseeded and ``config``'s optimizer, launch counts
+    zeroed just before and read just after. Returns (losses, launches,
+    step walls in ms)."""
     import contextlib
 
     import torch
 
-    from paddle_tpu_torch import core, optim
+    from paddle_tpu_torch import core
     from paddle_tpu_torch.framework import TrainStep
     from paddle_tpu_torch.models.nlp.gpt import gpt_loss
     from paddle_tpu_torch.ops import kernels
 
     model.load_state_dict(init)
     core.seed(1)
-    opt = optim.AdamW(parameters=model.named_parameters(),
-                      learning_rate=1e-4, weight_decay=0.01,
-                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
-    step = TrainStep(model, opt, gpt_loss)
+    step = TrainStep(model, train_optimizer(model, config), gpt_loss)
     losses, walls = [], []
     with kernels.plain_versions() if plain else contextlib.nullcontext():
         torch.cuda.synchronize()
@@ -554,84 +641,104 @@ def train_run(model, init, ids, labels, steps, plain):
     return losses, launches, walls
 
 
-def train_phase(gpu):
+def train_compare(label, config, steps, flash, loss_tol, gpu):
+    """The training main path: ``steps`` steps of ``TRAIN_CONFIGS[config]``
+    on its batch x max_seq from RandomState(0) through the kernels, then
+    the same steps from the same weights through the plain versions. Checks
+    finite losses, the first near ln V, the launch counts (exactly
+    ``train_launches``; none in the plain run) and the per-step loss
+    differences against ``loss_tol``. Returns the kernel run's
+    launches."""
     import math
 
     import torch
 
-    from paddle_tpu_torch.models.nlp import gpt
-
-    cfg = gpt.gpt_small(dropout=0.1)
-    B, L, steps = 8, cfg.max_seq, 4
-    t0 = time.perf_counter()
-    model = gpt.GPT(cfg, generator=torch.Generator(device="cuda")
-                    .manual_seed(0))
+    model = train_model(config)
+    c, cfg = TRAIN_CONFIGS[config], model.cfg
+    B, L = c["batch"], cfg.max_seq
     init = {k: v.clone() for k, v in model.state_dict().items()}
     rng = np.random.RandomState(0)
     ids = rng.randint(0, cfg.vocab_size, (B, L))
     labels = np.roll(ids, -1, axis=1)
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"train: gpt_small {n_params / 1e6:.1f}M parameters (12 x 768, "
-        f"vocab {cfg.vocab_size}), dropout {cfg.dropout}, float32, batch "
-        f"{B} x {L}, ready in {time.perf_counter() - t0:.1f} s")
+    log(f"{label}: gpt_small {n_params / 1e6:.1f}M parameters (12 x 768, "
+        f"vocab {cfg.vocab_size}), {config}: dropout {c['dropout']}, "
+        f"{'bfloat16' if c['bfloat16'] else 'float32'}, multi_precision "
+        f"{c['multi_precision']}, batch {B} x {L}")
     torch.cuda.reset_peak_memory_stats()
-    losses, launches, walls = train_run(model, init, ids, labels, steps,
-                                        plain=False)
+    losses, launches, walls = train_run(model, config, init, ids, labels,
+                                        steps, False)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {"paged_decode_attention": 0,
-            "layer_norm_fwd": (2 * cfg.layers + 1) * steps,
-            "layer_norm_bwd": (2 * cfg.layers + 1) * steps,
-            "softmax_ce_fwd": steps, "softmax_ce_bwd": steps}
+    want = train_launches(cfg, steps, flash)
     steady = sorted(walls[1:])[len(walls[1:]) // 2]
-    log(f"train: kernel run losses {losses}; step wall ms "
+    log(f"{label}: kernel run losses {losses}; step wall ms "
         + " ".join(f"{w:.1f}" for w in walls)
         + f" (median of steps 2-{steps}: {steady:.1f} ms = "
         f"{B * L / steady * 1e3:.0f} tokens/s); peak memory {peak:.1f} GiB;"
         f" launches {launches} [{gpu}]")
-    check(all(math.isfinite(x) for x in losses), "train: non-finite loss")
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: non-finite loss")
     ln_v = math.log(cfg.vocab_size)
     check(abs(losses[0] - ln_v) < LOSS_NEAR_LN_V,
-          f"train: first loss {losses[0]} is not within {LOSS_NEAR_LN_V} "
+          f"{label}: first loss {losses[0]} is not within {LOSS_NEAR_LN_V} "
           f"of ln {cfg.vocab_size} = {ln_v:.4f}")
-    check(launches == want, f"train: launches {launches}, want {want}")
-    plain, plain_launches, plain_walls = train_run(model, init, ids, labels,
-                                                   steps, plain=True)
+    check(launches == want, f"{label}: launches {launches}, want {want}")
+    plain, plain_launches, plain_walls = train_run(
+        model, config, init, ids, labels, steps, True)
     diffs = [abs(a - b) for a, b in zip(losses, plain)]
-    log(f"train: plain-version run losses {plain}; |diff| "
-        + " ".join(f"{d:.2e}" for d in diffs) + f" (tol {TRAIN_LOSS_TOL}); "
+    log(f"{label}: plain-version run losses {plain}; |diff| "
+        + " ".join(f"{d:.2e}" for d in diffs) + f" (tol {loss_tol}); "
         f"step wall ms " + " ".join(f"{w:.1f}" for w in plain_walls)
         + f"; launches {plain_launches}")
     check(set(plain_launches.values()) == {0},
-          f"train: the plain-version run launched {plain_launches}")
-    check(all(d <= TRAIN_LOSS_TOL for d in diffs),
-          "train: the kernel run's losses differ from the plain versions'")
+          f"{label}: the plain-version run launched {plain_launches}")
+    check(all(d <= loss_tol for d in diffs),
+          f"{label}: the kernel run's losses differ from the plain "
+          f"versions'")
     del model, init
     torch.cuda.empty_cache()
     return launches
 
 
+def train_phase(gpu):
+    """Phase 7: gpt_small at its defaults (dropout 0.1, float32), batch
+    8: dense attention, the LayerNorm and cross-entropy kernels."""
+    return train_compare("train", "dropout0.1-float32", 4, False,
+                         TRAIN_LOSS_TOL, gpu)
+
+
+def train_bf16_phase(gpu):
+    """Phase 10: bench_gpt's configuration (``bench.py:187-210``):
+    dropout 0, ``model.bfloat16()``, batch 16, multi_precision AdamW —
+    flash attention in every block."""
+    return train_compare("train-bf16", "bench_gpt", 4, True,
+                         BF16_TRAIN_LOSS_TOL, gpu)
+
+
 # -- phase 8: training kernels timed at the path's shape ---------------------
 
 
-def train_timing_phase(gpu):
+def train_timing_phase(gpu, N, dtype):
     """Kernel, plain version and library call for each training kernel at
-    the train path's shape (N = 8 x 1024 rows, D = 768, V = 50304,
-    float32), beside the least time the card could take: the bytes each
-    must move (every input read once, every output written once) over
-    3.35 TB/s against its float32 operations over 67 TFLOP/s."""
+    a train path's shape (N rows, D = 768, V = 50304, in ``dtype``: 8 x
+    1024 float32 rows for the float32 step, 16 x 1024 bfloat16 ones for
+    bench_gpt), beside the least time the card could take: the bytes
+    each must move (every input read once, every output written once)
+    over 3.35 TB/s against its float32 operations (the kernels compute
+    in float32 whatever the type) over 67 TFLOP/s."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.kernels import layernorm as ln
     from paddle_tpu_torch.ops.kernels import softmax_ce as ce
 
-    N, D, V = 8192, 768, 50304
+    D, V = 768, 50304
     g = torch.Generator(device="cuda").manual_seed(13)
-    x = torch.randn(N, D, generator=g, device="cuda")
-    dy = torch.randn(N, D, generator=g, device="cuda")
-    gamma = torch.randn(D, generator=g, device="cuda")
-    beta = torch.randn(D, generator=g, device="cuda")
-    logits = torch.randn(N, V, generator=g, device="cuda")
+    x, dy = (torch.randn(N, D, generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    gamma, beta = (torch.randn(D, generator=g, device="cuda").to(dtype)
+                   for _ in range(2))
+    logits = torch.randn(N, V, generator=g, device="cuda").to(dtype)
     lab = torch.randint(0, V, (N,), generator=g, device="cuda")
     gl = torch.full((N,), 1.0 / N, device="cuda")
     _, mean, rstd = ln.layer_norm_fwd(x, gamma, beta, 1e-5)
@@ -643,30 +750,30 @@ def train_timing_phase(gpu):
     cl = logits.clone().requires_grad_()
     lossl = F.cross_entropy(cl, lab, reduction="none")
 
-    f4 = 4
+    s, f4, il = x.element_size(), 4, lab.element_size()
     rows = {
         # name: (kernel, plain, library, bytes, float32 operations)
         "layer_norm_fwd": (
             lambda: ln.layer_norm_fwd(x, gamma, beta, 1e-5),
             lambda: ln.layer_norm_fwd_reference(x, gamma, beta, 1e-5),
             lambda: F.layer_norm(x, (D,), gamma, beta, 1e-5),
-            f4 * (2 * N * D + 2 * D + 2 * N), 8 * N * D),
+            s * (2 * N * D + 2 * D) + f4 * 2 * N, 8 * N * D),
         "layer_norm_bwd": (
             lambda: ln.layer_norm_bwd(x, gamma, mean, rstd, dy),
             lambda: ln.layer_norm_bwd_reference(x, gamma, mean, rstd, dy),
             lambda: torch.autograd.grad(yl, (xl, wl, bl), dy,
                                         retain_graph=True),
-            f4 * (3 * N * D + 3 * D + 2 * N), 12 * N * D),
+            s * (3 * N * D + 3 * D) + f4 * 2 * N, 12 * N * D),
         "softmax_ce_fwd": (
             lambda: ce.softmax_ce_fwd(logits, lab),
             lambda: ce.softmax_ce_fwd_reference(logits, lab),
             lambda: F.cross_entropy(logits, lab, reduction="none"),
-            f4 * (N * V + 3 * N), 4 * N * V),
+            s * N * V + (il + 2 * f4) * N, 4 * N * V),
         "softmax_ce_bwd": (
             lambda: ce.softmax_ce_bwd(logits, lab, lse, gl),
             lambda: ce.softmax_ce_bwd_reference(logits, lab, lse, gl),
             lambda: torch.autograd.grad(lossl, cl, gl, retain_graph=True),
-            f4 * (2 * N * V + 3 * N), 4 * N * V),
+            s * 2 * N * V + (il + 2 * f4) * N, 4 * N * V),
     }
     out = {}
     for name, (kern, plain, lib, nbytes, flops) in rows.items():
@@ -679,7 +786,8 @@ def train_timing_phase(gpu):
         t_ops = flops / F32_FLOP_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"timing {name} N={N} D={D if 'layer' in name else V} float32:"
+        log(f"timing {name} N={N} D={D if 'layer' in name else V} "
+            f"{str(dtype).split('.')[-1]}:"
             f" kernel {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} "
             f"ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms "
             f"({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s) = "
@@ -687,6 +795,171 @@ def train_timing_phase(gpu):
         out[name] = dict(ms=min(ms, ms2), plain_ms=plain_ms,
                          bound_ms=bound, bound_by=bound_by,
                          library_ms=lib_ms)
+    return out
+
+
+# -- phase 9: flash-attention kernels against their plain versions -----------
+
+
+def flash_close(out, ref, grad):
+    """Flash tolerance: ``|out - ref| <= rtol * |ref| + atol * m``, with
+    ``m`` 1 for O and lse and the largest ``|ref|`` for a gradient (its
+    entries are sums of terms of that order, which cancel). float32:
+    rtol = atol = FLASH_F32_TOL. bfloat16: rtol one bfloat16 step
+    (FLASH_BF16_STEP), since both sides round a float32 result that
+    differs in its last bits; atol FLASH_F32_TOL. lse is float32 in
+    both. Returns ``(ok, max abs err)``."""
+    import torch
+
+    err = (out.float() - ref.float()).abs()
+    a = ref.float().abs()
+    m = a.max() if grad else 1.0
+    rtol = FLASH_BF16_STEP if out.dtype == torch.bfloat16 else FLASH_F32_TOL
+    return (bool((err <= rtol * a + FLASH_F32_TOL * m).all()),
+            err.max().item())
+
+
+FLASH_CASES = [
+    # label, B, H, Lq, Lk, D, causal; each in float32 and bfloat16
+    ("path", 16, 12, 1024, 1024, 64, True),
+    ("dense", 2, 4, 512, 512, 64, False),
+    ("offset", 2, 4, 256, 640, 64, True),
+    ("offset-dense", 2, 4, 256, 640, 64, False),
+    ("d128", 2, 4, 512, 512, 128, True),
+    ("d192", 1, 2, 256, 384, 192, True),
+    ("d256", 1, 2, 256, 384, 256, True),
+    ("ragged", 1, 2, 200, 200, 64, True),
+    ("ragged-offset", 1, 2, 100, 300, 64, True),
+]
+
+
+def flash_kernel_phase():
+    """Each flash kernel against its plain version on the card; the
+    backward's inputs are the forward kernel's O and lse (held to the
+    plain ones on their own). Returns the largest abs error of each
+    kernel over every case."""
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    errs = dict.fromkeys(names, 0.0)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for label, B, H, Lq, Lk, D, causal in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            if label == "path" and dtype == torch.float32:
+                continue   # the path is bfloat16; the others take both
+            tag = (f"{label} B*H={B * H} Lq={Lq} Lk={Lk} D={D} "
+                   f"{'causal' if causal else 'full'} "
+                   f"{str(dtype).split('.')[-1]}")
+            q, k, v, do = (torch.randn(B, H, L, D, generator=g,
+                                       device="cuda").to(dtype)
+                           for L in (Lq, Lk, Lk, Lq))
+            scale = 1.0 / D ** 0.5
+            o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+            delta = fa.flash_delta(o, do)
+            args = (q, k, v, do, lse, delta, causal, scale)
+            dq = fa.flash_attention_bwd_dq(*args)
+            dk, dv = fa.flash_attention_bwd_dkv(*args)
+            dq2 = fa.flash_attention_bwd_dq(*args)
+            dk2, dv2 = fa.flash_attention_bwd_dkv(*args)
+            torch.cuda.synchronize()
+            ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal,
+                                                        scale)
+            rdq = fa.flash_attention_bwd_dq_reference(*args)
+            rdk, rdv = fa.flash_attention_bwd_dkv_reference(*args)
+            e = []
+            for kernel, what, out, ref, grad in (
+                    (names[0], "O", o, ro, False),
+                    (names[0], "lse", lse, rlse, False),
+                    (names[1], "dQ", dq, rdq, True),
+                    (names[2], "dK", dk, rdk, True),
+                    (names[2], "dV", dv, rdv, True)):
+                ok, err = flash_close(out, ref, grad)
+                errs[kernel] = max(errs[kernel], err)
+                e.append(err)
+                check(bool(torch.isfinite(out.float()).all()),
+                      f"{kernel} {tag}: non-finite {what}")
+                check(ok, f"{kernel} {tag}: {what} disagrees with the "
+                      f"plain version (max abs err {err:.3e})")
+            check(torch.equal(dk, dk2) and torch.equal(dv, dv2)
+                  and torch.equal(dq, dq2),
+                  f"flash backward {tag}: two runs differ")
+            log(f"flash-kernel {tag}: max abs err O/lse/dQ/dK/dV "
+                + " ".join(f"{x:.2e}" for x in e)
+                + "; dQ/dK/dV bitwise equal across runs")
+            del q, k, v, do, o, lse, dq, dk, dv, ro, rdq, rdk, rdv
+    torch.cuda.empty_cache()
+    return errs
+
+
+# -- phase 11: flash kernels timed at the path's shape -----------------------
+
+
+def flash_timing_phase(gpu):
+    """Kernel, plain version and library call for each flash kernel at
+    the bench_gpt shape (B = 16, H = 12, L = 1024, D = 64, bfloat16,
+    causal), beside the least time the card could take: the bytes each
+    must move (every input read once, every output written once) over
+    3.35 TB/s against the operations the causal half needs over the
+    bfloat16 tensor-core rate (989 TFLOP/s)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    B, H, L, D = 16, 12, 1024, 64
+    BH, scale = B * H, 1.0 / D ** 0.5
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, do = (torch.randn(B, H, L, D, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    delta = fa.flash_delta(o, do)
+    args = (q, k, v, do, lse, delta, True, scale)
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    pairs = BH * L * (L + 1) // 2        # (query, key) pairs under the mask
+    t = BH * L * D * 2                   # one bfloat16 (BH, L, D) tensor
+    row = BH * L * 4                     # one float32 (BH, L) row vector
+    rows = {
+        # name: (kernel, plain, library, bytes, operations)
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, True, scale),
+            lambda: fa.flash_attention_fwd_reference(q, k, v, True, scale),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            4 * t + row, 4 * D * pairs),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(*args),
+            lambda: fa.flash_attention_bwd_dq_reference(*args),
+            lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                        retain_graph=True),
+            5 * t + 2 * row, 6 * D * pairs),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(*args),
+            lambda: fa.flash_attention_bwd_dkv_reference(*args),
+            lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                        retain_graph=True),
+            6 * t + 2 * row, 8 * D * pairs),
+    }
+    out = {}
+    for name, (kern, plain, lib, nbytes, flops) in rows.items():
+        ms = cuda_ms(kern, 10)
+        plain_ms = cuda_ms(plain, 3)
+        lib_ms = cuda_ms(lib, 10)
+        ms2 = cuda_ms(kern, 10)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"timing {name} B*H={BH} L={L} D={D} bfloat16 causal: kernel "
+            f"{ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB at 3.35 TB/s, {flops / 1e9:.1f} GFLOP "
+            f"at 989 TFLOP/s) = {bound / min(ms, ms2) * 100:.2f}% of "
+            f"roofline; {flops / min(ms, ms2) / 1e9:.1f} TFLOP/s [{gpu}]")
+        out[name] = dict(ms=min(ms, ms2), plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=bound_by, library_ms=lib_ms)
     return out
 
 
@@ -760,19 +1033,29 @@ def main():
     torch.cuda.empty_cache()
 
     train_errs = train_kernel_phase()
-    train_launches = train_phase(gpu)
-    train_t = train_timing_phase(gpu)
+    launches_f32 = train_phase(gpu)
+    train_t = train_timing_phase(gpu, 8192, torch.float32)
+    # the same kernels at bench_gpt's shape, logged for PERF.md; the JSON
+    # line keeps the float32 step's
+    train_timing_phase(gpu, 16384, torch.bfloat16)
+    train_errs.update(flash_kernel_phase())
+    launches_bf16 = train_bf16_phase(gpu)
+    train_t.update(flash_timing_phase(gpu))
 
     pa = kernels.KERNELS["paged_decode_attention"]
     rows = [{"name": "paged_decode_attention", "route": "cuda",
-             "source": pa.SOURCE, "replaces": pa.REPLACES,
+             "source": pa.SOURCE,
+             "replaces": pa.paged_decode_attention.replaces,
              "launches": launches["paged_decode_attention"], **t}]
     for name, tt in train_t.items():
-        mod = kernels.KERNELS[name]
-        rows.append({"name": name, "route": "cuda", "source": mod.SOURCE,
-                     "replaces": mod.REPLACES_BWD if name.endswith("bwd")
-                     else mod.REPLACES,
-                     "launches": train_launches[name],
+        # the run that took this kernel: bf16 for flash, float32 for the
+        # others (the bf16 run takes them too, for the same counts a step)
+        ran = launches_bf16 if name.startswith("flash") else launches_f32
+        rows.append({"name": name, "route": "cuda",
+                     "source": kernels.KERNELS[name].SOURCE,
+                     "replaces": getattr(kernels.KERNELS[name],
+                                         name).replaces,
+                     "launches": ran[name],
                      "max_abs_err": train_errs[name], **tt})
     log(gpu)
     print(json.dumps({"kernels": rows}))

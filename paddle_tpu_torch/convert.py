@@ -41,13 +41,22 @@ _GPT_BLOCK = {"ln1.weight": (1,), "ln1.bias": (1,),
               "fc2.weight": (4, 1), "fc2.bias": (1,)}
 
 
+def _is_bfloat16(a):
+    """True for a bfloat16 array (``ml_dtypes``' type, which is what
+    ``np.asarray`` of a JAX bfloat16 array gives)."""
+    return np.asarray(a).dtype.name == "bfloat16"
+
+
 def gpt_params_from_jax(state):
     """The JAX ``GPT``'s ``state_dict`` — names to numpy arrays (or
     anything ``np.asarray`` takes) — as a state dict for the port's
-    ``GPT`` (float32 CPU tensors under the same names; ``load_state_dict``
-    moves them to the model's device). Vocabulary, width, depth and
-    ``max_seq`` are read from the arrays. Raises ``ValueError`` on a
-    missing or extra name or a shape that does not fit the others."""
+    ``GPT`` (CPU tensors under the same names; ``load_state_dict`` moves
+    them to the model's device and type). A bfloat16 array stays
+    bfloat16 (exactly); every other array becomes float32. Vocabulary,
+    width, depth and ``max_seq`` are read from the arrays. Raises
+    ``ValueError`` on a missing or extra name or a shape that does not
+    fit the others."""
+    bf16 = {k for k, v in state.items() if _is_bfloat16(v)}
     arrs = {k: np.asarray(v, np.float32) for k, v in state.items()}
     if "wte.weight" not in arrs or arrs["wte.weight"].ndim != 2:
         raise ValueError("expected a (vocab, hidden) array wte.weight")
@@ -70,4 +79,5 @@ def gpt_params_from_jax(state):
         if arrs[k].shape != shape:
             raise ValueError(f"{k} has shape {arrs[k].shape}, expected "
                              f"{shape} for vocab {V}, hidden {E}")
-    return {k: torch.from_numpy(arrs[k].copy()) for k in want}
+    return {k: torch.from_numpy(arrs[k].copy()).to(
+        torch.bfloat16 if k in bf16 else torch.float32) for k in want}

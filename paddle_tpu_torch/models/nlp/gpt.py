@@ -11,11 +11,16 @@ JAX model's, so its state dict maps on name by name
 Through ``ops.norm_ops.layer_norm`` and ``nn.functional.cross_entropy``
 every LayerNorm and the loss run the hand-written kernels on the card.
 Attention is ``sdpa_bhld``: dense with dropout in training; with
-dropout 0 (or in eval) at flash-friendly shapes it raises on CUDA until
-the flash kernel is ported.
+dropout 0 (or in eval) at flash-friendly shapes, the flash kernels.
+
+``GPTConfig(dtype="bfloat16")`` initialises in float32 and then casts
+every floating parameter and buffer, as the JAX ``GPT`` does through
+``Layer._to_dtype`` (``paddle_tpu/nn/layer.py:337-347``);
+``model.bfloat16()`` does the same to a float32 model. Logits come out
+in the parameters' type.
 
 Not ported yet: the static and growing KV caches and ``generate*``,
-ring attention, recompute, ``GPTPipeline`` and bfloat16 parameters.
+ring attention, recompute and ``GPTPipeline``.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import math
 import torch
 from torch import nn
 
-from ..._device import resolve_device
+from ..._device import resolve_device, resolve_dtype
 from ...dist.tp_layers import (ColumnParallelLinear, RowParallelLinear,
                                VocabParallelEmbedding)
 from ...nn import functional as F
@@ -39,9 +44,7 @@ class GPTConfig:
     def __init__(self, vocab_size=50304, hidden=768, layers=12, heads=12,
                  max_seq=1024, dropout=0.1, dtype="float32",
                  initializer_range=0.02):
-        if dtype != "float32":
-            raise NotImplementedError("only float32 GPT parameters are "
-                                      "ported yet")
+        resolve_dtype(dtype)   # float32 or bfloat16, else ValueError
         self.vocab_size = vocab_size
         self.hidden = hidden
         self.layers = layers
@@ -115,7 +118,7 @@ class GPTBlock(nn.Module):
 
 
 class GPT(nn.Module):
-    """``GPT(cfg)(ids (B, L)) -> logits (B, L, vocab)`` in float32.
+    """``GPT(cfg)(ids (B, L)) -> logits (B, L, vocab)`` in ``cfg.dtype``.
 
     Built on ``device`` (``cuda`` unless the caller passes ``"cpu"``);
     weights drawn from ``generator`` (default: the device's, seeded by
@@ -136,6 +139,8 @@ class GPT(nn.Module):
         self.blocks = nn.ModuleList([GPTBlock(cfg, device, generator)
                                      for _ in range(cfg.layers)])
         self.ln_f = LayerNorm(cfg.hidden, device=device)
+        if cfg.dtype != "float32":
+            self.to(resolve_dtype(cfg.dtype))
 
     def forward(self, ids):
         L = ids.shape[1]

@@ -4,18 +4,18 @@
 The counterpart of ``paddle_tpu/nn/functional/attention.py``. Its
 ``_flash_ok`` gate stays with the same conditions: no mask, no dropout,
 ``Lq % 128 == 0``, ``Lk % 128 == 0``, ``D % 64 == 0`` and ``D <= 256``.
-Where the gate holds the JAX package runs its flash kernel, which is not
-ported yet: on a CUDA tensor this module raises ``NotImplementedError``
-there rather than run dense attention in its place. The dense path is
-the flash kernel's plain version: it runs on the CPU, inside
-``plain_versions()``, and wherever the gate does not hold — at dropout
-> 0 in training, as ``gpt_small`` trains.
+Where the gate holds, attention is ``ops.kernels.flash_attention``'s
+``autograd.Function``: on CUDA tensors it launches the flash kernels,
+forward and backward; on the CPU, or inside ``plain_versions()``, it
+runs their plain versions. Everywhere else — with a mask, or at dropout
+> 0 in training, as ``gpt_small`` trains by default — attention is the
+dense path below, the JAX package's own.
 """
 from __future__ import annotations
 
 import torch
 
-from ...ops.kernels import _route
+from ...ops.kernels.flash_attention import flash_attention
 from ...ops.random_ops import dropout
 
 __all__ = ["sdpa_bhld", "flash_ok"]
@@ -60,11 +60,8 @@ def sdpa_bhld(query, key, value, attn_mask=None, scale=None,
     if scale is None:
         scale = 1.0 / (query.shape[-1] ** 0.5)
     p = float(dropout_p) if dropout_p > 0.0 and training else 0.0
-    if flash_ok(query, key, p, attn_mask) and not _route.plain(query):
-        raise NotImplementedError(
-            "this attention takes the flash-attention kernel (no mask, no "
-            "dropout, Lq and Lk multiples of 128, head_dim a multiple of "
-            "64 up to 256), which is not ported to CUDA yet; it comes in "
-            "the next slice of the port")
+    if flash_ok(query, key, p, attn_mask):
+        return flash_attention(query, key, value, bool(is_causal),
+                               float(scale))
     return _dense(query, key, value, attn_mask, float(scale),
                   bool(is_causal), p, generator)

@@ -29,7 +29,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 SOURCES = {name: CSRC / f"{name}.cu"
-           for name in ("paged_attention", "layernorm", "softmax_ce")}
+           for name in ("paged_attention", "layernorm", "softmax_ce",
+                        "flash_attention")}
 # keep the "a": wgmma and setmaxnreg exist only for sm_90a
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",

@@ -145,6 +145,7 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
 
 
 layer_norm_fwd.launches = 0
+layer_norm_fwd.replaces = REPLACES
 
 
 def _bwd_partition(N):
@@ -189,6 +190,7 @@ def layer_norm_bwd(x, gamma, mean, rstd, dy):
 
 
 layer_norm_bwd.launches = 0
+layer_norm_bwd.replaces = REPLACES_BWD
 
 
 class _FusedLayerNorm(torch.autograd.Function):

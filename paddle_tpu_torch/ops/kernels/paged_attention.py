@@ -187,3 +187,4 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.replaces = REPLACES

@@ -159,6 +159,7 @@ def softmax_ce_fwd(logits, labels, ignore_index=-100):
 
 
 softmax_ce_fwd.launches = 0
+softmax_ce_fwd.replaces = REPLACES
 
 
 def softmax_ce_bwd(logits, labels, lse, g, ignore_index=-100):
@@ -185,6 +186,7 @@ def softmax_ce_bwd(logits, labels, lse, g, ignore_index=-100):
 
 
 softmax_ce_bwd.launches = 0
+softmax_ce_bwd.replaces = REPLACES_BWD
 
 
 class _SoftmaxCrossEntropy(torch.autograd.Function):

@@ -1,7 +1,7 @@
 """Optimizers: the ``Optimizer`` base, ``Adam`` and ``AdamW``.
 
 The counterparts of ``paddle_tpu/optim/optimizer.py``'s (:36-131,
-:280-336), with the reference's update order, in float32:
+:280-336), with the reference's update order, computed in float32:
 
 - Adam: ``m = b1*m + (1-b1)*g``, ``v = b2*v + (1-b2)*g*g``,
   ``p -= lr * (m / (1-b1^t)) / (sqrt(v / (1-b2^t)) + eps)``;
@@ -10,7 +10,16 @@ The counterparts of ``paddle_tpu/optim/optimizer.py``'s (:36-131,
   exclude, with ``lr`` scaled by ``lr_ratio(name)`` when given.
 
 ``torch.optim.AdamW`` decays before the step and folds the bias
-corrections differently, so it is not this update. The powers
+corrections differently, so it is not this update.
+
+Rounding follows the reference. The Adam step is rounded to the
+parameter's type, and AdamW's decay is applied to that rounded value and
+rounded again: a bfloat16 parameter is rounded twice a step
+(``optimizer.py:305``, ``:333-335``). With ``multi_precision=True`` each
+bfloat16 or float16 parameter gets a float32 ``master`` copy at its
+first update (``optimizer.py:84-91``); the update and the decay run on
+the master with the gradient in float32, and the parameter is set to
+the master rounded to its type (``:108-124``). The powers
 ``b1^t``/``b2^t`` are kept per parameter as float32 host scalars, as
 the reference keeps them in float32. Parameters are updated in place.
 The learning rate is a float: LR schedulers are not ported yet.
@@ -40,7 +49,7 @@ def _named(parameters):
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None):
+                 weight_decay=None, grad_clip=None, multi_precision=False):
         if parameters is None:
             raise ValueError("optimizer constructed without parameters")
         if not isinstance(learning_rate, (int, float)):
@@ -51,6 +60,7 @@ class Optimizer:
         # a float weight_decay is L2 regularisation added to the gradient
         self._l2 = None if weight_decay is None else float(weight_decay)
         self._grad_clip = grad_clip
+        self._multi_precision = bool(multi_precision)
         self._accumulators = {}
         self._global_step = 0
 
@@ -59,15 +69,19 @@ class Optimizer:
 
     def _state_for(self, name, p):
         if name not in self._accumulators:
-            self._accumulators[name] = self._init_state(p)
+            s = self._init_state(p)
+            if self._multi_precision and p.dtype in (torch.bfloat16,
+                                                     torch.float16):
+                s["master"] = p.detach().float()
+            self._accumulators[name] = s
         return self._accumulators[name]
 
     def _init_state(self, p):
         return {}
 
     def _update(self, name, p, g, s, lr):
-        """The new value of ``p`` (float32) for gradient ``g``; updates
-        the state ``s`` in place."""
+        """The new value of ``p``, in ``p``'s type, for gradient ``g`` (of
+        ``p``'s type); updates the state ``s`` in place."""
         raise NotImplementedError
 
     @torch.no_grad()
@@ -81,11 +95,16 @@ class Optimizer:
             pgs = self._grad_clip(pgs)
         lr = self.get_lr()
         for (name, _), (p, g) in zip(named, pgs):
-            g = g.float()
+            s = self._state_for(name, p)
+            master = s.get("master")
+            pw = p if master is None else master
+            g = g.to(pw.dtype)
             if self._l2 is not None:
-                g = g + self._l2 * p.float()
-            new_p = self._update(name, p, g, self._state_for(name, p), lr)
-            p.copy_(new_p.to(p.dtype))
+                g = g + self._l2 * pw
+            new_p = self._update(name, pw, g, s, lr)
+            if master is not None:
+                s["master"] = new_p
+            p.copy_(new_p)
         self._global_step += 1
 
     def clear_grad(self):
@@ -96,8 +115,9 @@ class Optimizer:
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None):
-        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+                 grad_clip=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
     def _init_state(self, p):
@@ -109,6 +129,7 @@ class Adam(Optimizer):
 
     def _update(self, name, p, g, s, lr):
         b1, b2 = self._beta1, self._beta2
+        g = g.float()
         s["beta1_pow"] = b1p = s["beta1_pow"] * np.float32(b1)
         s["beta2_pow"] = b2p = s["beta2_pow"] * np.float32(b2)
         s["moment1"] = m = b1 * s["moment1"] + (1 - b1) * g
@@ -117,15 +138,16 @@ class Adam(Optimizer):
         vhat = v / float(np.float32(1) - b2p)
         step = float(np.float32(lr)) * mhat / (torch.sqrt(vhat)
                                                + self._epsilon)
-        return p.float() - step
+        return (p.float() - step).to(p.dtype)
 
 
 class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 multi_precision=False):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip)
+                         None, grad_clip, multi_precision)
         self._coeff = float(weight_decay)
         self._apply_decay_fn = apply_decay_param_fun
         self._lr_ratio = lr_ratio
@@ -138,4 +160,4 @@ class AdamW(Adam):
                 not self._apply_decay_fn(name):
             return new_p
         decay = float(np.float32(lr) * np.float32(self._coeff))
-        return new_p - decay * p.float()
+        return (new_p.float() - decay * p.float()).to(p.dtype)

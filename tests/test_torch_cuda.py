@@ -13,17 +13,21 @@ inputs (atol and rtol): paged attention 2e-5 for float32 pools, 2e-2 for
 bfloat16 pools; LayerNorm and softmax-cross-entropy 1e-5 in float32 and
 2e-2 in bfloat16, with dgamma/dbeta (sums over N rows) and dlogits
 (``p * g - onehot * g``, most entries ~g/V) held at that tolerance times
-the sum of the magnitudes of their terms.
+the sum of the magnitudes of their terms; flash attention as
+``chip_smoke.flash_close``: float32 1e-5 (rtol, and atol of 1 for O and
+lse, of the largest entry for a gradient), bfloat16 one bfloat16 step
+(rtol 2^-7) with the same atol.
 """
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import flash_close
 from paddle_tpu_torch import optim
 from paddle_tpu_torch.framework import TrainStep
 from paddle_tpu_torch.models.nlp import gpt
-from paddle_tpu_torch.nn.functional import sdpa_bhld
 from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import layernorm as ln
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import softmax_ce as ce
@@ -224,19 +228,85 @@ def test_tiny_gpt_step_launches_every_training_kernel(hopper):
     assert np.isfinite(float(loss))
     assert kernels.launches() == {
         "paged_decode_attention": 0, "layer_norm_fwd": 5,
-        "layer_norm_bwd": 5, "softmax_ce_fwd": 1, "softmax_ce_bwd": 1}
+        "layer_norm_bwd": 5, "softmax_ce_fwd": 1, "softmax_ce_bwd": 1,
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0}
 
 
-def test_flash_gate_raises_on_cuda(hopper):
-    """Where the JAX package would run its flash kernel (no mask, no
-    dropout, flash-friendly shapes) the port raises on the card instead
-    of running dense attention; the plain versions run it densely."""
+def _flash_close(out, ref, grad):
+    ok, err = flash_close(out, ref, grad)
+    assert ok, f"max abs err {err}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Lq, Lk, D, causal", [
+    (128, 128, 64, True), (128, 384, 64, True), (256, 256, 128, False),
+    (100, 300, 64, True), (128, 128, 192, False), (64, 128, 256, True)])
+def test_flash_kernels_match_plain_versions(hopper, Lq, Lk, D, causal,
+                                            dtype):
+    g = torch.Generator().manual_seed(Lq + Lk + D)
+    q, k, v, do = (torch.randn(2, 3, L, D, generator=g).to(hopper, dtype)
+                   for L in (Lq, Lk, Lk, Lq))
+    scale = D ** -0.5
+    before = kernels.launches()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    args = (q, k, v, do, lse, fa.flash_delta(o, do), causal, scale)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    for name, n in (("flash_attention_fwd", 1), ("flash_attention_bwd_dq", 1),
+                    ("flash_attention_bwd_dkv", 2)):
+        assert after[name] == before[name] + n
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    _flash_close(o, ro, False)
+    _flash_close(lse, rlse, False)
+    _flash_close(dq, fa.flash_attention_bwd_dq_reference(*args), True)
+    rdk, rdv = fa.flash_attention_bwd_dkv_reference(*args)
+    _flash_close(dk, rdk, True)
+    _flash_close(dv, rdv, True)
+    # no atomics: the same bits on every run
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_flash_wrappers_raise_on_bad_arguments(hopper):
+    q = torch.randn(1, 2, 128, 96, device=hopper)     # D = 96: not taken
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q, q, q, True, 0.1)
+    q = torch.randn(1, 128, 2, 64, device=hopper).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd(q, q, q, True, 0.125)
     q = torch.randn(1, 2, 128, 64, device=hopper)
-    with pytest.raises(NotImplementedError, match="flash"):
-        sdpa_bhld(q, q, q, is_causal=True)
-    m = _tiny_gpt(hopper, 0.1).eval()
-    ids = torch.zeros(2, 128, dtype=torch.long, device=hopper)
-    with pytest.raises(NotImplementedError, match="flash"):
-        m(ids)
-    with kernels.plain_versions(), torch.no_grad():
-        assert torch.isfinite(m(ids)).all()
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q.double(), q.double(), q.double(), True,
+                               0.125)
+
+
+def test_tiny_gpt_bf16_step_launches_flash(hopper):
+    """One bench_gpt-style step at dropout 0, bfloat16, multi_precision:
+    every attention takes the flash kernels (2 blocks), and the logits of
+    the trained model match its plain versions'."""
+    m = _tiny_gpt(hopper, 0.0)
+    m.bfloat16()
+    ids = np.random.RandomState(0).randint(0, 512, (8, 128))
+    opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=1e-3,
+                      multi_precision=True,
+                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
+    step = TrainStep(m, opt, gpt.gpt_loss)
+    kernels.reset_launches()
+    loss = step(ids, np.roll(ids, -1, axis=1))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    assert kernels.launches() == {
+        "paged_decode_attention": 0, "layer_norm_fwd": 5,
+        "layer_norm_bwd": 5, "softmax_ce_fwd": 1, "softmax_ce_bwd": 1,
+        "flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+        "flash_attention_bwd_dkv": 2}
+    x = torch.from_numpy(ids).to(hopper)
+    with torch.no_grad():
+        got = m.eval()(x).float()
+        with kernels.plain_versions():
+            want = m(x).float()
+    # bfloat16 activations: one step at |logit| < 4 where a rounding flips
+    torch.testing.assert_close(got, want, atol=2 ** -5, rtol=0)

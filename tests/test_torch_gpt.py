@@ -16,6 +16,22 @@ largest entry of each (float32 sums over 1024 tokens); losses 5e-5 over
 8 steps (AdamW's first steps turn tiny gradient differences into
 parameter steps of ~lr, which the later losses carry; the observed gap
 is ~5e-6).
+
+The same configuration in bfloat16 (``model.bfloat16()`` on the JAX
+side, ``GPTConfig(dtype="bfloat16")`` on the port's) with
+``multi_precision`` AdamW, bench_gpt's recipe. At dropout 0 both sides
+take their flash paths (the JAX kernel in interpret mode under the
+``pallas`` fixture). The two frameworks round bfloat16 at different
+places (the JAX package rounds after each elementwise op, torch after
+each fused one), so the tolerances are bfloat16's: logits 2^-6, two
+bfloat16 steps at the largest |logit| (1.79; seen: one step, 2^-7, on
+both JAX paths); losses 3e-2 absolute over 8 steps at lr 3e-3 (seen:
+<= 1.8e-2; the JAX package's own dense and Pallas paths differ from each
+other by up to 2.2e-2 over the same 8 steps). Given the same bfloat16
+parameters and gradients, the optimizers agree exactly on the bfloat16
+parameters, and on the float32 masters to one float32 step (the JAX
+side contracts a few multiply-adds; 5 of 3072 masters differ by one
+step in the optimizer test below).
 """
 import os
 import subprocess
@@ -42,6 +58,9 @@ CFG = dict(vocab_size=512, hidden=128, layers=2, heads=2, max_seq=128,
 LOGIT_TOL = 1e-5
 GRAD_TOL = 1e-5
 LOSS_TOL = 5e-5
+BF16_LOGIT_TOL = 2 ** -6
+BF16_LOSS_TOL = 3e-2
+F32_STEP = 2 ** -23    # one float32 step, relative
 
 
 def _batch():
@@ -50,12 +69,16 @@ def _batch():
     return ids, np.roll(ids, -1, axis=1).astype("int32")
 
 
-def _pair(seed=0):
-    """A JAX GPT from ``seed`` and the port's GPT (CPU) with its weights."""
+def _pair(seed=0, dtype="float32"):
+    """A JAX GPT from ``seed`` and the port's GPT (CPU) with its weights,
+    both in ``dtype`` (the JAX model cast with ``bfloat16()``, as
+    ``bench.py:bench_gpt`` does)."""
     pt.seed(seed)
     jm = jgpt.GPT(jgpt.GPTConfig(**CFG))
+    if dtype == "bfloat16":
+        jm.bfloat16()
     sd = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
-    m = gpt.GPT(gpt.GPTConfig(**CFG), device="cpu")
+    m = gpt.GPT(gpt.GPTConfig(**CFG, dtype=dtype), device="cpu")
     m.load_state_dict(convert.gpt_params_from_jax(sd))
     return jm, m
 
@@ -109,6 +132,68 @@ def test_train_step_trajectory_matches(pallas):
     np.testing.assert_allclose(got, want, atol=LOSS_TOL, rtol=LOSS_TOL)
     assert got[-1] < got[0] - 0.5          # it learns
     assert not bool(step.last_found_inf)
+
+
+def test_bf16_logits_match(pallas):
+    jm, m = _pair(dtype="bfloat16")
+    ids, _ = _batch()
+    want = np.asarray(jm(pt.to_tensor(ids))._data)
+    with torch.no_grad():
+        got = m(torch.from_numpy(ids))
+    assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
+    np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
+                               atol=BF16_LOGIT_TOL, rtol=0)
+
+
+def test_bf16_multi_precision_trajectory_matches(pallas):
+    jm, m = _pair(dtype="bfloat16")
+    ids, labels = _batch()
+    jopt = joptim.AdamW(parameters=jm.parameters(), learning_rate=3e-3,
+                        multi_precision=True,
+                        grad_clip=joptim.ClipGradByGlobalNorm(1.0))
+    jstep = pt.TrainStep(jm, jopt, jgpt.gpt_loss)
+    opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=3e-3,
+                      multi_precision=True,
+                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
+    step = TrainStep(m, opt, gpt.gpt_loss)
+    want = [float(np.asarray(jstep(ids, labels)._data)) for _ in range(8)]
+    got = [float(step(ids, labels)) for _ in range(8)]
+    np.testing.assert_allclose(got, want, atol=BF16_LOSS_TOL, rtol=0)
+    assert got[-1] < got[0] - 0.5          # it learns
+    assert all(p.dtype == torch.bfloat16 for p in m.parameters())
+    masters = [s["master"] for s in opt._accumulators.values()]
+    assert len(masters) == len(list(m.parameters()))
+    assert all(t.dtype == torch.float32 for t in masters)
+
+
+def test_bf16_masters_match_from_the_same_gradients():
+    """One clipped multi_precision AdamW step on both sides from the JAX
+    model's own bfloat16 gradients: the same inputs, so the same bfloat16
+    parameters and (to one float32 step) the same float32 masters."""
+    jm, m = _pair(dtype="bfloat16")
+    ids, labels = _batch()
+    jgpt.gpt_loss(jm, pt.to_tensor(ids), pt.to_tensor(labels)).backward()
+    jparams = dict(jm.named_parameters())
+    for n, p in m.named_parameters():
+        p.grad = torch.from_numpy(np.asarray(
+            jparams[n].grad._data).astype(np.float32)).to(torch.bfloat16)
+    jopt = joptim.AdamW(parameters=jm.parameters(), learning_rate=3e-3,
+                        multi_precision=True,
+                        grad_clip=joptim.ClipGradByGlobalNorm(1.0))
+    opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=3e-3,
+                      multi_precision=True,
+                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
+    jopt.step()
+    opt.step()
+    for n, p in m.named_parameters():
+        jp = jparams[n]
+        want = np.asarray(jopt._accumulators[jp.name]["master"])
+        got = opt._accumulators[n]["master"].numpy()
+        np.testing.assert_allclose(got, want, rtol=F32_STEP, atol=0,
+                                   err_msg=n)
+        np.testing.assert_array_equal(
+            p.detach().float().numpy(),
+            np.asarray(jp._data).astype(np.float32), err_msg=n)
 
 
 def test_train_step_runs_no_kernel_on_the_cpu():
@@ -198,6 +283,58 @@ def test_optimizer_update_matches(kind):
                                rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("multi_precision", [False, True],
+                         ids=["bf16", "bf16-master"])
+@pytest.mark.parametrize("kind", ["adam", "adamw"])
+def test_bf16_update_rounds_as_the_reference(kind, multi_precision):
+    """Three updates of a bfloat16 parameter. Without ``multi_precision``
+    the reference rounds the Adam step to bfloat16 and AdamW rounds again
+    after its decay (``optimizer.py:305``, ``:333-335``): the parameters
+    must be the same bits. With it, the update runs on a float32 master
+    and the parameter is the master rounded."""
+    import jax.numpy as jnp
+
+    class Named:
+        name = "w"
+
+    rng = np.random.RandomState(5)
+    p0 = (rng.randn(64, 48) * 0.02).astype(np.float32)
+    gs = [(rng.randn(64, 48) * 0.1).astype(np.float32) for _ in range(3)]
+    cls, tcls = ((joptim.Adam, optim.Adam) if kind == "adam"
+                 else (joptim.AdamW, optim.AdamW))
+    kw = {} if kind == "adam" else {"weight_decay": 0.05}
+    jopt = cls(learning_rate=1e-3, parameters=[],
+               multi_precision=multi_precision, **kw)
+    jopt._current_param = Named()
+    jp = jnp.asarray(p0).astype(jnp.bfloat16)
+    js = jopt._init_state(jp)
+    master = jp.astype(jnp.float32)
+    p = torch.nn.Parameter(torch.from_numpy(
+        np.array(jp.astype(jnp.float32))).to(torch.bfloat16))
+    if multi_precision:
+        kw["multi_precision"] = True
+    opt = tcls(learning_rate=1e-3, parameters=[("w", p)], **kw)
+    for g in gs:
+        jg = jnp.asarray(g).astype(jnp.bfloat16)
+        if multi_precision:     # Optimizer.step with a master
+            master, js = jopt._update(master, jg.astype(jnp.float32), js,
+                                      1e-3)
+            jp = master.astype(jnp.bfloat16)
+        else:
+            jp, js = jopt._update(jp, jg, js, 1e-3)
+        p.grad = torch.from_numpy(
+            np.array(jg.astype(jnp.float32))).to(torch.bfloat16)
+        opt.step()
+    assert p.dtype == torch.bfloat16
+    np.testing.assert_array_equal(p.detach().float().numpy(),
+                                  np.asarray(jp.astype(jnp.float32)))
+    if multi_precision:
+        np.testing.assert_allclose(opt._accumulators["w"]["master"].numpy(),
+                                   np.asarray(master), rtol=F32_STEP, atol=0)
+    else:
+        assert "master" not in opt._accumulators["w"]
+
+
 # -- weights, dropout, device ------------------------------------------------
 
 
@@ -214,6 +351,22 @@ def test_gpt_params_from_jax_rejects_what_does_not_fit():
     for wrong in (missing, extra, bad, gap):
         with pytest.raises(ValueError):
             convert.gpt_params_from_jax(wrong)
+
+
+def test_gpt_params_from_jax_keeps_bfloat16():
+    jm, m = _pair(dtype="bfloat16")
+    sd = {k: np.asarray(v._data) for k, v in jm.state_dict().items()}
+    assert {str(a.dtype) for a in sd.values()} == {"bfloat16"}
+    got = convert.gpt_params_from_jax(sd)
+    assert {t.dtype for t in got.values()} == {torch.bfloat16}
+    for k, t in got.items():
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      sd[k].astype(np.float32), err_msg=k)
+    assert all(p.dtype == torch.bfloat16 for p in m.parameters())
+    # a float32 model takes the same weights exactly
+    f32 = gpt.GPT(gpt.GPTConfig(**CFG), device="cpu")
+    f32.load_state_dict(got)
+    assert torch.equal(f32.wte.weight, got["wte.weight"].float())
 
 
 def test_dropout_is_reproducible_from_one_seed_and_off_in_eval():
@@ -236,7 +389,8 @@ def test_dropout_is_reproducible_from_one_seed_and_off_in_eval():
     x = torch.randn(4, 8)
     assert Dropout(0.5).eval()(x) is x
     with torch.no_grad():
-        # eval takes the dense path on the CPU: no dropout, same logits
+        # eval takes the flash path's plain version on the CPU: no
+        # dropout, same logits
         assert torch.equal(m(ids[:1]), m(ids[:1]))
 
 

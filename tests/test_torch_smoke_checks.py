@@ -9,11 +9,17 @@ the label column, or worked from an lse off by 1%, must fail it, and an
 honest result (the same function evaluated in float64, then rounded)
 must pass.
 """
+import pathlib
+import re
+
 import pytest
 import torch
 
 import chip_smoke as cs
+from paddle_tpu_torch.ops.kernels import KERNELS
 from paddle_tpu_torch.ops.kernels import softmax_ce as ce
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _case(N, V, scale, dtype, seed):
@@ -53,3 +59,77 @@ def test_lse_check_rejects_one_percent():
     x, lab, _, lse = _case(16, 50304, 1.0, torch.float32, seed=3)
     assert cs.within(lse.clone(), lse, cs.TRAIN_F32_TOL)[0]
     assert not cs.within(lse * 1.01, lse, cs.TRAIN_F32_TOL)[0]
+
+
+# -- flash attention ----------------------------------------------------------
+
+
+def _flash_f64(q, k, v, do, lse, delta, causal, scale):
+    """An honest flash attention: the same function in float64 (the
+    backward from the given lse and delta, as a kernel gets them)."""
+    s = torch.matmul(q.double() * scale, k.double().transpose(-1, -2))
+    if causal:
+        Lq, Lk = s.shape[-2:]
+        s = s.masked_fill(~torch.ones(Lq, Lk, dtype=torch.bool)
+                          .tril(Lk - Lq), -1e30)
+    B, H, Lq, _ = q.shape
+    o = torch.matmul(torch.softmax(s, -1), v.double())
+    lse_o = torch.logsumexp(s, -1).reshape(B * H, Lq, 1)
+    p = torch.exp(s - lse.double().reshape(B, H, Lq, 1))
+    dp = torch.matmul(do.double(), v.double().transpose(-1, -2))
+    ds = p * (dp - delta.double().reshape(B, H, Lq, 1))
+    dq = torch.matmul(ds, k.double()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.double() * scale)
+    dv = torch.matmul(p.transpose(-1, -2), do.double())
+    return o, lse_o, dq, dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Lq, Lk, causal", [(128, 128, True),
+                                            (64, 192, True),
+                                            (128, 128, False)])
+def test_flash_check_rejects_planted_faults(Lq, Lk, causal, dtype):
+    """``flash_close`` passes the same function computed in float64 and
+    rounded, and fails zeroed dV, a dQ without its scale, an O computed
+    without the causal mask (or, non-causal, with one) and an lse off by
+    1e-4."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(Lq + Lk)
+    q, k, v, do = (torch.randn(1, 2, L, 64, generator=g).to(dtype)
+                   for L in (Lq, Lk, Lk, Lq))
+    scale = 0.125
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    args = (q, k, v, do, lse, fa.flash_delta(o, do), causal, scale)
+    dq = fa.flash_attention_bwd_dq_reference(*args)
+    dk, dv = fa.flash_attention_bwd_dkv_reference(*args)
+    refs = {"O": o, "lse": lse, "dQ": dq, "dK": dk, "dV": dv}
+    honest = dict(zip(refs, _flash_f64(*args)))
+    for name, ref in refs.items():
+        out = honest[name].to(ref.dtype)
+        assert cs.flash_close(out, ref, name.startswith("d"))[0], name
+
+    assert not cs.flash_close(torch.zeros_like(dv), dv, True)[0]
+    assert not cs.flash_close((dq.float() / scale).to(dtype), dq, True)[0]
+    wrong_mask, _ = fa.flash_attention_fwd_reference(q, k, v, not causal,
+                                                     scale)
+    assert not cs.flash_close(wrong_mask, o, False)[0]
+    assert not cs.flash_close(lse * (1 + 1e-4), lse, False)[0]
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_each_wrapper_names_the_pallas_kernel_it_replaces(name):
+    """The smoke's JSON line takes ``replaces`` from the wrapper: the
+    ``file:line`` in the JAX package where a kernel function of a file
+    that calls ``pl.pallas_call`` is defined, used there, and named by no
+    other wrapper."""
+    site = getattr(KERNELS[name], name).replaces
+    path, line = site.split(":")
+    src = (ROOT / path).read_text().splitlines()
+    fn = re.match(r"def (_\w*kernel)\(", src[int(line) - 1])
+    assert fn, src[int(line) - 1]
+    uses = [s for s in src if re.search(rf"\b{fn.group(1)}\b", s)]
+    assert len(uses) >= 2 and any("pl.pallas_call(" in s for s in src)
+    others = [n for n in KERNELS
+              if n != name and getattr(KERNELS[n], n).replaces == site]
+    assert not others, others

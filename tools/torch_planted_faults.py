@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
-"""Check that ``chip_smoke.py``'s train phase catches a LayerNorm backward
-that drops its parameter gradients.
+"""Check that ``chip_smoke.py``'s train phases catch a backward kernel
+that drops one of its gradients.
 
     python3 tools/torch_planted_faults.py
 
-Builds the kernels, then runs the smoke's train phase (``gpt_small``,
-dropout 0.1, batch 8 x 1024, 4 AdamW steps, kernel run against the
-plain-version run) twice in this process: once with dgamma and once with
-dbeta of every ``layer_norm_bwd`` call replaced by zeros. The fault is
-planted by swapping the module's wrapper for one that calls the real
-kernel and zeroes one output; nothing on disk changes. Each run prints
-its per-step loss differences (the smoke's ``train:`` lines) and must
-fail the smoke's check; the script exits non-zero if either passes.
-Needs one CUDA card.
+Builds the kernels, then runs the smoke's train phases with one fault
+planted at a time:
+
+- dgamma, then dbeta, of every ``layer_norm_bwd`` call zeroed, in the
+  float32 train phase (``gpt_small``, dropout 0.1, batch 8 x 1024);
+- dV of every ``flash_attention_bwd_dkv`` call zeroed, in the bf16
+  train phase (bench_gpt's configuration, batch 16 x 1024).
+
+Each phase runs 4 AdamW steps through the kernels and 4 through the
+plain versions and compares the losses. A fault is planted by swapping
+the module's wrapper for one that calls the real kernel and zeroes one
+output; the real wrapper counts its launch on the module's name, the
+planted one, so the phase's launch check passes and its loss check is
+what must catch the fault. Nothing on disk changes. Each run prints
+its per-step loss differences (the smoke's ``train:`` /
+``train-bf16:`` lines) and must fail the phase's loss check; the
+script exits non-zero if any fault passes or is caught by another
+check. Needs one CUDA card.
 """
 import os
 import sys
@@ -24,7 +33,18 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
+from paddle_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops.kernels import layernorm as ln  # noqa: E402
+
+FAULTS = [
+    # (label, module, wrapper name, output zeroed, phase)
+    ("layer_norm_bwd dgamma = 0", ln, "layer_norm_bwd", 1,
+     chip_smoke.train_phase),
+    ("layer_norm_bwd dbeta = 0", ln, "layer_norm_bwd", 2,
+     chip_smoke.train_phase),
+    ("flash_attention_bwd_dkv dV = 0", fa, "flash_attention_bwd_dkv", 1,
+     chip_smoke.train_bf16_phase),
+]
 
 
 def main():
@@ -34,25 +54,31 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     _build.build()
     gpu = chip_smoke.gpu_line()
-    real = ln.layer_norm_bwd
     missed = []
-    for index, name in ((1, "dgamma"), (2, "dbeta")):
-        def planted(*args, index=index):
+    for label, module, name, index, phase in FAULTS:
+        real = getattr(module, name)
+
+        def planted(*args, real=real, index=index):
             out = list(real(*args))
             out[index] = torch.zeros_like(out[index])
             return tuple(out)
 
-        ln.layer_norm_bwd = planted
+        planted.launches = 0
+        setattr(module, name, planted)
         try:
-            chip_smoke.train_phase(gpu)
-            missed.append(name)
-            print(f"planted zero {name}: the train phase PASSED it")
+            phase(gpu)
+            missed.append(label)
+            print(f"planted {label}: the phase PASSED it")
         except chip_smoke.CheckFailed as e:
-            print(f"planted zero {name}: the train phase failed, as it "
-                  f"must: {e}")
+            if "losses differ" not in str(e):
+                missed.append(label)
+            print(f"planted {label}: the phase failed: {e}")
         finally:
-            ln.layer_norm_bwd = real
+            setattr(module, name, real)
+            torch.cuda.empty_cache()
     print(gpu)
+    if missed:
+        print(f"not caught by the loss check: {missed}")
     return 1 if missed else 0
 
 

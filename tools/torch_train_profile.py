@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
 """Where the port's training step time goes on the card.
 
-    python3 tools/torch_train_profile.py [--json PATH] [--steps N]
+    python3 tools/torch_train_profile.py [--config NAME] [--json PATH]
+                                         [--steps N]
 
-Builds ``gpt_small`` (12 x 768, vocab 50304, dropout 0.1, float32) of
-``paddle_tpu_torch`` on the card and trains it on the main path of
-``chip_smoke.py`` (batch 8 x 1024 from RandomState(0), AdamW(1e-4,
-decay 0.01), global-norm clip 1.0). After two warm steps it times
-``--steps`` steps with CUDA events between the forward, the backward
-and the optimizer (clip + AdamW), then profiles one more step under
-``torch.profiler`` and prints device time by kernel group (the
-LayerNorm and cross-entropy kernels, matrix products, the attention
-softmax, dropout's random numbers, other elementwise and reduction
-kernels, memory copies and sets) and the device's busy share of that
-step's wall time. ``--json`` also writes the numbers to a file. Needs
-one CUDA card.
+Builds ``gpt_small`` (12 x 768, vocab 50304) of ``paddle_tpu_torch`` on
+the card in one of the training configurations of ``chip_smoke.py``
+(``TRAIN_CONFIGS``; the smoke's train phases drive the same two, with
+the same model and optimizer):
+
+- ``dropout0.1-float32`` (the default): ``gpt_small``'s defaults,
+  dropout 0.1, float32, batch 8 x 1024 — dense attention;
+- ``bench_gpt``: ``bench.py:bench_gpt``'s recipe, dropout 0,
+  ``model.bfloat16()``, batch 16 x 1024, multi_precision — the flash
+  kernels;
+
+both with AdamW(1e-4, decay 0.01) and global-norm clip 1.0 on ids from
+RandomState(0). After two
+warm steps it times ``--steps`` steps with CUDA events between the
+forward, the backward and the optimizer (clip + AdamW), then profiles
+one more step under ``torch.profiler`` and prints device time by kernel
+group (the flash, LayerNorm and cross-entropy kernels, matrix products,
+the attention softmax, dropout's random numbers, other elementwise and
+reduction kernels, memory copies and sets) and the device's busy share
+of that step's wall time. ``--json`` also writes the numbers to a file.
+Needs one CUDA card.
 """
 import argparse
 import json
@@ -24,7 +34,14 @@ import time
 
 import numpy as np
 
-GROUPS = (("layer_norm", ("ln_fwd_kernel", "ln_bwd_kernel",
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import chip_smoke  # noqa: E402
+
+GROUPS = (("flash_attention", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                               "flash_bwd_dkv_kernel")),
+          ("layer_norm", ("ln_fwd_kernel", "ln_bwd_kernel",
                           "ln_bwd_reduce_kernel")),
           ("softmax_ce", ("ce_fwd_kernel", "ce_bwd_kernel")),
           ("matmul", ("gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")),
@@ -44,6 +61,10 @@ def _group(name):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=sorted(chip_smoke.TRAIN_CONFIGS),
+                    default="dropout0.1-float32",
+                    help="the training configuration (default: "
+                    "dropout0.1-float32)")
     ap.add_argument("--json", help="also write the numbers here")
     ap.add_argument("--steps", type=int, default=3,
                     help="steps timed with CUDA events (default 3)")
@@ -55,24 +76,19 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    from paddle_tpu_torch import core, optim
+    from paddle_tpu_torch import core
     from paddle_tpu_torch.models.nlp import gpt
     from paddle_tpu_torch.ops import kernels
 
-    cfg = gpt.gpt_small(dropout=0.1)
-    B, L = 8, cfg.max_seq
     core.seed(1)
-    model = gpt.GPT(cfg, generator=torch.Generator(device="cuda")
-                    .manual_seed(0))
+    model = chip_smoke.train_model(args.config)
+    cfg, B = model.cfg, chip_smoke.TRAIN_CONFIGS[args.config]["batch"]
+    L = cfg.max_seq
     rng = np.random.RandomState(0)
     ids_np = rng.randint(0, cfg.vocab_size, (B, L))
     ids = torch.from_numpy(ids_np).cuda()
     labels = torch.from_numpy(np.roll(ids_np, -1, axis=1)).cuda()
-    opt = optim.AdamW(parameters=model.named_parameters(),
-                      learning_rate=1e-4, weight_decay=0.01,
-                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
+    opt = chip_smoke.train_optimizer(model, args.config)
 
     def step(events=None):
         # TrainStep.step's body, with an event between its phases
@@ -127,6 +143,7 @@ def main(argv=None):
     wall = sorted(walls)[len(walls) // 2]
     out = {
         "device": torch.cuda.get_device_name(0),
+        "config": args.config,
         "batch": [B, L],
         "step_wall_ms": walls,
         "phase_ms_median": med,
@@ -138,7 +155,7 @@ def main(argv=None):
         "device_busy_ms": busy_ms if busy_ms else None,
         "device_busy_share": busy_ms / prof_wall if busy_ms else None,
     }
-    print(f"train step (gpt_small, batch {B} x {L}, dropout 0.1, float32): "
+    print(f"train step (gpt_small, {args.config}, batch {B} x {L}): "
           f"wall ms " + " ".join(f"{w:.1f}" for w in walls)
           + f" = {out['tokens_per_s']:.0f} tokens/s at the median; phases "
           f"(CUDA events, median): " + ", ".join(
