@@ -12,16 +12,11 @@ from __future__ import annotations
 
 import torch
 
+from .._device import resolve_device
+
 __all__ = ["seed", "default_generator"]
 
 _STATE = {"seed": 0, "generators": {}}
-
-
-def _key(device):
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def seed(s: int) -> None:
@@ -31,10 +26,11 @@ def seed(s: int) -> None:
         g.manual_seed(_STATE["seed"])
 
 
-def default_generator(device="cpu"):
-    """The generator of ``device``, made (from the global seed) at first
-    use."""
-    dev = _key(device)
+def default_generator(device=None):
+    """The generator of ``device`` (``cuda`` unless the caller asks for
+    ``"cpu"``; raises without a card), made (from the global seed) at
+    first use."""
+    dev = resolve_device(device)
     gens = _STATE["generators"]
     if dev not in gens:
         gens[dev] = torch.Generator(device=dev)

@@ -4,8 +4,9 @@ Each source under ``paddle_tpu_torch/csrc/`` exposes a plain C interface
 and is compiled by ``nvcc`` into its own shared library, loaded with
 ``ctypes`` — no PyTorch headers, so a build takes seconds. Libraries go
 to ``build/paddle_tpu_torch/`` beside the package (``build/`` is
-git-ignored), named by a digest of the source and the command line, so
-an edited source is rebuilt and a stale library is never loaded. A
+git-ignored), named by a digest of the source, the headers it includes
+(``#include "..."``, transitively) and the command line, so an edited
+source or header is rebuilt and a stale library is never loaded. A
 build happens at first use; ``build()`` starts every missing build at
 once and waits for all of them.
 
@@ -17,13 +18,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
 __all__ = ["SOURCES", "BUILD_DIR", "ARCH_FLAGS", "find_nvcc",
-           "nvcc_command", "library_path", "build", "load"]
+           "nvcc_command", "source_files", "library_path", "build", "load"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -56,11 +58,29 @@ def nvcc_command(nvcc, source, output):
     return [str(nvcc), *_FLAGS, "-o", str(output), str(source)]
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(source):
+    """``source`` and every file it includes with quotes, transitively,
+    each once, resolved beside the file that includes it."""
+    files, todo = [], [Path(source)]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def library_path(name):
     """Where the library of kernel ``name`` lives for its current
-    source and flags."""
-    src = SOURCES[name]
-    h = hashlib.sha256(src.read_bytes())
+    source, the headers it includes, and the flags."""
+    h = hashlib.sha256()
+    for path in source_files(SOURCES[name]):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

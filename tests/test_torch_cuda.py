@@ -241,7 +241,8 @@ def _flash_close(out, ref, grad):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Lq, Lk, D, causal", [
     (128, 128, 64, True), (128, 384, 64, True), (256, 256, 128, False),
-    (100, 300, 64, True), (128, 128, 192, False), (64, 128, 256, True)])
+    (100, 300, 64, True), (200, 328, 128, True), (128, 128, 192, False),
+    (64, 128, 256, True)])
 def test_flash_kernels_match_plain_versions(hopper, Lq, Lk, D, causal,
                                             dtype):
     g = torch.Generator().manual_seed(Lq + Lk + D)

@@ -420,6 +420,44 @@ def test_entry_points_default_to_the_card():
         gpt.GPT(gpt.GPTConfig(**CFG))
 
 
+@pytest.mark.parametrize("entry", ["Normal", "Constant",
+                                   "default_generator"])
+def test_initializers_and_generator_default_to_the_card(entry):
+    """``Normal``, ``Constant`` and ``core.default_generator`` resolve
+    no device to ``cuda`` like every other entry point: without a card
+    the no-argument call raises, and ``device="cpu"`` still works."""
+    from paddle_tpu_torch.core import default_generator
+    from paddle_tpu_torch.nn.initializer import Constant, Normal
+
+    call = {"Normal": lambda **kw: Normal(0.0, 0.02)((4, 3), **kw),
+            "Constant": lambda **kw: Constant(1.5)((4, 3), **kw),
+            "default_generator": lambda **kw: default_generator(**kw)}[entry]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert call(device="cpu").device.type == "cpu"
+
+
+def test_gpt_on_the_cpu_draws_from_the_cpu_generator():
+    """``GPT(cfg, device="cpu")`` builds the same weights as before the
+    initializers' default moved to the card: its first parameter is the
+    first draw of the seeded CPU generator, and a rebuild after the same
+    seed is equal parameter by parameter."""
+    cfg = gpt.GPTConfig(**CFG)
+    core.seed(5)
+    m = gpt.GPT(cfg, device="cpu")
+    z = torch.randn(cfg.vocab_size, cfg.hidden,
+                    generator=torch.Generator().manual_seed(5))
+    assert torch.equal(m.wte.weight, z * cfg.initializer_range + 0.0)
+    core.seed(5)
+    again = gpt.GPT(cfg, device="cpu")
+    for (name, a), (_, b) in zip(m.state_dict().items(),
+                                 again.state_dict().items()):
+        assert torch.equal(a, b), name
+
+
 _JAX_FREE = r"""
 import sys
 sys.path.insert(0, sys.argv[1])

@@ -181,6 +181,27 @@ class TestBuild:
         assert path.parent.parts[-2:] == ("build", "paddle_tpu_torch")
         assert path == _build.library_path("paged_attention")
 
+    def test_library_path_follows_the_headers_a_source_includes(
+            self, tmp_path, monkeypatch):
+        """An edited header gives a new library path (so a stale library
+        is never loaded); an unrelated file beside it does not. Works on
+        a copy of flash_attention.cu and the header it includes."""
+        src = _build.SOURCES["flash_attention"]
+        header = src.parent / "mma_bf16.cuh"
+        assert [p.name for p in _build.source_files(src)] == [
+            "flash_attention.cu", "mma_bf16.cuh"]
+        for p in (src, header):
+            (tmp_path / p.name).write_bytes(p.read_bytes())
+        monkeypatch.setitem(_build.SOURCES, "flash_attention",
+                            tmp_path / src.name)
+        before = _build.library_path("flash_attention")
+        (tmp_path / "unrelated.cuh").write_text("// not included\n")
+        assert _build.library_path("flash_attention") == before
+        copy = tmp_path / header.name
+        copy.write_bytes(copy.read_bytes() + b"// edited\n")
+        after = _build.library_path("flash_attention")
+        assert after != before and after.parent == before.parent
+
     def test_source_exports_what_the_wrapper_binds(self):
         src = _build.SOURCES["paged_attention"].read_text()
         assert 'extern "C"' in src

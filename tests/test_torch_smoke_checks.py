@@ -8,6 +8,11 @@ each entry by the magnitudes of its own terms: a kernel that wrote 0 off
 the label column, or worked from an lse off by 1%, must fail it, and an
 honest result (the same function evaluated in float64, then rounded)
 must pass.
+
+The flash checks (``flash_close``) get the same treatment, and the
+arithmetic of the bfloat16 tensor-core flash kernels is emulated here
+against them: P and dS split into two bfloat16 halves pass, P and dS
+rounded once fail.
 """
 import pathlib
 import re
@@ -115,6 +120,73 @@ def test_flash_check_rejects_planted_faults(Lq, Lk, causal, dtype):
                                                      scale)
     assert not cs.flash_close(wrong_mask, o, False)[0]
     assert not cs.flash_close(lse * (1 + 1e-4), lse, False)[0]
+
+
+def _tc_scores(q, k, causal, scale):
+    """S as the tensor-core kernels form it: bfloat16 q and k as stored,
+    float32 sums, the scale applied to the float32 product."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        Lq, Lk = s.shape[-2:]
+        visible = torch.ones(Lq, Lk, dtype=torch.bool).tril(Lk - Lq)
+        s = s + torch.where(visible, 0.0, -1e30)
+    return s
+
+
+def _tc_operand(x, split):
+    """The bfloat16 A operand(s) a float32 ``x`` becomes: hi =
+    bf16(x) and lo = bf16(x - hi) when ``split``, else hi alone."""
+    hi = x.to(torch.bfloat16).float()
+    return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+
+def _tc_product(x, b, split):
+    """``x b`` with ``x`` through ``_tc_operand``: one float32
+    accumulator for every half."""
+    return sum(torch.matmul(a, b.float()) for a in _tc_operand(x, split))
+
+
+def _tc_emulation(q, k, v, do, lse, delta, causal, scale, split):
+    """O, dK and dV as the bfloat16 forward and dK/dV kernels compute
+    them (``csrc/flash_attention.cu``), with P and dS split in two
+    bfloat16 halves or rounded once."""
+    B, H, Lq, _ = q.shape
+    s = _tc_scores(q, k, causal, scale)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = _tc_product(p, v, split) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    p = torch.exp(s - lse.reshape(B, H, Lq, 1))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta.reshape(B, H, Lq, 1))
+    dv = _tc_product(p.transpose(-1, -2), do, split)
+    dk = _tc_product(ds.transpose(-1, -2), q, split) * scale
+    return o.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Lq, Lk", [(128, 128), (64, 192)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_arithmetic_needs_p_and_ds_in_two_halves(causal, Lq, Lk,
+                                                             D):
+    """The tensor-core kernels' arithmetic, emulated in torch: bfloat16
+    q, k, v and dO, float32 sums, the scale after the product, and P and
+    dS split into hi + lo bfloat16 halves, passes ``flash_close`` against
+    the plain versions for O, dK and dV. The same arithmetic with P and dS
+    rounded once to bfloat16 fails it on each of the three."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(Lq + Lk + D)
+    q, k, v, do = (torch.randn(1, 2, L, D, generator=g).to(torch.bfloat16)
+                   for L in (Lq, Lk, Lk, Lq))
+    scale = D ** -0.5
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    args = (q, k, v, do, lse, fa.flash_delta(o, do), causal, scale)
+    refs = (o, *fa.flash_attention_bwd_dkv_reference(*args))
+    split = _tc_emulation(*args, split=True)
+    once = _tc_emulation(*args, split=False)
+    for name, ref, two, one in zip(("O", "dK", "dV"), refs, split, once):
+        grad = name != "O"
+        assert cs.flash_close(two, ref, grad)[0], name
+        assert not cs.flash_close(one, ref, grad)[0], name
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))

@@ -39,8 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import chip_smoke  # noqa: E402
 
-GROUPS = (("flash_attention", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                               "flash_bwd_dkv_kernel")),
+GROUPS = (("flash_attention", ("flash_fwd_", "flash_bwd_")),
           ("layer_norm", ("ln_fwd_kernel", "ln_bwd_kernel",
                           "ln_bwd_reduce_kernel")),
           ("softmax_ce", ("ce_fwd_kernel", "ce_bwd_kernel")),
