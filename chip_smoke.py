@@ -51,7 +51,9 @@ any failed check:
              bfloat16): kernel, plain version and library call
              (``F.layer_norm`` and ``F.cross_entropy(reduction="none")``,
              forward and autograd backward) beside the bound from the
-             bytes moved;
+             bytes moved; LayerNorm warm (one input) and cold (inputs
+             rotated over four times the L2), and the forward's scalar
+             kernel, which the vector kernel took over at D = 768;
 9. flash-kernels — the flash-attention forward, dQ and dK/dV kernels
              against their plain versions on the card: the bench_gpt
              shape (B*H = 192, L = 1024, D = 64, bfloat16, causal),
@@ -71,7 +73,8 @@ any failed check:
              give the same losses within BF16_TRAIN_LOSS_TOL;
 11. flash-timing — each flash kernel at the path's shape: kernel, plain
              version and ``F.scaled_dot_product_attention(is_causal=True)``
-             (forward; its autograd backward for both backward kernels),
+             (forward; its autograd backward for both backward kernels,
+             and beside the two backward kernels launched back to back),
              beside the bound at the bfloat16 tensor-core rate.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
@@ -79,6 +82,7 @@ line, and as its last line ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or away from the repo, it exits non-zero and prints no
 result.
 """
+import itertools
 import json
 import os
 import subprocess
@@ -113,6 +117,12 @@ FLASH_BF16_STEP = 2 ** -7      # a bfloat16 keeps 8 significant bits
 # tools/torch_planted_faults.py plants dV = 0 in the flash dK/dV kernel:
 # its losses leave the honest run's by 0, 7.2e-2, 3.6e-1, 5.3e-1 and fail
 BF16_TRAIN_LOSS_TOL = 1e-2
+# a timed run's launches are queued while the card spins this many cycles
+# (~20 ms at the H100's 1.98 GHz), longer than the host takes to issue them
+QUEUE_CYCLES = 40_000_000
+# LayerNorm's cold timing rotates over at least this many bytes of inputs
+# and outputs: four times the H100's 50 MB L2
+COLD_BYTES = 200 * 10 ** 6
 # the training configurations of the main path, driven by phases 7 and 10
 # and profiled by tools/torch_train_profile.py: gpt_small at full width and
 # depth, batch x 1024 ids from RandomState(0), AdamW(1e-4, decay 0.01) with
@@ -147,13 +157,26 @@ def gpu_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def rotating(fns):
+    """One callable that calls ``fns`` in turn, one a call."""
+    turn = itertools.cycle(fns)
+    return lambda: next(turn)()
+
+
 def cuda_ms(fn, iters, warmup=3):
+    """Milliseconds of the card's time a call of ``fn`` takes: ``iters``
+    calls between two CUDA events, queued while the card spins
+    ``QUEUE_CYCLES``, so that the events time the launches on the card
+    and not how fast the host issues them (a wrapper can take longer to
+    issue a launch than a small kernel takes to run)."""
     import torch
 
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -725,7 +748,16 @@ def train_timing_phase(gpu, N, dtype):
     bench_gpt), beside the least time the card could take: the bytes
     each must move (every input read once, every output written once)
     over 3.35 TB/s against its float32 operations (the kernels compute
-    in float32 whatever the type) over 67 TFLOP/s."""
+    in float32 whatever the type) over 67 TFLOP/s.
+
+    The LayerNorm kernels and their library calls are timed twice: warm,
+    every launch on the same input (which, at 25 MB, may still sit in the
+    50 MB L2 from the launch before), and cold, launches rotating over
+    ``COLD_BYTES`` of distinct inputs and outputs, so that no launch
+    finds its input in L2, as a training step's LayerNorm does not. The
+    row keeps the cold times as ``ms`` and ``library_ms``. Beside the
+    LayerNorm forward, its scalar kernel at the same shape, checked
+    against the plain version and timed warm and cold (logged only)."""
     import torch
     import torch.nn.functional as F
 
@@ -749,6 +781,45 @@ def train_timing_phase(gpu, N, dtype):
     yl = F.layer_norm(xl, (D,), wl, bl, 1e-5)
     cl = logits.clone().requires_grad_()
     lossl = F.cross_entropy(cl, lab, reduction="none")
+
+    # copies for the cold timing: their inputs and outputs come to
+    # COLD_BYTES, so a copy's lines have left L2 before its next turn
+    reps = -(-COLD_BYTES // (2 * N * D * x.element_size()))
+    xs = [torch.randn(N, D, generator=g, device="cuda").to(dtype)
+          for _ in range(reps)]
+    dys = [torch.randn(N, D, generator=g, device="cuda").to(dtype)
+           for _ in range(reps)]
+    stats = [ln.layer_norm_fwd(xi, gamma, beta, 1e-5)[1:] for xi in xs]
+    xls = [xi.clone().requires_grad_() for xi in xs]
+    yls = [F.layer_norm(xi, (D,), wl, bl, 1e-5) for xi in xls]
+    cold = {
+        # name: (kernel, library), each rotating over the copies
+        "layer_norm_fwd": (
+            rotating([lambda xi=xi: ln.layer_norm_fwd(xi, gamma, beta, 1e-5)
+                      for xi in xs]),
+            rotating([lambda xi=xi: F.layer_norm(xi, (D,), gamma, beta,
+                                                 1e-5) for xi in xs])),
+        "layer_norm_bwd": (
+            rotating([lambda i=i: ln.layer_norm_bwd(xs[i], gamma, *stats[i],
+                                                    dys[i])
+                      for i in range(reps)]),
+            rotating([lambda i=i: torch.autograd.grad(
+                yls[i], (xls[i], wl, bl), dys[i], retain_graph=True)
+                for i in range(reps)])),
+    }
+    # PR 2-4's forward, the scalar ln_fwd_kernel, which the vector kernel
+    # took over at this width: an x one element past a 16-byte boundary
+    # sends the forward there (the dispatch in csrc/layernorm.cu)
+    def off16(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view_as(t)
+
+    xos = [off16(xi) for xi in xs]
+    scalar = (lambda: ln.layer_norm_fwd(xos[0], gamma, beta, 1e-5),
+              rotating([lambda xi=xi: ln.layer_norm_fwd(xi, gamma, beta,
+                                                        1e-5)
+                        for xi in xos]))
 
     s, f4, il = x.element_size(), 4, lab.element_size()
     rows = {
@@ -786,12 +857,35 @@ def train_timing_phase(gpu, N, dtype):
         t_ops = flops / F32_FLOP_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"timing {name} N={N} D={D if 'layer' in name else V} "
-            f"{str(dtype).split('.')[-1]}:"
+        tag = (f"timing {name} N={N} D={D if 'layer' in name else V} "
+               f"{str(dtype).split('.')[-1]}")
+        log(f"{tag}{' warm' if name in cold else ''}:"
             f" kernel {ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} "
             f"ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms "
             f"({bound_by}: {nbytes / 1e6:.1f} MB at 3.35 TB/s) = "
             f"{bound / min(ms, ms2) * 100:.1f}% of roofline [{gpu}]")
+        if name in cold:
+            kern_c, lib_c = cold[name]
+            ms = cuda_ms(kern_c, iters)
+            lib_ms = cuda_ms(lib_c, iters)
+            ms2 = cuda_ms(kern_c, iters)
+            log(f"{tag} cold ({reps} copies of its inputs in turn): "
+                f"kernel {ms:.4f} ms (again {ms2:.4f}), library "
+                f"{lib_ms:.4f} ms, bound {bound:.4f} ms = "
+                f"{bound / min(ms, ms2) * 100:.1f}% of roofline [{gpu}]")
+        if name == "layer_norm_fwd":
+            tol = TRAIN_F32_TOL if dtype == torch.float32 else BF16_TOL
+            ok, err = within(scalar[0]()[0], ln.layer_norm_fwd_reference(
+                xos[0], gamma, beta, 1e-5)[0], tol)
+            check(ok, f"{tag} scalar kernel: y disagrees with the plain "
+                  f"version (max abs err {err:.3e})")
+            warm_s, cold_s = cuda_ms(scalar[0], iters), cuda_ms(scalar[1],
+                                                                 iters)
+            log(f"{tag} scalar ln_fwd_kernel (PR 2-4's forward; x off "
+                f"16-byte alignment): warm {warm_s:.4f} ms, cold "
+                f"{cold_s:.4f} ms = {bound / cold_s * 100:.1f}% of roofline"
+                f" (max abs err vs plain {err:.2e}) [{gpu}]")
+        # LayerNorm: the cold times (a training step's inputs are not in L2)
         out[name] = dict(ms=min(ms, ms2), plain_ms=plain_ms,
                          bound_ms=bound, bound_by=bound_by,
                          library_ms=lib_ms)
@@ -960,6 +1054,22 @@ def flash_timing_phase(gpu):
             f"roofline; {flops / min(ms, ms2) / 1e9:.1f} TFLOP/s [{gpu}]")
         out[name] = dict(ms=min(ms, ms2), plain_ms=plain_ms, bound_ms=bound,
                          bound_by=bound_by, library_ms=lib_ms)
+    # the port's whole backward, dQ then dK/dV, beside the library's (the
+    # rows above set one gradient beside a call that computes three); its
+    # bound: read q, k, v, dO, lse, delta, write dQ, dK, dV; S, dP, dQ, dK
+    # and dV, two operations a multiply-add each
+    bwd_lib = rows["flash_attention_bwd_dq"][2]
+
+    def bwd():
+        fa.flash_attention_bwd_dq(*args)
+        fa.flash_attention_bwd_dkv(*args)
+    ms, lib_ms, ms2 = cuda_ms(bwd, 10), cuda_ms(bwd_lib, 10), cuda_ms(bwd, 10)
+    bound = max((7 * t + 2 * row) / HBM_BYTES_PER_S,
+                10 * D * pairs / BF16_FLOP_PER_S) * 1e3
+    log(f"timing flash backward (dQ + dK/dV) B*H={BH} L={L} D={D} bfloat16 "
+        f"causal: kernels {ms:.4f} ms (again {ms2:.4f}), library backward "
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms = "
+        f"{bound / min(ms, ms2) * 100:.2f}% of roofline [{gpu}]")
     return out
 
 

@@ -20,11 +20,11 @@
 // Two designs, chosen by a static dispatch on (dtype, D) and never as a
 // fallback:
 //
-//   bfloat16, D = 64 and 128: the forward and dK/dV on the tensor cores
-//     (flash_fwd_tc_kernel, flash_bwd_dkv_tc_kernel, "Tensor-core
-//     kernels" below);
-//   everything else (float32 at every D; bfloat16 dQ; bfloat16 at D =
-//     192 and 256): the CUDA-core kernels, as follows.
+//   bfloat16, D = 64 and 128: the forward, dQ and dK/dV on the tensor
+//     cores (flash_fwd_tc_kernel, flash_bwd_dq_tc_kernel,
+//     flash_bwd_dkv_tc_kernel, "Tensor-core kernels" below);
+//   everything else (float32 at every D; bfloat16 at D = 192 and 256):
+//     the CUDA-core kernels, as follows.
 //
 // Float32 stays on the CUDA cores: no main path runs flash in float32
 // (gpt_small's dropout 0.1 gates it off), and the float32 tolerance
@@ -83,6 +83,20 @@
 //            from the S accumulator registers with no shared-memory
 //            trip, and O += P_hi V + P_lo V (V by ldmatrix.trans). The
 //            loop stops at `last`; heavy causal q-tiles go first.
+//   dQ       one CTA per (bh, 64-row q-tile), each warp 16 query rows,
+//            the lane's two lse and delta values in registers, K and V
+//            through the ring. Per 64-key tile: S = Q K^T and dP = dO
+//            V^T (K and V as B operands), P = exp(S scale - lse) masked
+//            as in the forward, dS = P o (dP - delta) in dP's
+//            accumulator registers, dQ += dS_hi K + dS_lo K (K by
+//            ldmatrix.trans), times scale at the end: 4 MMA units a
+//            (q, k) tile pair. Q's and dO's A fragments stay in registers
+//            at D = 64; at D = 128 they are read again from shared memory
+//            every k-tile, which keeps dQ (64 registers), S and dP (64)
+//            clear of spills. The loop stops at `last`; heavy causal
+//            q-tiles go first. One CTA writes each dQ row, with no
+//            atomics (FlashAttention-2 adds dQ from the dK/dV CTAs with
+//            float32 atomics, which would change its bits run to run).
 //   dK/dV    one CTA per (bh, 64-key tile), each warp 16 keys, in the
 //            transposed form so that every intermediate stays in
 //            registers: S^T = K Q^T, P^T = exp(S^T scale - lse_col),
@@ -101,9 +115,10 @@
 // Bound on an H100 SXM at the bench_gpt shape (BH = 192, L = 1024,
 // D = 64, causal, bfloat16): counted at the bfloat16 tensor-core rate
 // (989 TFLOP/s) against 3.35 TB/s, the forward is bound by its bytes
-// (~0.030 ms), dQ by both (~0.039 ms) and dK/dV by its operations
-// (~0.052 ms). The split doubles the MMAs of P V, P^T dO and dS^T Q:
-// 1.5x the products of the forward and of dK/dV. mma.sync reaches only part of the card's 989 TFLOP/s (wgmma, fed by
+// (~0.030 ms), dQ by its operations (~0.039 ms) and dK/dV by its
+// operations (~0.052 ms). The split doubles the MMAs of P V, dS K, P^T dO
+// and dS^T Q: 1.5x the products of the forward and of dK/dV, 4/3 of dQ's.
+// mma.sync reaches only part of the card's 989 TFLOP/s (wgmma, fed by
 // TMA, is the full path), so the tensor-core kernels aim at a few times
 // that bound, not at the bound.
 #include <cuda_bf16.h>
@@ -892,6 +907,156 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
+                       const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       bf16* __restrict__ dq, int Lq, int Lk, float scale,
+                       int causal) {
+  using C = TcCfg<D>;
+  constexpr int BM = C::BM, BN = C::BN, LD = C::LD, KC = C::KC;
+  constexpr int NT = BN / 8;  // n-tiles of S and dP
+  constexpr int DT = D / 8;   // n-tiles of dQ
+  // Q's and dO's A fragments live in registers at D = 64; at D = 128 they
+  // would take 64 of them beside dQ's 64 and S's and dP's 64, so they are
+  // read from shared memory again every k-tile
+  constexpr bool kHold = D <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + BM * LD;
+  bf16* ks = dos + BM * LD;     // two stages
+  bf16* vs = ks + 2 * BN * LD;  // two stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (Lq + BM - 1) / BM, nk = (Lk + BN - 1) / BN;
+  const int qi = nq - 1 - blockIdx.x;  // the longest causal loops first
+  const int bh = blockIdx.y;
+  const int q0 = qi * BM, offset = Lk - Lq;
+  const int wr = warp * 16;  // the warp's first row in the q-tile
+  const int row_a = q0 + wr + g, row_b = row_a + 8;  // this lane's rows
+  const bf16* kb = k + (size_t)bh * Lk * D;
+  const bf16* vb = v + (size_t)bh * Lk * D;
+  // (flash_attention.py:104-105)
+  const int last = causal ? min(nk, (q0 + BM + BN - 1 + offset) / BN) : nk;
+
+  tile_async<D, BM>(qs, q + (size_t)bh * Lq * D, q0, Lq);
+  tile_async<D, BM>(dos, dout + (size_t)bh * Lq * D, q0, Lq);
+  if (last > 0) {
+    tile_async<D, BN>(ks, kb, 0, Lk);
+    tile_async<D, BN>(vs, vb, 0, Lk);
+  }
+  tc::cp_async_commit();
+  // rows past Lq get 0 and are never written
+  const float lse_r[2] = {row_a < Lq ? lse[(size_t)bh * Lq + row_a] : 0.f,
+                          row_b < Lq ? lse[(size_t)bh * Lq + row_b] : 0.f};
+  const float dlt_r[2] = {
+      row_a < Lq ? delta[(size_t)bh * Lq + row_a] : 0.f,
+      row_b < Lq ? delta[(size_t)bh * Lq + row_b] : 0.f};
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[kHold ? KC : 1][4], gf[kHold ? KC : 1][4];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      ldsm_a<LD>(qf[kc], qs, wr, kc, lane);
+      ldsm_a<LD>(gf[kc], dos, wr, kc, lane);
+    }
+  }
+
+  float acc[DT][4] = {};
+  for (int kt = 0; kt < last; ++kt) {
+    if (kt + 1 < last) {  // the next tile into the other stage
+      const int st = (kt + 1) & 1;
+      tile_async<D, BN>(ks + st * BN * LD, kb, (kt + 1) * BN, Lk);
+      tile_async<D, BN>(vs + st * BN * LD, vb, (kt + 1) * BN, Lk);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // this tile has landed
+    __syncthreads();
+    const bf16* kst = ks + (kt & 1) * BN * LD;
+    const bf16* vst = vs + (kt & 1) * BN * LD;
+    const int k0 = kt * BN;
+
+    // S = Q K^T and dP = dO V^T: 16 queries x BN keys a warp
+    float s[NT][4] = {}, dp[NT][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4], ga[4];
+      if constexpr (kHold) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qa[i] = qf[kc][i];
+          ga[i] = gf[kc][i];
+        }
+      } else {
+        ldsm_a<LD>(qa, qs, wr, kc, lane);
+        ldsm_a<LD>(ga, dos, wr, kc, lane);
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldsm_nk<LD>(b, kst, np * 16, kc, lane);
+        tc::mma(s[2 * np], qa, b[0], b[1]);
+        tc::mma(s[2 * np + 1], qa, b[2], b[3]);
+        ldsm_nk<LD>(b, vst, np * 16, kc, lane);
+        tc::mma(dp[2 * np], ga, b[0], b[1]);
+        tc::mma(dp[2 * np + 1], ga, b[2], b[3]);
+      }
+    }
+
+    // P = exp(S scale - lse), 0 past Lk, and dS = P (dP - delta), in the
+    // registers of dP
+    const bool edge =
+        k0 + BN > Lk || (causal && q0 + wr + offset < k0 + BN - 1);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float x = s[j][e] * scale;
+        bool zero = false;
+        if (edge) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          x = masked(x, i ? row_b : row_a, col, offset, causal);
+          zero = col >= Lk;
+        }
+        const float p = zero ? 0.f : exp2f((x - lse_r[i]) * kLog2e);
+        dp[j][e] = p * (dp[j][e] - dlt_r[i]);
+      }
+
+    // dQ += dS K, dS in two bfloat16 halves straight from the registers
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      split_a(dp[2 * kk], dp[2 * kk + 1], hi, lo);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t b[4];
+        ldsm_kn<LD>(b, kst, kk * 16, dd * 16, lane);
+        mma_split(acc[2 * dd], acc[2 * dd + 1], hi, lo, b);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before refill
+  }
+  tc::cp_async_wait<0>();  // no copy outlives the CTA
+
+  const int rows[2] = {row_a, row_b};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= Lq) continue;
+    bf16* row = dq + ((size_t)bh * Lq + rows[i]) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + j * 8) =
+          __floats2bfloat162_rn(acc[j][2 * i] * scale,
+                                acc[j][2 * i + 1] * scale);
+  }
+}
+
 template <typename K>
 int set_smem(K* fn, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -918,6 +1083,11 @@ constexpr size_t fwd_tc_smem() {
   return sizeof(bf16) * (C::BM + 4 * C::BN) * C::LD;
 }
 template <int D>
+constexpr size_t dq_tc_smem() {
+  using C = TcCfg<D>;
+  return sizeof(bf16) * (2 * C::BM + 4 * C::BN) * C::LD;
+}
+template <int D>
 constexpr size_t dkv_tc_smem() {
   using C = TcCfg<D>;
   return sizeof(bf16) * (2 * C::BN + 4 * C::BQ) * C::LD +
@@ -926,6 +1096,7 @@ constexpr size_t dkv_tc_smem() {
 static_assert(dkv_smem<128>() <= 232448 && dkv_smem<256>() <= 232448 &&
                   fwd_smem<256>() <= 232448 && dq_smem<128>() <= 232448 &&
                   fwd_tc_smem<128>() <= 232448 &&
+                  dq_tc_smem<128>() <= 232448 &&
                   dkv_tc_smem<128>() <= 232448,
               "a tile does not fit a CTA's shared memory");
 
@@ -990,6 +1161,22 @@ int fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 template <int D>
+int bwd_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int BH, int Lq,
+              int Lk, float scale, int causal, cudaStream_t s) {
+  constexpr size_t smem = dq_tc_smem<D>();
+  int err = set_smem(flash_bwd_dq_tc_kernel<D>, smem);
+  if (err) return err;
+  const dim3 grid((Lq + TcCfg<D>::BM - 1) / TcCfg<D>::BM, BH);
+  flash_bwd_dq_tc_kernel<D><<<grid, kTcThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), Lq, Lk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int BH,
                int Lq, int Lk, float scale, int causal, cudaStream_t s) {
@@ -1006,9 +1193,8 @@ int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // returns CALL(T, D) for the (dtype, D) pair, TC(D) for the bfloat16 pairs
-// that have a tensor-core kernel (TC is CALL with T = bfloat16 where
-// there is none), or cudaErrorInvalidValue for a pair that is not
-// instantiated
+// that have a tensor-core kernel, or cudaErrorInvalidValue for a pair
+// that is not instantiated
 #define DISPATCH(dtype, D, CALL, TC)                              \
   switch ((dtype) * 1000 + (D)) {                                 \
     case 64: return CALL(float, 64);                              \
@@ -1052,9 +1238,10 @@ int flash_attention_bwd_dq_launch(int dtype, int D, const void* q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DQ(T, DD) \
   bwd_dq<T, DD>(q, k, v, dout, lse, delta, dq, BH, Lq, Lk, scale, causal, s)
-#define DQ_BF16(DD) DQ(__nv_bfloat16, DD)
-  DISPATCH(dtype, D, DQ, DQ_BF16)
-#undef DQ_BF16
+#define DQ_TC(DD) \
+  bwd_dq_tc<DD>(q, k, v, dout, lse, delta, dq, BH, Lq, Lk, scale, causal, s)
+  DISPATCH(dtype, D, DQ, DQ_TC)
+#undef DQ_TC
 #undef DQ
 }
 

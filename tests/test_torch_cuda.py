@@ -140,8 +140,13 @@ def _ce_bwd_scale(x, lab, lse, g):
 
 
 @pytest.mark.parametrize("dtype, tol", TRAIN_TOLS)
-@pytest.mark.parametrize("N, D", [(8, 128), (13, 768), (1024, 256)])
+@pytest.mark.parametrize("N, D", [(8, 128), (13, 768), (1024, 256),
+                                  (37, 100), (5, ln.MAX_D)])
 def test_layer_norm_kernels_match_plain_versions(hopper, N, D, dtype, tol):
+    """Every path of the forward's dispatch on D: 16-byte vectors with
+    the row in registers (128, 768, 256; 100 in float32), scalar loads
+    through shared memory (100 in bfloat16, not a whole number of 8-wide
+    vectors; MAX_D, wider than the register tile)."""
     g = torch.Generator().manual_seed(N + D)
     x, dy = ((torch.randn(N, D, generator=g) * 2 + 0.5).to(hopper, dtype)
              for _ in range(2))
@@ -241,8 +246,8 @@ def _flash_close(out, ref, grad):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Lq, Lk, D, causal", [
     (128, 128, 64, True), (128, 384, 64, True), (256, 256, 128, False),
-    (100, 300, 64, True), (200, 328, 128, True), (128, 128, 192, False),
-    (64, 128, 256, True)])
+    (100, 300, 64, True), (200, 328, 128, True), (136, 264, 128, False),
+    (128, 128, 192, False), (64, 128, 256, True)])
 def test_flash_kernels_match_plain_versions(hopper, Lq, Lk, D, causal,
                                             dtype):
     g = torch.Generator().manual_seed(Lq + Lk + D)
@@ -255,9 +260,10 @@ def test_flash_kernels_match_plain_versions(hopper, Lq, Lk, D, causal,
     dq = fa.flash_attention_bwd_dq(*args)
     dk, dv = fa.flash_attention_bwd_dkv(*args)
     dk2, dv2 = fa.flash_attention_bwd_dkv(*args)
+    dq2 = fa.flash_attention_bwd_dq(*args)
     torch.cuda.synchronize()
     after = kernels.launches()
-    for name, n in (("flash_attention_fwd", 1), ("flash_attention_bwd_dq", 1),
+    for name, n in (("flash_attention_fwd", 1), ("flash_attention_bwd_dq", 2),
                     ("flash_attention_bwd_dkv", 2)):
         assert after[name] == before[name] + n
     ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
@@ -269,6 +275,7 @@ def test_flash_kernels_match_plain_versions(hopper, Lq, Lk, D, causal,
     _flash_close(dv, rdv, True)
     # no atomics: the same bits on every run
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, dq2)
 
 
 def test_flash_wrappers_raise_on_bad_arguments(hopper):

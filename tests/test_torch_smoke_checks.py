@@ -10,9 +10,9 @@ honest result (the same function evaluated in float64, then rounded)
 must pass.
 
 The flash checks (``flash_close``) get the same treatment, and the
-arithmetic of the bfloat16 tensor-core flash kernels is emulated here
-against them: P and dS split into two bfloat16 halves pass, P and dS
-rounded once fail.
+arithmetic of the bfloat16 tensor-core flash kernels (forward, dQ and
+dK/dV) is emulated here against them: P and dS split into two bfloat16
+halves pass, P and dS rounded once fail.
 """
 import pathlib
 import re
@@ -147,8 +147,8 @@ def _tc_product(x, b, split):
 
 
 def _tc_emulation(q, k, v, do, lse, delta, causal, scale, split):
-    """O, dK and dV as the bfloat16 forward and dK/dV kernels compute
-    them (``csrc/flash_attention.cu``), with P and dS split in two
+    """O, dK, dV and dQ as the bfloat16 forward, dK/dV and dQ kernels
+    compute them (``csrc/flash_attention.cu``), with P and dS split in two
     bfloat16 halves or rounded once."""
     B, H, Lq, _ = q.shape
     s = _tc_scores(q, k, causal, scale)
@@ -159,19 +159,20 @@ def _tc_emulation(q, k, v, do, lse, delta, causal, scale, split):
     ds = p * (dp - delta.reshape(B, H, Lq, 1))
     dv = _tc_product(p.transpose(-1, -2), do, split)
     dk = _tc_product(ds.transpose(-1, -2), q, split) * scale
-    return o.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dq = _tc_product(ds, k, split) * scale
+    return o.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dq.to(q.dtype)
 
 
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("Lq, Lk", [(128, 128), (64, 192)])
+@pytest.mark.parametrize("Lq, Lk", [(128, 128), (64, 192), (1024, 1024)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_tensor_core_arithmetic_needs_p_and_ds_in_two_halves(causal, Lq, Lk,
                                                              D):
     """The tensor-core kernels' arithmetic, emulated in torch: bfloat16
     q, k, v and dO, float32 sums, the scale after the product, and P and
     dS split into hi + lo bfloat16 halves, passes ``flash_close`` against
-    the plain versions for O, dK and dV. The same arithmetic with P and dS
-    rounded once to bfloat16 fails it on each of the three."""
+    the plain versions for O, dK, dV and dQ. The same arithmetic with P
+    and dS rounded once to bfloat16 fails it on each of the four."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     g = torch.Generator().manual_seed(Lq + Lk + D)
@@ -180,10 +181,12 @@ def test_tensor_core_arithmetic_needs_p_and_ds_in_two_halves(causal, Lq, Lk,
     scale = D ** -0.5
     o, lse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
     args = (q, k, v, do, lse, fa.flash_delta(o, do), causal, scale)
-    refs = (o, *fa.flash_attention_bwd_dkv_reference(*args))
+    refs = (o, *fa.flash_attention_bwd_dkv_reference(*args),
+            fa.flash_attention_bwd_dq_reference(*args))
     split = _tc_emulation(*args, split=True)
     once = _tc_emulation(*args, split=False)
-    for name, ref, two, one in zip(("O", "dK", "dV"), refs, split, once):
+    for name, ref, two, one in zip(("O", "dK", "dV", "dQ"), refs, split,
+                                   once):
         grad = name != "O"
         assert cs.flash_close(two, ref, grad)[0], name
         assert not cs.flash_close(one, ref, grad)[0], name

@@ -23,7 +23,9 @@ one more step under ``torch.profiler`` and prints device time by kernel
 group (the flash, LayerNorm and cross-entropy kernels, matrix products,
 the attention softmax, dropout's random numbers, other elementwise and
 reduction kernels, memory copies and sets) and the device's busy share
-of that step's wall time. ``--json`` also writes the numbers to a file.
+of that step's wall time, and the host's time to issue one LayerNorm
+wrapper call and one ``F.layer_norm`` at the step's shape.
+``--json`` also writes the numbers to a file.
 Needs one CUDA card.
 """
 import argparse
@@ -40,8 +42,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402
 
 GROUPS = (("flash_attention", ("flash_fwd_", "flash_bwd_")),
-          ("layer_norm", ("ln_fwd_kernel", "ln_bwd_kernel",
-                          "ln_bwd_reduce_kernel")),
+          ("layer_norm", ("ln_fwd_", "ln_bwd_")),
           ("softmax_ce", ("ce_fwd_kernel", "ce_bwd_kernel")),
           ("matmul", ("gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")),
           ("attention_softmax", ("softmax",)),
@@ -49,6 +50,23 @@ GROUPS = (("flash_attention", ("flash_fwd_", "flash_bwd_")),
           ("reduce", ("reduce_kernel",)),
           ("elementwise", ("elementwise", "vectorized", "unrolled")),
           ("copy", ("Memcpy", "memcpy", "Memset")))
+
+
+def host_us(fn, iters=50):
+    """Microseconds the host takes to issue one call of ``fn``, with the
+    card kept busy (``chip_smoke.QUEUE_CYCLES``) so that no call waits
+    for it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(chip_smoke.QUEUE_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
 
 
 def _group(name):
@@ -127,6 +145,23 @@ def main(argv=None):
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
     launches = kernels.launches()
+    # the host's cost of one LayerNorm launch at the step's shape, beside
+    # the library call's: a step makes 50 of them
+    from paddle_tpu_torch.ops.kernels import layernorm as ln
+
+    dtype = next(model.parameters()).dtype
+    x, dy = (torch.randn(B * L, cfg.hidden, device="cuda").to(dtype)
+             for _ in range(2))
+    gamma, beta = torch.ones_like(x[0]), torch.zeros_like(x[0])
+    _, mean, rstd = ln.layer_norm_fwd(x, gamma, beta, 1e-5)
+    issue_us = {
+        "layer_norm_fwd": host_us(
+            lambda: ln.layer_norm_fwd(x, gamma, beta, 1e-5)),
+        "layer_norm_bwd": host_us(
+            lambda: ln.layer_norm_bwd(x, gamma, mean, rstd, dy)),
+        "F.layer_norm": host_us(lambda: torch.nn.functional.layer_norm(
+            x, (cfg.hidden,), gamma, beta, 1e-5)),
+    }
     device, top = {}, []
     for e in prof.key_averages():
         # device-side events only: a CPU op's self device time is its
@@ -153,6 +188,7 @@ def main(argv=None):
         "device_ms": {k: v / 1e3 for k, v in sorted(device.items())},
         "device_busy_ms": busy_ms if busy_ms else None,
         "device_busy_share": busy_ms / prof_wall if busy_ms else None,
+        "host_issue_us": issue_us,
     }
     print(f"train step (gpt_small, {args.config}, batch {B} x {L}): "
           f"wall ms " + " ".join(f"{w:.1f}" for w in walls)
@@ -161,6 +197,8 @@ def main(argv=None):
               f"{k} {v:.1f} ms" for k, v in med.items())
           + f"; peak memory {out['peak_memory_gib']:.1f} GiB")
     print(f"profiled step: wall {prof_wall:.1f} ms; launches {launches}")
+    print(f"host time to issue one call at ({B * L}, {cfg.hidden}): "
+          + ", ".join(f"{k} {v:.1f} us" for k, v in issue_us.items()))
     if busy_ms:
         print(f"device busy {busy_ms:.1f} ms = "
               f"{out['device_busy_share'] * 100:.1f}% of wall; by group: "
