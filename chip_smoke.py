@@ -15,7 +15,7 @@ any failed check:
              ragged lengths (0, 1, page edges, ~2000), shuffled pages,
              float32 (tolerance 2e-5) and bfloat16 pools (2e-2), at the
              serving width (H=12, D=64, page 16) and a narrow one (H=2,
-             D=8); zero-length lanes exactly 0;
+             D=8); zero-length lanes exactly 0; two calls the same bits;
 3. engine  — the main path at the full width of gpt_small (vocab 50304,
              12 heads x 64): 16 requests, prompts of 128-2048 tokens from
              RandomState(0), 32 new tokens each, through ``submit`` and
@@ -52,8 +52,9 @@ any failed check:
              (``F.layer_norm`` and ``F.cross_entropy(reduction="none")``,
              forward and autograd backward) beside the bound from the
              bytes moved; LayerNorm warm (one input) and cold (inputs
-             rotated over four times the L2), and the forward's scalar
-             kernel, which the vector kernel took over at D = 768;
+             rotated over four times the L2), and the scalar kernels,
+             which the vector kernels took over at D = 768 (reached with
+             an x off 16-byte alignment, held to the plain versions);
 9. flash-kernels — the flash-attention forward, dQ and dK/dV kernels
              against their plain versions on the card: the bench_gpt
              shape (B*H = 192, L = 1024, D = 64, bfloat16, causal),
@@ -166,23 +167,34 @@ def rotating(fns):
 def cuda_ms(fn, iters, warmup=3):
     """Milliseconds of the card's time a call of ``fn`` takes: ``iters``
     calls between two CUDA events, queued while the card spins
-    ``QUEUE_CYCLES``, so that the events time the launches on the card
-    and not how fast the host issues them (a wrapper can take longer to
-    issue a launch than a small kernel takes to run)."""
+    ``QUEUE_CYCLES`` or more, so that the events time the launches on
+    the card and not how fast the host issues them (a wrapper can take
+    longer to issue a launch than a small kernel takes to run). The spin
+    grows until it outlasts the host's issuing of the calls."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(QUEUE_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    cycles = QUEUE_CYCLES
+    while True:
+        spin, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        torch.cuda.synchronize()
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        end.record()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        # the card still spun when the host had issued every launch, so
+        # the events timed the card; else spin longer (a slow host)
+        if (spin.elapsed_time(start) > issue_ms
+                or cycles >= 64 * QUEUE_CYCLES):
+            return start.elapsed_time(end) / iters
+        cycles *= 4
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -230,6 +242,7 @@ def kernel_phase():
                            (torch.bfloat16, BF16_TOL)):
             args = paged_inputs(lengths, H, D, page, P, dtype, seed=len(errs))
             out = pa.paged_decode_attention(*args)
+            again = pa.paged_decode_attention(*args)
             torch.cuda.synchronize()
             ref = pa.paged_decode_attention_reference(*args)
             torch.cuda.synchronize()
@@ -244,6 +257,8 @@ def kernel_phase():
                   f"with its plain version (max abs err {err})")
             check(bool((out[zero] == 0).all()),
                   f"{name}: zero-length lane is not exactly 0")
+            check(torch.equal(out, again), f"{name} {dtype}: two calls "
+                  f"give different bits")
             errs[(name, dtype)] = err
     return errs
 
@@ -755,8 +770,8 @@ def train_timing_phase(gpu, N, dtype):
     50 MB L2 from the launch before), and cold, launches rotating over
     ``COLD_BYTES`` of distinct inputs and outputs, so that no launch
     finds its input in L2, as a training step's LayerNorm does not. The
-    row keeps the cold times as ``ms`` and ``library_ms``. Beside the
-    LayerNorm forward, its scalar kernel at the same shape, checked
+    row keeps the cold times as ``ms`` and ``library_ms``. Beside each
+    LayerNorm kernel, its scalar kernel at the same shape, checked
     against the plain version and timed warm and cold (logged only)."""
     import torch
     import torch.nn.functional as F
@@ -807,19 +822,31 @@ def train_timing_phase(gpu, N, dtype):
                 yls[i], (xls[i], wl, bl), dys[i], retain_graph=True)
                 for i in range(reps)])),
     }
-    # PR 2-4's forward, the scalar ln_fwd_kernel, which the vector kernel
-    # took over at this width: an x one element past a 16-byte boundary
-    # sends the forward there (the dispatch in csrc/layernorm.cu)
+    # the scalar kernels, ln_fwd_kernel and ln_bwd_kernel, which the
+    # vector kernels took over at this width: an x one element past a
+    # 16-byte boundary sends both there (the dispatch in csrc/layernorm.cu)
     def off16(t):
         buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
         buf[1:].copy_(t.reshape(-1))
         return buf[1:].view_as(t)
 
     xos = [off16(xi) for xi in xs]
-    scalar = (lambda: ln.layer_norm_fwd(xos[0], gamma, beta, 1e-5),
-              rotating([lambda xi=xi: ln.layer_norm_fwd(xi, gamma, beta,
-                                                        1e-5)
-                        for xi in xos]))
+    scalar = {
+        # name: (warm, cold, the plain version's output, the kernel's)
+        "layer_norm_fwd": (
+            lambda: ln.layer_norm_fwd(xos[0], gamma, beta, 1e-5),
+            rotating([lambda xi=xi: ln.layer_norm_fwd(xi, gamma, beta,
+                                                      1e-5)
+                      for xi in xos]),
+            lambda: ln.layer_norm_fwd_reference(xos[0], gamma, beta, 1e-5)),
+        "layer_norm_bwd": (
+            lambda: ln.layer_norm_bwd(xos[0], gamma, *stats[0], dys[0]),
+            rotating([lambda i=i: ln.layer_norm_bwd(xos[i], gamma,
+                                                    *stats[i], dys[i])
+                      for i in range(reps)]),
+            lambda: ln.layer_norm_bwd_reference(xos[0], gamma, *stats[0],
+                                                dys[0])),
+    }
 
     s, f4, il = x.element_size(), 4, lab.element_size()
     rows = {
@@ -873,18 +900,28 @@ def train_timing_phase(gpu, N, dtype):
                 f"kernel {ms:.4f} ms (again {ms2:.4f}), library "
                 f"{lib_ms:.4f} ms, bound {bound:.4f} ms = "
                 f"{bound / min(ms, ms2) * 100:.1f}% of roofline [{gpu}]")
-        if name == "layer_norm_fwd":
+        if name in scalar:
+            warm_k, cold_k, plain_k = scalar[name]
             tol = TRAIN_F32_TOL if dtype == torch.float32 else BF16_TOL
-            ok, err = within(scalar[0]()[0], ln.layer_norm_fwd_reference(
-                xos[0], gamma, beta, 1e-5)[0], tol)
-            check(ok, f"{tag} scalar kernel: y disagrees with the plain "
-                  f"version (max abs err {err:.3e})")
-            warm_s, cold_s = cuda_ms(scalar[0], iters), cuda_ms(scalar[1],
-                                                                 iters)
-            log(f"{tag} scalar ln_fwd_kernel (PR 2-4's forward; x off "
-                f"16-byte alignment): warm {warm_s:.4f} ms, cold "
-                f"{cold_s:.4f} ms = {bound / cold_s * 100:.1f}% of roofline"
-                f" (max abs err vs plain {err:.2e}) [{gpu}]")
+            got, want = warm_k(), plain_k()
+            scales = [None]
+            if name == "layer_norm_bwd":   # dgamma, dbeta: sums over N rows
+                g0 = dys[0].float()
+                xhat = (xos[0].float() - stats[0][0]) * stats[0][1]
+                scales += [(g0 * xhat).abs().sum(0), g0.abs().sum(0)]
+            err = 0.0
+            for o, r, sc in zip(got, want, scales):
+                ok, e = within(o, r, tol, sc)
+                check(ok, f"{tag} scalar kernel disagrees with the plain "
+                      f"version (max abs err {e:.3e})")
+                err = max(err, e)
+            warm_s, cold_s = cuda_ms(warm_k, iters), cuda_ms(cold_k, iters)
+            kern = ("ln_fwd_kernel" if name == "layer_norm_fwd" else
+                    "ln_bwd_kernel + ln_bwd_reduce_kernel")
+            log(f"{tag} scalar {kern} (x off 16-byte alignment): warm "
+                f"{warm_s:.4f} ms, cold {cold_s:.4f} ms = "
+                f"{bound / cold_s * 100:.1f}% of roofline (max abs err vs "
+                f"plain {err:.2e}) [{gpu}]")
         # LayerNorm: the cold times (a training step's inputs are not in L2)
         out[name] = dict(ms=min(ms, ms2), plain_ms=plain_ms,
                          bound_ms=bound, bound_by=bound_by,

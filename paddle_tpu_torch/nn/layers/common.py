@@ -40,8 +40,10 @@ class Linear(nn.Module):
         self.weight = make_parameter(weight_attr, (in_features,
                                                    out_features),
                                      device, generator)
-        self.bias = make_parameter(bias_attr or Constant(0.0),
-                                   (out_features,), device, generator)
+        # bias_attr=False: no bias, as the reference's create_parameter
+        # returns None for attr False (paddle_tpu/nn/layer.py:78-80)
+        self.bias = None if bias_attr is False else make_parameter(
+            bias_attr or Constant(0.0), (out_features,), device, generator)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)

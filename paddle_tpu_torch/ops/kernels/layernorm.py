@@ -36,10 +36,10 @@ SOURCE = "paddle_tpu_torch/csrc/layernorm.cu"
 REPLACES = "paddle_tpu/ops/pallas/layernorm.py:20"
 REPLACES_BWD = "paddle_tpu/ops/pallas/layernorm.py:33"
 MAX_SMEM_BYTES = 232448   # a block's shared memory on sm_90
-ROWS_PER_CTA = 4          # one warp per row (csrc kWarps)
-BWD_MAX_CTAS = 4 * 132    # four CTAs on each of the H100's SMs
-# the backward keeps two float32 accumulator rows per warp in shared memory
-MAX_D = MAX_SMEM_BYTES // (2 * ROWS_PER_CTA * 4)
+WARPS = 4                 # a CTA of the kernels (csrc kWarps)
+# the scalar backward keeps two float32 accumulator rows per warp in
+# shared memory
+MAX_D = MAX_SMEM_BYTES // (2 * WARPS * 4)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -103,9 +103,13 @@ def _library():
             + [ctypes.c_float, ctypes.c_void_p])
         lib.layer_norm_fwd_launch.restype = ctypes.c_int
         lib.layer_norm_bwd_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+            [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
             + [ctypes.c_void_p])
         lib.layer_norm_bwd_launch.restype = ctypes.c_int
+        lib.layer_norm_bwd_ctas.argtypes = (
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+            + [ctypes.POINTER(ctypes.c_int)])
+        lib.layer_norm_bwd_ctas.restype = ctypes.c_int
         lib.layer_norm_error_string.argtypes = [ctypes.c_int]
         lib.layer_norm_error_string.restype = ctypes.c_char_p
     return lib
@@ -148,19 +152,11 @@ layer_norm_fwd.launches = 0
 layer_norm_fwd.replaces = REPLACES
 
 
-def _bwd_partition(N):
-    """``(G, rows_per_cta)`` of the backward's first kernel for N rows: a
-    function of N alone, so the partial sums — and dgamma/dbeta — come
-    out the same on every run."""
-    ctas = min(-(-N // ROWS_PER_CTA), BWD_MAX_CTAS)
-    rows = -(-N // ctas)
-    return -(-N // rows), rows
-
-
 def layer_norm_bwd(x, gamma, mean, rstd, dy):
     """Backward of ``layer_norm_fwd``: ``(dx, dgamma, dbeta)``, dx in x's
     type, dgamma and dbeta ``(D,)`` float32 (deterministic: per-CTA
-    partials summed in a fixed order, no atomics).
+    partials summed in a fixed order, no atomics; the CTAs are a
+    function of the shapes, the alignment and the card).
 
     CPU tensors (or ``plain_versions()``) take the plain version; CUDA
     tensors launch the kernels or raise — there is no fallback."""
@@ -170,20 +166,29 @@ def layer_norm_bwd(x, gamma, mean, rstd, dy):
     _check(x, gamma, mean=mean, rstd=rstd, dy=dy)
     N, D = x.shape
     dx = torch.empty_like(x)
-    dg = torch.zeros(D, dtype=torch.float32, device=x.device)
-    db = torch.zeros_like(dg)
     if N == 0:
-        return dx, dg, db
-    G, rows = _bwd_partition(N)
-    ws = torch.empty(2, G, D, dtype=torch.float32, device=x.device)
+        dg = torch.zeros(D, dtype=torch.float32, device=x.device)
+        return dx, dg, torch.zeros_like(dg)
+    # the reduce writes every entry
+    dg = torch.empty(D, dtype=torch.float32, device=x.device)
+    db = torch.empty_like(dg)
     lib = _library()
     with torch.cuda.device(x.device):
+        # the rows of the (G, D) dgamma/dbeta workspace: the CTAs of the
+        # kernel the dispatch picks
+        G = ctypes.c_int()
+        rc = lib.layer_norm_bwd_ctas(
+            _DTYPES[x.dtype], N, D, x.data_ptr(), gamma.data_ptr(),
+            dy.data_ptr(), dx.data_ptr(), ctypes.byref(G))
+        _raise_on(lib, rc, "layer_norm_bwd")
+        ws = torch.empty(2, G.value, D, dtype=torch.float32,
+                         device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.layer_norm_bwd_launch(
             _DTYPES[x.dtype], x.data_ptr(), gamma.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             dg.data_ptr(), db.data_ptr(),
-            ws[0].data_ptr(), ws[1].data_ptr(), N, D, G, rows, stream)
+            ws[0].data_ptr(), ws[1].data_ptr(), N, D, G.value, stream)
     _raise_on(lib, rc, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
     return dx, dg, db

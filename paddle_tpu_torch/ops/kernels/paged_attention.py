@@ -41,10 +41,23 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MAX_SMEM_BYTES = 232448   # a block's shared memory on sm_90
+# the kernel splits each lane's live pages into chunks of this many
+# tokens' pages (csrc/paged_attention.cu), and gives a CTA the warps of
+# this many heads of one chunk: the fastest of 64-1024 tokens and 1-12
+# heads at the serving width on an H100 (tools/torch_paged_sweep.py)
+CHUNK_TOKENS = 256
+HEADS_PER_CTA = 4
 SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:46"
 
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def chunk_pages(page):
+    """Pages in one chunk of the kernel's split: a function of the page
+    size alone, so the chunks, and the output's bits, do not depend on
+    the lengths."""
+    return max(1, CHUNK_TOKENS // page)
 
 
 def _scale(D, scale):
@@ -96,7 +109,8 @@ def check_kernel_args(q, k_pages, v_pages, page_table, lengths):
     q float32 ``(B, H, D)`` with D <= 256; pools float32 or bfloat16
     ``(P, page, H, D)`` of one type; int32 ``(B, W)`` table and ``(B,)``
     lengths; all contiguous and on q's device; one page's K and V in
-    shared memory."""
+    float32 within a block's shared memory (the kernel itself keeps no
+    page in shared memory; the limit keeps the accepted shapes fixed)."""
     if q.dim() != 3:
         raise ValueError(f"q must be (B, H, D), got {tuple(q.shape)}")
     B, H, D = q.shape
@@ -136,8 +150,8 @@ def _library():
     lib = _build.load("paged_attention")
     fn = lib.paged_decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         err = lib.paged_decode_attention_error_string
@@ -167,17 +181,23 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     check_kernel_args(q, k_pages, v_pages, page_table, lengths)
     B, H, D = q.shape
     P, page = k_pages.shape[0], k_pages.shape[1]
+    W = page_table.shape[1]
     out = torch.empty_like(q)
-    if B == 0:
-        return out
+    if B == 0 or W == 0:
+        return out.zero_()
+    cp = chunk_pages(page)
+    chunks = -(-W // cp)
+    # each chunk's (acc, m, l), combined by the second kernel
+    part = torch.empty(B, H, chunks, D + 2, dtype=torch.float32,
+                       device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.paged_decode_attention_launch(
             _POOL_DTYPES[k_pages.dtype], q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, H, D, P, page, page_table.shape[1],
-            _scale(D, scale), stream)
+            out.data_ptr(), part.data_ptr(), B, H, D, P, page, W, cp,
+            chunks, min(HEADS_PER_CTA, H), _scale(D, scale), stream)
     if rc != 0:
         msg = lib.paged_decode_attention_error_string(rc).decode()
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA "

@@ -7,7 +7,8 @@ The counterparts of ``paddle_tpu/optim/optimizer.py``'s (:36-131,
   ``p -= lr * (m / (1-b1^t)) / (sqrt(v / (1-b2^t)) + eps)``;
 - AdamW: the Adam step, then decoupled decay ``p -= lr*coeff*p_old``
   on every parameter that ``apply_decay_param_fun(name)`` does not
-  exclude, with ``lr`` scaled by ``lr_ratio(name)`` when given.
+  exclude, with ``lr`` scaled by ``lr_ratio(param)`` when given, where
+  ``param.name`` is the parameter's name.
 
 ``torch.optim.AdamW`` decays before the step and folds the bias
 corrections differently, so it is not this update.
@@ -26,8 +27,8 @@ The learning rate is a float: LR schedulers are not ported yet.
 
 ``parameters`` is an iterable of tensors or of ``(name, tensor)`` pairs
 (``model.named_parameters()``); the names are what
-``apply_decay_param_fun`` and ``lr_ratio`` see (``param_<i>`` when none
-are given).
+``apply_decay_param_fun`` sees and ``lr_ratio`` reads as ``.name``
+(``param_<i>`` when none are given).
 """
 from __future__ import annotations
 
@@ -45,6 +46,18 @@ def _named(parameters):
         else:
             out.append((f"param_{i}", item))
     return out
+
+
+def _sqrt(v):
+    """The float32 square root of ``v``, correctly rounded, as XLA's is.
+    torch's float32 ``sqrt`` on the CPU is not on every host (its vector
+    path differs from the correctly rounded root in about one value in
+    six on an AVX-512 CPU); a float64 root rounded to float32 is, since
+    53 >= 2 * 24 + 2. CUDA's float32 ``sqrt`` is correctly rounded
+    (``tests/test_torch_cuda.py::test_cuda_sqrt_is_correctly_rounded``)."""
+    if v.device.type == "cpu":
+        return torch.sqrt(v.double()).float()
+    return torch.sqrt(v)
 
 
 class Optimizer:
@@ -136,9 +149,23 @@ class Adam(Optimizer):
         s["moment2"] = v = b2 * s["moment2"] + (1 - b2) * g * g
         mhat = m / float(np.float32(1) - b1p)
         vhat = v / float(np.float32(1) - b2p)
-        step = float(np.float32(lr)) * mhat / (torch.sqrt(vhat)
-                                               + self._epsilon)
+        step = float(np.float32(lr)) * mhat / (_sqrt(vhat) + self._epsilon)
         return (p.float() - step).to(p.dtype)
+
+
+class _ParamView:
+    """The parameter as ``lr_ratio`` sees it: the reference calls it with
+    its parameter (``optimizer.py:327-328``), whose ``.name`` is the
+    parameter's name, so ``.name`` is the name the optimizer was given
+    and every other attribute is the tensor's."""
+
+    __slots__ = ("name", "_tensor")
+
+    def __init__(self, name, tensor):
+        self.name, self._tensor = name, tensor
+
+    def __getattr__(self, attr):
+        return getattr(self._tensor, attr)
 
 
 class AdamW(Adam):
@@ -154,7 +181,7 @@ class AdamW(Adam):
 
     def _update(self, name, p, g, s, lr):
         if self._lr_ratio is not None:
-            lr = lr * float(self._lr_ratio(name))
+            lr = lr * float(self._lr_ratio(_ParamView(name, p)))
         new_p = super()._update(name, p, g, s, lr)
         if self._apply_decay_fn is not None and \
                 not self._apply_decay_fn(name):

@@ -68,24 +68,34 @@ def _inputs(lengths, H, D, page, P, W, pool_dtype, device, seed=0):
     return tuple(t.to(device) for t in (q, k, v, table, lengths))
 
 
+# one chunk of the kernel's split over pages at page 16, in tokens
+CHUNK = pa.chunk_pages(16) * 16
+
+
 @pytest.mark.parametrize("pool_dtype, tol", [(torch.float32, F32_TOL),
                                              (torch.bfloat16, BF16_TOL)])
 @pytest.mark.parametrize("geom", [
     # (lengths, H, D, page, P, W)
     ([1, 7, 8, 23, 0], 2, 8, 8, 32, 5),
     ([0, 1, 15, 16, 17, 2000], 12, 64, 16, 512, 128),
+    # exactly one chunk, one token past it, a 2049-token lane
+    ([CHUNK, CHUNK + 1, 2049, 0, 3], 12, 64, 16, 512, 129),
+    ([CHUNK, CHUNK + 1, 2049, 0], 2, 100, 16, 512, 160),
 ])
 def test_kernel_matches_plain_version(hopper, geom, pool_dtype, tol):
     lengths, H, D, page, P, W = geom
     args = _inputs(lengths, H, D, page, P, W, pool_dtype, hopper)
     before = pa.paged_decode_attention.launches
     out = pa.paged_decode_attention(*args)
+    again = pa.paged_decode_attention(*args)
     torch.cuda.synchronize()
-    assert pa.paged_decode_attention.launches == before + 1
+    assert pa.paged_decode_attention.launches == before + 2
     ref = pa.paged_decode_attention_reference(*args)
     torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
     zero = args[4] == 0
     assert torch.all(out[zero] == 0)
+    # the chunks are combined in a fixed order: the same bits every call
+    assert torch.equal(out, again)
 
 
 def test_kernel_raises_on_cuda_instead_of_falling_back(hopper):
@@ -139,19 +149,46 @@ def _ce_bwd_scale(x, lab, lse, g):
     return scale
 
 
+def _off16(t):
+    """``t``'s values one element past a 16-byte boundary: the dispatch
+    then sends the LayerNorm kernels to their scalar versions."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view_as(t)
+
+
 @pytest.mark.parametrize("dtype, tol", TRAIN_TOLS)
 @pytest.mark.parametrize("N, D", [(8, 128), (13, 768), (1024, 256),
-                                  (37, 100), (5, ln.MAX_D)])
+                                  (37, 100), (5, ln.MAX_D), (9, 1024),
+                                  (9, 1028), (9, 1032)])
 def test_layer_norm_kernels_match_plain_versions(hopper, N, D, dtype, tol):
-    """Every path of the forward's dispatch on D: 16-byte vectors with
-    the row in registers (128, 768, 256; 100 in float32), scalar loads
-    through shared memory (100 in bfloat16, not a whole number of 8-wide
-    vectors; MAX_D, wider than the register tile)."""
+    """Every path of the dispatch on D: 16-byte vectors with the row in
+    registers (128, 768, 256; 100 in float32; the backward's last
+    vector width, 1024 = 8 float32 or 4 bfloat16 vectors a lane), scalar
+    loads (100 in bfloat16, not a whole number of 8-wide vectors; 1028
+    and 1032, one vector past the backward's vector path in bfloat16 and
+    float32; MAX_D, wider than the register tile)."""
     g = torch.Generator().manual_seed(N + D)
     x, dy = ((torch.randn(N, D, generator=g) * 2 + 0.5).to(hopper, dtype)
              for _ in range(2))
     gamma, beta = (torch.randn(D, generator=g).to(hopper, dtype)
                    for _ in range(2))
+    _check_layer_norm(x, dy, gamma, beta, tol)
+
+
+@pytest.mark.parametrize("dtype, tol", TRAIN_TOLS)
+def test_layer_norm_kernels_off_16_byte_alignment(hopper, dtype, tol):
+    """An x one element off a 16-byte boundary at D = 768 takes the
+    scalar kernels, with the same checks."""
+    g = torch.Generator().manual_seed(768)
+    x, dy = ((torch.randn(13, 768, generator=g) * 2 + 0.5).to(hopper, dtype)
+             for _ in range(2))
+    gamma, beta = (torch.randn(768, generator=g).to(hopper, dtype)
+                   for _ in range(2))
+    _check_layer_norm(_off16(x), dy, gamma, beta, tol)
+
+
+def _check_layer_norm(x, dy, gamma, beta, tol):
     before = kernels.launches()
     y, mean, rstd = ln.layer_norm_fwd(x, gamma, beta, 1e-5)
     dx, dg, db = ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
@@ -172,6 +209,17 @@ def test_layer_norm_kernels_match_plain_versions(hopper, N, D, dtype, tol):
     # no atomics: the same bits on every run
     assert torch.equal(dg, dg2) and torch.equal(db, db2)
     assert torch.equal(dx, dx2)
+
+
+def test_cuda_sqrt_is_correctly_rounded(hopper):
+    """The Adam update keeps ``torch.sqrt`` on the card
+    (``optim/optimizer.py`` ``_sqrt``): CUDA's float32 root equals the
+    float64 root rounded to float32, bitwise, over 2^20 random inputs in
+    each of three ranges (the CPU's does not on every host)."""
+    g = torch.Generator(device=hopper).manual_seed(0)
+    for hi in (1e-4, 1.0, 1e4):
+        v = torch.rand(1 << 20, generator=g, device=hopper) * hi
+        assert torch.equal(torch.sqrt(v), torch.sqrt(v.double()).float())
 
 
 @pytest.mark.parametrize("dtype, tol", TRAIN_TOLS)

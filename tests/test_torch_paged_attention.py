@@ -127,6 +127,123 @@ class TestPlainVersionMatchesJaxKernel:
                                    atol=F32_TOL, rtol=F32_TOL)
 
 
+def _fold_chunk(qs, k_pages, v_pages, trow, t0, t1, n, stage):
+    """One warp of the chunk kernel, for all heads at once: tokens
+    [t0, t1) of a lane whose length is ``n``, folded ``stage`` tokens at
+    a time with the online softmax's rescale into float32 (m, l, acc)."""
+    P, page = k_pages.shape[:2]
+    H, D = qs.shape
+    m = torch.full((H,), pa.NEG_INF)
+    l, acc = torch.zeros(H), torch.zeros(H, D)
+    for s0 in range(t0, t1, stage):
+        t = torch.arange(s0, min(s0 + stage, t1))
+        pid = trow[t // page].long().clamp(0, P - 1)
+        k = k_pages[pid, t % page].float()              # (T, H, D)
+        v = v_pages[pid, t % page].float()
+        live = (t < n)[None, :]
+        sc = torch.where(live, torch.einsum("hd,thd->ht", qs, k),
+                         torch.tensor(pa.NEG_INF))
+        m_new = torch.maximum(m, sc.max(dim=1).values)
+        p = torch.where(live, torch.exp(sc - m_new[:, None]),
+                        torch.tensor(0.0))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=1)
+        acc = acc * alpha[:, None] + torch.einsum("ht,thd->hd", p, v)
+        m = m_new
+    return m, l, acc
+
+
+def _combine(parts, H, D):
+    """The combine kernel: chunks folded in order against their largest
+    m; zeros through the max(l, 1e-30) guard where there is none."""
+    M = torch.full((H,), pa.NEG_INF)
+    for m, _, _ in parts:
+        M = torch.maximum(M, m)
+    l, acc = torch.zeros(H), torch.zeros(H, D)
+    for m, lc, ac in parts:
+        w = torch.exp(m - M)
+        l = l + w * lc
+        acc = acc + w[:, None] * ac
+    return acc / l.clamp_min(1e-30)[:, None]
+
+
+def _chunked_decode(q, k_pages, v_pages, table, lengths, cp, stage=16):
+    """The kernel's split in plain torch: each lane's live pages
+    (min(ceil(len / page), W)) cut into chunks of ``cp`` pages, each
+    folded on its own, then combined in chunk order."""
+    B, H, D = q.shape
+    page, W = k_pages.shape[1], table.shape[1]
+    qs = q.float() / D ** 0.5
+    out = torch.zeros(B, H, D)
+    for b in range(B):
+        n = int(lengths[b])
+        live_pages = min(-(-n // page), W)
+        parts = [_fold_chunk(qs[b], k_pages, v_pages, table[b], p0 * page,
+                             min(p0 + cp, live_pages) * page, n, stage)
+                 for p0 in range(0, live_pages, cp)]
+        out[b] = _combine(parts, H, D)
+    return out
+
+
+class TestChunkedSplit:
+    """The chunk kernel's arithmetic (a split over pages, an online
+    softmax per chunk, a combine in chunk order), emulated in plain torch
+    and held to the plain version within F32_TOL."""
+
+    @pytest.mark.parametrize("cp", [1, 2, 3, 5])
+    @pytest.mark.parametrize("lengths", RAGGED)
+    def test_chunk_sizes_that_do_and_do_not_divide_the_pages(self, lengths,
+                                                             cp):
+        args = _torch_args(_case(lengths))
+        out = _chunked_decode(*args, cp=cp, stage=4)
+        np.testing.assert_allclose(
+            out.numpy(), pa.paged_decode_attention_reference(*args).numpy(),
+            atol=F32_TOL, rtol=F32_TOL)
+        assert np.all(out.numpy()[-1] == 0.0)        # the zero-length lane
+
+    @pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+    def test_the_kernels_chunk_size_across_chunk_edges(self, pool_dtype):
+        """Page 16 with the kernel's chunk: exactly one chunk, one token
+        past it, a 2049-token lane (a last chunk of one live token), and
+        a lane of length 0."""
+        page = 16
+        cp = pa.chunk_pages(page)
+        one = cp * page
+        lengths = [one, one + 1, 2049, 0, 7]
+        c = _case(lengths, seed=4, H=2, D=8, page=page, P=400,
+                  maxp=-(-2049 // page))
+        args = _torch_args(c, pool_dtype)
+        out = _chunked_decode(*args, cp=cp)
+        ref = pa.paged_decode_attention_reference(*args)
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=F32_TOL,
+                                   rtol=F32_TOL)
+        assert np.all(out.numpy()[3] == 0.0)
+
+    def test_table_narrower_than_the_lengths(self):
+        """W < ceil(len / page): only the table's W pages are read, all
+        of their positions live."""
+        c = _case([40, 23, 9], seed=5)
+        c["table"] = np.ascontiguousarray(c["table"][:, :2])
+        args = _torch_args(c)
+        for cp in (1, 3):
+            np.testing.assert_allclose(
+                _chunked_decode(*args, cp=cp, stage=4).numpy(),
+                pa.paged_decode_attention_reference(*args).numpy(),
+                atol=F32_TOL, rtol=F32_TOL)
+
+    def test_a_chunk_with_no_live_token_adds_nothing(self):
+        c = _case([20, 3], seed=6)
+        q, kp, vp, table, _ = _torch_args(c)
+        qs = q[0].float() / q.shape[-1] ** 0.5
+        parts = [_fold_chunk(qs, kp, vp, table[0], 0, 16, 20, 4)]
+        empty = _fold_chunk(qs, kp, vp, table[0], 16, 24, 16, 4)
+        assert torch.all(empty[0] == pa.NEG_INF)
+        assert torch.all(empty[1] == 0) and torch.all(empty[2] == 0)
+        torch.testing.assert_close(_combine(parts + [empty], 2, 16),
+                                   _combine(parts, 2, 16), atol=0, rtol=0)
+        assert torch.all(_combine([empty], 2, 16) == 0)
+
+
 class TestWrapper:
     def test_cpu_tensors_take_the_plain_version_and_count_nothing(self):
         c = _case([4, 0, 12])

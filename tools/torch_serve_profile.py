@@ -22,7 +22,7 @@ import time
 
 import numpy as np
 
-GROUPS = (("paged_decode", ("paged_decode_kernel",)),
+GROUPS = (("paged_decode", ("paged_decode_",)),
           ("matmul", ("gemm", "cutlass", "sm90_xmma", "cublas")),
           ("gather_scatter", ("index", "gather", "scatter")),
           ("host_copy", ("Memcpy DtoH", "Memcpy HtoD", "memcpy")))

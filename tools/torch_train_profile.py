@@ -22,8 +22,8 @@ forward, the backward and the optimizer (clip + AdamW), then profiles
 one more step under ``torch.profiler`` and prints device time by kernel
 group (the flash, LayerNorm and cross-entropy kernels, matrix products,
 the attention softmax, dropout's random numbers, other elementwise and
-reduction kernels, memory copies and sets) and the device's busy share
-of that step's wall time, and the host's time to issue one LayerNorm
+reduction kernels, memory copies and sets), the repo's own kernels one
+by one, and the device's busy share of that step's wall time, and the host's time to issue one LayerNorm
 wrapper call and one ``F.layer_norm`` at the step's shape.
 ``--json`` also writes the numbers to a file.
 Needs one CUDA card.
@@ -31,6 +31,7 @@ Needs one CUDA card.
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
@@ -50,6 +51,7 @@ GROUPS = (("flash_attention", ("flash_fwd_", "flash_bwd_")),
           ("reduce", ("reduce_kernel",)),
           ("elementwise", ("elementwise", "vectorized", "unrolled")),
           ("copy", ("Memcpy", "memcpy", "Memset")))
+OWN = ("flash_attention", "layer_norm", "softmax_ce")   # the repo's kernels
 
 
 def host_us(fn, iters=50):
@@ -162,7 +164,7 @@ def main(argv=None):
         "F.layer_norm": host_us(lambda: torch.nn.functional.layer_norm(
             x, (cfg.hidden,), gamma, beta, 1e-5)),
     }
-    device, top = {}, []
+    device, top, own = {}, [], {}
     for e in prof.key_averages():
         # device-side events only: a CPU op's self device time is its
         # kernels' time again
@@ -170,8 +172,15 @@ def main(argv=None):
             continue
         us = e.self_device_time_total
         if us > 0:
-            device[_group(e.key)] = device.get(_group(e.key), 0.0) + us
+            group = _group(e.key)
+            device[group] = device.get(group, 0.0) + us
             top.append((us, e.count, e.key))
+            if group in OWN:
+                # the repo's own kernels one by one, template arguments
+                # dropped: e.g. the LayerNorm backward apart from its reduce
+                name = re.search(r"([A-Za-z_]\w*)[<(]", e.key + "(")[1]
+                ms, n = own.get(name, (0.0, 0))
+                own[name] = (ms + us / 1e3, n + e.count)
     busy_ms = sum(device.values()) / 1e3
     med = {k: sorted(v)[len(v) // 2] for k, v in phases.items()}
     wall = sorted(walls)[len(walls) // 2]
@@ -186,6 +195,8 @@ def main(argv=None):
         "profiled_step_wall_ms": prof_wall,
         "launches": launches,
         "device_ms": {k: v / 1e3 for k, v in sorted(device.items())},
+        "kernel_ms": {k: v[0] for k, v in sorted(own.items())},
+        "kernel_launches": {k: v[1] for k, v in sorted(own.items())},
         "device_busy_ms": busy_ms if busy_ms else None,
         "device_busy_share": busy_ms / prof_wall if busy_ms else None,
         "host_issue_us": issue_us,
@@ -204,6 +215,8 @@ def main(argv=None):
               f"{out['device_busy_share'] * 100:.1f}% of wall; by group: "
               + ", ".join(f"{k} {v:.2f} ms"
                           for k, v in out["device_ms"].items()))
+        print("the repo's kernels: " + ", ".join(
+            f"{k} x{n} {ms:.3f} ms" for k, (ms, n) in sorted(own.items())))
         for us, count, key in sorted(top, reverse=True)[:15]:
             print(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     else:
