@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path and its two training steps once
-on one NVIDIA H100.
+"""Drive paddle_tpu_torch's serving path and its three training steps
+once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -76,7 +76,21 @@ any failed check:
              version and ``F.scaled_dot_product_attention(is_causal=True)``
              (forward; its autograd backward for both backward kernels,
              and beside the two backward kernels launched back to back),
-             beside the bound at the bfloat16 tensor-core rate.
+             beside the bound at the bfloat16 tensor-core rate;
+12. train-bert — bench_bert's configuration (``bench.py:bench_bert``):
+             ``bert_base`` at full width and depth (12 x 768, 12 heads,
+             FFN 3072, vocab 30522), dropout 0.1, ``model.bfloat16()``,
+             batch 64 x 128 from RandomState(0) (token types 0, mask
+             ones, MLM labels at 15%, NSP labels), AdamW(1e-4,
+             multi_precision) with global-norm clip 1.0, through
+             ``TrainStep`` for 4 steps; every loss finite, the first near
+             ln(30522) + ln(2), launches exactly 26/26/0/0/0/0/0 a step;
+             the same steps through the plain versions within
+             BF16_TRAIN_LOSS_TOL; then one eval forward without a mask
+             (12 non-causal flash forwards, 26 LayerNorm forwards), its
+             MLM logits within BERT_LOGIT_STEPS of the largest |logit|
+             of the plain versions'; and the LayerNorm kernels timed at
+             its (8192, 768) bfloat16 as in phase 8.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -107,16 +121,21 @@ TRAIN_F32_TOL = 1e-5
 # dgamma = 0 (diffs 0, 5.7e-6, 9.5e-6, 6.3e-5) and dbeta = 0 (0, 6.4e-5,
 # 2.0e-4, 2.4e-4) in the LayerNorm backward: both fail
 TRAIN_LOSS_TOL = 2e-6
-LOSS_NEAR_LN_V = 0.5   # logits of std ~0.55 at init: loss ~ ln V + 0.15
+# logits of std ~0.55 at init: loss ~ ln V + 0.15 (BERT: ln V + ln 2)
+LOSS_NEAR_LN_V = 0.5
 # flash kernels against their plain versions (flash_close): float32 sums
 # in another order; in bfloat16 also one rounding step of the output
 FLASH_F32_TOL = 1e-5
 FLASH_BF16_STEP = 2 ** -7      # a bfloat16 keeps 8 significant bits
 # losses of the bf16 kernel run vs its plain-version run, absolute on each
-# of the 4 steps. Seen on an H100 80GB HBM3 (700 W): 6.1e-5, 4.0e-5,
-# 7.9e-4, 2.8e-4 (bfloat16 roundings that flip between the two runs).
-# tools/torch_planted_faults.py plants dV = 0 in the flash dK/dV kernel:
-# its losses leave the honest run's by 0, 7.2e-2, 3.6e-1, 5.3e-1 and fail
+# of the 4 steps. Seen on an H100 80GB HBM3 (700 W): bench_gpt 6.1e-5,
+# 4.0e-5, 7.9e-4, 2.8e-4 (bfloat16 roundings that flip between the two
+# runs); bench_bert 2.6e-4, 6.7e-3, 2.7e-4, 2.3e-3 (its first AdamW step
+# lifts the loss from 11.2 to 13.4, in the JAX package too, and the
+# roundings' effect with it). tools/torch_planted_faults.py plants dV = 0
+# in the flash dK/dV kernel (bench_gpt: 0, 7.2e-2, 3.6e-1, 5.3e-1) and
+# dx = 0 in the LayerNorm backward (bench_bert: 2.6e-4, 2.2, 2.5, 0.29):
+# both fail
 BF16_TRAIN_LOSS_TOL = 1e-2
 # a timed run's launches are queued while the card spins this many cycles
 # (~20 ms at the H100's 1.98 GHz), longer than the host takes to issue them
@@ -124,17 +143,28 @@ QUEUE_CYCLES = 40_000_000
 # LayerNorm's cold timing rotates over at least this many bytes of inputs
 # and outputs: four times the H100's 50 MB L2
 COLD_BYTES = 200 * 10 ** 6
-# the training configurations of the main path, driven by phases 7 and 10
-# and profiled by tools/torch_train_profile.py: gpt_small at full width and
-# depth, batch x 1024 ids from RandomState(0), AdamW(1e-4, decay 0.01) with
-# global-norm clip 1.0 (train_model, train_optimizer)
+# the training configurations of the main paths, driven by phases 7, 10
+# and 12 and profiled by tools/torch_train_profile.py: gpt_small or
+# bert_base at full width and depth, a batch from RandomState(0) (gpt_small:
+# batch x 1024 ids; bert_base: batch x BERT_SEQ as bench.py:143-148 builds
+# it), AdamW(1e-4, decay 0.01) with global-norm clip 1.0 (train_model,
+# train_optimizer, train_batch)
 TRAIN_CONFIGS = {
-    # name: dropout, model.bfloat16(), batch, AdamW's multi_precision
-    "dropout0.1-float32": dict(dropout=0.1, bfloat16=False, batch=8,
+    # name: model, dropout, model.bfloat16(), batch, AdamW's multi_precision
+    "dropout0.1-float32": dict(model="gpt_small", dropout=0.1,
+                               bfloat16=False, batch=8,
                                multi_precision=False),
-    "bench_gpt": dict(dropout=0.0, bfloat16=True, batch=16,
-                      multi_precision=True),
+    "bench_gpt": dict(model="gpt_small", dropout=0.0, bfloat16=True,
+                      batch=16, multi_precision=True),
+    "bench_bert": dict(model="bert_base", dropout=0.1, bfloat16=True,
+                       batch=64, multi_precision=True),
 }
+BERT_SEQ = 128          # bench.py:bench_bert's L
+# bfloat16 MLM logits of the kernels against the plain versions (12 layers
+# of bfloat16 activations), as a share of the largest |logit|: two
+# bfloat16 steps there. Seen on an H100 80GB HBM3 (700 W): 2.3e-2 at a
+# largest |logit| of 2.48, 0.6 of the limit
+BERT_LOGIT_STEPS = 2 ** -6
 
 
 class CheckFailed(RuntimeError):
@@ -609,32 +639,42 @@ def train_kernel_phase():
     return errs
 
 
-# -- phase 7: the training main path -----------------------------------------
+# -- phases 7, 10 and 12: the training main paths ---------------------------
 
 
-def train_launches(cfg, steps, flash):
-    """The launches ``steps`` training steps of ``cfg`` must make: two
-    LayerNorms a block and ln_f, forward and backward; one cross-entropy
-    forward and backward; with ``flash``, each flash kernel once a
-    block."""
-    ln = (2 * cfg.layers + 1) * steps
-    fl = cfg.layers * steps if flash else 0
+def train_launches(config, cfg, steps):
+    """The launches ``steps`` training steps of ``config`` must make. GPT:
+    two LayerNorms a block and ln_f, one cross-entropy; BERT: the
+    embeddings' LayerNorm, two a layer and the MLM head's, and no
+    cross-entropy kernel (vocab 30522 is not a multiple of 128, and the
+    NSP loss has 2 classes); each forward and backward. Flash attention
+    once a layer where it fires: in bench_gpt (dropout 0, no mask), not
+    at dropout 0.1 nor with BERT's mask."""
+    if TRAIN_CONFIGS[config]["model"] == "bert_base":
+        ln, ce = (2 * cfg.layers + 2) * steps, 0
+    else:
+        ln, ce = (2 * cfg.layers + 1) * steps, steps
+    fl = cfg.layers * steps if config == "bench_gpt" else 0
     return {"paged_decode_attention": 0, "layer_norm_fwd": ln,
-            "layer_norm_bwd": ln, "softmax_ce_fwd": steps,
-            "softmax_ce_bwd": steps, "flash_attention_fwd": fl,
+            "layer_norm_bwd": ln, "softmax_ce_fwd": ce,
+            "softmax_ce_bwd": ce, "flash_attention_fwd": fl,
             "flash_attention_bwd_dq": fl, "flash_attention_bwd_dkv": fl}
 
 
 def train_model(config):
-    """``gpt_small`` in ``TRAIN_CONFIGS[config]`` on the card, weights
-    from seed 0."""
+    """``TRAIN_CONFIGS[config]``'s model on the card, weights from seed 0:
+    ``gpt_small`` or ``BertForPretraining(bert_base())``."""
     import torch
 
-    from paddle_tpu_torch.models.nlp import gpt
+    from paddle_tpu_torch.models.nlp import bert, gpt
 
     c = TRAIN_CONFIGS[config]
-    model = gpt.GPT(gpt.gpt_small(dropout=c["dropout"]),
-                    generator=torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    if c["model"] == "bert_base":
+        model = bert.BertForPretraining(bert.bert_base(dropout=c["dropout"]),
+                                        generator=g)
+    else:
+        model = gpt.GPT(gpt.gpt_small(dropout=c["dropout"]), generator=g)
     return model.bfloat16() if c["bfloat16"] else model
 
 
@@ -649,7 +689,34 @@ def train_optimizer(model, config):
         multi_precision=TRAIN_CONFIGS[config]["multi_precision"])
 
 
-def train_run(model, config, init, ids, labels, steps, plain):
+def train_batch(model, config):
+    """``(loss_fn, batch, first loss expected)`` for ``config``, the batch
+    numpy arrays from RandomState(0). GPT: batch x 1024 ids and the ids
+    shifted; its first loss near ln V. BERT as ``bench.py:143-148``
+    builds it: batch x 128 ids, token types 0, ``attention_mask`` ones,
+    MLM labels at 15% (-100 elsewhere), NSP labels; its first loss near
+    ln V + ln 2 (MLM plus NSP)."""
+    import math
+
+    from paddle_tpu_torch.models.nlp import bert, gpt
+
+    c, cfg = TRAIN_CONFIGS[config], model.cfg
+    rng = np.random.RandomState(0)
+    if c["model"] == "bert_base":
+        B, L = c["batch"], BERT_SEQ
+        ids = rng.randint(0, cfg.vocab_size, (B, L)).astype("int32")
+        tt = np.zeros((B, L), "int32")
+        am = np.ones((B, L), "int32")
+        mlm = np.where(rng.rand(B, L) < 0.15, ids, -100).astype("int32")
+        nsp = rng.randint(0, 2, (B,)).astype("int32")
+        return (bert.bert_pretrain_loss, (ids, tt, am, mlm, nsp),
+                math.log(cfg.vocab_size) + math.log(2))
+    ids = rng.randint(0, cfg.vocab_size, (c["batch"], cfg.max_seq))
+    return (gpt.gpt_loss, (ids, np.roll(ids, -1, axis=1)),
+            math.log(cfg.vocab_size))
+
+
+def train_run(model, config, init, loss_fn, batch, steps, plain):
     """``steps`` TrainStep calls from the weights ``init`` with the
     dropout generator reseeded and ``config``'s optimizer, launch counts
     zeroed just before and read just after. Returns (losses, launches,
@@ -660,32 +727,32 @@ def train_run(model, config, init, ids, labels, steps, plain):
 
     from paddle_tpu_torch import core
     from paddle_tpu_torch.framework import TrainStep
-    from paddle_tpu_torch.models.nlp.gpt import gpt_loss
     from paddle_tpu_torch.ops import kernels
 
     model.load_state_dict(init)
     core.seed(1)
-    step = TrainStep(model, train_optimizer(model, config), gpt_loss)
+    step = TrainStep(model, train_optimizer(model, config), loss_fn)
     losses, walls = [], []
     with kernels.plain_versions() if plain else contextlib.nullcontext():
         torch.cuda.synchronize()
         kernels.reset_launches()
         for _ in range(steps):
             t0 = time.perf_counter()
-            losses.append(float(step(ids, labels)))   # syncs on the loss
+            losses.append(float(step(*batch)))   # syncs on the loss
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         launches = kernels.launches()
     return losses, launches, walls
 
 
-def train_compare(label, config, steps, flash, loss_tol, gpu):
+def train_compare(label, config, steps, loss_tol, gpu, after=None):
     """The training main path: ``steps`` steps of ``TRAIN_CONFIGS[config]``
-    on its batch x max_seq from RandomState(0) through the kernels, then
-    the same steps from the same weights through the plain versions. Checks
-    finite losses, the first near ln V, the launch counts (exactly
-    ``train_launches``; none in the plain run) and the per-step loss
-    differences against ``loss_tol``. Returns the kernel run's
+    on its batch from RandomState(0) through the kernels, then the same
+    steps from the same weights through the plain versions. Checks
+    finite losses, the first near its expected value, the launch counts
+    (exactly ``train_launches``; none in the plain run) and the per-step
+    loss differences against ``loss_tol``. ``after(model, init, batch)``,
+    if given, runs before the model is freed. Returns the kernel run's
     launches."""
     import math
 
@@ -693,36 +760,34 @@ def train_compare(label, config, steps, flash, loss_tol, gpu):
 
     model = train_model(config)
     c, cfg = TRAIN_CONFIGS[config], model.cfg
-    B, L = c["batch"], cfg.max_seq
     init = {k: v.clone() for k, v in model.state_dict().items()}
-    rng = np.random.RandomState(0)
-    ids = rng.randint(0, cfg.vocab_size, (B, L))
-    labels = np.roll(ids, -1, axis=1)
+    loss_fn, batch, first = train_batch(model, config)
+    B, L = batch[0].shape
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"{label}: gpt_small {n_params / 1e6:.1f}M parameters (12 x 768, "
-        f"vocab {cfg.vocab_size}), {config}: dropout {c['dropout']}, "
+    log(f"{label}: {c['model']} {n_params / 1e6:.1f}M parameters "
+        f"({cfg.layers} x {cfg.hidden}, vocab {cfg.vocab_size}), {config}: "
+        f"dropout {c['dropout']}, "
         f"{'bfloat16' if c['bfloat16'] else 'float32'}, multi_precision "
         f"{c['multi_precision']}, batch {B} x {L}")
     torch.cuda.reset_peak_memory_stats()
-    losses, launches, walls = train_run(model, config, init, ids, labels,
+    losses, launches, walls = train_run(model, config, init, loss_fn, batch,
                                         steps, False)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = train_launches(cfg, steps, flash)
+    want = train_launches(config, cfg, steps)
     steady = sorted(walls[1:])[len(walls[1:]) // 2]
     log(f"{label}: kernel run losses {losses}; step wall ms "
         + " ".join(f"{w:.1f}" for w in walls)
         + f" (median of steps 2-{steps}: {steady:.1f} ms = "
-        f"{B * L / steady * 1e3:.0f} tokens/s); peak memory {peak:.1f} GiB;"
+        f"{B * L / steady * 1e3:.0f} tokens/s); peak memory {peak:.2f} GiB;"
         f" launches {launches} [{gpu}]")
     check(all(math.isfinite(x) for x in losses),
           f"{label}: non-finite loss")
-    ln_v = math.log(cfg.vocab_size)
-    check(abs(losses[0] - ln_v) < LOSS_NEAR_LN_V,
+    check(abs(losses[0] - first) < LOSS_NEAR_LN_V,
           f"{label}: first loss {losses[0]} is not within {LOSS_NEAR_LN_V} "
-          f"of ln {cfg.vocab_size} = {ln_v:.4f}")
+          f"of {first:.4f}")
     check(launches == want, f"{label}: launches {launches}, want {want}")
     plain, plain_launches, plain_walls = train_run(
-        model, config, init, ids, labels, steps, True)
+        model, config, init, loss_fn, batch, steps, True)
     diffs = [abs(a - b) for a, b in zip(losses, plain)]
     log(f"{label}: plain-version run losses {plain}; |diff| "
         + " ".join(f"{d:.2e}" for d in diffs) + f" (tol {loss_tol}); "
@@ -733,6 +798,8 @@ def train_compare(label, config, steps, flash, loss_tol, gpu):
     check(all(d <= loss_tol for d in diffs),
           f"{label}: the kernel run's losses differ from the plain "
           f"versions'")
+    if after is not None:
+        after(model, init, batch)
     del model, init
     torch.cuda.empty_cache()
     return launches
@@ -741,26 +808,82 @@ def train_compare(label, config, steps, flash, loss_tol, gpu):
 def train_phase(gpu):
     """Phase 7: gpt_small at its defaults (dropout 0.1, float32), batch
     8: dense attention, the LayerNorm and cross-entropy kernels."""
-    return train_compare("train", "dropout0.1-float32", 4, False,
-                         TRAIN_LOSS_TOL, gpu)
+    return train_compare("train", "dropout0.1-float32", 4, TRAIN_LOSS_TOL,
+                         gpu)
 
 
 def train_bf16_phase(gpu):
     """Phase 10: bench_gpt's configuration (``bench.py:187-210``):
     dropout 0, ``model.bfloat16()``, batch 16, multi_precision AdamW —
     flash attention in every block."""
-    return train_compare("train-bf16", "bench_gpt", 4, True,
-                         BF16_TRAIN_LOSS_TOL, gpu)
+    return train_compare("train-bf16", "bench_gpt", 4, BF16_TRAIN_LOSS_TOL,
+                         gpu)
+
+
+def bert_eval_forward(model, init, batch):
+    """One ``model.eval()`` forward of ``init`` at dropout 0 without an
+    attention mask (BERT inference): every attention takes the
+    non-causal flash forward. Launches exactly 12 flash forwards and 26
+    LayerNorm forwards; its MLM logits must be within
+    ``BERT_LOGIT_STEPS`` of the largest |logit| of the plain versions'
+    (zero launches). Returns the largest difference."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = model.cfg
+    model.load_state_dict(init)
+    model.eval()
+    ids, tt = (torch.from_numpy(a).cuda() for a in batch[:2])
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = model(ids, tt)[0].float()
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        kernels.reset_launches()
+        with kernels.plain_versions():
+            want = model(ids, tt)[0].float()
+            plain_launches = kernels.launches()
+    model.train()
+    err = (got - want).abs().max().item()
+    tol = BERT_LOGIT_STEPS * want.abs().max().item()
+    log(f"train-bert eval: forward without a mask at dropout 0, MLM logits "
+        f"{tuple(got.shape)}: max abs diff from the plain versions {err:.3e}"
+        f" (tol {tol:.3e}); launches {launches}")
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches.update(layer_norm_fwd=2 * cfg.layers + 2,
+                         flash_attention_fwd=cfg.layers)
+    check(launches == want_launches,
+          f"train-bert eval: launches {launches}, want {want_launches}")
+    check(plain_launches == dict.fromkeys(launches, 0),
+          f"train-bert eval: the plain versions launched {plain_launches}")
+    check(bool(torch.isfinite(got).all()), "train-bert eval: non-finite")
+    check(err <= tol, "train-bert eval: the kernels' logits differ from "
+          "the plain versions'")
+    return err
+
+
+def train_bert_phase(gpu):
+    """Phase 12: bench_bert's configuration (``bench.py:129-155``):
+    ``bert_base`` at full width and depth, dropout 0.1,
+    ``model.bfloat16()``, batch 64 x 128, multi_precision AdamW, 4 steps
+    through the kernels and 4 through the plain versions; then the
+    mask-free eval forward (``bert_eval_forward``)."""
+    return train_compare("train-bert", "bench_bert", 4, BF16_TRAIN_LOSS_TOL,
+                         gpu, after=bert_eval_forward)
 
 
 # -- phase 8: training kernels timed at the path's shape ---------------------
 
 
-def train_timing_phase(gpu, N, dtype):
+def train_timing_phase(gpu, N, dtype, V=50304):
     """Kernel, plain version and library call for each training kernel at
     a train path's shape (N rows, D = 768, V = 50304, in ``dtype``: 8 x
     1024 float32 rows for the float32 step, 16 x 1024 bfloat16 ones for
-    bench_gpt), beside the least time the card could take: the bytes
+    bench_gpt; with ``V=None`` the LayerNorm kernels alone, as for
+    bench_bert's 64 x 128 bfloat16 rows, whose vocab takes no
+    cross-entropy kernel), beside the least time the card could take: the bytes
     each must move (every input read once, every output written once)
     over 3.35 TB/s against its float32 operations (the kernels compute
     in float32 whatever the type) over 67 TFLOP/s.
@@ -779,23 +902,23 @@ def train_timing_phase(gpu, N, dtype):
     from paddle_tpu_torch.ops.kernels import layernorm as ln
     from paddle_tpu_torch.ops.kernels import softmax_ce as ce
 
-    D, V = 768, 50304
+    D = 768
     g = torch.Generator(device="cuda").manual_seed(13)
     x, dy = (torch.randn(N, D, generator=g, device="cuda").to(dtype)
              for _ in range(2))
     gamma, beta = (torch.randn(D, generator=g, device="cuda").to(dtype)
                    for _ in range(2))
-    logits = torch.randn(N, V, generator=g, device="cuda").to(dtype)
-    lab = torch.randint(0, V, (N,), generator=g, device="cuda")
-    gl = torch.full((N,), 1.0 / N, device="cuda")
+    if V is not None:
+        logits = torch.randn(N, V, generator=g, device="cuda").to(dtype)
+        lab = torch.randint(0, V, (N,), generator=g, device="cuda")
+        gl = torch.full((N,), 1.0 / N, device="cuda")
+        _, lse = ce.softmax_ce_fwd(logits, lab)
+        cl = logits.clone().requires_grad_()
+        lossl = F.cross_entropy(cl, lab, reduction="none")
     _, mean, rstd = ln.layer_norm_fwd(x, gamma, beta, 1e-5)
-    _, lse = ce.softmax_ce_fwd(logits, lab)
-
     xl = x.clone().requires_grad_()
     wl, bl = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
     yl = F.layer_norm(xl, (D,), wl, bl, 1e-5)
-    cl = logits.clone().requires_grad_()
-    lossl = F.cross_entropy(cl, lab, reduction="none")
 
     # copies for the cold timing: their inputs and outputs come to
     # COLD_BYTES, so a copy's lines have left L2 before its next turn
@@ -848,7 +971,7 @@ def train_timing_phase(gpu, N, dtype):
                                                 dys[0])),
     }
 
-    s, f4, il = x.element_size(), 4, lab.element_size()
+    s, f4 = x.element_size(), 4
     rows = {
         # name: (kernel, plain, library, bytes, float32 operations)
         "layer_norm_fwd": (
@@ -862,17 +985,21 @@ def train_timing_phase(gpu, N, dtype):
             lambda: torch.autograd.grad(yl, (xl, wl, bl), dy,
                                         retain_graph=True),
             s * (3 * N * D + 3 * D) + f4 * 2 * N, 12 * N * D),
-        "softmax_ce_fwd": (
-            lambda: ce.softmax_ce_fwd(logits, lab),
-            lambda: ce.softmax_ce_fwd_reference(logits, lab),
-            lambda: F.cross_entropy(logits, lab, reduction="none"),
-            s * N * V + (il + 2 * f4) * N, 4 * N * V),
-        "softmax_ce_bwd": (
-            lambda: ce.softmax_ce_bwd(logits, lab, lse, gl),
-            lambda: ce.softmax_ce_bwd_reference(logits, lab, lse, gl),
-            lambda: torch.autograd.grad(lossl, cl, gl, retain_graph=True),
-            s * 2 * N * V + (il + 2 * f4) * N, 4 * N * V),
     }
+    if V is not None:
+        il = lab.element_size()
+        rows.update({
+            "softmax_ce_fwd": (
+                lambda: ce.softmax_ce_fwd(logits, lab),
+                lambda: ce.softmax_ce_fwd_reference(logits, lab),
+                lambda: F.cross_entropy(logits, lab, reduction="none"),
+                s * N * V + (il + 2 * f4) * N, 4 * N * V),
+            "softmax_ce_bwd": (
+                lambda: ce.softmax_ce_bwd(logits, lab, lse, gl),
+                lambda: ce.softmax_ce_bwd_reference(logits, lab, lse, gl),
+                lambda: torch.autograd.grad(lossl, cl, gl,
+                                            retain_graph=True),
+                s * 2 * N * V + (il + 2 * f4) * N, 4 * N * V)})
     out = {}
     for name, (kern, plain, lib, nbytes, flops) in rows.items():
         iters = 50 if name.startswith("layer") else 10
@@ -1143,7 +1270,7 @@ def main():
         f"x{torch.cuda.device_count()}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     libs = _build.build()
     log(f"build: {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'}"
         f" in {time.perf_counter() - t0:.1f} s: "
@@ -1183,11 +1310,16 @@ def main():
     launches_f32 = train_phase(gpu)
     train_t = train_timing_phase(gpu, 8192, torch.float32)
     # the same kernels at bench_gpt's shape, logged for PERF.md; the JSON
-    # line keeps the float32 step's
+    # line keeps the float32 step's cross-entropy rows
     train_timing_phase(gpu, 16384, torch.bfloat16)
     train_errs.update(flash_kernel_phase())
     launches_bf16 = train_bf16_phase(gpu)
     train_t.update(flash_timing_phase(gpu))
+    launches_bert = train_bert_phase(gpu)
+    # the LayerNorm kernels at bench_bert's shape (64 x 128 rows, bf16):
+    # the JSON line's LayerNorm rows, beside the BERT run's launches
+    train_t.update(train_timing_phase(gpu, 64 * BERT_SEQ, torch.bfloat16,
+                                      V=None))
 
     pa = kernels.KERNELS["paged_decode_attention"]
     rows = [{"name": "paged_decode_attention", "route": "cuda",
@@ -1195,15 +1327,18 @@ def main():
              "replaces": pa.paged_decode_attention.replaces,
              "launches": launches["paged_decode_attention"], **t}]
     for name, tt in train_t.items():
-        # the run that took this kernel: bf16 for flash, float32 for the
-        # others (the bf16 run takes them too, for the same counts a step)
-        ran = launches_bf16 if name.startswith("flash") else launches_f32
+        # the run whose shape the row was timed at: bench_gpt for flash,
+        # bench_bert for LayerNorm, the float32 step for cross-entropy
+        ran = {"flash": launches_bf16, "layer": launches_bert}.get(
+            name.split("_")[0], launches_f32)
         rows.append({"name": name, "route": "cuda",
                      "source": kernels.KERNELS[name].SOURCE,
                      "replaces": getattr(kernels.KERNELS[name],
                                          name).replaces,
                      "launches": ran[name],
                      "max_abs_err": train_errs[name], **tt})
+    log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} "
+        f"s")
     log(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

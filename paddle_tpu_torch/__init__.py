@@ -6,7 +6,8 @@ numpy, never ``jax`` and nothing of ``paddle_tpu``. Every Pallas kernel
 on a ported path is a kernel written by hand for Hopper (``sm_90a``),
 under ``csrc/``, built with ``nvcc`` at first use.
 
-What is ported so far is the serving path and the GPT training step:
+What is ported so far is the serving path and the GPT and BERT training
+steps:
 
 - ``serving``: paged KV cache, continuous-batching scheduler and
   ``ServeEngine`` with the one-layer ``TinyLM``;
@@ -21,8 +22,12 @@ What is ported so far is the serving path and the GPT training step:
 - ``ops.kernels.layernorm`` and ``ops.kernels.softmax_ce``: the
   LayerNorm and softmax-cross-entropy kernels, forward and backward
   (CUDA C++), with their plain PyTorch versions;
-- ``convert``: weights of the JAX ``TinyLM`` and ``GPT`` into this
-  package's.
+- ``models.nlp.bert`` with ``nn.layers.transformer`` (the Transformer
+  encoder without a cache), ``nn.ParamAttr``, the Xavier and uniform
+  initializers and ``optim.regularizer``: BERT pretraining as
+  ``bench.py:bench_bert`` runs it, on the LayerNorm kernels;
+- ``convert``: weights of the JAX ``TinyLM``, ``GPT`` and
+  ``BertForPretraining`` into this package's.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.

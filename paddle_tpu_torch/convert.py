@@ -8,7 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["tinylm_params_from_jax", "gpt_params_from_jax"]
+__all__ = ["tinylm_params_from_jax", "gpt_params_from_jax",
+           "bert_params_from_jax"]
 
 _TINYLM = ("embedding", "wq", "wk", "wv", "wo")
 
@@ -47,6 +48,32 @@ def _is_bfloat16(a):
     return np.asarray(a).dtype.name == "bfloat16"
 
 
+def _numbered(arrs, prefix):
+    """How many of ``prefix.<i>.`` there are; raises ``ValueError`` unless
+    they are numbered 0..n-1."""
+    seen = {k[len(prefix):].split(".")[0] for k in arrs
+            if k.startswith(prefix)}
+    n = len(seen)
+    if seen != {str(i) for i in range(n)}:
+        raise ValueError(f"{prefix}* must be numbered 0..{n - 1}, got "
+                         f"{sorted(seen)}")
+    return n
+
+
+def _checked(arrs, bf16, want, dims):
+    """``arrs`` as CPU tensors once their names are ``want``'s and their
+    shapes fit; bfloat16 where the array was."""
+    if set(arrs) != set(want):
+        raise ValueError(f"missing {sorted(set(want) - set(arrs))}, extra "
+                         f"{sorted(set(arrs) - set(want))}")
+    for k, shape in want.items():
+        if arrs[k].shape != shape:
+            raise ValueError(f"{k} has shape {arrs[k].shape}, expected "
+                             f"{shape} for {dims}")
+    return {k: torch.from_numpy(arrs[k].copy()).to(
+        torch.bfloat16 if k in bf16 else torch.float32) for k in want}
+
+
 def gpt_params_from_jax(state):
     """The JAX ``GPT``'s ``state_dict`` — names to numpy arrays (or
     anything ``np.asarray`` takes) — as a state dict for the port's
@@ -61,23 +88,60 @@ def gpt_params_from_jax(state):
     if "wte.weight" not in arrs or arrs["wte.weight"].ndim != 2:
         raise ValueError("expected a (vocab, hidden) array wte.weight")
     V, E = arrs["wte.weight"].shape
-    blocks = {k.split(".")[1] for k in arrs if k.startswith("blocks.")}
-    layers = len(blocks)
-    if blocks != {str(i) for i in range(layers)}:
-        raise ValueError(f"blocks must be numbered 0..{layers - 1}, got "
-                         f"{sorted(blocks)}")
+    layers = _numbered(arrs, "blocks.")
     max_seq = arrs["wpe.weight"].shape[0] if "wpe.weight" in arrs else 0
     want = {"wte.weight": (V, E), "wpe.weight": (max_seq, E),
             "ln_f.weight": (E,), "ln_f.bias": (E,)}
     for i in range(layers):
         for k, units in _GPT_BLOCK.items():
             want[f"blocks.{i}.{k}"] = tuple(u * E for u in units)
-    if set(arrs) != set(want):
-        raise ValueError(f"missing {sorted(set(want) - set(arrs))}, extra "
-                         f"{sorted(set(arrs) - set(want))}")
-    for k, shape in want.items():
-        if arrs[k].shape != shape:
-            raise ValueError(f"{k} has shape {arrs[k].shape}, expected "
-                             f"{shape} for vocab {V}, hidden {E}")
-    return {k: torch.from_numpy(arrs[k].copy()).to(
-        torch.bfloat16 if k in bf16 else torch.float32) for k in want}
+    return _checked(arrs, bf16, want, f"vocab {V}, hidden {E}")
+
+
+def _bert_layer(E, F):
+    """A BERT encoder layer's arrays: name -> shape, at width ``E`` and
+    feed-forward width ``F``."""
+    shapes = {"linear1.weight": (E, F), "linear1.bias": (F,),
+              "linear2.weight": (F, E), "linear2.bias": (E,)}
+    for p in ("q", "k", "v", "out"):
+        shapes[f"self_attn.{p}_proj.weight"] = (E, E)
+        shapes[f"self_attn.{p}_proj.bias"] = (E,)
+    for n in ("norm1", "norm2"):
+        shapes[f"{n}.weight"] = shapes[f"{n}.bias"] = (E,)
+    return shapes
+
+
+def bert_params_from_jax(state):
+    """The JAX ``BertForPretraining``'s ``state_dict`` — names to numpy
+    arrays (or anything ``np.asarray`` takes) — as a state dict for the
+    port's ``BertForPretraining`` (CPU tensors under the same names;
+    ``load_state_dict`` moves them to the model's device and type). A
+    bfloat16 array stays bfloat16 (exactly); every other array becomes
+    float32. Vocabulary, width, depth, feed-forward width, positions
+    and token types are read from the arrays. Raises ``ValueError`` on
+    a missing or extra name or a shape that does not fit the others."""
+    bf16 = {k for k, v in state.items() if _is_bfloat16(v)}
+    arrs = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    emb = "bert.embeddings."
+    for k in ("word", "position", "token_type"):
+        if arrs.get(f"{emb}{k}.weight", np.zeros(0)).ndim != 2:
+            raise ValueError(f"expected a 2-D array {emb}{k}.weight")
+    V, E = arrs[f"{emb}word.weight"].shape
+    P = arrs[f"{emb}position.weight"].shape[0]
+    T = arrs[f"{emb}token_type.weight"].shape[0]
+    enc = "bert.encoder.layers."
+    layers = _numbered(arrs, enc)
+    F = arrs.get(f"{enc}0.linear1.bias", np.zeros(0)).shape[0]
+    want = {"mlm_bias": (V,), f"{emb}word.weight": (V, E),
+            f"{emb}position.weight": (P, E),
+            f"{emb}token_type.weight": (T, E),
+            f"{emb}norm.weight": (E,), f"{emb}norm.bias": (E,),
+            "bert.pooler.weight": (E, E), "bert.pooler.bias": (E,),
+            "transform.weight": (E, E), "transform.bias": (E,),
+            "transform_norm.weight": (E,), "transform_norm.bias": (E,),
+            "nsp.weight": (E, 2), "nsp.bias": (2,)}
+    for i in range(layers):
+        for k, shape in _bert_layer(E, F).items():
+            want[f"{enc}{i}.{k}"] = shape
+    return _checked(arrs, bf16, want, f"vocab {V}, hidden {E}, "
+                    f"feed-forward {F}")

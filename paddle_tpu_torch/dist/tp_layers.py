@@ -31,5 +31,5 @@ class VocabParallelEmbedding(Embedding):
     def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
                  device=None, generator=None):
         super().__init__(num_embeddings, embedding_dim,
-                         weight_attr or Normal(0.0, 0.02), device=device,
-                         generator=generator)
+                         weight_attr=weight_attr or Normal(0.0, 0.02),
+                         device=device, generator=generator)

@@ -1,6 +1,11 @@
-"""paddle_tpu_torch.models.nlp: the GPT decoder LM (training path)."""
+"""paddle_tpu_torch.models.nlp: the GPT decoder LM and BERT (training
+paths)."""
+from .bert import (BertConfig, BertEmbeddings, BertForPretraining,
+                   BertModel, bert_base, bert_pretrain_loss, bert_tiny)
 from .gpt import (GPT, GPTAttention, GPTBlock, GPTConfig, gpt_loss,
                   gpt_small, gpt_tiny)
 
 __all__ = ["GPTConfig", "GPT", "GPTBlock", "GPTAttention", "gpt_loss",
-           "gpt_tiny", "gpt_small"]
+           "gpt_tiny", "gpt_small", "BertConfig", "BertEmbeddings",
+           "BertModel", "BertForPretraining", "bert_base", "bert_tiny",
+           "bert_pretrain_loss"]

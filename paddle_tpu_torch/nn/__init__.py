@@ -1,8 +1,12 @@
-"""paddle_tpu_torch.nn: the layers, functional ops and initializers of the
-ported training path (the GPT train step), under the JAX package's
+"""paddle_tpu_torch.nn: the layers, functional ops, initializers and
+``ParamAttr`` of the ported training paths, under the JAX package's
 names."""
 from . import functional, initializer
-from .layers import Dropout, Embedding, LayerNorm, Linear
+from .layers import (Dropout, Embedding, LayerNorm, Linear,
+                     MultiHeadAttention, TransformerEncoder,
+                     TransformerEncoderLayer)
+from .param_attr import ParamAttr
 
-__all__ = ["functional", "initializer", "Linear", "Dropout", "Embedding",
-           "LayerNorm"]
+__all__ = ["functional", "initializer", "ParamAttr", "Linear", "Dropout",
+           "Embedding", "LayerNorm", "MultiHeadAttention",
+           "TransformerEncoderLayer", "TransformerEncoder"]

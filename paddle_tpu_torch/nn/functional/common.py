@@ -18,6 +18,11 @@ def linear(x, weight, bias=None):
     return y if bias is None else y + bias
 
 
-def embedding(x, weight):
-    """Rows of ``weight (num_embeddings, dim)`` at the indices ``x``."""
-    return F.embedding(x, weight)
+def embedding(x, weight, padding_idx=None):
+    """Rows of ``weight (num_embeddings, dim)`` at the indices ``x``; 0
+    wherever ``x == padding_idx`` (so that row gets no gradient), as the
+    JAX package masks it (``functional/common.py:40-45``)."""
+    out = F.embedding(x, weight)
+    if padding_idx is None:
+        return out
+    return out * (x != padding_idx)[..., None].to(out.dtype)

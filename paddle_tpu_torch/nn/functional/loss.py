@@ -1,4 +1,4 @@
-"""Loss functions: ``cross_entropy`` over hard labels.
+"""Loss functions: ``cross_entropy`` over hard or soft labels.
 
 The counterpart of ``cross_entropy`` in
 ``paddle_tpu/nn/functional/loss.py``, with its routing: 2-D ``(N, V)``
@@ -6,7 +6,9 @@ logits, hard labels, no class weights, no label smoothing, ``N % 8 ==
 0`` and ``V % 128 == 0`` go to the fused softmax-cross-entropy kernel
 (``ops.kernels.softmax_ce``, whose wrapper picks the CUDA kernel or its
 plain version by device); anything else takes the dense float32 path,
-the JAX package's own. Soft labels are not ported yet.
+the JAX package's own. Soft labels (a distribution over the classes
+for each row) take the JAX package's dense soft-label path
+(``loss.py:92-101``): ``-sum(label * log_softmax(x))`` in float32.
 """
 from __future__ import annotations
 
@@ -61,15 +63,28 @@ def _dense(logits, label, weight, axis, ignore_index, reduction,
     return loss
 
 
+def _soft(logits, label, axis, reduction, use_softmax, label_smoothing):
+    lf = logits.float()
+    logp = torch.log_softmax(lf, dim=axis) if use_softmax else \
+        torch.log(lf.clamp_min(1e-12))
+    lab = label.float()
+    if label_smoothing > 0.0:
+        lab = lab * (1.0 - label_smoothing) + \
+            label_smoothing / lab.shape[axis]
+    return _reduce(-(lab * logp).sum(dim=axis), reduction)
+
+
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
-    """Softmax cross-entropy of ``input`` against hard integer ``label``;
-    rows whose label is ``ignore_index`` count neither in the loss nor
-    in the mean's denominator."""
+    """Softmax cross-entropy of ``input`` against hard integer ``label``
+    (rows whose label is ``ignore_index`` count neither in the loss nor
+    in the mean's denominator) or, with ``soft_label``, against a
+    ``label`` of ``input``'s shape holding each row's class
+    probabilities (``weight`` and ``ignore_index`` are not read)."""
     if soft_label:
-        raise NotImplementedError("soft-label cross_entropy is not ported "
-                                  "yet")
+        return _soft(input, label, axis, reduction, bool(use_softmax),
+                     float(label_smoothing))
     if fused_ce_ok(input, label, weight, axis, use_softmax,
                    label_smoothing):
         lab = label if label.dim() == 1 else label.squeeze(-1)

@@ -5,7 +5,10 @@ with its routing: a LayerNorm over the last axis with 1-D scale and
 shift, ``D % 128 == 0`` and ``N % 8 == 0`` goes to the fused kernel
 (``ops.kernels.layernorm``, whose wrapper picks the CUDA kernel or its
 plain version by device); anything else takes the dense float32 path,
-the JAX package's own.
+the JAX package's own. Without a ``weight`` the LayerNorm has no
+affine part, and a ``bias`` is not read either, as in the JAX package's
+``layer_norm_noaffine`` route (``norm_ops.py:106-107``); a ``weight``
+without a ``bias`` scales only (the JAX package raises there).
 """
 from __future__ import annotations
 
@@ -54,6 +57,8 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
         ns = [normalized_shape] if isinstance(normalized_shape, int) \
             else list(normalized_shape)
         begin = x.dim() - len(ns)
+    if weight is None:
+        bias = None
     if fused_ln_ok(tuple(x.shape), begin, weight, bias):
         D = x.shape[-1]
         out = fused_layer_norm(x.reshape(-1, D).contiguous(), weight, bias,

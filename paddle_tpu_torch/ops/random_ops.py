@@ -1,11 +1,16 @@
 """Stochastic ops: ``dropout``.
 
 The counterpart of ``dropout`` in ``paddle_tpu/ops/random_ops.py``
-(``upscale_in_train``): in training each element is kept with
-probability ``1 - p`` and scaled by ``1 / (1 - p)``; in eval it is the
-identity. The mask comes from an explicit ``torch.Generator`` on the
-tensor's device (``core.random.default_generator`` unless the caller
-passes one), so a run is reproducible from one seed.
+(:28-58). In training each element is kept with probability ``1 - p``:
+``upscale_in_train`` scales what it keeps by ``1 / (1 - p)`` and is the
+identity in eval; ``downscale_in_infer`` keeps it as it is and scales by
+``1 - p`` in eval. With ``axis`` the mask has the size of ``x`` along
+those axes and 1 along the others, and is broadcast (structured
+dropout); a negative axis counts from the end (the JAX package's mask
+is then of size 1 along it). The mask comes from an explicit
+``torch.Generator`` on the tensor's device
+(``core.random.default_generator`` unless the caller passes one), so a
+run is reproducible from one seed.
 ``torch.nn.functional.dropout`` takes no generator, hence this op.
 """
 from __future__ import annotations
@@ -16,18 +21,34 @@ from ..core.random import default_generator
 
 __all__ = ["dropout"]
 
+MODES = ("upscale_in_train", "downscale_in_infer")
 
-def dropout(x, p=0.5, training=True, generator=None):
-    """``where(keep, x / (1 - p), 0)`` with ``keep ~ Bernoulli(1 - p)``
-    drawn from ``generator`` (default: the device's); ``x`` itself when
-    not training or ``p == 0``."""
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            generator=None):
+    """``where(keep, x / (1 - p), 0)`` (``upscale_in_train``) or
+    ``where(keep, x, 0)`` (``downscale_in_infer``) with ``keep ~
+    Bernoulli(1 - p)`` of shape ``x.shape`` (or broadcast along the axes
+    not in ``axis``) drawn from ``generator`` (default: the device's).
+    Not training: ``x`` itself, or ``x * (1 - p)`` for
+    ``downscale_in_infer``; at ``p == 0`` in training, ``x``."""
     if not 0.0 <= p <= 1.0:
         raise ValueError(f"dropout probability {p} outside [0, 1]")
-    if not training or p == 0.0:
+    if mode not in MODES:
+        raise ValueError(f"dropout mode {mode!r} (one of {MODES})")
+    if not training:
+        return x if mode == "upscale_in_train" else x * (1.0 - p)
+    if p == 0.0:
         return x
     if generator is None:
         generator = default_generator(x.device)
+    shape = x.shape
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        axes = [a % x.dim() for a in axes]
+        shape = [n if i in axes else 1 for i, n in enumerate(x.shape)]
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    kept = x / keep if mode == "upscale_in_train" else x
+    return torch.where(mask, kept, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))

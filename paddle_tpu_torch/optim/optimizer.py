@@ -29,11 +29,22 @@ The learning rate is a float: LR schedulers are not ported yet.
 (``model.named_parameters()``); the names are what
 ``apply_decay_param_fun`` sees and ``lr_ratio`` reads as ``.name``
 (``param_<i>`` when none are given).
+
+Each step reads what ``nn.layers.common.create_parameter`` set on a
+parameter, as the reference's ``Optimizer.step`` does (:100-125): only
+parameters with ``requires_grad`` (the attr's ``trainable``) are
+updated; the learning rate is ``lr * optimize_attr["learning_rate"]``;
+the parameter's ``regularizer``, else the optimizer's ``weight_decay``
+(a float is ``L2Decay``), transforms the gradient before the update,
+except in ``AdamW``; the clip skips a gradient whose parameter has
+``need_clip = False``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .regularizer import L2Decay
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
 
@@ -71,7 +82,9 @@ class Optimizer:
         self._named_params = _named(parameters)
         self._learning_rate = float(learning_rate)
         # a float weight_decay is L2 regularisation added to the gradient
-        self._l2 = None if weight_decay is None else float(weight_decay)
+        if isinstance(weight_decay, (int, float)):
+            weight_decay = L2Decay(weight_decay)
+        self._regularization = weight_decay
         self._grad_clip = grad_clip
         self._multi_precision = bool(multi_precision)
         self._accumulators = {}
@@ -106,14 +119,17 @@ class Optimizer:
         pgs = [(p, p.grad) for _, p in named]
         if self._grad_clip is not None:
             pgs = self._grad_clip(pgs)
-        lr = self.get_lr()
+        base_lr = self.get_lr()
         for (name, _), (p, g) in zip(named, pgs):
             s = self._state_for(name, p)
             master = s.get("master")
             pw = p if master is None else master
             g = g.to(pw.dtype)
-            if self._l2 is not None:
-                g = g + self._l2 * pw
+            reg = getattr(p, "regularizer", None) or self._regularization
+            if reg is not None and not isinstance(self, AdamW):
+                g = reg(pw, g)
+            lr = base_lr * getattr(p, "optimize_attr", {}).get(
+                "learning_rate", 1.0)
             new_p = self._update(name, pw, g, s, lr)
             if master is not None:
                 s["master"] = new_p
@@ -175,7 +191,10 @@ class AdamW(Adam):
                  multi_precision=False):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, multi_precision)
-        self._coeff = float(weight_decay)
+        # a float, or a regularizer whose coeff is the decay
+        self._coeff = (float(weight_decay)
+                       if isinstance(weight_decay, (int, float))
+                       else weight_decay.coeff)
         self._apply_decay_fn = apply_decay_param_fun
         self._lr_ratio = lr_ratio
 

@@ -366,3 +366,50 @@ def test_tiny_gpt_bf16_step_launches_flash(hopper):
             want = m(x).float()
     # bfloat16 activations: one step at |logit| < 4 where a rounding flips
     torch.testing.assert_close(got, want, atol=2 ** -5, rtol=0)
+
+
+def test_tiny_bert_step_launches_the_layer_norm_kernels(hopper):
+    """One bench_bert-style step of a 2-layer BERT (bfloat16,
+    multi_precision, dropout 0.1, an attention mask) at vocab 1000: 6
+    LayerNorms forward and backward (the embeddings', two a layer, the
+    MLM head's), no cross-entropy kernel (the vocab is not a multiple of
+    128) and no flash (the mask). Then the eval forward without a mask:
+    2 non-causal flash forwards and 6 LayerNorm forwards, its logits
+    within 2^-6 of the largest |logit| of the plain versions' (two
+    bfloat16 steps)."""
+    from paddle_tpu_torch.models.nlp import bert
+
+    m = bert.BertForPretraining(
+        bert.bert_tiny(vocab_size=1000), device=hopper,
+        generator=torch.Generator(device=hopper).manual_seed(0)).bfloat16()
+    rng = np.random.RandomState(0)
+    B, L = 4, 128
+    ids = rng.randint(0, 1000, (B, L)).astype("int32")
+    tt = np.zeros((B, L), "int32")
+    am = np.ones((B, L), "int32")
+    am[::2, 100:] = 0
+    mlm = np.where(rng.rand(B, L) < 0.15, ids, -100).astype("int32")
+    nsp = rng.randint(0, 2, (B,)).astype("int32")
+    opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=1e-4,
+                      multi_precision=True,
+                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
+    step = TrainStep(m, opt, bert.bert_pretrain_loss)
+    kernels.reset_launches()
+    loss = step(ids, tt, am, mlm, nsp)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    none = dict.fromkeys(kernels.launches(), 0)
+    assert kernels.launches() == dict(none, layer_norm_fwd=6,
+                                      layer_norm_bwd=6)
+    x, t = (torch.from_numpy(a).to(hopper) for a in (ids, tt))
+    m.eval()
+    with torch.no_grad():
+        kernels.reset_launches()
+        got = m(x, t)[0].float()
+        torch.cuda.synchronize()
+        assert kernels.launches() == dict(none, layer_norm_fwd=6,
+                                          flash_attention_fwd=2)
+        with kernels.plain_versions():
+            want = m(x, t)[0].float()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=2 ** -6 * want.abs().max().item())

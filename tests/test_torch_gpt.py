@@ -554,6 +554,10 @@ from paddle_tpu_torch.models.nlp import gpt
 from paddle_tpu_torch.nn import functional
 from paddle_tpu_torch.ops import kernels, norm_ops, random_ops, activation
 from paddle_tpu_torch.dist import tp_layers
+from paddle_tpu_torch.models.nlp import bert
+from paddle_tpu_torch.nn import ParamAttr, initializer, param_attr
+from paddle_tpu_torch.nn.layers import transformer
+from paddle_tpu_torch.optim import regularizer
 core.seed(0)
 m = gpt.GPT(gpt.GPTConfig(vocab_size=256, hidden=128, layers=1, heads=2,
                           max_seq=16, dropout=0.1), device="cpu")
@@ -561,6 +565,14 @@ opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=1e-3,
                   grad_clip=optim.ClipGradByGlobalNorm(1.0))
 ids = np.random.RandomState(0).randint(0, 256, (8, 16))
 loss = TrainStep(m, opt, gpt.gpt_loss)(ids, np.roll(ids, -1, 1))
+assert np.isfinite(float(loss))
+b = bert.BertForPretraining(bert.bert_tiny(layers=1, vocab_size=256),
+                            device="cpu")
+opt = optim.Adam(parameters=b.named_parameters(), learning_rate=1e-3,
+                 weight_decay=regularizer.L2Decay(0.01))
+z = np.zeros((8, 16), "int64")
+loss = TrainStep(b, opt, bert.bert_pretrain_loss)(
+    ids, z, np.ones((8, 16)), np.where(ids % 7 == 0, ids, -100), z[:, 0])
 assert np.isfinite(float(loss))
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
@@ -575,3 +587,267 @@ def test_training_modules_import_neither_jax_nor_the_jax_package():
                          cwd=REPO, env=dict(os.environ, PYTHONPATH=""))
     assert out.returncode == 0, out.stderr[-3000:]
     assert "JAX-FREE OK" in out.stdout
+
+
+# -- the smaller modules of the BERT slice against the JAX package -----------
+
+
+@pytest.mark.parametrize("kind", ["XavierUniform", "XavierNormal"])
+@pytest.mark.parametrize("shape, kw", [
+    ((512, 256), {}),                       # Linear (in, out)
+    ((128, 64, 4, 4), {}),                  # conv (out, in, kh, kw)
+    ((131072,), {}),                        # 1-D: fan_in = fan_out
+    ((512, 256), {"fan_in": 100, "fan_out": 50, "gain": 2.0}),
+])
+def test_xavier_initializers_match_the_reference_law(kind, shape, kw):
+    """Fans as the reference's ``_fans`` (a Linear weight is ``(in,
+    out)``), the bound of a uniform draw, and the law of a large draw:
+    the standard deviation of 131,072 samples within 1% of the formula's
+    (sampling error ~0.2%) on both sides, and the two samples' deciles
+    within 2% of it of each other."""
+    from paddle_tpu.nn import initializer as jinit
+    from paddle_tpu_torch.nn import initializer as tinit
+
+    fi, fo = tinit._fans(shape)
+    assert (fi, fo) == jinit._fans(shape)
+    fi, fo = kw.get("fan_in", fi), kw.get("fan_out", fo)
+    gain = kw.get("gain", 1.0)
+    pt.seed(3)
+    want = np.asarray(getattr(jinit, kind)(**kw)(shape)).ravel()
+    got = getattr(tinit, kind)(**kw)(
+        shape, device="cpu", generator=torch.Generator().manual_seed(3))
+    assert tuple(got.shape) == shape and got.dtype == torch.float32
+    got = got.numpy().ravel()
+    if kind == "XavierUniform":
+        limit = gain * np.sqrt(6.0 / (fi + fo))
+        std = limit / np.sqrt(3.0)
+        for s in (got, want):
+            assert np.abs(s).max() <= limit and np.abs(s).max() > 0.99 * limit
+    else:
+        std = gain * np.sqrt(2.0 / (fi + fo))
+    for s in (got, want):
+        np.testing.assert_allclose(s.std(), std, rtol=1e-2)
+    deciles = np.linspace(0.1, 0.9, 9)
+    np.testing.assert_allclose(np.quantile(got, deciles),
+                               np.quantile(want, deciles), atol=2e-2 * std)
+
+
+@pytest.mark.parametrize("arg", ["none", "false", "name", "initializer",
+                                 "attr"])
+def test_param_attr_to_attr_matches_the_reference(arg):
+    from paddle_tpu.nn import initializer as jinit
+    from paddle_tpu.nn.param_attr import ParamAttr as JAttr
+    from paddle_tpu_torch.nn import ParamAttr
+    from paddle_tpu_torch.nn import initializer as tinit
+
+    jarg, targ = {
+        "none": (None, None), "false": (False, False),
+        "name": ("w0", "w0"),
+        "initializer": (jinit.Constant(2.0), tinit.Constant(2.0)),
+        "attr": (JAttr(learning_rate=0.5, need_clip=False),
+                 ParamAttr(learning_rate=0.5, need_clip=False))}[arg]
+    want, got = JAttr._to_attr(jarg), ParamAttr._to_attr(targ)
+    if arg == "false":
+        assert want is False and got is False
+        return
+    assert isinstance(got, ParamAttr)
+    for a in ("name", "learning_rate", "regularizer", "trainable",
+              "need_clip"):
+        assert getattr(got, a) == getattr(want, a), a
+    assert (got.initializer is None) == (want.initializer is None)
+    if arg == "initializer":
+        assert got.initializer is targ
+    if arg == "attr":
+        assert got is targ
+    assert ParamAttr._to_attr([None, False])[1] is False
+    with pytest.raises(TypeError):
+        ParamAttr._to_attr(3.0)
+
+
+def test_linear_without_weight_attr_is_the_reference_default():
+    """``Linear(in, out)``: a Xavier-uniform weight, a zero bias, and the
+    reference's parameter attributes."""
+    from paddle_tpu import nn as jnn
+    from paddle_tpu_torch import nn as tnn
+
+    pt.seed(0)
+    jl = jnn.Linear(256, 64)
+    tl = tnn.Linear(256, 64, device="cpu")
+    assert sorted(tl.state_dict()) == sorted(jl.state_dict())
+    limit = np.sqrt(6.0 / (256 + 64))
+    for w in (tl.weight.detach().numpy(), np.asarray(jl.weight._data)):
+        assert np.abs(w).max() <= limit and w.std() > 0.5 * limit
+    assert not tl.bias.detach().any() and not np.asarray(jl.bias._data).any()
+    for tp, jp in ((tl.weight, jl.weight), (tl.bias, jl.bias)):
+        assert tp.optimize_attr == jp.optimize_attr
+        assert (tp.regularizer, tp.need_clip, tp.requires_grad) == (
+            jp.regularizer, jp.need_clip, jp.trainable)
+
+
+def test_embedding_padding_idx_matches_the_reference():
+    """``padding_idx=-1`` is the last row: 0 at init, and every lookup of
+    it 0 with no gradient to it, even after the row was loaded nonzero."""
+    from paddle_tpu import nn as jnn
+    from paddle_tpu_torch import nn as tnn
+
+    pt.seed(0)
+    je = jnn.Embedding(10, 4, padding_idx=-1)
+    te = tnn.Embedding(10, 4, padding_idx=-1, device="cpu")
+    assert not te.weight[9].any()
+    assert not np.asarray(je.weight._data)[9].any()
+    w = np.random.RandomState(2).randn(10, 4).astype(np.float32)
+    je.weight._replace(pt.to_tensor(w)._data)
+    te.load_state_dict({"weight": torch.from_numpy(w)})
+    ids = np.array([[9, 1, 9], [3, 9, 0]], np.int64)
+    g = np.random.RandomState(3).randn(2, 3, 4).astype(np.float32)
+    jout = je(pt.to_tensor(ids))
+    (jout * pt.to_tensor(g)).sum().backward()
+    tout = te(torch.from_numpy(ids))
+    (tout * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_array_equal(tout.detach().numpy(),
+                                  np.asarray(jout._data))
+    assert not tout[ids == 9].any()
+    np.testing.assert_array_equal(te.weight.grad.numpy(),
+                                  np.asarray(je.weight.grad._data))
+    assert not te.weight.grad[9].any()
+
+
+@pytest.mark.parametrize("mode", ["upscale_in_train", "downscale_in_infer"])
+def test_dropout_axis_and_mode_match_the_reference(mode):
+    """``axis=1``: one keep decision per index of axis 1, broadcast along
+    the others; kept values scaled by 1/(1-p) (upscale) or not
+    (downscale); in eval the identity (upscale) or ``x * (1-p)``
+    (downscale), equal to the reference's output."""
+    from paddle_tpu import nn as jnn
+    from paddle_tpu_torch import nn as tnn
+
+    x = np.random.RandomState(4).rand(4, 64, 5).astype(np.float32) + 0.5
+    jd, td = jnn.Dropout(0.25, axis=1, mode=mode), tnn.Dropout(
+        0.25, axis=1, mode=mode)
+    scale = 1 / 0.75 if mode == "upscale_in_train" else 1.0
+    for out in (td(torch.from_numpy(x)).numpy(),
+                np.asarray(jd(pt.to_tensor(x))._data)):
+        ratio = out / x
+        kept = ratio[0, :, 0] != 0
+        np.testing.assert_allclose(ratio, np.where(kept, scale, 0.0)[
+            None, :, None] * np.ones_like(ratio), rtol=1e-6)
+        assert 0 < kept.sum() < 64
+    td.eval()
+    jd.eval()
+    got = td(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jd(pt.to_tensor(x))._data))
+    np.testing.assert_array_equal(got, x if scale != 1.0 else x * 0.75)
+
+
+@pytest.mark.parametrize("which", ["no-bias", "no-weight", "neither"])
+def test_layer_norm_without_parameters_matches_the_reference(which):
+    """``weight_attr``/``bias_attr=False`` make no parameter. The
+    reference routes a LayerNorm without a weight to its no-affine op,
+    which reads no bias either; without a bias its forward raises
+    (``bias.ndim`` of None), so the port's is held to the reference's
+    LayerNorm with the same weight and its zero bias. The port takes the
+    dense path there: tolerance 1e-6 (float32 statistics in another
+    summation order)."""
+    from paddle_tpu import nn as jnn
+    from paddle_tpu_torch import nn as tnn
+
+    kw = {"no-bias": {"bias_attr": False},
+          "no-weight": {"weight_attr": False},
+          "neither": {"weight_attr": False, "bias_attr": False}}[which]
+    rng = np.random.RandomState(5)
+    x = (rng.randn(8, 128) * 2 + 0.5).astype(np.float32)
+    w = rng.randn(128).astype(np.float32)
+    tl = tnn.LayerNorm(128, device="cpu", **kw)
+    jl = jnn.LayerNorm(128, **({} if which == "no-bias" else kw))
+    assert (tl.weight is None) == ("weight_attr" in kw)
+    assert (tl.bias is None) == ("bias_attr" in kw)
+    if which == "no-bias":
+        jl.weight._replace(pt.to_tensor(w)._data)
+        with torch.no_grad():
+            tl.weight.copy_(torch.from_numpy(w))
+    got = tl(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(got, np.asarray(jl(pt.to_tensor(x))._data),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_soft_label_cross_entropy_matches_the_reference(reduction,
+                                                        smoothing):
+    """Loss and its gradient by the logits, float32 within 1e-6."""
+    from paddle_tpu.nn import functional as JF
+    from paddle_tpu_torch.nn import functional as TF
+
+    rng = np.random.RandomState(6)
+    x = (rng.randn(16, 40) * 3).astype(np.float32)
+    e = np.exp(rng.randn(16, 40))
+    lab = (e / e.sum(-1, keepdims=True)).astype(np.float32)
+    jx = pt.to_tensor(x)
+    jx.stop_gradient = False
+    want = JF.cross_entropy(jx, pt.to_tensor(lab), soft_label=True,
+                            reduction=reduction, label_smoothing=smoothing)
+    want.sum().backward()
+    tx = torch.from_numpy(x).requires_grad_()
+    got = TF.cross_entropy(tx, torch.from_numpy(lab), soft_label=True,
+                           reduction=reduction, label_smoothing=smoothing)
+    got.sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want._data),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jx.grad._data),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["learning_rate", "l2decay", "need_clip",
+                                  "trainable", "adamw_learning_rate"])
+def test_param_attrs_reach_the_optimizer_as_in_the_reference(case):
+    """Three steps of the reference's eager ``Optimizer.step`` and the
+    port's on a ``Linear(6, 5)`` whose weight has a ``ParamAttr``: a
+    learning-rate multiplier of 0.5 (Adam and AdamW), its own
+    ``L2Decay(0.1)`` beside the optimizer's ``weight_decay`` 0.01 (the
+    bias's), ``need_clip=False`` under a global-norm clip of 0.01 that
+    clips the bias, or ``trainable=False``. Tolerance rtol 1e-6 as
+    ``test_optimizer_update_matches``."""
+    from paddle_tpu import nn as jnn
+    from paddle_tpu.nn.param_attr import ParamAttr as JAttr
+    from paddle_tpu.optim.regularizer import L2Decay as JL2
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.nn import ParamAttr
+
+    attr, jattr, okw, jokw = {
+        "learning_rate": ({"learning_rate": 0.5}, None, {}, {}),
+        "l2decay": ({"regularizer": optim.L2Decay(0.1)},
+                    {"regularizer": JL2(0.1)},
+                    {"weight_decay": 0.01}, {"weight_decay": 0.01}),
+        "need_clip": ({"need_clip": False}, None,
+                      {"grad_clip": optim.ClipGradByGlobalNorm(0.01)},
+                      {"grad_clip": joptim.ClipGradByGlobalNorm(0.01)}),
+        "trainable": ({"trainable": False}, None, {}, {}),
+        "adamw_learning_rate": ({"learning_rate": 0.5}, None, {}, {}),
+    }[case]
+    jattr = jattr or attr
+    pt.seed(0)
+    jl = jnn.Linear(6, 5, weight_attr=JAttr(**jattr))
+    tl = tnn.Linear(6, 5, weight_attr=ParamAttr(**attr), device="cpu")
+    tl.load_state_dict({k: torch.from_numpy(np.array(v._data))
+                        for k, v in jl.state_dict().items()})
+    w0 = tl.weight.detach().clone()
+    cls, tcls = ((joptim.AdamW, optim.AdamW) if case.startswith("adamw")
+                 else (joptim.Adam, optim.Adam))
+    jopt = cls(learning_rate=0.01, parameters=jl.parameters(), **jokw)
+    topt = tcls(learning_rate=0.01, parameters=tl.named_parameters(), **okw)
+    rng = np.random.RandomState(7)
+    for _ in range(3):
+        x, g = rng.randn(4, 6).astype(np.float32), rng.randn(4, 5).astype(
+            np.float32)
+        (jl(pt.to_tensor(x)) * pt.to_tensor(g)).sum().backward()
+        jopt.step()
+        jopt.clear_grad()
+        (tl(torch.from_numpy(x)) * torch.from_numpy(g)).sum().backward()
+        topt.step()
+        topt.clear_grad()
+    for name in ("weight", "bias"):
+        np.testing.assert_allclose(
+            getattr(tl, name).detach().numpy(),
+            np.asarray(getattr(jl, name)._data), rtol=1e-6, atol=1e-7,
+            err_msg=name)
+    assert torch.equal(tl.weight.detach(), w0) == (case == "trainable")

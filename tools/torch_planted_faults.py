@@ -10,7 +10,13 @@ planted at a time:
 - dgamma, then dbeta, of every ``layer_norm_bwd`` call zeroed, in the
   float32 train phase (``gpt_small``, dropout 0.1, batch 8 x 1024);
 - dV of every ``flash_attention_bwd_dkv`` call zeroed, in the bf16
-  train phase (bench_gpt's configuration, batch 16 x 1024).
+  train phase (bench_gpt's configuration, batch 16 x 1024);
+- dx of every ``layer_norm_bwd`` call zeroed, in the train-bert phase
+  (bench_bert's configuration, ``bert_base`` in bfloat16, batch 64 x
+  128), whose kernels are the LayerNorm's alone. (dgamma = 0 there
+  moved the losses by at most 6.9e-3, as much as the bfloat16 roundings
+  of an honest run move them, 6.7e-3: under the limit of 1e-2, so a
+  4-step bfloat16 run cannot tell it from an honest one.)
 
 Each phase runs 4 AdamW steps through the kernels and 4 through the
 plain versions and compares the losses. A fault is planted by swapping
@@ -19,9 +25,9 @@ output; the real wrapper counts its launch on the module's name, the
 planted one, so the phase's launch check passes and its loss check is
 what must catch the fault. Nothing on disk changes. Each run prints
 its per-step loss differences (the smoke's ``train:`` /
-``train-bf16:`` lines) and must fail the phase's loss check; the
-script exits non-zero if any fault passes or is caught by another
-check. Needs one CUDA card.
+``train-bf16:`` / ``train-bert:`` lines) and must fail the phase's loss
+check; the script exits non-zero if any fault passes or is caught by
+another check. Needs one CUDA card.
 """
 import os
 import sys
@@ -44,6 +50,8 @@ FAULTS = [
      chip_smoke.train_phase),
     ("flash_attention_bwd_dkv dV = 0", fa, "flash_attention_bwd_dkv", 1,
      chip_smoke.train_bf16_phase),
+    ("bert: layer_norm_bwd dx = 0", ln, "layer_norm_bwd", 0,
+     chip_smoke.train_bert_phase),
 ]
 
 

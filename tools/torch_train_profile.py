@@ -4,19 +4,24 @@
     python3 tools/torch_train_profile.py [--config NAME] [--json PATH]
                                          [--steps N]
 
-Builds ``gpt_small`` (12 x 768, vocab 50304) of ``paddle_tpu_torch`` on
-the card in one of the training configurations of ``chip_smoke.py``
-(``TRAIN_CONFIGS``; the smoke's train phases drive the same two, with
-the same model and optimizer):
+Builds a model of ``paddle_tpu_torch`` on the card in one of the
+training configurations of ``chip_smoke.py`` (``TRAIN_CONFIGS``; the
+smoke's train phases drive the same three, with the same model,
+optimizer and batch):
 
-- ``dropout0.1-float32`` (the default): ``gpt_small``'s defaults,
-  dropout 0.1, float32, batch 8 x 1024 — dense attention;
-- ``bench_gpt``: ``bench.py:bench_gpt``'s recipe, dropout 0,
-  ``model.bfloat16()``, batch 16 x 1024, multi_precision — the flash
-  kernels;
+- ``dropout0.1-float32`` (the default): ``gpt_small`` (12 x 768, vocab
+  50304) at its defaults, dropout 0.1, float32, batch 8 x 1024 — dense
+  attention;
+- ``bench_gpt``: ``bench.py:bench_gpt``'s recipe, ``gpt_small`` at
+  dropout 0, ``model.bfloat16()``, batch 16 x 1024, multi_precision —
+  the flash kernels;
+- ``bench_bert``: ``bench.py:bench_bert``'s recipe, ``bert_base`` (12 x
+  768, vocab 30522) at dropout 0.1, ``model.bfloat16()``, batch 64 x
+  128 with an attention mask, multi_precision — dense attention, the
+  LayerNorm kernels, the dense cross-entropy;
 
-both with AdamW(1e-4, decay 0.01) and global-norm clip 1.0 on ids from
-RandomState(0). After two
+each with AdamW(1e-4, decay 0.01) and global-norm clip 1.0 on a batch
+from RandomState(0). After two
 warm steps it times ``--steps`` steps with CUDA events between the
 forward, the backward and the optimizer (clip + AdamW), then profiles
 one more step under ``torch.profiler`` and prints device time by kernel
@@ -96,17 +101,14 @@ def main(argv=None):
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 2
     from paddle_tpu_torch import core
-    from paddle_tpu_torch.models.nlp import gpt
     from paddle_tpu_torch.ops import kernels
 
     core.seed(1)
     model = chip_smoke.train_model(args.config)
-    cfg, B = model.cfg, chip_smoke.TRAIN_CONFIGS[args.config]["batch"]
-    L = cfg.max_seq
-    rng = np.random.RandomState(0)
-    ids_np = rng.randint(0, cfg.vocab_size, (B, L))
-    ids = torch.from_numpy(ids_np).cuda()
-    labels = torch.from_numpy(np.roll(ids_np, -1, axis=1)).cuda()
+    cfg = model.cfg
+    loss_fn, batch, _ = chip_smoke.train_batch(model, args.config)
+    B, L = batch[0].shape
+    batch = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in batch]
     opt = chip_smoke.train_optimizer(model, args.config)
 
     def step(events=None):
@@ -114,7 +116,7 @@ def main(argv=None):
         opt.clear_grad()
         if events:
             events[0].record()
-        loss = gpt.gpt_loss(model, ids, labels)
+        loss = loss_fn(model, *batch)
         if events:
             events[1].record()
         loss.backward()
@@ -201,7 +203,8 @@ def main(argv=None):
         "device_busy_share": busy_ms / prof_wall if busy_ms else None,
         "host_issue_us": issue_us,
     }
-    print(f"train step (gpt_small, {args.config}, batch {B} x {L}): "
+    print(f"train step ({chip_smoke.TRAIN_CONFIGS[args.config]['model']}, "
+          f"{args.config}, batch {B} x {L}): "
           f"wall ms " + " ".join(f"{w:.1f}" for w in walls)
           + f" = {out['tokens_per_s']:.0f} tokens/s at the median; phases "
           f"(CUDA events, median): " + ", ".join(
