@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path and its three training steps
-once on one NVIDIA H100.
+"""Drive paddle_tpu_torch's serving path, its three training steps and
+its serving fleet once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -76,7 +76,9 @@ any failed check:
              version and ``F.scaled_dot_product_attention(is_causal=True)``
              (forward; its autograd backward for both backward kernels,
              and beside the two backward kernels launched back to back),
-             beside the bound at the bfloat16 tensor-core rate;
+             beside the bound at the bfloat16 tensor-core rate; and the
+             forward at bench_bert's eval shape (B*H = 768, L = 128, not
+             causal) against its plain version and SDPA;
 12. train-bert — bench_bert's configuration (``bench.py:bench_bert``):
              ``bert_base`` at full width and depth (12 x 768, 12 heads,
              FFN 3072, vocab 30522), dropout 0.1, ``model.bfloat16()``,
@@ -91,6 +93,20 @@ any failed check:
              MLM logits within BERT_LOGIT_STEPS of the largest |logit|
              of the plain versions'; and the LayerNorm kernels timed at
              its (8192, 768) bfloat16 as in phase 8.
+
+13. fleet  — the serving fleet (``paddle_tpu_torch.serving.fleet``) at
+             gpt_small's serving width (``FLEET_LOCAL``/``FLEET_DRILL``):
+             the engine phase's 16 requests through a ``Router`` over two
+             local replicas (tenants of weight 1 and 2), tokens equal to
+             the dense oracle, one paged launch for every decode step of
+             every replica, each pool balanced, the scraped tenant gauges
+             bitwise equal to the router's rollup; then the kill drill
+             (``serving.fleet.drill``) with two worker processes on the
+             card, replica 1 killed mid-decode and relaunched: every drill
+             check, every incarnation's journal naming this card, and the
+             survivor's decode steps each one paged launch. It prints the
+             router step p50, the scraped TTFT/TPOT p50/p99 and the time
+             from the kill's detection to the relaunched replica's ready.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -507,6 +523,165 @@ def timing_phase(cache, prompt_lens, vocab, gpu):
         f"logits + numpy argmax) [{gpu}]")
     return dict(max_abs_err=err, ms=min(ms, ms2), plain_ms=plain_ms,
                 bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+
+
+# -- phase 13: the serving fleet ----------------------------------------------
+
+# the fleet's replicas: gpt_small's serving width, one layer, float32
+# pools of 16-token pages. Local mode: the engine phase's 16 requests over
+# two replicas, 1600 pages each (~8 prompts of <= 2080 tokens a replica);
+# the drill: six prompts of 128-512 tokens, 32 new tokens each, 400 pages
+FLEET_LOCAL = dict(FULL, seed=0, pages=1600, page_size=16, max_seq_len=4096,
+                   token_budget=8192, warm=False)
+FLEET_DRILL = dict(FULL, seed=0, pages=400, page_size=16, max_seq_len=1024,
+                   token_budget=4096, max_batch=4)
+
+
+def fleet_local(prompts, max_new, gpu):
+    """Two local replicas behind one Router, tenants t1 (weight 1) and t2
+    (weight 2), the launch counts zeroed just before the router drives
+    the requests and read just after. Every request must finish with the
+    dense oracle's tokens, each decode step of each replica must launch
+    the paged kernel once, each pool must balance and the scraped tenant
+    gauges must equal the router's rollup bitwise. Returns the launch
+    counts."""
+    import torch
+
+    from paddle_tpu_torch.obs import export, usage
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import fleet
+
+    t0 = time.perf_counter()
+    pool = fleet.ReplicaPool(fleet.ReplicaSpec(**FLEET_LOCAL), replicas=2,
+                             mode="local")
+    router = fleet.Router(pool, tenants={
+        "t1": fleet.TenantPolicy(weight=1.0),
+        "t2": fleet.TenantPolicy(weight=2.0)})
+    engines = pool.local_engines()
+    log(f"fleet local: 2 replicas of {FLEET_LOCAL} ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = [router.submit(p, max_new_tokens=max_new, rid=f"f{i:02d}",
+                          tenant=("t1", "t2")[i % 2])
+            for i, p in enumerate(prompts)]
+    step_ms = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    while router.inflight or router.queue_depth:
+        s0 = time.perf_counter()
+        router.step()
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    decode_steps = [e.usage.decode_steps for e in engines]
+    log(f"fleet local: {len(reqs)} requests in {wall * 1e3:.1f} ms, "
+        f"{len(step_ms)} router steps, decode steps {decode_steps}, "
+        f"launches {launches}")
+    check(all(r.state == "FINISHED" for r in reqs),
+          "fleet local: not every request finished")
+    check(launches["paged_decode_attention"] == sum(decode_steps) > 0
+          and all(decode_steps),
+          f"fleet local: {launches['paged_decode_attention']} paged "
+          f"launches for decode steps {decode_steps}")
+    oracle = engines[0].model
+    for r, p in zip(reqs, prompts):
+        ref = oracle.reference_generate(p, max_new)
+        check(r.tokens == ref, f"fleet local: {r.rid} on replica "
+              f"{r.replica_id}: tokens differ from the dense oracle's")
+    for e in engines:
+        check(e.cache.verify() and e.cache.stats()["used_pages"] == 0,
+              f"fleet local: replica {e.replica_id}'s pool does not "
+              f"balance: {e.cache.stats()}")
+        check(e.usage.verify(), f"fleet local: replica {e.replica_id}'s "
+              "usage does not telescope")
+    # the chargeback gauges, scraped from a live exporter over HTTP, equal
+    # the router's rollup bitwise
+    exporter = export.MetricsExporter(engines=engines, router=router,
+                                      port=0)
+    port = exporter.start()
+    try:
+        scraped = export.parse_prometheus_text(
+            export.scrape(f"http://127.0.0.1:{port}/metrics"))
+    finally:
+        exporter.stop()
+    truth = usage.router_tenant_usage(router)
+    check(set(truth["tenants"]) == {"t1", "t2"} and truth["served_total"],
+          f"fleet local: tenant rollup {truth['tenants']}")
+    for tenant, d in truth["tenants"].items():
+        for key in ("weight_share", "served_tokens", "share", "requests",
+                    "completed", "requeued", "preemptions",
+                    "prompt_tokens", "decode_tokens"):
+            skey = f'paddle_tpu_tenant_{key}{{tenant="{tenant}"}}'
+            check(scraped.get(skey) == float(d.get(key, 0)),
+                  f"fleet local: {skey} scraped {scraped.get(skey)} != "
+                  f"router truth {d.get(key, 0)}")
+
+    def q(name, p):
+        return scraped[f'paddle_tpu_fleet_router_{name}{{q="{p}"}}']
+    srt = sorted(step_ms)
+    log(f"fleet local: router step p50 {srt[len(srt) // 2]:.3f} ms; TTFT "
+        f"p50 {q('ttft_ms', 'p50'):.3f} ms p99 {q('ttft_ms', 'p99'):.3f} "
+        f"ms; TPOT p50 {q('tpot_ms', 'p50'):.3f} ms p99 "
+        f"{q('tpot_ms', 'p99'):.3f} ms (exporter scrape); tokens equal the "
+        f"dense oracle, pools balanced, chargeback gauges bitwise [{gpu}]")
+    router.close()
+    return launches
+
+
+def fleet_drill(gpu):
+    """The kill drill on the card: two worker processes at FLEET_DRILL,
+    replica 1 killed by ``replica_kill`` mid-decode and relaunched. Every
+    drill assertion must hold, every incarnation's journal must name this
+    card, and the survivor's decode steps after its ready line must each
+    have launched the paged kernel once."""
+    import torch
+
+    from paddle_tpu_torch.serving.fleet import drill
+
+    rng = np.random.RandomState(1)
+    trace = [([int(t) for t in rng.randint(0, FULL["vocab_size"], n)], 32)
+             for n in rng.randint(128, 513, drill.N_REQUESTS)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = drill.run_drill(geometry=FLEET_DRILL, trace=trace)
+    wall = time.perf_counter() - t0
+    check(res["failures"] == [], f"fleet drill: {res['failures']}")
+    name = torch.cuda.get_device_name(0)
+    for rank in (0, drill.VICTIM):
+        evs = res["backends"].get(rank) or []
+        check(evs and all(e.get("platform") == "gpu"
+                          and e.get("device_kind") == name for e in evs),
+              f"fleet drill: rank {rank}'s backend events {evs}")
+    check(len(res["backends"][drill.VICTIM]) == 2,
+          "fleet drill: the victim's two incarnations did not both "
+          "journal the card")
+    (survivor,) = res["kernel_launches"][0]
+    served = (survivor["stop"]["paged_decode_attention"]
+              - survivor["ready"]["paged_decode_attention"])
+    check(served == survivor["decode_steps"] > 0,
+          f"fleet drill: survivor launched the paged kernel {served} "
+          f"times for {survivor['decode_steps']} decode steps")
+    for ev in res["kernel_launches"].get(drill.VICTIM) or []:
+        check(ev["stop"]["paged_decode_attention"]
+              - ev["ready"]["paged_decode_attention"]
+              == ev["decode_steps"],
+              f"fleet drill: relaunched replica's launches {ev}")
+    log(f"fleet drill: {len(trace)} requests, requeued "
+        f"{res['requeued_rids']}, {res['incarnations']} incarnations of "
+        f"replica {drill.VICTIM}; survivor {survivor['decode_steps']} "
+        f"decode steps, {served} paged launches after ready; kill "
+        f"detected to relaunched replica ready "
+        f"{res['relaunch_ready_s']:.3f} s; drill wall {wall:.1f} s; "
+        f"every drill check holds and every incarnation journaled "
+        f"{name} [{gpu}]")
+    return res
+
+
+def fleet_phase(prompts, gpu):
+    launches = fleet_local(prompts, 32, gpu)
+    fleet_drill(gpu)
+    return launches
 
 
 # -- phase 6: training kernels against their plain versions ------------------
@@ -1234,6 +1409,43 @@ def flash_timing_phase(gpu):
         f"causal: kernels {ms:.4f} ms (again {ms2:.4f}), library backward "
         f"{lib_ms:.4f} ms, bound {bound:.4f} ms = "
         f"{bound / min(ms, ms2) * 100:.2f}% of roofline [{gpu}]")
+    # the forward at bench_bert's eval shape (no mask, not causal): the
+    # 12 launches of the train-bert phase's eval forward, B*H = 64 * 12,
+    # L = BERT_SEQ; every (query, key) pair counts
+    qe, ke, ve = (torch.randn(64, 12, BERT_SEQ, D, generator=g,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(3))
+    oe, lse_e = fa.flash_attention_fwd(qe, ke, ve, False, scale)
+    oe_ref, lse_ref = fa.flash_attention_fwd_reference(qe, ke, ve, False,
+                                                       scale)
+    ok_o, err_o = flash_close(oe, oe_ref, False)
+    ok_l, err_l = flash_close(lse_e, lse_ref, False)
+    check(ok_o and ok_l, f"flash forward at bench_bert's eval shape "
+          f"disagrees with its plain version: O {err_o:.3e}, lse "
+          f"{err_l:.3e}")
+    BHe = 64 * 12
+    te, rowe = BHe * BERT_SEQ * D * 2, BHe * BERT_SEQ * 4
+    flops = 4 * D * BHe * BERT_SEQ * BERT_SEQ
+    ms = cuda_ms(lambda: fa.flash_attention_fwd(qe, ke, ve, False, scale),
+                 20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_reference(
+        qe, ke, ve, False, scale), 5)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qe, ke, ve),
+                     20)
+    ms2 = cuda_ms(lambda: fa.flash_attention_fwd(qe, ke, ve, False, scale),
+                  20)
+    t_bytes = (4 * te + rowe) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"timing flash_attention_fwd (bench_bert eval) B*H={BHe} "
+        f"L={BERT_SEQ} D={D} bfloat16 not causal: kernel {ms:.4f} ms "
+        f"(again {ms2:.4f}), plain {plain_ms:.4f} ms, library (SDPA) "
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+        f"{(4 * te + rowe) / 1e6:.1f} MB at 3.35 TB/s, {flops / 1e9:.1f} "
+        f"GFLOP at 989 TFLOP/s) = {bound / min(ms, ms2) * 100:.2f}% of "
+        f"roofline; max abs err vs plain O {err_o:.3e} lse {err_l:.3e} "
+        f"[{gpu}]")
     return out
 
 
@@ -1253,12 +1465,25 @@ def main():
         from paddle_tpu_torch.ops import kernels
         from paddle_tpu_torch.ops.kernels import _build
         from paddle_tpu_torch.serving import PagedKVCache, TinyLM
+        # every module of the fleet path, imported before the check below
+        import paddle_tpu_torch.obs  # noqa: F401
+        import paddle_tpu_torch.resilience.elastic  # noqa: F401
+        import paddle_tpu_torch.serving.fleet.drill  # noqa: F401
+        import paddle_tpu_torch.serving.fleet.worker  # noqa: F401
+        import paddle_tpu_torch.utils.envspec  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
     check(not any(m.split(".")[0] in ("jax", "paddle_tpu")
                   for m in sys.modules), "the JAX side was imported")
+    check({"paddle_tpu_torch.serving.fleet.router",
+           "paddle_tpu_torch.serving.fleet.pool",
+           "paddle_tpu_torch.serving.fleet.autoscale",
+           "paddle_tpu_torch.obs.export", "paddle_tpu_torch.obs.slo",
+           "paddle_tpu_torch.obs.timeseries", "paddle_tpu_torch.obs.anomaly",
+           "paddle_tpu_torch.obs.reqtrace", "paddle_tpu_torch.obs.fleet"}
+          <= set(sys.modules), "a module of the fleet path was not imported")
     # float32 products in full float32: no TF32 anywhere on this path
     torch.backends.cudnn.allow_tf32 = False
     check(torch.backends.cuda.matmul.allow_tf32 is False,
@@ -1320,6 +1545,8 @@ def main():
     # the JSON line's LayerNorm rows, beside the BERT run's launches
     train_t.update(train_timing_phase(gpu, 64 * BERT_SEQ, torch.bfloat16,
                                       V=None))
+    torch.cuda.empty_cache()
+    fleet_phase(prompts, gpu)
 
     pa = kernels.KERNELS["paged_decode_attention"]
     rows = [{"name": "paged_decode_attention", "route": "cuda",

@@ -1,14 +1,23 @@
-"""paddle_tpu_torch.obs: the host-side observability the serve loop calls.
+"""paddle_tpu_torch.obs: the host-side observability the serve path calls.
 
 - ``metrics``: counters, gauges and fixed-bucket histograms;
 - ``lockdep``: opt-in runtime lock-order validation;
 - ``trace``: wall-time spans with Chrome-trace export;
 - ``journal``: the run journal's event and request records;
-- ``usage``: per-tenant device-second and page-second attribution.
+- ``usage``: per-tenant device-second and page-second attribution;
+- ``export``: the registry and the serving/fleet SLO gauges as
+  Prometheus text over a localhost ``/metrics`` endpoint or a textfile;
+- ``timeseries``, ``slo``: windowed SLO series and the burn-rate
+  evaluator the fleet router ticks;
+- ``anomaly``: stateful detectors over step and serving signals;
+- ``reqtrace``: per-request timelines across router and replicas;
+- ``fleet``: cross-rank aggregation over per-rank journals and the
+  merged Chrome trace.
 
-The JAX package's anomaly detectors, MFU accounting, SLO engine,
-exporters and fleet views are not ported yet.
+The JAX package's MFU accounting and SPMD views are not ported yet.
 """
-from . import journal, lockdep, metrics, trace, usage
+from . import (anomaly, export, fleet, journal, lockdep, metrics,
+               reqtrace, slo, timeseries, trace, usage)
 
-__all__ = ["journal", "lockdep", "metrics", "trace", "usage"]
+__all__ = ["anomaly", "export", "fleet", "journal", "lockdep", "metrics",
+           "reqtrace", "slo", "timeseries", "trace", "usage"]

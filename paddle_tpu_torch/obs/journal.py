@@ -10,7 +10,8 @@ path or env ``PADDLE_TPU_RUN_DIR``) holding
 - one ``request`` record per finished request (lifecycle timestamps on
   the serving clock, derived latencies, pages and preemptions),
 - a ``backend`` event with the torch device probe, written with the
-  first request record (by then the run has touched its device), and
+  first request record (by then the run has touched its device) or
+  earlier through ``note_backend()``, and
 - one ``run_end`` summary.
 
 Write path: records buffer in memory and flush every ``flush_every``
@@ -44,7 +45,7 @@ from . import trace as _trace
 
 __all__ = ["RunJournal", "ACTIVE", "start_run", "end_run",
            "JOURNAL_FILE", "POSTMORTEM_FILE", "TRACE_FILE", "RANK_ENV",
-           "rank_subdir", "env_rank"]
+           "SUPERVISOR_DIR", "ROUTER_DIR", "rank_subdir", "env_rank"]
 
 JOURNAL_FILE = "journal.jsonl"
 POSTMORTEM_FILE = "postmortem.json"
@@ -52,6 +53,13 @@ TRACE_FILE = "trace.json"
 # the rank identity a gang launcher hands each worker, alongside a
 # per-rank run dir
 RANK_ENV = "PADDLE_TPU_RANK"
+# where a supervisor's own events land under the fleet run dir — ONE
+# constant shared by the writer and the reader (obs.fleet); a rename on
+# either side would silently orphan the record
+SUPERVISOR_DIR = "supervisor"
+# likewise for the serve-fleet router's own journal (writer:
+# serving.fleet.Router / drill; reader: obs.fleet.router_summary)
+ROUTER_DIR = "router"
 
 # The active journal every hook checks (mirrors resilience.inject.ACTIVE:
 # None => hooks are a single None check and nothing else).
@@ -330,12 +338,24 @@ class RunJournal:
         with self._lock:
             if self._closed:
                 return None
-            if not self._backend_written:
-                self._backend_written = True
-                self.event("backend", **_backend_info())
+            self._note_backend_locked()
             self._requests += 1
             self._write(rec, _locked=True)
         return rec
+
+    def _note_backend_locked(self):
+        if not self._backend_written:
+            self._backend_written = True
+            self.event("backend", **_backend_info())
+
+    def note_backend(self):
+        """Write the ``backend`` event now unless it is written already:
+        for a process that has touched its device before its first
+        request record (a fleet worker after ``warm()``), so a replica
+        killed before it finishes a request still journals its card."""
+        with self._lock:
+            if not self._closed:
+                self._note_backend_locked()
 
     def event(self, kind, **fields):
         """Append one discrete event record (compile, preemption,

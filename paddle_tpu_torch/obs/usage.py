@@ -28,9 +28,9 @@ Everything else here is a **pull-only reader** (the zero-overhead
 contract: the serve path never calls into this module; poisoned
 readers must not perturb a routed lifecycle): per-engine and
 per-router rollups, the fairness audit (measured served-token share vs
-configured weight share) and journal-record rollups for a post-hoc
-chargeback table. (The JAX package's per-tenant SLO slices need
-``obs.slo``, which this package does not have yet.)
+configured weight share), journal-record rollups for a post-hoc
+chargeback table, and per-tenant SLO slices via
+``obs.slo.evaluate_run``.
 """
 from __future__ import annotations
 
@@ -39,7 +39,8 @@ from .metrics import exact_percentile
 __all__ = ["DEFAULT_TENANT", "DEFAULT_FAIRNESS_DRIFT_THRESHOLD",
            "TickingClock", "UsageMeter", "engine_tenant_usage",
            "router_tenant_usage", "fairness_audit", "fairness_record",
-           "rollup_requests", "merge_tenant_rollups"]
+           "rollup_requests", "merge_tenant_rollups",
+           "tenant_slo_slices"]
 
 DEFAULT_TENANT = "default"
 
@@ -382,3 +383,31 @@ def merge_tenant_rollups(rollups):
                     dst[k] = dst.get(k, 0) + v
     return out
 
+
+def tenant_slo_slices(run_dir, specs, duration_s=None):
+    """Per-tenant SLO evaluation over a run's pooled journals: filter
+    the pooled request records (and ``router.reject`` events) by
+    tenant, then run the existing ``obs.slo.evaluate_run`` per slice —
+    same ``SLOSpec`` objectives, one verdict per tenant."""
+    from . import slo as _slo
+
+    pooled = run_dir if isinstance(run_dir, dict) \
+        else _slo.load_any(run_dir)
+    by_tenant = {}
+    for rec in pooled.get("requests") or []:
+        by_tenant.setdefault(rec.get("tenant") or DEFAULT_TENANT,
+                             []).append(rec)
+    rejects = {}
+    for ev in pooled.get("events") or []:
+        if ev.get("kind") == "router.reject":
+            rejects.setdefault(ev.get("tenant") or DEFAULT_TENANT,
+                               []).append(ev)
+    out = {}
+    for tenant in sorted(set(by_tenant) | set(rejects)):
+        sub = {"run_dir": pooled.get("run_dir"),
+               "requests": by_tenant.get(tenant, []),
+               "events": rejects.get(tenant, []),
+               "runs": pooled.get("runs") or []}
+        out[tenant] = _slo.evaluate_run(sub, specs,
+                                        duration_s=duration_s)
+    return out

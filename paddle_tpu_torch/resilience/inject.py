@@ -16,9 +16,12 @@ Determinism: an injector fires on hit indices ``at .. at+times-1`` of
 its chaos point (hits are counted per activation, under a lock), so the
 same (at, times) config always breaks the same run the same way.
 
+Activation is also possible from env ``PADDLE_TPU_CHAOS`` (read at
+import, or by ``install_from_env()``): a fleet worker inherits its kill
+that way.
+
 Not here yet: the training-side injectors (feeds, ops, compiles,
-checkpoints, loader and gang workers) and activation from
-``PADDLE_TPU_CHAOS``.
+checkpoints, loader and gang workers).
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import threading
 __all__ = [
     "ChaosError", "TransientChaosError", "Injector", "INJECTORS",
     "ACTIVE", "ReplicaKillInjector", "register_injector", "chaos", "fire",
-    "clear",
+    "clear", "install_from_env",
 ]
 
 
@@ -182,3 +185,31 @@ def chaos(point, **cfg):
 def clear():
     """Deactivate every chaos point."""
     ACTIVE.clear()
+
+
+def install_from_env(env=None):
+    """Activate chaos points from ``PADDLE_TPU_CHAOS``.
+
+    Format (shared ``utils.envspec`` grammar):
+    ``"point:key=val,key=val;point2"`` — e.g.
+    ``PADDLE_TPU_CHAOS="replica_kill:at=4,rank=1"``.
+    Returns the list of activated points.
+    """
+    from ..utils.envspec import parse_spec
+
+    spec = env if env is not None else os.environ.get("PADDLE_TPU_CHAOS", "")
+    out = []
+    for point, cfg in parse_spec(spec):
+        if point not in INJECTORS:
+            raise KeyError(
+                f"PADDLE_TPU_CHAOS names unknown point '{point}' "
+                f"(registered: {sorted(INJECTORS)})")
+        ACTIVE[point] = INJECTORS[point](**cfg)
+        out.append(point)
+    for point in out:
+        _journal_event("chaos.activate", point=point, source="env")
+    return out
+
+
+if os.environ.get("PADDLE_TPU_CHAOS"):
+    install_from_env()

@@ -15,8 +15,11 @@ per-request observability — the PyTorch/CUDA counterpart of
   ``serving.*`` metrics, lifecycle trace spans, and journal ``request``
   records.
 
-The multi-replica layer (``paddle_tpu.serving.fleet``) is not ported
-yet.
+The multi-replica layer lives in ``serving.fleet``: a load-aware
+``Router`` over a ``ReplicaPool`` of engines (in-process or worker
+processes), per-tenant fairness + rate limits, SLO-driven
+``Autoscaler``, and elastic replica relaunch — see that package's
+docstring.
 """
 from .kv_cache import (CachePressureError, PageAllocationError,
                        PagedKVCache, write_tokens)
@@ -24,6 +27,7 @@ from .scheduler import (Batch, ManualClock, Request, Scheduler,
                         QUEUED, RUNNING, PREEMPTED, FINISHED, CANCELLED)
 from .engine import (ServeEngine, TinyLM, live_engines, preempt_loss_ms,
                      request_phases)
+from . import fleet  # noqa: F401  (serving.fleet.Router et al.)
 
 __all__ = [
     "PagedKVCache", "PageAllocationError", "CachePressureError",
@@ -31,5 +35,5 @@ __all__ = [
     "Scheduler", "Request", "Batch", "ManualClock",
     "QUEUED", "RUNNING", "PREEMPTED", "FINISHED", "CANCELLED",
     "ServeEngine", "TinyLM", "live_engines", "preempt_loss_ms",
-    "request_phases",
+    "request_phases", "fleet",
 ]

@@ -360,6 +360,59 @@ class ServeEngine:
             q, cache.k_pages[0], cache.v_pages[0], tables, lengths)
         return model.head(attn, emb)
 
+    def warm(self, max_batch=8):
+        """Run EVERY bucketed step this engine can reach once, up front:
+        all prefill context-length buckets (the ``_len_bucket``
+        power-of-two ladder from ``page_size`` to ``max_seq_len``) and
+        every decode (batch-bucket, table-width) pair up to
+        ``max_batch`` lanes — the JAX engine's ``warm()`` set, entry for
+        entry, each counted and journaled as that engine's compile is.
+        Each step reads and writes the null page only (page 0, every
+        table entry and write slot), so no sequence's pages change; on
+        the card it loads the kernel library and pays every shape's
+        first launch before a fleet replica reports ready. There is no
+        executable to cache: a later step of the same shape runs
+        exactly as a warmed one did. Returns the number of entries
+        warmed."""
+        dev, page_size = self.device, self.cache.page_size
+        n = 0
+        with torch.inference_mode():
+            blen = page_size
+            while True:
+                bucket_len = _len_bucket(blen, page_size)
+                self._note_shape("prefill", bucket=bucket_len)
+                self._prefill_step(
+                    torch.zeros(bucket_len, dtype=torch.long, device=dev),
+                    1, torch.zeros(bucket_len, dtype=torch.long,
+                                   device=dev),
+                    torch.arange(bucket_len, device=dev) % page_size)
+                n += 1
+                if blen >= self.cache.max_seq_len:
+                    break
+                blen *= 2
+            # reachable table widths are _len_bucket(pages, 1) clamped
+            # to the pool-wide maximum — enumerate exactly that set
+            widths, w = [], 1
+            while w < self.cache.table_width:
+                widths.append(w)
+                w *= 2
+            widths.append(self.cache.table_width)
+            for b in _DECODE_BUCKETS:
+                if b > max(int(max_batch), 1):
+                    break
+                zeros = torch.zeros(b, dtype=torch.int32, device=dev)
+                for w in widths:
+                    self._note_shape("decode", bucket=b, table_width=w)
+                    self._decode_step(
+                        torch.zeros(b, dtype=torch.long, device=dev),
+                        torch.zeros((b, w), dtype=torch.int32, device=dev),
+                        torch.ones(b, dtype=torch.int32, device=dev),
+                        zeros, zeros)
+                    n += 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)   # a failed launch shows here
+        return n
+
     # -- the serve loop ------------------------------------------------------
     def step(self):
         """One engine iteration: schedule, prefill admissions, decode
