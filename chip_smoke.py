@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path, its three training steps and
-its serving fleet once on one NVIDIA H100.
+"""Drive paddle_tpu_torch's serving path, its three training steps, its
+serving fleet and the step as one CUDA graph once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -40,7 +40,9 @@ any failed check:
 7. train   — the training main path: ``gpt_small`` at full width and
              depth (12 x 768, vocab 50304), dropout 0.1, float32, batch
              8 x 1024 from RandomState(0), AdamW(1e-4, decay 0.01) with
-             global-norm clip 1.0 through ``TrainStep``, 4 steps; every
+             global-norm clip 1.0 through ``TrainStep``, 4 steps (the
+             first op by op, the second captured as one CUDA graph and
+             replayed, then replays; launches counted over them); every
              loss finite, the first near ln(50304), launches exactly
              25/25/1/1 a step (LN fwd/bwd, CE fwd/bwd); then the same 4
              steps from the same weights and dropout seed through the
@@ -107,6 +109,22 @@ any failed check:
              survivor's decode steps each one paged launch. It prints the
              router step p50, the scraped TTFT/TPOT p50/p99 and the time
              from the kill's detection to the relaunched replica's ready.
+
+14. train-graph — the step as one CUDA graph (``TrainStep``), against
+             its op-by-op ``_eager_step``: bench_gpt and bench_bert, 4
+             graphed steps and 4 eager ones from the same weights and
+             dropout seed, the same bits in losses, parameters, masters
+             and moments, then 5 more steps of each timed and one
+             profiled (``torch.profiler`` must name each kernel in a
+             replay as often as the wrappers count for a step; the
+             device-busy share); bench_gpt under LinearWarmup into
+             CosineAnnealingDecay for 6 steps, graphed = eager bitwise;
+             bench_bert with a dynamic loss scaler and its third step
+             poisoned (that step keeps every value's bits and halves the
+             scale, two clean steps double it, the eager run agrees);
+             ``run_fused`` with K = 4 against 8 graphed calls; one graphed
+             step of bench_gpt's model under Momentum with
+             multi_precision against the eager step, bitwise.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -949,10 +967,11 @@ def train_compare(label, config, steps, loss_tol, gpu, after=None):
                                         steps, False)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = train_launches(config, cfg, steps)
-    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    # step 1 runs op by op, step 2 is captured and replayed, then replays
+    steady = sorted(walls[2:])[len(walls[2:]) // 2]
     log(f"{label}: kernel run losses {losses}; step wall ms "
         + " ".join(f"{w:.1f}" for w in walls)
-        + f" (median of steps 2-{steps}: {steady:.1f} ms = "
+        + f" (median of the replays, steps 3-{steps}: {steady:.1f} ms = "
         f"{B * L / steady * 1e3:.0f} tokens/s); peak memory {peak:.2f} GiB;"
         f" launches {launches} [{gpu}]")
     check(all(math.isfinite(x) for x in losses),
@@ -1047,6 +1066,370 @@ def train_bert_phase(gpu):
     mask-free eval forward (``bert_eval_forward``)."""
     return train_compare("train-bert", "bench_bert", 4, BF16_TRAIN_LOSS_TOL,
                          gpu, after=bert_eval_forward)
+
+
+# -- phase 14: the step as one CUDA graph ------------------------------------
+
+# the kernels' names as torch.profiler reports them, one kernel a launch
+# of each wrapper (the LayerNorm backward's reduce apart): a replay must
+# name each as many times as the wrapper counts
+PROFILED = {"paged_decode_attention": r"\bpaged_decode_chunk_kernel\b",
+            "layer_norm_fwd": r"\bln_fwd_(vec_)?kernel\b",
+            "layer_norm_bwd": r"\bln_bwd_(vec_)?kernel\b",
+            "softmax_ce_fwd": r"\bce_fwd_kernel\b",
+            "softmax_ce_bwd": r"\bce_bwd_kernel\b",
+            "flash_attention_fwd": r"\bflash_fwd_(tc_)?kernel\b",
+            "flash_attention_bwd_dq": r"\bflash_bwd_dq_(tc_)?kernel\b",
+            "flash_attention_bwd_dkv": r"\bflash_bwd_dkv_(tc_)?kernel\b"}
+
+
+def profiled(fn, settle=0.2):
+    """One call of ``fn`` under ``torch.profiler``: ``(host wall ms,
+    device busy ms, {wrapper name: kernels of it the profiler saw})``,
+    the port's launch counts set to 0 just before that call. The call
+    starts ``settle`` seconds after the profiler does, and the profiler
+    stops ``settle`` seconds after the call: with no pause, the profiler
+    now and then missed the first kernels of a step (1 to 5 of bench_gpt's
+    first LayerNorm and flash forwards), as if it placed them before its
+    window's start (``tools/torch_profiler_misses.py`` counts both)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(settle)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(settle)
+    busy, seen = 0.0, dict.fromkeys(PROFILED, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        busy += e.self_device_time_total / 1e3
+        for name, pattern in PROFILED.items():
+            if re.search(pattern, e.key):
+                seen[name] += e.count
+    return wall, busy, seen
+
+
+def snapshot(model, opt):
+    """Copies of every parameter and optimizer state value."""
+    return ({n: p.detach().clone() for n, p in model.named_parameters()},
+            {n: {k: v.clone() for k, v in s.items()}
+             for n, s in opt._accumulators.items()})
+
+
+def same_bits(a, b):
+    """The names in snapshot ``a`` whose tensor differs from ``b``'s."""
+    (pa, sa), (pb, sb) = a, b
+    bad = [n for n in pa if not torch_equal(pa[n], pb[n])]
+    bad += [f"{n}.{k}" for n in sa for k in sa[n]
+            if not torch_equal(sa[n][k], sb[n][k])]
+    return bad
+
+
+def torch_equal(a, b):
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def graph_run(model, config, init, loss_fn, batches, eager, make_opt=None,
+              scaler=None, each=None):
+    """``len(batches)`` steps of ``config`` from the weights ``init``, the
+    dropout generator reseeded, through the graphed ``TrainStep`` or its
+    ``_eager_step``; ``each(i, step)`` after each. Returns ``(step,
+    losses, walls ms, launches)``."""
+    import torch
+
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.framework import TrainStep
+    from paddle_tpu_torch.ops import kernels
+
+    model.load_state_dict(init)
+    core.seed(1)
+    opt = (make_opt or (lambda m: train_optimizer(m, config)))(model)
+    step = TrainStep(model, opt, loss_fn, scaler=scaler)
+    fn = step._eager_step if eager else step
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        losses.append(float(fn(*b)))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if each is not None:
+            each(i, step)
+    return step, losses, walls, kernels.launches()
+
+
+def graph_compare(label, config, gpu, steps=4, timed=5):
+    """``steps`` graphed steps of ``config`` against ``steps`` eager ones
+    from the same weights and dropout seed: losses, parameters, masters
+    and moments must be the same bits, and the graphed run's launches
+    ``train_launches``. Then each is timed (``timed`` more steps) and one
+    step of each profiled: a replay must run each kernel as often as the
+    wrappers count for a step. Returns the median step walls and busy
+    shares."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels
+
+    model = train_model(config)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    loss_fn, batch, _ = train_batch(model, config)
+    B, L = batch[0].shape
+    out = {}
+    for eager in (False, True):
+        kind = "eager" if eager else "graphed"
+        step, losses, walls, launches = graph_run(
+            model, config, init, loss_fn, [batch] * steps, eager)
+        state = snapshot(model, step.optimizer)
+        fn = step._eager_step if eager else step
+        more = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            fn(*batch)
+            torch.cuda.synchronize()
+            more.append((time.perf_counter() - t0) * 1e3)
+        wall, busy, seen = profiled(lambda: fn(*batch))
+        counted = kernels.launches()
+        med = sorted(more)[len(more) // 2]
+        out[kind] = dict(losses=losses, state=state, wall=med, busy=busy,
+                         prof_wall=wall)
+        log(f"train-graph {label} {kind}: losses {losses}; step wall ms "
+            + " ".join(f"{w:.1f}" for w in walls) + "; then "
+            + " ".join(f"{w:.1f}" for w in more) + f" (median {med:.2f} ms "
+            f"= {B * L / med * 1e3:.0f} tokens/s); one profiled step: wall "
+            f"{wall:.2f} ms, device busy {busy:.2f} ms = "
+            f"{busy / wall * 100:.1f}% [{gpu}]")
+        want = train_launches(config, model.cfg, steps)
+        check(launches == want,
+              f"train-graph {label} {kind}: launches {launches}, want {want}")
+        one = train_launches(config, model.cfg, 1)
+        check(counted == one, f"train-graph {label} {kind}: the profiled "
+              f"step counted {counted}, want {one}")
+        check(seen == one, f"train-graph {label} {kind}: the profiler saw "
+              f"kernels {seen} in one step, want {one}")
+        del step
+    g, e = out["graphed"], out["eager"]
+    check(g["losses"] == e["losses"], f"train-graph {label}: graphed "
+          f"losses {g['losses']} != eager {e['losses']}")
+    bad = same_bits(g["state"], e["state"])
+    check(not bad, f"train-graph {label}: graphed and eager differ in "
+          f"{len(bad)} tensors, e.g. {bad[:4]}")
+    log(f"train-graph {label}: graphed = eager bitwise over {steps} steps "
+        f"(losses, {len(g['state'][0])} parameters and every optimizer "
+        f"state value); the profiler named every kernel in a replay as "
+        f"often as the wrappers count; step wall graphed {g['wall']:.2f} "
+        f"ms vs eager {e['wall']:.2f} ms; device busy "
+        f"{g['busy'] / g['prof_wall'] * 100:.1f}% vs "
+        f"{e['busy'] / e['prof_wall'] * 100:.1f}% of a profiled step [{gpu}]")
+    del model, init
+    torch.cuda.empty_cache()
+    return {k: (v["wall"], v["busy"], v["prof_wall"]) for k, v in out.items()}
+
+
+def scheduler_check(gpu, steps=6):
+    """bench_gpt under ``LinearWarmup`` (3 steps from 1e-5) into
+    ``CosineAnnealingDecay(1e-4, T_max=steps)``, stepped after every
+    call: ``steps`` graphed steps must end at the eager run's parameters
+    and state, bitwise. Returns the number of tensors that differ (a
+    graph that kept its first learning rate differs in every one)."""
+    import torch
+
+    from paddle_tpu_torch import optim
+
+    config = "bench_gpt"
+    model = train_model(config)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    loss_fn, batch, _ = train_batch(model, config)
+
+    def make_opt(m):
+        return optim.AdamW(
+            parameters=m.named_parameters(), weight_decay=0.01,
+            learning_rate=optim.lr.LinearWarmup(
+                optim.lr.CosineAnnealingDecay(1e-4, T_max=steps),
+                warmup_steps=3, start_lr=1e-5, end_lr=1e-4),
+            grad_clip=optim.ClipGradByGlobalNorm(1.0), multi_precision=True)
+
+    runs = {}
+    for eager in (False, True):
+        lrs = []
+
+        def each(i, step):
+            lrs.append(step.optimizer.get_lr())
+            step.optimizer._learning_rate.step()
+
+        step, losses, _, _ = graph_run(model, config, init, loss_fn,
+                                       [batch] * steps, eager, make_opt,
+                                       each=each)
+        runs[eager] = (losses, lrs, snapshot(model, step.optimizer))
+        del step
+    bad = same_bits(runs[False][2], runs[True][2])
+    log(f"train-graph scheduler (bench_gpt, LinearWarmup into "
+        f"CosineAnnealingDecay): learning rates {runs[False][1]}; graphed "
+        f"losses {runs[False][0]}, eager {runs[True][0]}; "
+        f"{len(bad)} tensors differ [{gpu}]")
+    del model, init, runs
+    torch.cuda.empty_cache()
+    return len(bad)
+
+
+def scaler_check(gpu, steps=5, poisoned=2):
+    """bench_bert with ``DynamicLossScaler(2**15, incr_every_n_steps=2)``
+    and a ``poison`` batch item multiplying the loss, the third step's
+    inf: that step must leave parameters, masters and moments bitwise,
+    halve the scale and set ``last_found_inf`` (no other step may); two
+    clean steps must double the scale; the eager run must give the same
+    scales, flags and final bits."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.nlp import bert
+
+    config = "bench_bert"
+    model = train_model(config)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    _, batch, _ = train_batch(model, config)
+
+    def loss_fn(m, *b):
+        return bert.bert_pretrain_loss(m, *b[:-1]) * b[-1]
+
+    batches = [batch + (np.array(np.inf if i == poisoned else 1.0,
+                                 np.float32),) for i in range(steps)]
+    runs = {}
+    for eager in (False, True):
+        trace, before = [], {}
+
+        def each(i, step):
+            trace.append((bool(step.last_found_inf),
+                          float(step._scaler_state["scale"])))
+            if i == poisoned - 1:
+                before["state"] = snapshot(model, step.optimizer)
+            if i == poisoned:
+                bad = same_bits(before.pop("state"),
+                                snapshot(model, step.optimizer))
+                check(not bad, f"train-graph scaler: the poisoned step "
+                      f"changed {len(bad)} tensors, e.g. {bad[:4]}")
+
+        step, losses, _, _ = graph_run(
+            model, config, init, loss_fn, batches, eager,
+            scaler=amp.DynamicLossScaler(2.0 ** 15, incr_every_n_steps=2),
+            each=each)
+        runs[eager] = (losses, trace, snapshot(model, step.optimizer))
+        del step
+    (gl, gt, gs), (el, et, es) = runs[False], runs[True]
+    log(f"train-graph scaler (bench_bert, step {poisoned + 1} poisoned): "
+        f"(found_inf, scale) a step {gt}; losses {gl}; eager {et} [{gpu}]")
+    check([f for f, _ in gt] == [i == poisoned for i in range(steps)],
+          f"train-graph scaler: found_inf {gt}")
+    s0 = 2.0 ** 15
+    check([s for _, s in gt] == [s0, 2 * s0, s0, s0, 2 * s0],
+          f"train-graph scaler: scales {gt}")
+    check(gt == et, f"train-graph scaler: eager {et} != graphed {gt}")
+    bad = same_bits(gs, es)
+    check(not bad, f"train-graph scaler: graphed and eager differ in "
+          f"{len(bad)} tensors")
+    del model, init, runs
+    torch.cuda.empty_cache()
+
+
+def run_fused_check(gpu, K=4):
+    """bench_gpt: two windows of ``run_fused`` (the first op by op, the
+    second one graph of K steps) against 2K graphed calls: the same
+    losses and final bits; then a third window, a replay, timed."""
+    import torch
+
+    config = "bench_gpt"
+    model = train_model(config)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    loss_fn, batch, _ = train_batch(model, config)
+    step, calls, _, _ = graph_run(model, config, init, loss_fn,
+                                  [batch] * (2 * K), False)
+    by_calls = snapshot(model, step.optimizer)
+    del step
+    step, _, _, _ = graph_run(model, config, init, loss_fn, [], False)
+    fused = []
+    walls = []
+    # the first window runs op by op, the second is captured and replayed,
+    # the third (timed only) is a replay
+    for _ in range(3):
+        t0 = time.perf_counter()
+        losses = step.run_fused([batch] * K).tolist()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if len(walls) == 2:
+            bad = same_bits(by_calls, snapshot(model, step.optimizer))
+        fused += losses
+    log(f"train-graph run_fused (bench_gpt, K = {K}): window losses "
+        f"{fused[:2 * K]}; {2 * K} calls {calls}; window walls ms "
+        + " ".join(f"{w:.1f}" for w in walls)
+        + f" (a replayed window: {walls[2] / K:.2f} ms a step) [{gpu}]")
+    check(fused[:2 * K] == calls, "train-graph run_fused: the windows' "
+          "losses differ from the calls'")
+    check(not bad, f"train-graph run_fused: {len(bad)} tensors differ")
+    check(step.optimizer._global_step == 3 * K
+          and step.last_found_inf_per_step.shape == (K,),
+          "train-graph run_fused: step count or flags")
+    del model, init, step
+    torch.cuda.empty_cache()
+
+
+def momentum_check(gpu):
+    """bench_gpt's model under ``Momentum(1e-3, 0.9, multi_precision)``
+    with global-norm clip 1.0, as ResNet-50 will train: the graphed second
+    step must end at the eager run's bits."""
+    import torch
+
+    from paddle_tpu_torch import optim
+
+    config = "bench_gpt"
+    model = train_model(config)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    loss_fn, batch, _ = train_batch(model, config)
+
+    def make_opt(m):
+        return optim.Momentum(1e-3, 0.9, parameters=m.named_parameters(),
+                              grad_clip=optim.ClipGradByGlobalNorm(1.0),
+                              multi_precision=True)
+
+    runs = {}
+    for eager in (False, True):
+        step, losses, _, _ = graph_run(model, config, init, loss_fn,
+                                       [batch] * 2, eager, make_opt)
+        runs[eager] = (losses, snapshot(model, step.optimizer))
+        del step
+    bad = same_bits(runs[False][1], runs[True][1])
+    log(f"train-graph momentum (bench_gpt, multi_precision): graphed "
+        f"losses {runs[False][0]}, eager {runs[True][0]}; {len(bad)} "
+        f"tensors differ [{gpu}]")
+    check(runs[False][0] == runs[True][0] and not bad,
+          "train-graph momentum: the graphed step differs from the eager")
+    del model, init, runs
+    torch.cuda.empty_cache()
+
+
+def train_graph_phase(gpu):
+    """Phase 14: the step as one CUDA graph."""
+    walls = {c: graph_compare(c, c, gpu) for c in ("bench_gpt",
+                                                   "bench_bert")}
+    check(scheduler_check(gpu) == 0, "train-graph scheduler: the graphed "
+          "run differs from the eager run under the same scheduler")
+    scaler_check(gpu)
+    run_fused_check(gpu)
+    momentum_check(gpu)
+    return walls
 
 
 # -- phase 8: training kernels timed at the path's shape ---------------------
@@ -1465,7 +1848,11 @@ def main():
         from paddle_tpu_torch.ops import kernels
         from paddle_tpu_torch.ops.kernels import _build
         from paddle_tpu_torch.serving import PagedKVCache, TinyLM
-        # every module of the fleet path, imported before the check below
+        # every module of the fleet and training paths, imported before
+        # the check below
+        import paddle_tpu_torch.amp  # noqa: F401
+        import paddle_tpu_torch.framework  # noqa: F401
+        import paddle_tpu_torch.optim.lr  # noqa: F401
         import paddle_tpu_torch.obs  # noqa: F401
         import paddle_tpu_torch.resilience.elastic  # noqa: F401
         import paddle_tpu_torch.serving.fleet.drill  # noqa: F401
@@ -1547,6 +1934,7 @@ def main():
                                       V=None))
     torch.cuda.empty_cache()
     fleet_phase(prompts, gpu)
+    train_graph_phase(gpu)
 
     pa = kernels.KERNELS["paged_decode_attention"]
     rows = [{"name": "paged_decode_attention", "route": "cuda",

@@ -1,4 +1,5 @@
-"""Carry weights from the JAX package's models into this package's.
+"""Carry weights, optimizer state and loss-scaler state from the JAX
+package into this package's.
 
 The JAX side hands its arrays over as numpy (``np.asarray`` of each),
 so this module never imports JAX.
@@ -9,7 +10,8 @@ import numpy as np
 import torch
 
 __all__ = ["tinylm_params_from_jax", "gpt_params_from_jax",
-           "bert_params_from_jax"]
+           "bert_params_from_jax", "optimizer_state_from_jax",
+           "scaler_state_from_jax"]
 
 _TINYLM = ("embedding", "wq", "wk", "wv", "wo")
 
@@ -145,3 +147,57 @@ def bert_params_from_jax(state):
             want[f"{enc}{i}.{k}"] = shape
     return _checked(arrs, bf16, want, f"vocab {V}, hidden {E}, "
                     f"feed-forward {F}")
+
+
+def optimizer_state_from_jax(jax_opt, torch_opt, names=None):
+    """Write the JAX optimizer's state — moments, velocities, accumulators,
+    beta powers, masters, per parameter, and its step count — into the
+    port's optimizer of the same kind, in place (the port's tensors keep
+    their storage, so a captured step goes on using them). ``names`` maps
+    each JAX parameter's ``.name`` to the port's name; by default the two
+    optimizers' parameters are paired in order. The port's state is made
+    first where it is missing; every value must have the port's shape and
+    state keys, and is copied into the port's type (a bfloat16 value is
+    exact in float32). Raises ``ValueError`` on a parameter, key or shape
+    that does not fit."""
+    jparams = list(jax_opt._param_groups)
+    tparams = dict(torch_opt._named_params)
+    if names is None:
+        if len(jparams) != len(tparams):
+            raise ValueError(f"{len(jparams)} JAX parameters, "
+                             f"{len(tparams)} in the port's optimizer")
+        names = {jp.name: tn for jp, (tn, _) in
+                 zip(jparams, torch_opt._named_params)}
+    for jp in jparams:
+        js = jax_opt._accumulators.get(jp.name)
+        if js is None:
+            continue
+        if names.get(jp.name) not in tparams:
+            raise ValueError(f"JAX parameter {jp.name} maps to no parameter "
+                             f"of the port's optimizer")
+        tn = names[jp.name]
+        ts = torch_opt._state_for(tn, tparams[tn])
+        if set(js) != set(ts):
+            raise ValueError(f"{tn}: JAX state {sorted(js)}, the port's "
+                             f"{sorted(ts)}")
+        for k, v in js.items():
+            a = np.asarray(v)
+            a = a.astype(np.float32) if _is_bfloat16(a) else a
+            if tuple(a.shape) != tuple(ts[k].shape):
+                raise ValueError(f"{tn}.{k} has shape {a.shape}, the port's "
+                                 f"{tuple(ts[k].shape)}")
+            ts[k].copy_(torch.from_numpy(np.array(a)))
+    torch_opt._global_step = int(jax_opt._global_step)
+
+
+def scaler_state_from_jax(state, step):
+    """Write a JAX ``TrainStep``'s loss-scaler state (its ``_scaler_state``:
+    ``scale``, ``good`` and, dynamic, ``bad``) into the port's
+    ``TrainStep`` ``step``'s, in place. Raises ``ValueError`` when the
+    keys differ."""
+    ts = step._scaler_state
+    if ts is None or set(state) != set(ts):
+        raise ValueError(f"JAX scaler state {sorted(state)}, the port's "
+                         f"{None if ts is None else sorted(ts)}")
+    for k, v in state.items():
+        ts[k].fill_(np.asarray(v).item())

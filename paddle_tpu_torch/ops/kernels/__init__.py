@@ -39,7 +39,17 @@ def launches():
             for name, module in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "reset_launches", "launches", "plain_versions",
+def add_launches(counts):
+    """Add ``{kernel name: n}`` to the counts (``n`` may be negative). A
+    wrapper counts in Python, so a captured CUDA graph's launches are
+    taken back after the capture (they did not run) and added once for
+    each replay (they ran without the wrapper)."""
+    for name, n in counts.items():
+        getattr(KERNELS[name], name).launches += n
+
+
+__all__ = ["KERNELS", "reset_launches", "launches", "add_launches",
+           "plain_versions",
            "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv",
            "paged_decode_attention", "paged_decode_attention_reference",

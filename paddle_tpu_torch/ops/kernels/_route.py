@@ -12,7 +12,7 @@ from __future__ import annotations
 import contextlib
 import threading
 
-__all__ = ["plain_versions", "plain", "require_cuda"]
+__all__ = ["plain_versions", "forced", "plain", "require_cuda"]
 
 _state = threading.local()
 
@@ -31,9 +31,14 @@ def plain_versions():
         _state.depth = depth
 
 
+def forced():
+    """True inside ``plain_versions()`` (in this thread)."""
+    return getattr(_state, "depth", 0) > 0
+
+
 def plain(t):
     """True when a wrapper given tensor ``t`` runs the plain version."""
-    return t.device.type == "cpu" or getattr(_state, "depth", 0) > 0
+    return t.device.type == "cpu" or forced()
 
 
 def require_cuda(t, what):

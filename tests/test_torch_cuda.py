@@ -1,5 +1,5 @@
-"""paddle_tpu_torch on the card: the CUDA kernels, the engine and the GPT
-training step on CUDA.
+"""paddle_tpu_torch on the card: the CUDA kernels, the engine, the GPT
+training step on CUDA, and the step as one CUDA graph.
 
 Every test here needs a Hopper card and skips without one (the
 decision is made inside the ``hopper`` fixture). The file imports
@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from chip_smoke import flash_close
-from paddle_tpu_torch import optim
+from paddle_tpu_torch import amp, core, optim
 from paddle_tpu_torch.framework import TrainStep
 from paddle_tpu_torch.models.nlp import gpt
 from paddle_tpu_torch.ops import kernels
@@ -413,3 +413,205 @@ def test_tiny_bert_step_launches_the_layer_norm_kernels(hopper):
             want = m(x, t)[0].float()
     torch.testing.assert_close(got, want, rtol=0,
                                atol=2 ** -6 * want.abs().max().item())
+
+
+# -- the step as one CUDA graph ----------------------------------------------
+
+
+def _ids(seed, B=8):
+    ids = np.random.RandomState(seed).randint(0, 512, (B, 128))
+    return ids, np.roll(ids, -1, axis=1)
+
+
+def _graph_twins(hopper, dropout, make_opt, calls, bf16=False, **kw):
+    """The same tiny GPT trained twice from seed 1's dropout stream:
+    through ``TrainStep`` (a graph from its second call) and through
+    ``_eager_step``. ``calls(step, fn)`` drives each. Returns ``(graphed
+    step, eager step, graphed outputs, eager outputs, launches of the
+    graphed run, launches of the eager run)``."""
+    out = []
+    for graphed in (True, False):
+        m = _tiny_gpt(hopper, dropout)
+        if bf16:
+            m.bfloat16()
+        core.seed(1)
+        step = TrainStep(m, make_opt(m), gpt.gpt_loss, **kw)
+        kernels.reset_launches()
+        res = calls(step, step if graphed else step._eager_step)
+        torch.cuda.synchronize()
+        out.append((step, res, kernels.launches()))
+    (gs, gres, gl), (es, eres, el) = out
+    return gs, es, gres, eres, gl, el
+
+
+def _same_parameters(a, b):
+    for (n, x), (_, y) in zip(a.model.named_parameters(),
+                              b.model.named_parameters()):
+        assert torch.equal(x, y), n
+
+
+def _adamw(m, lr=1e-3, **kw):
+    return optim.AdamW(parameters=m.named_parameters(), learning_rate=lr,
+                       grad_clip=optim.ClipGradByGlobalNorm(1.0), **kw)
+
+
+def test_graphed_step_is_the_eager_step_bitwise(hopper):
+    """Three steps at dropout 0.1: the first op by op, the second captured
+    and replayed, the third replayed. Losses and parameters are the eager
+    step's bits (the same kernels, and the same dropout masks from the
+    registered generator), and the launches counted over the replays are
+    the eager run's: 5 LayerNorms and 1 cross-entropy a step."""
+    gs, es, gl, el, gla, ela = _graph_twins(
+        hopper, 0.1, _adamw,
+        lambda step, fn: [fn(*_ids(i)) for i in range(3)])
+    assert torch.equal(torch.stack(gl), torch.stack(el))
+    _same_parameters(gs, es)
+    assert gla == ela and gla["layer_norm_fwd"] == 15
+    assert gla["softmax_ce_bwd"] == 3
+    assert [type(g).__name__ for g in gs._graphs.values()] == ["_Graph"]
+    assert not es._graphs
+
+
+def test_scheduler_reaches_every_replay(hopper):
+    """Five steps under LinearWarmup into CosineAnnealingDecay: each
+    step reads float32(get_lr()) of its call, and the graphed parameters
+    are the eager twin's bits."""
+    def calls(step, fn):
+        sched = step.optimizer._learning_rate
+        out, lrs = [], []
+        for i in range(5):
+            want = np.float32(step.optimizer.get_lr())
+            out.append(fn(*_ids(i)))
+            dev = next(step.model.parameters()).device
+            lrs.append((step.optimizer._lr_tensor(dev).item(), want))
+            sched.step()
+        assert all(a == b for a, b in lrs) and len(set(lrs)) == 5
+        return out
+
+    def make_opt(m):
+        return _adamw(m, optim.lr.LinearWarmup(
+            optim.lr.CosineAnnealingDecay(1e-3, T_max=5), warmup_steps=2,
+            start_lr=1e-4, end_lr=1e-3))
+
+    gs, es, gl, el, _, _ = _graph_twins(hopper, 0.0, make_opt, calls)
+    assert torch.equal(torch.stack(gl), torch.stack(el))
+    _same_parameters(gs, es)
+
+
+def test_dropout_draws_new_masks_every_replay(hopper):
+    """At lr 0 the parameters never move, so a replay's loss on the same
+    batch changes only with its dropout masks."""
+    m = _tiny_gpt(hopper, 0.1)
+    step = TrainStep(m, optim.SGD(0.0, parameters=m.named_parameters()),
+                     gpt.gpt_loss)
+    losses = [float(step(*_ids(0))) for _ in range(5)]
+    assert len(set(losses[1:])) == 4, losses
+
+
+def test_poisoned_step_is_skipped_on_the_card(hopper):
+    """bfloat16 with masters and a dynamic loss scaler, the third step
+    (a replay) poisoned: it leaves parameters, masters and moments
+    bitwise, halves the scale and sets the flag; the eager twin gives
+    the same bits and scales."""
+    def loss_fn_calls(step, fn):
+        out = []
+        for i in range(5):
+            poison = np.array(np.inf if i == 2 else 1.0, np.float32)
+            before = [p.detach().clone() for p in step.model.parameters()]
+            state = {n: {k: v.clone() for k, v in s.items()}
+                     for n, s in step.optimizer._accumulators.items()}
+            loss = fn(*_ids(i), poison)
+            if i == 2:
+                assert all(torch.equal(a, p) for a, p in
+                           zip(before, step.model.parameters()))
+                assert all(torch.equal(state[n][k], v)
+                           for n, s in step.optimizer._accumulators.items()
+                           for k, v in s.items())
+            out.append((float(loss), bool(step.last_found_inf),
+                        float(step._scaler_state["scale"])))
+        return out
+
+    def make_opt(m):
+        return _adamw(m, multi_precision=True)
+
+    out = []
+    for graphed in (True, False):
+        m = _tiny_gpt(hopper, 0.0).bfloat16()
+        step = TrainStep(m, make_opt(m),
+                         lambda model, ids, labels, poison:
+                         gpt.gpt_loss(model, ids, labels) * poison,
+                         scaler=amp.DynamicLossScaler(
+                             2.0 ** 15, incr_every_n_steps=2))
+        out.append((step, loss_fn_calls(
+            step, step if graphed else step._eager_step)))
+    (gs, g), (es, e) = out
+    assert g == e
+    assert [x[1] for x in g] == [False, False, True, False, False]
+    assert [x[2] for x in g] == [2.0 ** 15, 2.0 ** 16, 2.0 ** 15,
+                                 2.0 ** 15, 2.0 ** 16]
+    _same_parameters(gs, es)
+
+
+def test_moved_storage_forces_a_new_capture(hopper):
+    m = _tiny_gpt(hopper, 0.0)
+    step = TrainStep(m, _adamw(m), gpt.gpt_loss)
+    for i in range(3):
+        step(*_ids(i))
+    (old,) = step._graphs.values()
+    with torch.no_grad():
+        for p in m.parameters():
+            p.data = p.data.clone()
+    step(*_ids(3))                        # a new key: op by op
+    assert list(step._graphs.values()) == [None]
+    step(*_ids(4))                        # captured anew
+    (new,) = step._graphs.values()
+    assert new is not None and new is not old
+    twin = _tiny_gpt(hopper, 0.0)
+    eager = TrainStep(twin, _adamw(twin), gpt.gpt_loss)
+    for i in range(5):
+        eager._eager_step(*_ids(i))
+    _same_parameters(step, eager)
+
+
+def test_run_fused_is_four_graphed_calls(hopper):
+    """Two windows of 4 (the first op by op, the second one graph of four
+    steps) against 8 calls: the same losses and parameters, bitwise."""
+    batches = [_ids(i) for i in range(8)]
+    out = []
+    for fused in (True, False):
+        m = _tiny_gpt(hopper, 0.1)
+        core.seed(1)
+        step = TrainStep(m, _adamw(m), gpt.gpt_loss)
+        kernels.reset_launches()
+        if fused:
+            losses = torch.cat([step.run_fused(batches[:4]),
+                                step.run_fused(batches[4:])])
+        else:
+            losses = torch.stack([step(*b) for b in batches])
+        torch.cuda.synchronize()
+        out.append((step, losses, kernels.launches()))
+    (fs, fl, fla), (cs, cl, cla) = out
+    assert torch.equal(fl, cl)
+    _same_parameters(fs, cs)
+    assert fla == cla and fla["softmax_ce_fwd"] == 8
+    assert fs.optimizer._global_step == 8
+
+
+def test_embedding_gradient_is_repeatable(hopper):
+    """BERT's token-type lookups in float32, 8192 of one row: PyTorch's
+    default CUDA embedding backward gave other bits in some of 300 runs
+    on an H100; the port's ``nn.functional.embedding`` gives the same bits
+    every time."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    ids = torch.zeros(64, 128, dtype=torch.long, device=hopper)
+    g = torch.randn(64, 128, 768, device=hopper,
+                    generator=torch.Generator(device=hopper).manual_seed(0))
+    first = None
+    for _ in range(200):
+        w = torch.zeros(2, 768, device=hopper, requires_grad=True)
+        PF.embedding(ids, w).backward(g)
+        if first is None:
+            first = w.grad.clone()
+        assert torch.equal(first, w.grad)
+    assert not torch.are_deterministic_algorithms_enabled()

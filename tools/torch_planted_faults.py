@@ -17,6 +17,12 @@ planted at a time:
   moved the losses by at most 6.9e-3, as much as the bfloat16 roundings
   of an honest run move them, 6.7e-3: under the limit of 1e-2, so a
   4-step bfloat16 run cannot tell it from an honest one.)
+- a graph that keeps the learning rate of its first step: each replay
+  of ``TrainStep`` skips writing ``get_lr()`` into the optimizer's
+  learning-rate tensor, in the scheduler check of the train-graph phase
+  (bench_gpt under LinearWarmup into CosineAnnealingDecay, 6 graphed
+  steps against 6 eager ones), which must find the two runs' parameters
+  differ.
 
 Each phase runs 4 AdamW steps through the kernels and 4 through the
 plain versions and compares the losses. A fault is planted by swapping
@@ -26,8 +32,9 @@ planted one, so the phase's launch check passes and its loss check is
 what must catch the fault. Nothing on disk changes. Each run prints
 its per-step loss differences (the smoke's ``train:`` /
 ``train-bf16:`` / ``train-bert:`` lines) and must fail the phase's loss
-check; the script exits non-zero if any fault passes or is caught by
-another check. Needs one CUDA card.
+check (the learning-rate fault: its bitwise check); the script exits
+non-zero if any fault passes or is caught by another check. Needs one
+CUDA card.
 """
 import os
 import sys
@@ -38,6 +45,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
+from paddle_tpu_torch.framework import TrainStep  # noqa: E402
 from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
 from paddle_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops.kernels import layernorm as ln  # noqa: E402
@@ -84,6 +92,27 @@ def main():
         finally:
             setattr(module, name, real)
             torch.cuda.empty_cache()
+    # a graph that keeps its first learning rate: replays leave the
+    # optimizer's learning-rate tensor as the first step wrote it
+    real_replay = TrainStep._replay
+
+    def replay_keeping_lr(self, entry, batch):
+        self.optimizer._load_lr = lambda device: None
+        try:
+            return real_replay(self, entry, batch)
+        finally:
+            del self.optimizer._load_lr
+
+    TrainStep._replay = replay_keeping_lr
+    try:
+        differ = chip_smoke.scheduler_check(gpu)
+    finally:
+        TrainStep._replay = real_replay
+        torch.cuda.empty_cache()
+    print(f"planted graph keeps its first lr: {differ} tensors differ "
+          f"from the eager run")
+    if not differ:
+        missed.append("graph keeps its first lr")
     print(gpu)
     if missed:
         print(f"not caught by the loss check: {missed}")
