@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving path, its three training steps, its
-serving fleet and the step as one CUDA graph once on one NVIDIA H100.
+serving fleet, the step as one CUDA graph and its decoding once on one
+NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -90,8 +91,11 @@ any failed check:
              ``TrainStep`` for 4 steps; every loss finite, the first near
              ln(30522) + ln(2), launches exactly 26/26/0/0/0/0/0 a step;
              the same steps through the plain versions within
-             BF16_TRAIN_LOSS_TOL; then one eval forward without a mask
-             (12 non-causal flash forwards, 26 LayerNorm forwards), its
+             BF16_TRAIN_LOSS_TOL; then one backward whose every
+             LayerNorm backward launch is held to its plain version on
+             the same inputs (dgamma/dbeta within TRAIN_F32_TOL of
+             their terms' magnitudes); then one eval forward without a
+             mask (12 non-causal flash forwards, 26 LayerNorm forwards), its
              MLM logits within BERT_LOGIT_STEPS of the largest |logit|
              of the plain versions'; and the LayerNorm kernels timed at
              its (8192, 768) bfloat16 as in phase 8.
@@ -125,6 +129,28 @@ any failed check:
              ``run_fused`` with K = 4 against 8 graphed calls; one graphed
              step of bench_gpt's model under Momentum with
              multi_precision against the eager step, bitwise.
+
+15. decode — bench_wmt_beam (``bench.py:213-243``): ``WMTTransformer``
+             at Transformer-base width (6 + 6 layers x 512, vocab 32000),
+             bfloat16, eval, 16 x 32 source ids from RandomState(0), beam
+             4, max_len 32: ``beam_search_decode_xla`` as one CUDA graph
+             equal bitwise to the same decode op by op; the plain
+             versions' decode and the growing-cache
+             ``beam_search_decode``, each made to take its decisions,
+             give the same tokens, their values and scores within
+             WMT_VALUE_TOL, and would take the same decisions wherever
+             their margins exceed WMT_MARGIN (``Decisions``);
+             ``greedy_decode``;
+             exactly 12 + 18 a step LayerNorm launches; then
+             ``gpt_small`` (bfloat16, eval, 8 prompts of 128, 32 greedy
+             tokens): ``generate`` with exactly 12 non-causal flash
+             forwards (its prefill) and 32 x 25 LayerNorm forwards,
+             held to a teacher-forced plain-version run of the same
+             path; ``generate_xla`` graphed = op by op bitwise, held to
+             a causal forward's argmax (``greedy_agree``); latency,
+             sentences/s and tokens/s of each, graphed and op by op;
+             and the flash and LayerNorm forwards timed at the decode
+             shapes.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -1058,14 +1084,85 @@ def bert_eval_forward(model, init, batch):
     return err
 
 
+def ln_grad_check(model, init, batch):
+    """One forward and backward of bench_bert's loss from the weights
+    ``init``, every LayerNorm backward launch held to its plain version
+    on the same inputs: dx within BF16_TOL, dgamma and dbeta within
+    TRAIN_F32_TOL of the sum of their terms' magnitudes (both versions
+    sum the same float32 products in another order; a dgamma dropped to
+    0 is off by about 1/sqrt(rows) of that sum, 1.1e-2 at 8192 rows,
+    where 4 bfloat16 steps' losses cannot show it). Returns the largest
+    error of each."""
+    import torch
+
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.models.nlp import bert
+    from paddle_tpu_torch.ops.kernels import layernorm as ln
+
+    model.load_state_dict(init)
+    core.seed(1)
+    launched = ln.layer_norm_bwd
+    errs = dict.fromkeys(("dx", "dgamma", "dbeta"), 0.0)
+    calls = []
+
+    def checked(x, gamma, mean, rstd, dy):
+        dx, dg, db = launched(x, gamma, mean, rstd, dy)
+        want = ln.layer_norm_bwd_reference(x, gamma, mean, rstd, dy)
+        xhat = (x.float() - mean) * rstd
+        for name, got, ref, res in (
+                ("dx", dx, want[0], within(dx, want[0], BF16_TOL)),
+                ("dgamma", dg, want[1], within(
+                    dg, want[1], TRAIN_F32_TOL,
+                    (dy.float() * xhat).abs().sum(0))),
+                ("dbeta", db, want[2], within(
+                    db, want[2], TRAIN_F32_TOL, dy.float().abs().sum(0)))):
+            ok, err = res
+            check(ok, f"train-bert: layer_norm_bwd call {len(calls)}: "
+                  f"{name} differs from the plain version's by {err:.3e}")
+            errs[name] = max(errs[name], err)
+        calls.append(tuple(x.shape))
+        return dx, dg, db
+
+    # the kernel wrapper counts its launch on the module's name
+    checked.launches = 0
+    ln.layer_norm_bwd = checked
+    try:
+        loss = bert.bert_pretrain_loss(model, *(
+            torch.from_numpy(np.require(a, requirements="C")).cuda()
+            for a in batch))
+        loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        ln.layer_norm_bwd = launched
+    model.zero_grad(set_to_none=True)
+    want = 2 * model.cfg.layers + 2
+    check(len(calls) == want, f"train-bert: {len(calls)} LayerNorm "
+          f"backward launches in one step, want {want}")
+    log(f"train-bert: one backward's {len(calls)} LayerNorm backward "
+        f"launches each held to the plain version on its inputs {calls[0]}:"
+        f" max abs err dx {errs['dx']:.3e} (tol {BF16_TOL}), dgamma "
+        f"{errs['dgamma']:.3e}, dbeta {errs['dbeta']:.3e} (tol "
+        f"{TRAIN_F32_TOL} of their terms' magnitudes)")
+    return errs
+
+
+def bert_checks(model, init, batch):
+    """After bench_bert's runs: ``ln_grad_check``, then
+    ``bert_eval_forward``."""
+    ln_grad_check(model, init, batch)
+    return bert_eval_forward(model, init, batch)
+
+
 def train_bert_phase(gpu):
     """Phase 12: bench_bert's configuration (``bench.py:129-155``):
     ``bert_base`` at full width and depth, dropout 0.1,
     ``model.bfloat16()``, batch 64 x 128, multi_precision AdamW, 4 steps
-    through the kernels and 4 through the plain versions; then the
-    mask-free eval forward (``bert_eval_forward``)."""
+    through the kernels and 4 through the plain versions; then one
+    backward with every LayerNorm backward held to its plain version
+    (``ln_grad_check``) and the mask-free eval forward
+    (``bert_eval_forward``)."""
     return train_compare("train-bert", "bench_bert", 4, BF16_TRAIN_LOSS_TOL,
-                         gpu, after=bert_eval_forward)
+                         gpu, after=bert_checks)
 
 
 # -- phase 14: the step as one CUDA graph ------------------------------------
@@ -1832,6 +1929,490 @@ def flash_timing_phase(gpu):
     return out
 
 
+# -- phase 15: decoding -------------------------------------------------------
+
+# bench.py:bench_wmt_beam (:213-243): WMTTransformer at Transformer-base
+# width, bfloat16, eval; 16 x 32 source ids from RandomState(0) in
+# [2, 32000), beam 4, max_len 32, length penalty 0.6. Nothing cut.
+WMT_MODEL = dict(src_vocab=32000, tgt_vocab=32000, d_model=512, nhead=8,
+                 num_layers=6, dim_feedforward=2048, dropout=0.0,
+                 max_len=32)
+WMT_BATCH, WMT_SRC_LEN = 16, 32
+WMT_DECODE = dict(beam_size=4, max_len=32, length_penalty=0.6)
+# gpt_small at dropout 0, bfloat16, eval: 8 prompts of 128 tokens from
+# RandomState(0), 32 new greedy tokens
+GPT_DECODE = dict(batch=8, prompt=128, new=32)
+# a decode against another run of it (the plain versions', the growing
+# cache's) made to take the first run's decisions. Along them, every
+# candidate value taken — a beam's accumulated float32 log-probability —
+# must be within WMT_VALUE_TOL of the first run's, and so the best-beam
+# score (that value over a length penalty >= 1). Seen on an H100 80GB
+# HBM3 (700 W): 1.37 apart (plain versions), one step's increments up to
+# 1.0: at this width and init the logits reach ~100 in bfloat16, whose
+# steps there are 0.5, and a decode sums 31 steps. The other run's own
+# decisions must be the same wherever its margin exceeds WMT_MARGIN, the
+# most two values held to WMT_VALUE_TOL can move a decision (for a beam
+# step the gap between the K-th and the (K+1)-th largest totals, which
+# beams go on; at the end the gap between the best and second score). A
+# greedy step's token is held to the other run's argmax where its top-2
+# logits are more than GPT_MARGIN apart (gpt_small's logits, |logit| <
+# 2, carry bfloat16 steps of 2^-9 to 2^-8).
+WMT_VALUE_TOL = 2.0
+WMT_MARGIN = 2 * WMT_VALUE_TOL
+GPT_MARGIN = 2 ** -4
+
+
+class Decisions:
+    """Records, while active, the decisions of the decode library's beam
+    search: the candidates ``_top_k`` keeps at each step and the final
+    order ``_order`` gives. Given ``forced``, another run's record, the
+    search takes that run's decisions instead (its values read at those
+    candidates), and this record keeps its own beside them with their
+    margins: the gap between the K-th and (K+1)-th largest candidate of
+    each batch item, and between the best and second score."""
+
+    def __init__(self, forced=None):
+        self.forced = forced
+        self.chosen, self.own, self.gaps, self.values = [], [], [], []
+        self.order = None
+
+    def __enter__(self):
+        from paddle_tpu_torch.inference import decoder
+
+        self._real = decoder._top_k, decoder._order
+
+        def top_k(x, k):
+            self.vocab = x.shape[-1] // k
+            v, i = self._real[0](x, k)
+            top = x.topk(k + 1, dim=-1).values
+            self.gaps.append((top[:, k - 1] - top[:, k]).float())
+            self.own.append(i.sort(dim=-1).values)
+            if self.forced is not None:
+                i = self.forced.chosen[len(self.chosen)]
+                v = x.gather(-1, i)
+            self.chosen.append(i)
+            self.values.append(v.float())
+            return v, i
+
+        def order(scores):
+            o = self._real[1](scores)
+            top = scores.topk(2, dim=-1).values
+            self.order_gap = (top[:, 0] - top[:, 1]).float()
+            self.own_best = o[:, 0]
+            if self.forced is not None:
+                o = self.forced.order
+            self.order = o
+            return o
+
+        decoder._top_k, decoder._order = top_k, order
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.inference import decoder
+
+        decoder._top_k, decoder._order = self._real
+
+    def step_drift(self):
+        """The largest difference between this run's and the forced
+        run's log-probability increments along the same decisions (a
+        candidate's value less its parent beam's value before the step),
+        over candidates above -1e8 (a finished beam's non-EOS tokens and
+        the dead beams of the first step sit at -1e9)."""
+        worst, prev, prev_f = 0.0, None, None
+        for i, v, vf in zip(self.chosen, self.values, self.forced.values):
+            if prev is None:      # the first step's parent, beam 0, is 0
+                inc, inc_f = v, vf
+            else:
+                parent = i // self.vocab
+                inc = v - prev.gather(1, parent)
+                inc_f = vf - prev_f.gather(1, parent)
+            live = (v > -1e8) & (vf > -1e8)
+            if bool(live.any()):
+                worst = max(worst, (inc - inc_f)[live].abs().max().item())
+            prev, prev_f = v, vf
+        return worst
+
+    def agree(self, label):
+        """This run against the forced one: every candidate value taken
+        within WMT_VALUE_TOL, and each of this run's own decisions the
+        same wherever its margin exceeds WMT_MARGIN. Returns ``(decisions
+        held, decisions equal, all decisions, the largest difference of
+        the values taken, of one step's increments)``."""
+        import torch
+
+        drift = max((a - b).abs().max().item() for a, b in
+                    zip(self.values, self.forced.values))
+        check(drift <= WMT_VALUE_TOL, f"{label}: candidate values taken "
+              f"differ by {drift:.3e} (tol {WMT_VALUE_TOL})")
+        gaps = torch.stack(self.gaps + [self.order_gap])
+        sure = gaps > WMT_MARGIN
+        same = [(own == forced.sort(dim=-1).values).all(dim=-1)
+                for own, forced in zip(self.own, self.forced.chosen)]
+        same = torch.stack(same + [self.own_best == self.forced.order[:, 0]])
+        bad = (sure & ~same).nonzero().tolist()
+        check(not bad, f"{label}: decisions (step, item) {bad[:8]} differ "
+              f"though their margins exceed {WMT_MARGIN}")
+        q = torch.quantile(gaps.flatten(), torch.tensor(
+            [0.25, 0.5, 0.75], device=gaps.device)).tolist()
+        log(f"{label}: margins' quartiles "
+            + " ".join(f"{x:.3f}" for x in q))
+        return (int(sure.sum()), int(same.sum()), sure.numel(), drift,
+                self.step_drift())
+
+
+def wmt_setup():
+    """bench_wmt_beam's model on the card from seed 0 (bfloat16, eval)
+    and its source ids; also read by ``tools/torch_decode_profile.py``."""
+    import torch
+
+    from paddle_tpu_torch.models.nlp.transformer import WMTTransformer
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    model = WMTTransformer(**WMT_MODEL, generator=g).bfloat16().eval()
+    src = torch.from_numpy(np.random.RandomState(0).randint(
+        2, WMT_MODEL["src_vocab"], (WMT_BATCH, WMT_SRC_LEN))).cuda()
+    return model, src
+
+
+def gpt_decode_setup():
+    """``gpt_small`` on the card from seed 0 (dropout 0, bfloat16, eval)
+    and the decode's prompts; also read by
+    ``tools/torch_decode_profile.py``."""
+    import torch
+
+    from paddle_tpu_torch.models.nlp import gpt
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    model = gpt.GPT(gpt.gpt_small(dropout=0.0), generator=g).bfloat16()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, model.cfg.vocab_size,
+        (GPT_DECODE["batch"], GPT_DECODE["prompt"]))).cuda()
+    return model.eval(), ids
+
+
+def decode_launches(launches, **counts):
+    """``launches`` must be exactly ``counts`` (every other kernel 0)."""
+    want = dict.fromkeys(launches, 0)
+    want.update(counts)
+    return launches == want, want
+
+
+def timed(fn, calls):
+    """Median host wall ms of ``calls`` calls of ``fn``, each ending in a
+    synchronize."""
+    import torch
+
+    walls = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[len(walls) // 2], walls
+
+
+def wmt_decode(gpu):
+    """bench_wmt_beam's decode: ``beam_search_decode_xla`` graphed, then
+    op by op (the same bits and launches), then under the plain versions
+    and through the growing caches, each made to take the kernel run's
+    decisions (``Decisions``), ``greedy_decode``;
+    exactly 12 LayerNorm launches in the encoder and 18 a decode step,
+    nothing else; latency, sentences/s and tokens/s as bench_wmt_beam
+    reckons them, graphed and op by op."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels
+
+    model, src = wmt_setup()
+    B, T = WMT_BATCH, WMT_DECODE["max_len"]
+    kw = dict(WMT_DECODE, src_pad_id=None, return_all=False)
+    layers = WMT_MODEL["num_layers"]
+
+    def ln_launches(steps):
+        return 2 * layers + 3 * layers * steps
+
+    def run(fn, label, steps=T - 1):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        ok, want = decode_launches(launches,
+                                   layer_norm_fwd=ln_launches(steps))
+        check(ok, f"decode wmt {label}: launches {launches}, want {want}")
+        return out
+
+    t0 = time.perf_counter()
+    model.beam_search_decode_xla(src, **WMT_DECODE)   # warm, capture, replay
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    toks_g, sc_g = run(lambda: model.beam_search_decode_xla(
+        src, **WMT_DECODE), "graphed")
+    with torch.no_grad(), Decisions() as made:
+        toks_o, sc_o = run(lambda: model._traced_beam_decode(src, **kw),
+                           "op by op")
+    check(torch.equal(toks_g, toks_o) and torch.equal(sc_g, sc_o),
+          "decode wmt: the graphed beam search differs from op by op")
+    check(toks_g.shape == (B, T) and sc_g.shape == (B,)
+          and bool(torch.isfinite(sc_g).all())
+          and bool((toks_g[:, 0] == model.bos_id).all())
+          and bool(((toks_g >= 0) & (toks_g < WMT_MODEL["tgt_vocab"])).all()),
+          "decode wmt: tokens or scores out of shape or range")
+
+    def along(label, fn):
+        """``fn`` made to take the kernel run's decisions: its own ones
+        agree where their margins allow, its tokens are the kernel run's
+        and its values and scores within WMT_VALUE_TOL."""
+        with Decisions(forced=made) as other:
+            toks, sc = fn()
+        held = other.agree(f"decode wmt {label}")
+        check(torch.equal(toks, toks_g), f"decode wmt {label}: tokens "
+              f"differ along the same decisions")
+        err = (sc.float() - sc_g.float()).abs().max().item()
+        check(err <= WMT_VALUE_TOL, f"decode wmt {label}: scores differ "
+              f"by {err:.3e} along the same decisions (tol "
+              f"{WMT_VALUE_TOL})")
+        return held, err, len(other.chosen)
+
+    with torch.no_grad(), kernels.plain_versions():
+        kernels.reset_launches()
+        plain = along("plain", lambda: model._traced_beam_decode(src, **kw))
+        check(set(kernels.launches().values()) == {0},
+              "decode wmt: the plain versions launched a kernel")
+    grow = along("growing cache", lambda: model.beam_search_decode(
+        src, **WMT_DECODE))
+    # the eager search stops once every beam has finished
+    run(lambda: model.beam_search_decode(src, **WMT_DECODE), "eager",
+        steps=grow[2])
+    greedy = run(lambda: model.greedy_decode(src, max_len=T), "greedy")
+    check(greedy.shape == (B, T) and bool((greedy[:, 0] == model.bos_id)
+                                          .all()),
+          "decode wmt: greedy tokens out of shape")
+    ms_g, walls_g = timed(lambda: model.beam_search_decode_xla(
+        src, **WMT_DECODE), 5)
+
+    def op_by_op():
+        with torch.no_grad():
+            model._traced_beam_decode(src, **kw)
+    ms_o, walls_o = timed(op_by_op, 3)
+    ms_e, _ = timed(lambda: model.beam_search_decode(src, **WMT_DECODE), 3)
+    log(f"decode wmt: bench_wmt_beam ({WMT_MODEL['num_layers']} + "
+        f"{layers} layers x {WMT_MODEL['d_model']}, vocab "
+        f"{WMT_MODEL['tgt_vocab']}, bfloat16, "
+        f"batch {B} x {WMT_SRC_LEN}, beam {WMT_DECODE['beam_size']}, "
+        f"max_len {T}): graphed = op by op bitwise, {ln_launches(T - 1)} "
+        f"LayerNorm launches a decode (12 + 18 x {T - 1}); along its "
+        f"decisions the plain versions' values taken differ by up to "
+        f"{plain[0][3]:.3e} (one step's by {plain[0][4]:.3e}; tol "
+        f"{WMT_VALUE_TOL}), best-beam scores by {plain[1]:.3e}, and they "
+        f"would take the same {plain[0][1]} of {plain[0][2]} decisions "
+        f"({plain[0][0]} with margins > {WMT_MARGIN}, each the same); the "
+        f"growing cache's values by {grow[0][3]:.3e} (a step's "
+        f"{grow[0][4]:.3e}), scores by {grow[1]:.3e}, the same "
+        f"{grow[0][1]} decisions ({grow[0][0]} held)")
+    for label, ms, walls in (("graphed", ms_g, walls_g),
+                             ("op by op", ms_o, walls_o),
+                             ("eager growing cache", ms_e, None)):
+        log(f"decode wmt {label}: {ms:.2f} ms a batch = {B / ms * 1e3:.1f} "
+            f"sentences/s, {B * T / ms * 1e3:.0f} tokens/s"
+            + (f" (calls " + " ".join(f"{w:.2f}" for w in walls) + ")"
+               if walls else "") + f" [{gpu}]")
+    log(f"decode wmt: first graphed call (op by op, capture, replay) "
+        f"{first:.1f} ms")
+    del model
+    torch.cuda.empty_cache()
+    return dict(graphed_ms=ms_g, op_by_op_ms=ms_o, eager_ms=ms_e)
+
+
+def greedy_agree(label, toks, logits):
+    """Greedy tokens ``toks (B, n)`` against the argmax of ``logits (B, n,
+    V)`` wherever its top-2 margin exceeds GPT_MARGIN. Returns ``(tokens
+    held, tokens equal)``."""
+    top = logits.float().topk(2, dim=-1).values
+    sure = (top[..., 0] - top[..., 1]) > GPT_MARGIN
+    same = logits.argmax(dim=-1) == toks
+    check(bool((same | ~sure).all()), f"{label}: "
+          f"{int((~same & sure).sum())} tokens are not the argmax though "
+          f"its margin exceeds {GPT_MARGIN}")
+    check(2 * int(sure.sum()) >= sure.numel(), f"{label}: only "
+          f"{int(sure.sum())} of {sure.numel()} tokens had margins above "
+          f"{GPT_MARGIN}")
+    return int(sure.sum()), int(same.sum())
+
+
+def gpt_decode(gpu):
+    """gpt_small's decode: ``generate`` (growing cache, its prefill the
+    non-causal flash forward) with exactly 12 flash forwards and 32 x 25
+    LayerNorm launches, its tokens held to a teacher-forced run of the
+    same path under the plain versions; ``generate_xla`` graphed = op by
+    op bitwise, its tokens held to the argmax of a full causal forward
+    over the context; tokens/s of both."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels
+
+    model, ids = gpt_decode_setup()
+    cfg = model.cfg
+    B, Lp, n = GPT_DECODE["batch"], GPT_DECODE["prompt"], GPT_DECODE["new"]
+    ln = (2 * cfg.layers + 1) * n
+
+    def run(fn, label, **counts):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        ok, want = decode_launches(launches, **counts)
+        check(ok, f"decode gpt {label}: launches {launches}, want {want}")
+        return out
+
+    out_e = run(lambda: model.generate(ids, n, temperature=0.0), "generate",
+                layer_norm_fwd=ln, flash_attention_fwd=cfg.layers)
+    check(out_e.shape == (B, Lp + n) and torch.equal(out_e[:, :Lp], ids),
+          "decode gpt: generate's output is not the prompt and 32 tokens")
+    # the same growing-cache path teacher-forced on generate's tokens,
+    # through the plain versions
+    with torch.no_grad(), kernels.plain_versions():
+        cache = model.init_cache(B)
+        rows = []
+        for i in range(n):
+            x = ids if i == 0 else out_e[:, Lp + i - 1:Lp + i]
+            logits, cache = model(x, cache=cache)
+            rows.append(logits[:, -1])
+    plain_logits = torch.stack(rows, dim=1)
+    held_e = greedy_agree("decode gpt generate vs plain", out_e[:, Lp:],
+                          plain_logits)
+    # the kernels' logits on the same teacher-forced inputs, for the log
+    with torch.no_grad():
+        cache = model.init_cache(B)
+        rows = []
+        for i in range(n):
+            x = ids if i == 0 else out_e[:, Lp + i - 1:Lp + i]
+            logits, cache = model(x, cache=cache)
+            rows.append(logits[:, -1])
+    logit_diff = (torch.stack(rows, dim=1).float()
+                  - plain_logits.float()).abs().max().item()
+    model.generate_xla(ids, n)                   # warm, capture, replay
+    out_x = run(lambda: model.generate_xla(ids, n), "generate_xla graphed",
+                layer_norm_fwd=ln)
+    with torch.no_grad():
+        out_o = run(lambda: model._traced_generate(
+            ids, None, max_new_tokens=n, temperature=0.0, top_k=None)[0],
+            "generate_xla op by op", layer_norm_fwd=ln)
+    check(torch.equal(out_x, out_o), "decode gpt: the graphed generate_xla "
+          "differs from op by op")
+    with torch.no_grad():
+        full = model(out_x[:, :-1])[:, Lp - 1:]
+    held_x = greedy_agree("decode gpt generate_xla vs causal forward",
+                          out_x[:, Lp:], full)
+
+    ms_e, _ = timed(lambda: model.generate(ids, n, temperature=0.0), 3)
+    ms_x, walls_x = timed(lambda: model.generate_xla(ids, n), 5)
+
+    def op_by_op():
+        with torch.no_grad():
+            model._traced_generate(ids, None, max_new_tokens=n,
+                                   temperature=0.0, top_k=None)
+    ms_o, _ = timed(op_by_op, 3)
+    same = int((out_e[:, Lp:] == out_x[:, Lp:]).sum())
+    log(f"decode gpt: gpt_small bfloat16, batch {B}, prompt {Lp}, {n} new "
+        f"tokens: generate launched {cfg.layers} non-causal flash forwards "
+        f"and {ln} LayerNorm forwards, its tokens held to the plain "
+        f"versions' argmax on {held_e[0]} of {B * n} (equal {held_e[1]}; "
+        f"their logits on the same inputs differ by at most "
+        f"{logit_diff:.3e}, largest |logit| "
+        f"{plain_logits.float().abs().max().item():.3e}); "
+        f"generate_xla graphed = op by op bitwise, held to the causal "
+        f"forward's argmax on {held_x[0]} (equal {held_x[1]}); generate and "
+        f"generate_xla agree on {same} of {B * n} tokens (generate's "
+        f"prefill is not causal)")
+    for label, ms in (("generate (growing cache, op by op)", ms_e),
+                      ("generate_xla graphed", ms_x),
+                      ("generate_xla op by op", ms_o)):
+        log(f"decode gpt {label}: {ms:.2f} ms a call = "
+            f"{B * n / ms * 1e3:.0f} tokens/s [{gpu}]")
+    del model
+    torch.cuda.empty_cache()
+    return dict(generate_ms=ms_e, xla_ms=ms_x, xla_op_by_op_ms=ms_o)
+
+
+def decode_timing(gpu):
+    """The two kernels of the decode paths at their shapes there, beside
+    their plain versions, library calls and bounds: the flash forward at
+    the GPT prefill's (B*H = 8 * 12, L = 128, D = 64, bfloat16, not
+    causal) and the LayerNorm forward at WMT's encoder (512, 512) and
+    beam-step (64, 512) rows, GPT's prefill (1024, 768) and token-step
+    (8, 768) rows, bfloat16, warm (a decode's LayerNorm reads what the
+    kernel before it just wrote)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layernorm as ln
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    B, H, L, D = GPT_DECODE["batch"], 12, GPT_DECODE["prompt"], 64
+    BH, scale = B * H, 1.0 / D ** 0.5
+    q, k, v = (torch.randn(B, H, L, D, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    o, lse = fa.flash_attention_fwd(q, k, v, False, scale)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, False, scale)
+    ok_o, err_o = flash_close(o, o_ref, False)
+    ok_l, err_l = flash_close(lse, lse_ref, False)
+    check(ok_o and ok_l, f"flash forward at the GPT prefill's shape "
+          f"disagrees with its plain version: O {err_o:.3e}, lse "
+          f"{err_l:.3e}")
+    t, row = BH * L * D * 2, BH * L * 4
+    rows = [("flash_attention_fwd", f"B*H={BH} L={L} D={D} not causal",
+             lambda: fa.flash_attention_fwd(q, k, v, False, scale),
+             lambda: fa.flash_attention_fwd_reference(q, k, v, False, scale),
+             lambda: F.scaled_dot_product_attention(q, k, v),
+             4 * t + row, 4 * D * BH * L * L, BF16_FLOP_PER_S,
+             max(err_o, err_l))]
+    for N, Dn in ((512, 512), (64, 512), (1024, 768), (8, 768)):
+        x = torch.randn(N, Dn, generator=g, device="cuda").to(torch.bfloat16)
+        gamma, beta = (torch.randn(Dn, generator=g, device="cuda")
+                       .to(torch.bfloat16) for _ in range(2))
+        y, mean, rstd = ln.layer_norm_fwd(x, gamma, beta, 1e-5)
+        yr, mr, rr = ln.layer_norm_fwd_reference(x, gamma, beta, 1e-5)
+        oks = [within(y, yr, BF16_TOL), within(mean, mr, TRAIN_F32_TOL),
+               within(rstd, rr, TRAIN_F32_TOL)]
+        check(all(ok for ok, _ in oks), f"layer_norm_fwd ({N}, {Dn}) "
+              f"bfloat16 disagrees with its plain version")
+        rows.append((
+            "layer_norm_fwd", f"({N}, {Dn})",
+            lambda x=x, gm=gamma, bt=beta: ln.layer_norm_fwd(x, gm, bt,
+                                                              1e-5),
+            lambda x=x, gm=gamma, bt=beta: ln.layer_norm_fwd_reference(
+                x, gm, bt, 1e-5),
+            lambda x=x, gm=gamma, bt=beta, Dn=Dn: F.layer_norm(
+                x, (Dn,), gm, bt, 1e-5),
+            2 * (2 * N * Dn + 2 * Dn) + 4 * 2 * N, 8 * N * Dn,
+            F32_FLOP_PER_S, max(e for _, e in oks)))
+    out = {}
+    for name, shape, kern, plain, lib, nbytes, flops, peak, err in rows:
+        ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 20)
+        lib_ms, ms2 = cuda_ms(lib, 50), cuda_ms(kern, 50)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"timing decode {name} {shape} bfloat16: kernel {ms:.4f} ms "
+            f"(again {ms2:.4f}), plain {plain_ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'}) = "
+            f"{bound / min(ms, ms2) * 100:.2f}% of roofline; max abs err vs "
+            f"plain {err:.3e} [{gpu}]")
+        out[f"{name} {shape}"] = min(ms, ms2)
+    return out
+
+
+def decode_phase(gpu):
+    """Phase 15: bench_wmt_beam's decode and gpt_small's, then the
+    decode shapes' kernel timings."""
+    return wmt_decode(gpu), gpt_decode(gpu), decode_timing(gpu)
+
+
 
 def main():
     try:
@@ -1852,6 +2433,8 @@ def main():
         # the check below
         import paddle_tpu_torch.amp  # noqa: F401
         import paddle_tpu_torch.framework  # noqa: F401
+        import paddle_tpu_torch.inference  # noqa: F401
+        import paddle_tpu_torch.models.nlp.transformer  # noqa: F401
         import paddle_tpu_torch.optim.lr  # noqa: F401
         import paddle_tpu_torch.obs  # noqa: F401
         import paddle_tpu_torch.resilience.elastic  # noqa: F401
@@ -1935,6 +2518,10 @@ def main():
     torch.cuda.empty_cache()
     fleet_phase(prompts, gpu)
     train_graph_phase(gpu)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    decode_phase(gpu)
+    log(f"decode: phase took {time.perf_counter() - t0:.1f} s")
 
     pa = kernels.KERNELS["paged_decode_attention"]
     rows = [{"name": "paged_decode_attention", "route": "cuda",

@@ -6,8 +6,8 @@ numpy, never ``jax`` and nothing of ``paddle_tpu``. Every Pallas kernel
 on a ported path is a kernel written by hand for Hopper (``sm_90a``),
 under ``csrc/``, built with ``nvcc`` at first use.
 
-What is ported so far is the serving path and the GPT and BERT training
-steps:
+What is ported so far is the serving path, the GPT and BERT training
+steps and decoding:
 
 - ``serving``: paged KV cache, continuous-batching scheduler and
   ``ServeEngine`` with the one-layer ``TinyLM``;
@@ -26,8 +26,14 @@ steps:
   encoder without a cache), ``nn.ParamAttr``, the Xavier and uniform
   initializers and ``optim.regularizer``: BERT pretraining as
   ``bench.py:bench_bert`` runs it, on the LayerNorm kernels;
-- ``convert``: weights of the JAX ``TinyLM``, ``GPT`` and
-  ``BertForPretraining`` into this package's.
+- decoding: the Transformer layers' KV caches and decoder,
+  ``models.nlp.gpt``'s ``generate``/``generate_xla``, ``inference``
+  (beam search, greedy search, ``dynamic_decode``) and
+  ``models.nlp.transformer.WMTTransformer``, the graphed decodes as one
+  CUDA graph per signature (``framework.ProgramCache``);
+- ``convert``: weights of the JAX ``TinyLM``, ``GPT``,
+  ``BertForPretraining``, ``Transformer`` and ``WMTTransformer`` into
+  this package's.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.

@@ -8,9 +8,10 @@ quietly measure the host instead.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "resolve_dtype"]
+__all__ = ["resolve_device", "resolve_dtype", "as_ids"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -38,3 +39,11 @@ def resolve_dtype(dtype):
     except KeyError:
         raise ValueError(f"unsupported dtype {dtype!r} "
                          f"(one of {sorted(_DTYPES)})") from None
+
+
+def as_ids(ids, device):
+    """Token ids (a tensor, numpy array or nested list) as an int64 tensor
+    on ``device``: the decoding entry points' inputs."""
+    if isinstance(ids, torch.Tensor):
+        return ids.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=device)

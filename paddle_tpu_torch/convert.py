@@ -10,7 +10,8 @@ import numpy as np
 import torch
 
 __all__ = ["tinylm_params_from_jax", "gpt_params_from_jax",
-           "bert_params_from_jax", "optimizer_state_from_jax",
+           "bert_params_from_jax", "transformer_params_from_jax",
+           "wmt_params_from_jax", "optimizer_state_from_jax",
            "scaler_state_from_jax"]
 
 _TINYLM = ("embedding", "wq", "wk", "wv", "wo")
@@ -147,6 +148,75 @@ def bert_params_from_jax(state):
             want[f"{enc}{i}.{k}"] = shape
     return _checked(arrs, bf16, want, f"vocab {V}, hidden {E}, "
                     f"feed-forward {F}")
+
+
+def _attention(prefix, E):
+    return {f"{prefix}.{p}_proj.{w}": (E, E) if w == "weight" else (E,)
+            for p in ("q", "k", "v", "out") for w in ("weight", "bias")}
+
+
+def _transformer_arrays(arrs, prefix):
+    """Name -> shape of a ``Transformer`` under ``prefix`` (``""`` or
+    ``"transformer."``): depths, width, feed-forward width and the final
+    norms read from ``arrs``. Returns ``(shapes, description)``."""
+    enc, dec = f"{prefix}encoder.layers.", f"{prefix}decoder.layers."
+    n_enc, n_dec = _numbered(arrs, enc), _numbered(arrs, dec)
+    if not n_enc or not n_dec:
+        raise ValueError(f"expected {enc}0.* and {dec}0.*")
+    if arrs.get(f"{enc}0.linear1.weight", np.zeros(0)).ndim != 2:
+        raise ValueError(f"expected a 2-D array {enc}0.linear1.weight")
+    E, F = arrs[f"{enc}0.linear1.weight"].shape
+    want = {}
+    for i in range(n_enc):
+        for k, shape in _bert_layer(E, F).items():
+            want[f"{enc}{i}.{k}"] = shape
+    for i in range(n_dec):
+        layer = f"{dec}{i}."
+        want.update(_attention(f"{layer}self_attn", E))
+        want.update(_attention(f"{layer}cross_attn", E))
+        want.update({f"{layer}linear1.weight": (E, F),
+                     f"{layer}linear1.bias": (F,),
+                     f"{layer}linear2.weight": (F, E),
+                     f"{layer}linear2.bias": (E,)})
+        for n in ("norm1", "norm2", "norm3"):
+            want[f"{layer}{n}.weight"] = want[f"{layer}{n}.bias"] = (E,)
+    for stack in ("encoder", "decoder"):   # normalize_before's final norms
+        if f"{prefix}{stack}.norm.weight" in arrs:
+            for w in ("weight", "bias"):
+                want[f"{prefix}{stack}.norm.{w}"] = (E,)
+    return want, E, f"width {E}, feed-forward {F}"
+
+
+def transformer_params_from_jax(state):
+    """The JAX ``nn.Transformer``'s ``state_dict`` — names to numpy arrays
+    (or anything ``np.asarray`` takes) — as a state dict for the port's
+    ``Transformer`` (CPU tensors under the same names; bfloat16 arrays
+    stay bfloat16, every other array becomes float32). Depths, width,
+    feed-forward width and the final norms (``normalize_before``) are
+    read from the arrays. Raises ``ValueError`` on a missing or extra
+    name or a shape that does not fit the others."""
+    bf16 = {k for k, v in state.items() if _is_bfloat16(v)}
+    arrs = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    want, _, dims = _transformer_arrays(arrs, "")
+    return _checked(arrs, bf16, want, dims)
+
+
+def wmt_params_from_jax(state):
+    """The JAX ``WMTTransformer``'s ``state_dict`` as a state dict for the
+    port's ``WMTTransformer``, as ``transformer_params_from_jax`` does it:
+    the two embeddings ``src_embed.weight (source vocab, width)`` and
+    ``tgt_embed.weight (target vocab, width)`` and the ``Transformer``
+    under ``transformer.``. (The position table is no parameter in
+    either package.)"""
+    bf16 = {k for k, v in state.items() if _is_bfloat16(v)}
+    arrs = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    want, E, dims = _transformer_arrays(arrs, "transformer.")
+    for name in ("src_embed.weight", "tgt_embed.weight"):
+        a = arrs.get(name, np.zeros(0))
+        if a.ndim != 2:
+            raise ValueError(f"expected a 2-D array {name}")
+        want[name] = (a.shape[0], E)
+    return _checked(arrs, bf16, want, dims)
 
 
 def optimizer_state_from_jax(jax_opt, torch_opt, names=None):

@@ -1,4 +1,5 @@
-"""paddle_tpu_torch.framework: the eager ``TrainStep`` (``jit``)."""
-from .jit import TrainStep
+"""paddle_tpu_torch.framework: ``TrainStep``, a training step as one CUDA
+graph, and ``ProgramCache``, an inference program as one (``jit``)."""
+from .jit import ProgramCache, TrainStep
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "ProgramCache"]

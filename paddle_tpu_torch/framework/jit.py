@@ -47,6 +47,11 @@ which ``_eager_step`` also does on the card, for comparison.
 ``run_fused(batches, steps=K)`` runs K microbatches of one signature as
 one graph of K steps, with the learning rate read once for the window.
 
+``ProgramCache`` does the same for an inference program — a model's
+whole decode (``GPT.generate_xla``, ``WMTTransformer
+.beam_search_decode_xla``) — the counterpart of the JAX models' jit
+caches (``_xla_gen_cache``, ``_xla_decode_cache``).
+
 Not ported: the gradient-exchange paths (``accumulate_steps``) and the
 AOT executable cache.
 """
@@ -59,7 +64,7 @@ from ..core.random import default_generator
 from ..ops import kernels
 from ..ops.kernels import _route
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "ProgramCache"]
 
 
 def _signature(batch):
@@ -324,3 +329,102 @@ class TrainStep:
         if self._device().type != "cuda":
             return self._finish(*self._run(stacked, K), K)
         return self._finish(*self._graphed(stacked, K), K)
+
+
+class _Program:
+    """A captured inference program: the graph, its input tensors (filled
+    before each replay), its outputs, its generator (or None) and the
+    kernel launches one replay makes."""
+
+    __slots__ = ("graph", "inputs", "outputs", "generator", "launches")
+
+    def __init__(self, graph, inputs, outputs, generator, launches):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        self.generator, self.launches = generator, launches
+
+
+class ProgramCache:
+    """One CUDA graph per key for a module's inference program.
+
+    ``cache(module, signature, fn, inputs, seed=None)`` returns
+    ``fn(*inputs, generator)``, a tuple of tensors, computed under
+    ``torch.no_grad()``. ``generator`` is None unless ``seed`` is given;
+    then it is a generator on the inputs' device, seeded with ``seed``
+    before every call, so that calls with one seed draw the same numbers
+    (as the JAX package's ``PRNGKey(seed)`` does).
+
+    On a CUDA device the key is ``signature``, whether
+    ``kernels.plain_versions()`` is active, ``module.training`` and the
+    storage of the module's parameters (``data_ptr``). The first call of
+    a key runs ``fn`` op by op on a side stream (it loads the kernel
+    libraries and warms cuBLAS), captures it on that stream, and replays
+    the capture; every later call copies ``inputs`` into the graph's
+    input tensors and replays. The graph reads the parameters in place,
+    so weights written in place between calls are honoured; storage that
+    moves (``module.bfloat16()``, ``load_state_dict`` into new tensors)
+    makes a new key, and the graphs of the old storage are dropped. The
+    generator, and the device's (dropout in training), are registered
+    with the graph. Launches are counted as ``TrainStep`` counts them:
+    the warm run's as they happen, a capture's taken back and added once
+    for each replay. On the CPU every call runs ``fn`` op by op; the key
+    is recorded all the same. ``len(cache)`` is the number of keys."""
+
+    def __init__(self):
+        self._programs = {}   # key -> _Program, None on the CPU
+        self._stream = None
+
+    def __len__(self):
+        return len(self._programs)
+
+    def __call__(self, module, signature, fn, inputs, seed=None):
+        dev = inputs[0].device
+        storage = tuple(p.data_ptr() for p in module.parameters())
+        key = (signature, _route.forced(), module.training, storage)
+        if key not in self._programs:
+            # graphs of storage that has moved can never replay again
+            self._programs = {k: g for k, g in self._programs.items()
+                              if k[-1] == storage}
+        with torch.no_grad():
+            if dev.type != "cuda":
+                self._programs[key] = None
+                gen = None if seed is None else \
+                    torch.Generator(device=dev).manual_seed(int(seed))
+                return fn(*inputs, gen)
+            if key not in self._programs:
+                self._programs[key] = self._capture(fn, inputs, seed)
+            return self._replay(self._programs[key], inputs, seed)
+
+    def _capture(self, fn, inputs, seed):
+        dev = inputs[0].device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=dev)
+        main, side = torch.cuda.current_stream(), self._stream
+        static = [x.clone() for x in inputs]
+        gen = None if seed is None else torch.Generator(device=dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            if gen is not None:
+                gen.manual_seed(int(seed))
+            fn(*static, gen)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(default_generator(dev))
+        if gen is not None:
+            graph.register_generator_state(gen)
+        before = kernels.launches()
+        with torch.cuda.graph(graph, stream=side):
+            outputs = fn(*static, gen)
+        main.wait_stream(side)
+        # the wrappers counted launches that a capture does not run
+        launched = {k: n - before[k] for k, n in kernels.launches().items()}
+        kernels.add_launches({k: -n for k, n in launched.items()})
+        return _Program(graph, static, outputs, gen, launched)
+
+    def _replay(self, program, inputs, seed):
+        for dst, src in zip(program.inputs, inputs):
+            dst.copy_(src)
+        if program.generator is not None:
+            program.generator.manual_seed(int(seed))
+        program.graph.replay()
+        kernels.add_launches(program.launches)
+        return tuple(o.clone() for o in program.outputs)

@@ -1,12 +1,14 @@
 """paddle_tpu_torch.nn: the layers, functional ops, initializers and
-``ParamAttr`` of the ported training paths, under the JAX package's
-names."""
+``ParamAttr`` of the ported training and decoding paths, under the JAX
+package's names."""
 from . import functional, initializer
 from .layers import (Dropout, Embedding, LayerNorm, Linear,
-                     MultiHeadAttention, TransformerEncoder,
+                     MultiHeadAttention, Transformer, TransformerDecoder,
+                     TransformerDecoderLayer, TransformerEncoder,
                      TransformerEncoderLayer)
 from .param_attr import ParamAttr
 
 __all__ = ["functional", "initializer", "ParamAttr", "Linear", "Dropout",
            "Embedding", "LayerNorm", "MultiHeadAttention",
-           "TransformerEncoderLayer", "TransformerEncoder"]
+           "TransformerEncoderLayer", "TransformerEncoder",
+           "TransformerDecoderLayer", "TransformerDecoder", "Transformer"]

@@ -1,5 +1,6 @@
 """paddle_tpu_torch on the card: the CUDA kernels, the engine, the GPT
-training step on CUDA, and the step as one CUDA graph.
+training step on CUDA, the step as one CUDA graph, and decoding as one
+CUDA graph.
 
 Every test here needs a Hopper card and skips without one (the
 decision is made inside the ``hopper`` fixture). The file imports
@@ -615,3 +616,80 @@ def test_embedding_gradient_is_repeatable(hopper):
             first = w.grad.clone()
         assert torch.equal(first, w.grad)
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+# -- decoding as one CUDA graph ----------------------------------------------
+
+
+def test_generate_xla_graph_is_op_by_op_bitwise(hopper):
+    """``GPT.generate_xla`` as one graph a signature, bfloat16 at prompt
+    128: greedy and sampled (one seed) tokens are the op-by-op decode's
+    bits on every call, 5 LayerNorm launches a token are counted for a
+    replay, and a weight written in place between calls is honoured."""
+    g = torch.Generator(device=hopper).manual_seed(0)
+    m = gpt.GPT(gpt.GPTConfig(vocab_size=512, hidden=128, layers=2, heads=2,
+                              max_seq=256, dropout=0.0, dtype="bfloat16"),
+                generator=g).eval()
+    # 8 rows a token step: the LayerNorm kernel's row multiple
+    ids = torch.randint(0, 512, (8, 128), device=hopper, generator=g)
+
+    def op_by_op(temperature, top_k):
+        gen = None if temperature == 0.0 else \
+            torch.Generator(device=hopper).manual_seed(3)
+        with torch.no_grad():
+            return m._traced_generate(ids, gen, max_new_tokens=8,
+                                      temperature=temperature,
+                                      top_k=top_k)[0]
+
+    for temperature, top_k in ((0.0, None), (0.8, 5)):
+        want = op_by_op(temperature, top_k)
+        for _ in range(3):
+            got = m.generate_xla(ids, 8, temperature=temperature,
+                                 top_k=top_k, seed=3)
+            assert torch.equal(got, want), temperature
+    kernels.reset_launches()
+    m.generate_xla(ids, 8)
+    assert kernels.launches()["layer_norm_fwd"] == 5 * 8
+    before = op_by_op(0.0, None)
+    with torch.no_grad():
+        m.wte.weight.mul_(-1.0)
+    after = op_by_op(0.0, None)
+    assert not torch.equal(after, before)
+    assert torch.equal(m.generate_xla(ids, 8), after)
+    assert len(m._xla_gen_cache) == 2
+
+
+def test_beam_search_decode_xla_graph_is_op_by_op_bitwise(hopper):
+    """``WMTTransformer.beam_search_decode_xla`` as one graph a
+    signature, bfloat16: tokens and scores of every beam are the
+    op-by-op decode's bits on every call, the LayerNorm launches of a
+    replay are the encoder's 4 and 6 a step, and a weight written in
+    place between calls is honoured."""
+    from paddle_tpu_torch.models.nlp.transformer import WMTTransformer
+
+    g = torch.Generator(device=hopper).manual_seed(0)
+    m = WMTTransformer(300, 300, d_model=128, nhead=2, num_layers=2,
+                       dim_feedforward=128, dropout=0.0, max_len=16,
+                       generator=g).bfloat16().eval()
+    src = torch.randint(2, 300, (4, 8), device=hopper, generator=g)
+    kw = dict(beam_size=2, max_len=10, return_all=True)
+
+    def op_by_op():
+        with torch.no_grad():
+            return m._traced_beam_decode(src, src_pad_id=None,
+                                         length_penalty=0.6, **kw)
+
+    want = op_by_op()
+    for _ in range(3):
+        got = m.beam_search_decode_xla(src, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    kernels.reset_launches()
+    m.beam_search_decode_xla(src, **kw)
+    assert kernels.launches()["layer_norm_fwd"] == 4 + 6 * 9
+    with torch.no_grad():
+        m.tgt_embed.weight.mul_(-1.0)
+    after = op_by_op()
+    assert not torch.equal(after[1], want[1])
+    got = m.beam_search_decode_xla(src, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, after))
+    assert len(m._xla_decode_cache) == 1

@@ -12,7 +12,10 @@ must pass.
 The flash checks (``flash_close``) get the same treatment, and the
 arithmetic of the bfloat16 tensor-core flash kernels (forward, dQ and
 dK/dV) is emulated here against them: P and dS split into two bfloat16
-halves pass, P and dS rounded once fail.
+halves pass, P and dS rounded once fail. So do the decode phase's
+checks: a greedy token off a clear argmax fails ``greedy_agree``, and a
+beam search made to take another's decisions (``Decisions``) fails
+when one token's logit is off by more than its value limit.
 """
 import pathlib
 import re
@@ -208,3 +211,61 @@ def test_each_wrapper_names_the_pallas_kernel_it_replaces(name):
     others = [n for n in KERNELS
               if n != name and getattr(KERNELS[n], n).replaces == site]
     assert not others, others
+
+
+# -- the decode phase's checks -----------------------------------------------
+
+
+def test_greedy_check_rejects_a_token_off_a_clear_argmax():
+    """``greedy_agree``: the argmax passes; a token that is not the
+    argmax where the top two are more than GPT_MARGIN apart fails; one
+    where they are closer passes."""
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn(4, 6, 50, generator=g)
+    toks = logits.argmax(dim=-1)
+    cs.greedy_agree("honest", toks, logits)
+    top = logits.topk(2, dim=-1)
+    gap = top.values[..., 0] - top.values[..., 1]
+    b, t = divmod(int(gap.flatten().argmax()), 6)
+    bad = toks.clone()
+    bad[b, t] = top.indices[b, t, 1]
+    with pytest.raises(cs.CheckFailed):
+        cs.greedy_agree("planted", bad, logits)
+    close = logits.clone()
+    close[b, t, top.indices[b, t, 1]] = top.values[b, t, 0] - \
+        cs.GPT_MARGIN / 2
+    cs.greedy_agree("near tie", bad, close)
+
+
+def _toy_beam(table, forced=None):
+    """``beam_search_xla`` over a stateless toy model (logits indexed by
+    step and last token) under ``Decisions``."""
+    from paddle_tpu_torch.inference import decoder
+
+    def step(tok, state, t):
+        return table[t][tok[:, 0]], state
+
+    with cs.Decisions(forced=forced) as d:
+        toks, scores = decoder.beam_search_xla(step, None, 3, 0, 1, 4, 8,
+                                               device="cpu")
+    return d, toks, scores
+
+
+def test_beam_decision_check_rejects_planted_faults():
+    """``Decisions``: a run made to take another's decisions passes when
+    its logits differ by well under the limits, and fails when one
+    token's logit is off by more than WMT_VALUE_TOL."""
+    g = torch.Generator().manual_seed(1)
+    table = torch.randn(7, 16, 16, generator=g) * 20
+    made, toks, scores = _toy_beam(table)
+    noise = (torch.rand(table.shape, generator=g) - 0.5) * 0.1
+    honest, htoks, _ = _toy_beam(table + noise, forced=made)
+    held, same, total, drift, _ = honest.agree("honest")
+    assert torch.equal(htoks, toks) and drift < cs.WMT_VALUE_TOL
+    assert total == 8 * 3 and same >= held      # (7 steps + the order) x 3
+    chosen = int(toks[0, 1])
+    bad = table.clone()
+    bad[:, :, chosen] -= 3 * cs.WMT_VALUE_TOL
+    planted, _, _ = _toy_beam(bad, forced=made)
+    with pytest.raises(cs.CheckFailed):
+        planted.agree("planted")

@@ -13,10 +13,13 @@ planted at a time:
   train phase (bench_gpt's configuration, batch 16 x 1024);
 - dx of every ``layer_norm_bwd`` call zeroed, in the train-bert phase
   (bench_bert's configuration, ``bert_base`` in bfloat16, batch 64 x
-  128), whose kernels are the LayerNorm's alone. (dgamma = 0 there
-  moved the losses by at most 6.9e-3, as much as the bfloat16 roundings
-  of an honest run move them, 6.7e-3: under the limit of 1e-2, so a
-  4-step bfloat16 run cannot tell it from an honest one.)
+  128), whose kernels are the LayerNorm's alone;
+- dgamma of every ``layer_norm_bwd`` call zeroed, in the train-bert
+  phase. It moves the 4 bfloat16 steps' losses by at most 6.9e-3, as
+  much as the bfloat16 roundings of an honest run move them (6.7e-3),
+  under the loss limit of 1e-2: the phase's LayerNorm gradient check
+  (``chip_smoke.ln_grad_check``, each backward launch of one step
+  against its plain version) must catch it instead.
 - a graph that keeps the learning rate of its first step: each replay
   of ``TrainStep`` skips writing ``get_lr()`` into the optimizer's
   learning-rate tensor, in the scheduler check of the train-graph phase
@@ -28,13 +31,13 @@ Each phase runs 4 AdamW steps through the kernels and 4 through the
 plain versions and compares the losses. A fault is planted by swapping
 the module's wrapper for one that calls the real kernel and zeroes one
 output; the real wrapper counts its launch on the module's name, the
-planted one, so the phase's launch check passes and its loss check is
-what must catch the fault. Nothing on disk changes. Each run prints
-its per-step loss differences (the smoke's ``train:`` /
-``train-bf16:`` / ``train-bert:`` lines) and must fail the phase's loss
-check (the learning-rate fault: its bitwise check); the script exits
-non-zero if any fault passes or is caught by another check. Needs one
-CUDA card.
+planted one, so the phase's launch check passes and its loss check (the
+BERT dgamma fault: its gradient check) is what must catch the fault.
+Nothing on disk changes. Each run prints its per-step loss differences
+(the smoke's ``train:`` / ``train-bf16:`` / ``train-bert:`` lines) and
+must fail the named check (the learning-rate fault: its bitwise check);
+the script exits non-zero if any fault passes or is caught by another
+check. Needs one CUDA card.
 """
 import os
 import sys
@@ -50,16 +53,20 @@ from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
 from paddle_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops.kernels import layernorm as ln  # noqa: E402
 
+LOSSES = "losses differ"
 FAULTS = [
-    # (label, module, wrapper name, output zeroed, phase)
+    # (label, module, wrapper name, output zeroed, phase, the failure
+    # that must catch it)
     ("layer_norm_bwd dgamma = 0", ln, "layer_norm_bwd", 1,
-     chip_smoke.train_phase),
+     chip_smoke.train_phase, LOSSES),
     ("layer_norm_bwd dbeta = 0", ln, "layer_norm_bwd", 2,
-     chip_smoke.train_phase),
+     chip_smoke.train_phase, LOSSES),
     ("flash_attention_bwd_dkv dV = 0", fa, "flash_attention_bwd_dkv", 1,
-     chip_smoke.train_bf16_phase),
+     chip_smoke.train_bf16_phase, LOSSES),
     ("bert: layer_norm_bwd dx = 0", ln, "layer_norm_bwd", 0,
-     chip_smoke.train_bert_phase),
+     chip_smoke.train_bert_phase, LOSSES),
+    ("bert: layer_norm_bwd dgamma = 0", ln, "layer_norm_bwd", 1,
+     chip_smoke.train_bert_phase, "dgamma differs"),
 ]
 
 
@@ -71,7 +78,7 @@ def main():
     _build.build()
     gpu = chip_smoke.gpu_line()
     missed = []
-    for label, module, name, index, phase in FAULTS:
+    for label, module, name, index, phase, caught_by in FAULTS:
         real = getattr(module, name)
 
         def planted(*args, real=real, index=index):
@@ -86,7 +93,7 @@ def main():
             missed.append(label)
             print(f"planted {label}: the phase PASSED it")
         except chip_smoke.CheckFailed as e:
-            if "losses differ" not in str(e):
+            if caught_by not in str(e):
                 missed.append(label)
             print(f"planted {label}: the phase failed: {e}")
         finally:
@@ -115,7 +122,7 @@ def main():
         missed.append("graph keeps its first lr")
     print(gpu)
     if missed:
-        print(f"not caught by the loss check: {missed}")
+        print(f"not caught by the check named for them: {missed}")
     return 1 if missed else 0
 
 
