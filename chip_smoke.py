@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path, its three training steps, its
-serving fleet, the step as one CUDA graph and its decoding once on one
-NVIDIA H100.
+"""Drive paddle_tpu_torch's serving path, its training steps (GPT, BERT,
+ResNet-50), its serving fleet, the step as one CUDA graph and its
+decoding once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -152,6 +152,23 @@ any failed check:
              and the flash and LayerNorm forwards timed at the decode
              shapes.
 
+16. train-resnet — bench_resnet50 (``bench.py:158-185``): ``resnet50()``
+             cast with ``bfloat16()``, batch 128 x 3 x 224 x 224 from
+             RandomState(0), Momentum(0.1, 0.9, multi_precision), nothing
+             cut. The first forward against a float32 forward of the
+             same weights written with ``torch.nn.functional``
+             (``resnet_reference_forward``; logits, loss, and each conv
+             against a float32 conv of its own input:
+             ``resnet_value_check``); two op-by-op steps from one state
+             the same bits (loss, gradients, buffers, velocities,
+             masters); the stem BatchNorm's running statistics after
+             step 1 against Paddle's update of a separate float32
+             ``var_mean`` (``stem_bn_check``); 4 graphed steps = 4
+             op-by-op steps bitwise, buffers included; no launch of the
+             port's kernels (counts and profiler); the first loss near
+             ln 1000; the replay's wall and imgs/s, the op-by-op step,
+             peak memory and a profiled replay's busy share.
+
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or away from the repo, it exits non-zero and prints no
@@ -203,12 +220,14 @@ QUEUE_CYCLES = 40_000_000
 # LayerNorm's cold timing rotates over at least this many bytes of inputs
 # and outputs: four times the H100's 50 MB L2
 COLD_BYTES = 200 * 10 ** 6
-# the training configurations of the main paths, driven by phases 7, 10
-# and 12 and profiled by tools/torch_train_profile.py: gpt_small or
-# bert_base at full width and depth, a batch from RandomState(0) (gpt_small:
-# batch x 1024 ids; bert_base: batch x BERT_SEQ as bench.py:143-148 builds
-# it), AdamW(1e-4, decay 0.01) with global-norm clip 1.0 (train_model,
-# train_optimizer, train_batch)
+# the training configurations of the main paths, driven by phases 7, 10,
+# 12 and 16 and profiled by tools/torch_train_profile.py: gpt_small,
+# bert_base or resnet50 at full width and depth, a batch from
+# RandomState(0) (gpt_small: batch x 1024 ids; bert_base: batch x BERT_SEQ
+# as bench.py:143-148 builds it; resnet50: batch x 3 x 224 x 224 images
+# and labels of 1000 classes as bench.py:172-174 builds them), AdamW(1e-4,
+# decay 0.01) with global-norm clip 1.0 (resnet50: Momentum(0.1, 0.9))
+# (train_model, train_optimizer, train_batch)
 TRAIN_CONFIGS = {
     # name: model, dropout, model.bfloat16(), batch, AdamW's multi_precision
     "dropout0.1-float32": dict(model="gpt_small", dropout=0.1,
@@ -218,6 +237,9 @@ TRAIN_CONFIGS = {
                       batch=16, multi_precision=True),
     "bench_bert": dict(model="bert_base", dropout=0.1, bfloat16=True,
                        batch=64, multi_precision=True),
+    # bench.py:158-185: Momentum(0.1, 0.9) instead of AdamW, no clip
+    "bench_resnet50": dict(model="resnet50", dropout=0.0, bfloat16=True,
+                           batch=128, multi_precision=True),
 }
 BERT_SEQ = 128          # bench.py:bench_bert's L
 # bfloat16 MLM logits of the kernels against the plain versions (12 layers
@@ -225,6 +247,21 @@ BERT_SEQ = 128          # bench.py:bench_bert's L
 # bfloat16 steps there. Seen on an H100 80GB HBM3 (700 W): 2.3e-2 at a
 # largest |logit| of 2.48, 0.6 of the limit
 BERT_LOGIT_STEPS = 2 ** -6
+RESNET_IMAGE = 224       # bench.py:bench_resnet50's size
+RESNET_CLASSES = 1000
+# phase 16's limits, from readings on an H100 80GB HBM3 (700 W): the first
+# step's bfloat16 logits against a float32 forward of the same weights
+# (resnet_reference_forward), as a share of its largest |logit| (seen
+# 0.129: 53 convs and BatchNorms of bfloat16 activations), and the losses'
+# difference (seen 0.0129); the first loss's distance from ln 1000 (seen
+# 0.86: loss 7.770 at this init)
+RESNET_LOGIT_TOL = 2 ** -2
+RESNET_LOSS_TOL = 5e-2
+RESNET_LOSS_NEAR = 1.5
+# each conv's bfloat16 output against a float32 conv of the same bfloat16
+# input and weight, as a share of its largest |value|: one bfloat16
+# rounding is at most 2^-8 of it
+RESNET_CONV_TOL = 2 ** -6
 
 
 class CheckFailed(RuntimeError):
@@ -882,14 +919,18 @@ def train_launches(config, cfg, steps):
 
 def train_model(config):
     """``TRAIN_CONFIGS[config]``'s model on the card, weights from seed 0:
-    ``gpt_small`` or ``BertForPretraining(bert_base())``."""
+    ``gpt_small``, ``BertForPretraining(bert_base())`` or ``resnet50()``."""
     import torch
 
     from paddle_tpu_torch.models.nlp import bert, gpt
 
     c = TRAIN_CONFIGS[config]
     g = torch.Generator(device="cuda").manual_seed(0)
-    if c["model"] == "bert_base":
+    if c["model"] == "resnet50":
+        from paddle_tpu_torch.models.vision import resnet50
+
+        model = resnet50(generator=g)
+    elif c["model"] == "bert_base":
         model = bert.BertForPretraining(bert.bert_base(dropout=c["dropout"]),
                                         generator=g)
     else:
@@ -899,9 +940,13 @@ def train_model(config):
 
 def train_optimizer(model, config):
     """AdamW(1e-4, decay 0.01, global-norm clip 1.0) over ``model``, with
-    ``TRAIN_CONFIGS[config]``'s multi_precision."""
+    ``TRAIN_CONFIGS[config]``'s multi_precision; for resnet50
+    bench_resnet50's ``Momentum(0.1, 0.9, multi_precision=True)``."""
     from paddle_tpu_torch import optim
 
+    if TRAIN_CONFIGS[config]["model"] == "resnet50":
+        return optim.Momentum(0.1, 0.9, parameters=model.named_parameters(),
+                              multi_precision=True)
     return optim.AdamW(
         parameters=model.named_parameters(), learning_rate=1e-4,
         weight_decay=0.01, grad_clip=optim.ClipGradByGlobalNorm(1.0),
@@ -914,13 +959,21 @@ def train_batch(model, config):
     shifted; its first loss near ln V. BERT as ``bench.py:143-148``
     builds it: batch x 128 ids, token types 0, ``attention_mask`` ones,
     MLM labels at 15% (-100 elsewhere), NSP labels; its first loss near
-    ln V + ln 2 (MLM plus NSP)."""
+    ln V + ln 2 (MLM plus NSP). ResNet-50 as ``bench.py:172-174`` builds
+    it: batch x 3 x 224 x 224 float32 images, then int32 labels of 1000
+    classes; its first loss near ln 1000."""
     import math
 
     from paddle_tpu_torch.models.nlp import bert, gpt
 
-    c, cfg = TRAIN_CONFIGS[config], model.cfg
+    c = TRAIN_CONFIGS[config]
     rng = np.random.RandomState(0)
+    if c["model"] == "resnet50":
+        x = rng.randn(c["batch"], 3, RESNET_IMAGE, RESNET_IMAGE).astype(
+            np.float32)
+        y = rng.randint(0, RESNET_CLASSES, (c["batch"],)).astype("int32")
+        return resnet_loss, (x, y), math.log(RESNET_CLASSES)
+    cfg = model.cfg
     if c["model"] == "bert_base":
         B, L = c["batch"], BERT_SEQ
         ids = rng.randint(0, cfg.vocab_size, (B, L)).astype("int32")
@@ -1219,8 +1272,10 @@ def profiled(fn, settle=0.2):
 
 
 def snapshot(model, opt):
-    """Copies of every parameter and optimizer state value."""
-    return ({n: p.detach().clone() for n, p in model.named_parameters()},
+    """Copies of every parameter and buffer (a BatchNorm's running
+    statistics) and of every optimizer state value."""
+    return ({n: t.detach().clone() for n, t in itertools.chain(
+                model.named_parameters(), model.named_buffers())},
             {n: {k: v.clone() for k, v in s.items()}
              for n, s in opt._accumulators.items()})
 
@@ -2414,6 +2469,270 @@ def decode_phase(gpu):
 
 
 
+# -- phase 16: ResNet-50 training as bench.py:bench_resnet50 runs it ----------
+
+
+def resnet_loss(m, x, y):
+    """bench_resnet50's loss: ``cross_entropy(m(x.astype(bf16))
+    .astype(f32), y)`` over 1000 classes (the dense path in both packages:
+    1000 is not a multiple of 128)."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.cross_entropy(m(x.to(torch.bfloat16)).float(), y)
+
+
+def resnet_reference_forward(state, x):
+    """ResNet-50's training forward (BatchNorm on the batch's statistics)
+    in float32 over the float32 ``state``, written with
+    ``torch.nn.functional`` and none of the port's ops, cuDNN without
+    TF32: the plain reference a fault in the port's conv, pooling or
+    BatchNorm cannot reach."""
+    import torch
+    import torch.nn.functional as TF
+
+    def conv_bn(h, prefix, stride, act=True):
+        w = state[f"{prefix}.conv.weight"]
+        h = TF.conv2d(h, w, stride=stride, padding=(w.shape[-1] - 1) // 2)
+        h = TF.batch_norm(h, None, None, state[f"{prefix}.bn.weight"],
+                          state[f"{prefix}.bn.bias"], training=True,
+                          eps=1e-5)
+        return TF.relu(h) if act else h
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        h = TF.max_pool2d(conv_bn(x, "stem", 2), 3, 2, 1)
+        stages = sorted({int(k.split(".")[1]) for k in state
+                         if k.startswith("layers.")})
+        for i in stages:
+            blocks = sorted({int(k.split(".")[2]) for k in state
+                             if k.startswith(f"layers.{i}.")})
+            for j in blocks:
+                p = f"layers.{i}.{j}"
+                stride = 2 if i > 0 and j == 0 else 1
+                out = conv_bn(h, f"{p}.conv1", 1)
+                out = conv_bn(out, f"{p}.conv2", stride)
+                out = conv_bn(out, f"{p}.conv3", 1, act=False)
+                if f"{p}.downsample.conv.weight" in state:
+                    h = conv_bn(h, f"{p}.downsample", stride, act=False)
+                h = TF.relu(out + h)
+        return h.mean(dim=(2, 3)) @ state["fc.weight"] + state["fc.bias"]
+
+
+def resnet_value_check(model, init, batch):
+    """The first step's forward, in bfloat16 through the port, against
+    ``resnet_reference_forward`` of the same weights in float32: logits
+    within RESNET_LOGIT_TOL of the reference's largest |logit|, losses
+    within RESNET_LOSS_TOL. At random weights BatchNorm and the global
+    pool leave the logits little sensitive to what a conv does (weights
+    read transposed moved them by 0.27 of the largest |logit|, against
+    0.13 for bfloat16's roundings), so each of the 53 convs' outputs is
+    also held, during that forward, to ``torch.nn.functional.conv2d`` in
+    float32 of its own bfloat16 input and weight, with the stride and
+    padding its module declares: within RESNET_CONV_TOL of the largest
+    |value| (one bfloat16 rounding of each output). A conv that pads or
+    reads its weight wrongly fails that. Returns (logit error share,
+    loss difference, the worst conv's error share)."""
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.layers import Conv2D
+
+    dev = next(model.parameters()).device
+    x, y = (torch.from_numpy(a).to(dev) for a in batch)
+    convs = []
+
+    def held(module, inputs, out):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True,
+                                        allow_tf32=False):
+            ref = TF.conv2d(inputs[0].float(), module.weight.float(),
+                            stride=module._stride, padding=module._padding)
+        convs.append(((out.float() - ref).abs().max()
+                      / ref.abs().max()).item())
+
+    model.load_state_dict(init)
+    hooks = [m.register_forward_hook(held) for m in model.modules()
+             if isinstance(m, Conv2D)]
+    try:
+        with torch.no_grad():
+            got = model(x.to(torch.bfloat16)).float()
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.no_grad():
+        loss = F.cross_entropy(got, y).item()
+        ref = resnet_reference_forward(
+            {k: v.float() for k, v in init.items()}, x)
+        ref_loss = torch.nn.functional.cross_entropy(ref, y.long()).item()
+    model.load_state_dict(init)     # the forward moved the statistics
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    log(f"train-resnet: first forward, bf16 logits vs a float32 forward of "
+        f"the same weights: max |diff| {err:.3e} of the largest |logit| "
+        f"{ref.abs().max().item():.3f} (tol {RESNET_LOGIT_TOL}); loss "
+        f"{loss:.5f} vs {ref_loss:.5f} (tol {RESNET_LOSS_TOL}); each of "
+        f"{len(convs)} convs vs a float32 conv of its input: worst "
+        f"{max(convs):.3e} of its largest |value| (tol {RESNET_CONV_TOL})")
+    check(bool(torch.isfinite(got).all()), "train-resnet: non-finite logits")
+    check(max(convs) <= RESNET_CONV_TOL, f"train-resnet: conv "
+          f"{convs.index(max(convs))} differs from a float32 conv of its "
+          f"input by {max(convs):.3e} of its largest |value|")
+    check(err <= RESNET_LOGIT_TOL, "train-resnet: the bf16 logits differ "
+          "from the float32 reference's")
+    check(abs(loss - ref_loss) <= RESNET_LOSS_TOL, "train-resnet: the loss "
+          "differs from the float32 reference's")
+    return err, abs(loss - ref_loss), max(convs)
+
+
+def stem_bn_check(model, init, x):
+    """After one step from ``init``: the stem BatchNorm's running mean and
+    variance against Paddle's update (momentum 0.9 kept, the variance
+    unbiased by n / (n - 1), the update in bfloat16) applied to a separate
+    float32 ``var_mean`` of the stem conv's output (``F.conv2d`` of the
+    bfloat16 images and weight). Within one bfloat16 step (2^-7 of the
+    value); a momentum taken as 1 - m fails it."""
+    import torch
+    import torch.nn.functional as TF
+
+    w = init["stem.conv.weight"]
+    with torch.no_grad(), torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True,
+            allow_tf32=False):
+        out = TF.conv2d(torch.from_numpy(x).to(w.device, w.dtype), w,
+                        stride=2, padding=3)
+        var, mean = torch.var_mean(out.float(), dim=(0, 2, 3), correction=0)
+    n = out.numel() // out.shape[1]
+    keep, take = (torch.tensor(v, dtype=w.dtype).item() for v in (0.9, 0.1))
+    bn = model.stem.bn
+    worst = 0.0
+    for name, got, start, stat in (
+            ("mean", bn._mean, init["stem.bn._mean"], mean),
+            ("variance", bn._variance, init["stem.bn._variance"],
+             var * (n / (n - 1)))):
+        want = (start * keep + stat.to(w.dtype) * take).float()
+        err = ((got.float() - want).abs() / want.abs().clamp_min(1e-30))
+        worst = max(worst, err.max().item())
+        check(got.dtype == w.dtype and err.max().item() <= 2 ** -7,
+              f"train-resnet: the stem BatchNorm's running {name} after "
+              f"step 1 is off Paddle's update by {err.max().item():.3e} "
+              f"(tol one bfloat16 step, 2^-7)")
+    log(f"train-resnet: stem BatchNorm's running mean and variance after "
+        f"step 1 within {worst:.3e} of Paddle's update of a separate "
+        f"float32 var_mean (tol 2^-7)")
+    return worst
+
+
+def resnet_eager_once(model, init, loss_fn, batch):
+    """One op-by-op step from ``init`` with a new optimizer: (loss, the
+    gradients, snapshot, wall ms)."""
+    import torch
+
+    from paddle_tpu_torch.framework import TrainStep
+
+    model.load_state_dict(init)
+    opt = train_optimizer(model, "bench_resnet50")
+    step = TrainStep(model, opt, loss_fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(step._eager_step(*batch))
+    wall = (time.perf_counter() - t0) * 1e3
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    return loss, grads, snapshot(model, opt), wall
+
+
+def train_resnet_phase(gpu, steps=4, timed=5):
+    """Phase 16: bench_resnet50 (``bench.py:158-185``): ``resnet50()``
+    cast with ``bfloat16()``, batch 128 x 3 x 224 x 224 from
+    RandomState(0), Momentum(0.1, 0.9, multi_precision), nothing cut.
+    The first forward against a float32 reference; two op-by-op steps
+    from one state the same bits (loss, every gradient, every BatchNorm
+    buffer, velocities and masters), the stem BatchNorm's statistics
+    after step 1 against Paddle's update; ``steps`` graphed steps against
+    ``steps`` op-by-op ones bitwise, buffers included; no launch of the
+    port's kernels (their counts and the profiler); the first loss finite
+    and near ln 1000. Logs the replay's wall and imgs/s (median of
+    ``timed`` after the capture), the op-by-op step, peak memory and the
+    device-busy share of a profiled replay."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    config = "bench_resnet50"
+    model = train_model(config)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    loss_fn, batch, first = train_batch(model, config)
+    B = batch[0].shape[0]
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"train-resnet: resnet50 {n_params / 1e6:.2f}M parameters, "
+        f"{len(list(model.buffers()))} BatchNorm buffers, bfloat16, batch "
+        f"{tuple(batch[0].shape)}, Momentum(0.1, 0.9, multi_precision)")
+    resnet_value_check(model, init, batch)
+    kernels.reset_launches()
+    runs = [resnet_eager_once(model, init, loss_fn, batch)]
+    stem_bn_check(model, init, batch[0])
+    runs.append(resnet_eager_once(model, init, loss_fn, batch))
+    (l1, g1, s1, w1), (l2, g2, s2, w2) = runs
+    bad = [n for n in g1 if not torch_equal(g1[n], g2[n])]
+    bad += same_bits(s1, s2)
+    log(f"train-resnet: two op-by-op steps from one state: losses {l1} and "
+        f"{l2}; {len(bad)} of {len(g1)} gradients, {len(s1[0])} parameters "
+        f"and buffers and {sum(len(v) for v in s1[1].values())} optimizer "
+        f"values differ; walls {w1:.1f} and {w2:.1f} ms [{gpu}]")
+    check(l1 == l2 and not bad, f"train-resnet: two op-by-op steps from one "
+          f"state differ in the loss or {bad[:4]}")
+    check(math.isfinite(l1) and abs(l1 - first) < RESNET_LOSS_NEAR,
+          f"train-resnet: first loss {l1} is not within {RESNET_LOSS_NEAR} "
+          f"of ln 1000 = {first:.4f}")
+    del runs, g1, g2, s1, s2
+    out = {}
+    for eager in (False, True):
+        kind = "op by op" if eager else "graphed"
+        torch.cuda.reset_peak_memory_stats()
+        step, losses, walls, launches = graph_run(
+            model, config, init, loss_fn, [batch] * steps, eager)
+        state = snapshot(model, step.optimizer)
+        fn = step._eager_step if eager else step
+        more = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            fn(*batch)
+            torch.cuda.synchronize()
+            more.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall, busy, seen = profiled(lambda: fn(*batch))
+        counted = kernels.launches()
+        med = sorted(more)[len(more) // 2]
+        out[kind] = dict(losses=losses, state=state)
+        log(f"train-resnet {kind}: losses {losses}; step wall ms "
+            + " ".join(f"{w:.1f}" for w in walls) + "; then "
+            + " ".join(f"{w:.1f}" for w in more) + f" (median {med:.2f} ms "
+            f"= {B / med * 1e3:.0f} imgs/s); peak memory {peak:.2f} GiB; "
+            f"one profiled step: wall {wall:.2f} ms, device busy "
+            f"{busy:.2f} ms = {busy / wall * 100:.1f}% [{gpu}]")
+        zero = dict.fromkeys(kernels.KERNELS, 0)
+        check(launches == zero and counted == zero and seen == zero,
+              f"train-resnet {kind}: the port's kernels launched "
+              f"{launches}, {counted} (profiled step; the profiler saw "
+              f"{seen}); ResNet-50 runs none")
+        del step
+    g, e = out["graphed"], out["op by op"]
+    bad = same_bits(g["state"], e["state"])
+    check(g["losses"] == e["losses"] and not bad, f"train-resnet: "
+          f"graphed losses {g['losses']} vs op by op {e['losses']}; "
+          f"{len(bad)} tensors differ, e.g. {bad[:4]}")
+    log(f"train-resnet: {steps} graphed steps = {steps} op-by-op steps "
+        f"bitwise (losses, {len(g['state'][0])} parameters and buffers, "
+        f"every velocity and master); no launch of the port's kernels; "
+        f"phase took {time.perf_counter() - t_phase:.1f} s")
+    del model, init, out, g, e
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -2435,6 +2754,7 @@ def main():
         import paddle_tpu_torch.framework  # noqa: F401
         import paddle_tpu_torch.inference  # noqa: F401
         import paddle_tpu_torch.models.nlp.transformer  # noqa: F401
+        import paddle_tpu_torch.models.vision  # noqa: F401
         import paddle_tpu_torch.optim.lr  # noqa: F401
         import paddle_tpu_torch.obs  # noqa: F401
         import paddle_tpu_torch.resilience.elastic  # noqa: F401
@@ -2522,6 +2842,7 @@ def main():
     t0 = time.perf_counter()
     decode_phase(gpu)
     log(f"decode: phase took {time.perf_counter() - t0:.1f} s")
+    train_resnet_phase(gpu)
 
     pa = kernels.KERNELS["paged_decode_attention"]
     rows = [{"name": "paged_decode_attention", "route": "cuda",

@@ -6,8 +6,8 @@ numpy, never ``jax`` and nothing of ``paddle_tpu``. Every Pallas kernel
 on a ported path is a kernel written by hand for Hopper (``sm_90a``),
 under ``csrc/``, built with ``nvcc`` at first use.
 
-What is ported so far is the serving path, the GPT and BERT training
-steps and decoding:
+What is ported so far is the serving path, the GPT, BERT and ResNet-50
+training steps and decoding:
 
 - ``serving``: paged KV cache, continuous-batching scheduler and
   ``ServeEngine`` with the one-layer ``TinyLM``;
@@ -31,9 +31,15 @@ steps and decoding:
   (beam search, greedy search, ``dynamic_decode``) and
   ``models.nlp.transformer.WMTTransformer``, the graphed decodes as one
   CUDA graph per signature (``framework.ProgramCache``);
+- ``models.vision.resnet`` with ``nn.Conv2D``, ``nn.BatchNorm2D``,
+  ``nn.MaxPool2D``, ``nn.AdaptiveAvgPool2D``, ``ops.conv`` and
+  ``ops.norm_ops.batch_norm``: ResNet-50 training as
+  ``bench.py:bench_resnet50`` runs it, on cuDNN's conv (deterministic,
+  no TF32) and no kernel of this package (the JAX package runs no Pallas
+  kernel there either);
 - ``convert``: weights of the JAX ``TinyLM``, ``GPT``,
-  ``BertForPretraining``, ``Transformer`` and ``WMTTransformer`` into
-  this package's.
+  ``BertForPretraining``, ``Transformer``, ``WMTTransformer`` and
+  ``ResNet`` into this package's.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.

@@ -11,7 +11,8 @@ import torch
 
 __all__ = ["tinylm_params_from_jax", "gpt_params_from_jax",
            "bert_params_from_jax", "transformer_params_from_jax",
-           "wmt_params_from_jax", "optimizer_state_from_jax",
+           "wmt_params_from_jax", "resnet_params_from_jax",
+           "optimizer_state_from_jax",
            "scaler_state_from_jax"]
 
 _TINYLM = ("embedding", "wq", "wk", "wv", "wo")
@@ -217,6 +218,59 @@ def wmt_params_from_jax(state):
             raise ValueError(f"expected a 2-D array {name}")
         want[name] = (a.shape[0], E)
     return _checked(arrs, bf16, want, dims)
+
+
+def _conv_bn(prefix, cin, cout, k):
+    """A ``ConvBN``'s arrays: the conv's weight (no bias) and the
+    BatchNorm's parameters and running statistics."""
+    shapes = {f"{prefix}.conv.weight": (cout, cin, k, k)}
+    for n in ("weight", "bias", "_mean", "_variance"):
+        shapes[f"{prefix}.bn.{n}"] = (cout,)
+    return shapes
+
+
+def resnet_params_from_jax(state):
+    """The JAX ``ResNet``'s ``state_dict`` — parameters and the
+    BatchNorms' ``_mean``/``_variance`` buffers, names to numpy arrays
+    (or anything ``np.asarray`` takes) — as a state dict for the port's
+    ``ResNet`` (CPU tensors under the same names; ``load_state_dict``
+    copies them into the model's tensors). A bfloat16 array stays
+    bfloat16 (exactly); every other array becomes float32. Width, input
+    channels, the block type (``conv3`` present: bottleneck), the stage
+    depths and the classes are read from the arrays. Raises
+    ``ValueError`` on a missing or extra name or a shape that does not
+    fit the others."""
+    bf16 = {k for k, v in state.items() if _is_bfloat16(v)}
+    arrs = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    for name, ndim in (("stem.conv.weight", 4), ("fc.weight", 2)):
+        if arrs.get(name, np.zeros(0)).ndim != ndim:
+            raise ValueError(f"expected a {ndim}-D array {name}")
+    width, cin = arrs["stem.conv.weight"].shape[:2]
+    classes = arrs["fc.weight"].shape[1]
+    bottleneck = "layers.0.0.conv3.conv.weight" in arrs
+    expansion = 4 if bottleneck else 1
+    want = _conv_bn("stem", cin, width, 7)
+    inplanes, depths = width, []
+    for i in range(_numbered(arrs, "layers.")):
+        planes = width * 2 ** i
+        depths.append(_numbered(arrs, f"layers.{i}."))
+        for j in range(depths[-1]):
+            p = f"layers.{i}.{j}"
+            if bottleneck:
+                want.update(_conv_bn(f"{p}.conv1", inplanes, planes, 1))
+                want.update(_conv_bn(f"{p}.conv2", planes, planes, 3))
+                want.update(_conv_bn(f"{p}.conv3", planes, planes * 4, 1))
+            else:
+                want.update(_conv_bn(f"{p}.conv1", inplanes, planes, 3))
+                want.update(_conv_bn(f"{p}.conv2", planes, planes, 3))
+            if j == 0 and (i > 0 or inplanes != planes * expansion):
+                want.update(_conv_bn(f"{p}.downsample", inplanes,
+                                     planes * expansion, 1))
+            inplanes = planes * expansion
+    want["fc.weight"], want["fc.bias"] = (inplanes, classes), (classes,)
+    return _checked(arrs, bf16, want, f"width {width}, "
+                    f"{'bottleneck' if bottleneck else 'basic'} blocks "
+                    f"{depths}, {classes} classes")
 
 
 def optimizer_state_from_jax(jax_opt, torch_opt, names=None):

@@ -20,9 +20,10 @@ the device, still applies the update, and raises ``FloatingPointError``
 on the host after the step. ``last_found_inf`` is the raw device flag.
 
 On a CUDA model, calls go in this order for each key — the batch
-signature, the storage of the parameters and of the optimizer state
-(``data_ptr``), ``model.training``, which parameters train, and whether
-``kernels.plain_versions()`` is active:
+signature, the storage of the parameters, of the model's buffers (a
+BatchNorm's running statistics, which the step updates in place) and of
+the optimizer state (``data_ptr``), ``model.training``, which
+parameters train, and whether ``kernels.plain_versions()`` is active:
 
 1. the first call runs the step op by op on a side stream: it counts as
    a training step, and it loads the kernel libraries, makes the
@@ -175,6 +176,7 @@ class TrainStep:
     def _key(self, batch, K):
         opt = self.optimizer
         storage = (tuple(p.data_ptr() for _, p in opt._named_params),
+                   tuple(b.data_ptr() for b in self.model.buffers()),
                    tuple(t.data_ptr() for s in opt._accumulators.values()
                          for t in s.values()))
         return (K, _signature(batch), _route.forced(), self.model.training,

@@ -1,1 +1,2 @@
-"""paddle_tpu_torch.models: the ported models (``nlp.gpt``)."""
+"""paddle_tpu_torch.models: the ported models (``nlp``: GPT, BERT, the
+WMT Transformer; ``vision``: ResNet)."""

@@ -693,3 +693,126 @@ def test_beam_search_decode_xla_graph_is_op_by_op_bitwise(hopper):
     got = m.beam_search_decode_xla(src, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, after))
     assert len(m._xla_decode_cache) == 1
+
+
+# -- ResNet: conv, pooling and BatchNorm -------------------------------------
+
+
+def _resnet_backward(hopper, op):
+    """A bfloat16 backward of one of ResNet-50's ops at a reduced batch:
+    a function returning its gradients."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    g = torch.Generator(device=hopper).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, device=hopper, generator=g).to(
+            torch.bfloat16).requires_grad_()
+
+    if op == "conv":
+        x, w = randn(16, 128, 56, 56), randn(128, 128, 3, 3)
+        inputs = (x, w)
+        out = PF.conv2d(x, w, stride=2, padding=1)
+    elif op == "max_pool":
+        x = torch.relu(randn(16, 64, 112, 112)).detach().requires_grad_()
+        inputs = (x,)
+        out = PF.max_pool2d(x, 3, 2, 1)
+    else:
+        x, w, b = randn(16, 64, 56, 56), randn(64), randn(64)
+        inputs = (x, w, b)
+        out = PF.batch_norm(x, torch.zeros(64, device=hopper),
+                            torch.ones(64, device=hopper), w, b,
+                            training=True)
+    dy = torch.randn(out.shape, device=hopper, generator=g).to(out.dtype)
+    return lambda: torch.autograd.grad(out, inputs, dy, retain_graph=True)
+
+
+@pytest.mark.parametrize("op", ["conv", "max_pool", "batch_norm"])
+def test_resnet_backwards_are_repeatable(hopper, op):
+    """The conv's data and weight gradients (the 3 x 3 / 2 conv of
+    ResNet-50's second stage, deterministic cuDNN), the max pool's on
+    windows of tied zeros and BatchNorm's: the same bits in 20 runs."""
+    bwd = _resnet_backward(hopper, op)
+    first = [t.clone() for t in bwd()]
+    for _ in range(19):
+        assert all(torch.equal(a, b) for a, b in zip(first, bwd()))
+
+
+def test_float32_conv_is_not_tf32(hopper):
+    """With cuDNN's TF32 flag on, as PyTorch starts, the port's float32
+    conv and its gradients are float32 ones: within 5e-5 of the largest
+    entry of a float64 conv's (float32 sums of 576 and 6272 terms; seen
+    1.3e-5), ten times closer than PyTorch's own conv under that flag
+    (TF32 keeps 10 bits of each input), and the flag is as it was after
+    the call."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    g = torch.Generator(device=hopper).manual_seed(0)
+    x = torch.randn(8, 64, 28, 28, device=hopper, generator=g)
+    w = torch.randn(64, 64, 3, 3, device=hopper, generator=g) * 0.05
+    dy = torch.randn(8, 64, 28, 28, device=hopper, generator=g)
+    def run(conv, dtype):
+        xs = x.to(dtype, copy=True).requires_grad_()
+        ws = w.to(dtype, copy=True).requires_grad_()
+        out = conv(xs, ws, padding=1)
+        out.backward(dy.to(dtype))
+        return out, xs.grad, ws.grad
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        port = run(PF.conv2d, torch.float32)
+        assert torch.backends.cudnn.allow_tf32
+        tf32 = run(torch.nn.functional.conv2d, torch.float32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    ref = run(torch.nn.functional.conv2d, torch.float64)
+    for got, lib, want in zip(port, tf32, ref):
+        err, lib_err = ((t.double() - want).abs().max() / want.abs().max()
+                        for t in (got, lib))
+        assert err < 5e-5 and 10 * err < lib_err, (err.item(),
+                                                   lib_err.item())
+
+
+def test_graphed_tiny_resnet_step_is_the_eager_step(hopper):
+    """A bfloat16 ResNet (Bottleneck, [1, 1, 1, 1], width 16) under
+    Momentum with multi_precision: three graphed calls (op by op,
+    captured, replayed) end at the eager run's bits, BatchNorm buffers,
+    velocities and masters included, and launch none of the port's
+    kernels."""
+    from paddle_tpu_torch.models.vision import resnet
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(8, 3, 64, 64).astype(np.float32)
+    y = rng.randint(0, 10, (8,)).astype(np.int32)
+
+    def loss_fn(m, x, y):
+        from paddle_tpu_torch.nn import functional as PF
+
+        return PF.cross_entropy(m(x.to(torch.bfloat16)).float(), y)
+
+    runs = []
+    for graphed in (True, False):
+        m = resnet.ResNet(resnet.BottleneckBlock, [1, 1, 1, 1], width=16,
+                          num_classes=10, device=hopper,
+                          generator=torch.Generator(
+                              device=hopper).manual_seed(0)).bfloat16()
+        opt = optim.Momentum(0.1, 0.9, parameters=m.named_parameters(),
+                             multi_precision=True)
+        step = TrainStep(m, opt, loss_fn)
+        kernels.reset_launches()
+        fn = step if graphed else step._eager_step
+        losses = torch.stack([fn(x, y) for _ in range(3)])
+        torch.cuda.synchronize()
+        assert set(kernels.launches().values()) == {0}
+        runs.append((losses, dict(m.named_parameters()),
+                     dict(m.named_buffers()), opt._accumulators))
+    (gl, gp, gb, gs), (el, ep, eb, es) = runs
+    assert torch.equal(gl, el)
+    for n in gp:
+        assert torch.equal(gp[n], ep[n]), n
+    for n in gb:
+        assert torch.equal(gb[n], eb[n]), n
+    for n in gs:
+        for k in gs[n]:
+            assert torch.equal(gs[n][k], es[n][k]), (n, k)

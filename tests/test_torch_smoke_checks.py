@@ -15,7 +15,14 @@ dK/dV) is emulated here against them: P and dS split into two bfloat16
 halves pass, P and dS rounded once fail. So do the decode phase's
 checks: a greedy token off a clear argmax fails ``greedy_agree``, and a
 beam search made to take another's decisions (``Decisions``) fails
-when one token's logit is off by more than its value limit.
+when one token's logit is off by more than its value limit. And the
+ResNet phase's checks: its float32 reference forward
+(``resnet_reference_forward``) is the port's model, and the value
+check and the stem BatchNorm check, run on the CPU at a small width,
+pass an honest model and fail the two faults
+``tools/torch_planted_faults.py`` plants on the card (conv weights read
+transposed, a BatchNorm momentum taken as 1 - m) and a conv padded
+unevenly (the output's shape kept, its windows shifted).
 """
 import pathlib
 import re
@@ -269,3 +276,71 @@ def test_beam_decision_check_rejects_planted_faults():
     planted, _, _ = _toy_beam(bad, forced=made)
     with pytest.raises(cs.CheckFailed):
         planted.agree("planted")
+
+
+def _tiny_resnet(dtype=torch.float32):
+    from paddle_tpu_torch.models.vision import resnet
+
+    m = resnet.ResNet(resnet.BottleneckBlock, [1, 1, 1, 1], width=8,
+                      num_classes=10, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    m = m.to(dtype)
+    init = {k: v.clone() for k, v in m.state_dict().items()}
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 3, 64, 64, generator=g).numpy()
+    y = torch.randint(0, 10, (4,), generator=g).int().numpy()
+    return m, init, (x, y)
+
+
+def test_resnet_reference_forward_is_the_port_model():
+    m, init, (x, y) = _tiny_resnet()
+    with torch.no_grad():
+        got = m(torch.from_numpy(x))
+    want = cs.resnet_reference_forward(init, torch.from_numpy(x))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _planted(monkeypatch, fault):
+    from paddle_tpu_torch.nn import functional as F
+
+    if fault == "transposed conv weight":
+        real = F.conv2d
+        monkeypatch.setattr(F, "conv2d", lambda x, w, *a, **k: real(
+            x, w.transpose(2, 3), *a, **k))
+    elif fault == "uneven conv padding":
+        real = F.conv2d
+
+        def shifted(x, w, *a, padding=0, **k):
+            # the same output shape, the window shifted by one
+            p = padding if w.shape[-1] == 1 else [0, 2 * padding, 0,
+                                                   2 * padding]
+            return real(x, w, *a, padding=p, **k)
+        monkeypatch.setattr(F, "conv2d", shifted)
+    elif fault == "batch norm momentum 1 - m":
+        real = F.batch_norm
+        monkeypatch.setattr(F, "batch_norm", lambda *a, momentum=0.9, **k:
+                            real(*a, momentum=1 - momentum, **k))
+
+
+@pytest.mark.parametrize("fault", [None, "transposed conv weight",
+                                   "uneven conv padding",
+                                   "batch norm momentum 1 - m"])
+def test_resnet_checks_reject_planted_faults(monkeypatch, fault):
+    m, init, batch = _tiny_resnet(torch.bfloat16)
+    _planted(monkeypatch, fault)
+    value_fails = fault in ("transposed conv weight", "uneven conv padding")
+    if value_fails:
+        with pytest.raises(cs.CheckFailed, match="differs from a float32 "
+                           "conv of its input"):
+            cs.resnet_value_check(m, init, batch)
+    else:
+        cs.resnet_value_check(m, init, batch)
+    # the statistics a step's forward leaves (the wrong conv moves them too)
+    with torch.no_grad():
+        m.load_state_dict(init)
+        m(torch.from_numpy(batch[0]).to(torch.bfloat16))
+    if fault is None:
+        assert cs.stem_bn_check(m, init, batch[0]) <= 2 ** -7
+    else:
+        with pytest.raises(cs.CheckFailed, match="stem BatchNorm"):
+            cs.stem_bn_check(m, init, batch[0])

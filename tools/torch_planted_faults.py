@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Check that ``chip_smoke.py``'s train phases catch a backward kernel
-that drops one of its gradients.
+"""Check that ``chip_smoke.py``'s train phases catch planted faults: a
+backward kernel that drops one of its gradients, a graph that keeps its
+first learning rate, and ResNet-50's wrong convs and BatchNorm momentum.
 
-    python3 tools/torch_planted_faults.py
+    python3 tools/torch_planted_faults.py [--resnet]
 
 Builds the kernels, then runs the smoke's train phases with one fault
 planted at a time:
@@ -27,18 +28,32 @@ planted at a time:
   steps against 6 eager ones), which must find the two runs' parameters
   differ.
 
-Each phase runs 4 AdamW steps through the kernels and 4 through the
-plain versions and compares the losses. A fault is planted by swapping
-the module's wrapper for one that calls the real kernel and zeroes one
-output; the real wrapper counts its launch on the module's name, the
-planted one, so the phase's launch check passes and its loss check (the
-BERT dgamma fault: its gradient check) is what must catch the fault.
-Nothing on disk changes. Each run prints its per-step loss differences
-(the smoke's ``train:`` / ``train-bf16:`` / ``train-bert:`` lines) and
-must fail the named check (the learning-rate fault: its bitwise check);
-the script exits non-zero if any fault passes or is caught by another
-check. Needs one CUDA card.
+- conv weights read transposed (kh and kw swapped, so the shapes still
+  fit), then each conv of a window over 1 x 1 padded by 0 before and
+  twice its padding after (the output's shape kept, the windows shifted
+  by one), in every ``nn.functional.conv2d`` call of the train-resnet
+  phase (bench_resnet50), which its per-conv float32 check must catch
+  (``chip_smoke.resnet_value_check``);
+- a BatchNorm momentum taken as 1 - m in every
+  ``nn.functional.batch_norm`` call of the train-resnet phase, which
+  leaves the training forward alone and must fail the stem BatchNorm's
+  statistics check (``chip_smoke.stem_bn_check``).
+
+``--resnet`` plants the three ResNet faults only.
+
+Each of the first phases runs 4 AdamW steps through the kernels and 4
+through the plain versions and compares the losses. A fault is planted
+by swapping the module's wrapper for one that calls the real kernel and
+zeroes one output; the real wrapper counts its launch on the module's
+name, the planted one, so the phase's launch check passes and its loss
+check (the BERT dgamma fault: its gradient check) is what must catch the
+fault. Nothing on disk changes. Each run prints its per-step loss
+differences (the smoke's ``train:`` / ``train-bf16:`` / ``train-bert:``
+lines) and must fail the named check (the learning-rate fault: its
+bitwise check); the script exits non-zero if any fault passes or is
+caught by another check. Needs one CUDA card.
 """
+import argparse
 import os
 import sys
 
@@ -49,6 +64,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from paddle_tpu_torch.framework import TrainStep  # noqa: E402
+from paddle_tpu_torch.nn import functional as F  # noqa: E402
 from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
 from paddle_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops.kernels import layernorm as ln  # noqa: E402
@@ -70,13 +86,61 @@ FAULTS = [
 ]
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("torch_planted_faults: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cudnn.allow_tf32 = False
-    _build.build()
-    gpu = chip_smoke.gpu_line()
+def _transposed(real):
+    return lambda x, w, *a, **k: real(x, w.transpose(2, 3), *a, **k)
+
+
+def _shifted(real):
+    # the output's shape kept, each k > 1 conv's windows shifted by one
+    def conv(x, w, *a, padding=0, **k):
+        if w.shape[-1] > 1:
+            padding = [0, 2 * padding, 0, 2 * padding]
+        return real(x, w, *a, padding=padding, **k)
+    return conv
+
+
+def _momentum_flipped(real):
+    return lambda *a, momentum=0.9, **k: real(*a, momentum=1 - momentum,
+                                               **k)
+
+
+OP_FAULTS = [
+    # (label, nn.functional op, what wraps it, phase, the failure that
+    # must catch it)
+    ("resnet: conv weights read transposed", "conv2d", _transposed,
+     chip_smoke.train_resnet_phase, "float32 conv"),
+    ("resnet: conv padded unevenly", "conv2d", _shifted,
+     chip_smoke.train_resnet_phase, "float32 conv"),
+    ("resnet: BatchNorm momentum 1 - m", "batch_norm", _momentum_flipped,
+     chip_smoke.train_resnet_phase, "stem BatchNorm"),
+]
+
+
+def op_faults(gpu):
+    """The ResNet faults, each planted in ``nn.functional`` (the layers
+    call the op through it) while the phase runs: the labels the phase
+    passed or did not fail by the named check."""
+    missed = []
+    for label, name, wrap, phase, caught_by in OP_FAULTS:
+        real = getattr(F, name)
+        setattr(F, name, wrap(real))
+        try:
+            phase(gpu)
+            missed.append(label)
+            print(f"planted {label}: the phase PASSED it")
+        except chip_smoke.CheckFailed as e:
+            if caught_by not in str(e):
+                missed.append(label)
+            print(f"planted {label}: the phase failed: {e}")
+        finally:
+            setattr(F, name, real)
+            torch.cuda.empty_cache()
+    return missed
+
+
+def kernel_faults(gpu):
+    """The kernel faults and the learning-rate fault: the labels the
+    phase passed or did not fail by the named check."""
     missed = []
     for label, module, name, index, phase, caught_by in FAULTS:
         real = getattr(module, name)
@@ -120,6 +184,23 @@ def main():
           f"from the eager run")
     if not differ:
         missed.append("graph keeps its first lr")
+    return missed
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--resnet", action="store_true",
+                    help="plant the three ResNet faults only")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_planted_faults: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    gpu = chip_smoke.gpu_line()
+    missed = op_faults(gpu)
+    if not args.resnet:
+        missed += kernel_faults(gpu)
     print(gpu)
     if missed:
         print(f"not caught by the check named for them: {missed}")

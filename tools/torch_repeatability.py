@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Is the embedding's weight gradient repeatable on the card, and what
-does the repeatable one cost?
+"""Are the embedding's weight gradient and ResNet-50's conv, pooling and
+BatchNorm backwards repeatable on the card, and what do the repeatable
+ones cost?
 
     python3 tools/torch_repeatability.py [--runs N]
+                                         [--cases all|embedding|resnet]
 
 For the lookups of bench_bert and bench_gpt (8192 or 16384 ids: BERT's
 token types, all 0 of 2; its positions, 0-127 repeated; its words and
@@ -14,7 +16,18 @@ variant (``torch.use_deterministic_algorithms``), and for the port's
 ``nn.functional.embedding``, which takes the deterministic one. Also
 the host time of the first and second call of
 ``torch.use_deterministic_algorithms``, which the port does not call
-(it sets the flag through ``torch._C``). Needs one CUDA card.
+(it sets the flag through ``torch._C``).
+
+The ResNet cases, bfloat16 at bench_resnet50's batch of 128: the conv's
+data gradient (dgrad) and weight gradient (wgrad) at four of ResNet-50's
+shapes (the 7 x 7 / 2 stem, a 1 x 1, a 3 x 3 / 2 and a 1 x 1 / 2
+downsample), each under cuDNN's default flags (no benchmarking,
+non-deterministic algorithms allowed) and under the port's
+(``ops.conv._cudnn``: deterministic algorithms only, no TF32); then the
+port's ``max_pool2d`` backward on the stem's ReLU output (windows of
+tied zeros), its global ``adaptive_avg_pool2d`` backward and its
+BatchNorm backward, through autograd. Each: whether ``--runs``
+backwards give the same bits, and the time of one. Needs one CUDA card.
 """
 import argparse
 import os
@@ -36,16 +49,132 @@ CASES = [
 ]
 
 
+# ResNet-50's convs in bench_resnet50: label, x (N, C, H, W), weight
+# (O, C, k, k), stride, padding
+CONVS = [("stem 7x7/2", (128, 3, 224, 224), (64, 3, 7, 7), 2, 3),
+         ("1x1", (128, 256, 56, 56), (64, 256, 1, 1), 1, 0),
+         ("3x3/2", (128, 128, 56, 56), (128, 128, 3, 3), 2, 1),
+         ("1x1/2 downsample", (128, 256, 56, 56), (512, 256, 1, 1), 2, 0)]
+
+
+def _ms(fn, iters=20):
+    import torch
+
+    for _ in range(3):
+        fn()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def _repeatable(fn, runs):
+    """Whether ``runs`` calls of ``fn`` give the same bits in every tensor
+    it returns."""
+    import torch
+
+    first = [t.clone() for t in fn()]
+    return all(all(torch.equal(a, b) for a, b in zip(first, fn()))
+               for _ in range(runs - 1))
+
+
+def resnet_cases(runs):
+    import torch
+
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops.conv import _cudnn
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=g).to(
+            torch.bfloat16)
+
+    for label, xs, ws, stride, pad in CONVS:
+        x, w = randn(*xs), randn(*ws) * (2.0 / (ws[1] * ws[2] ** 2)) ** 0.5
+        out = torch.ops.aten.convolution(x, w, None, (stride,) * 2,
+                                         (pad,) * 2, (1, 1), False, (0, 0), 1)
+        dy = randn(*out.shape)
+        row = []
+        for setting, flags in (
+                ("cuDNN default", lambda: torch.backends.cudnn.flags(
+                    enabled=True, benchmark=False, deterministic=False)),
+                ("port (deterministic)", _cudnn)):
+            for part, mask in (("dgrad", [True, False, False]),
+                               ("wgrad", [False, True, False])):
+                def bwd(mask=mask, flags=flags):
+                    with flags():
+                        dx, dw, _ = torch.ops.aten.convolution_backward(
+                            dy, x, w, None, (stride,) * 2, (pad,) * 2,
+                            (1, 1), False, (0, 0), 1, mask)
+                    return [dx if mask[0] else dw]
+
+                same = _repeatable(bwd, runs)
+                row.append(f"{setting} {part} "
+                           f"{'repeatable' if same else 'NOT'} "
+                           f"{_ms(bwd):.4f} ms")
+        print(f"conv {label} x {xs} w {ws} bf16, {runs} runs: "
+              + "; ".join(row), flush=True)
+
+    def autograd(fn, *inputs):
+        inputs = [t.requires_grad_() for t in inputs]
+        out = fn(*inputs)
+        dy = randn(*out.shape)
+        return lambda: torch.autograd.grad(out, inputs, dy,
+                                           retain_graph=True)
+
+    stem = torch.relu(randn(128, 64, 112, 112))
+    ones = torch.ones(64, device="cuda", dtype=torch.bfloat16)
+    for label, bwd in (
+            ("max_pool2d 3/2/1 on the stem's ReLU output (128, 64, 112, "
+             "112), tied zeros",
+             autograd(lambda t: PF.max_pool2d(t, 3, 2, 1), stem.clone())),
+            ("adaptive_avg_pool2d (128, 2048, 7, 7) -> 1",
+             autograd(lambda t: PF.adaptive_avg_pool2d(t, 1),
+                      randn(128, 2048, 7, 7))),
+            ("batch_norm training (128, 64, 112, 112), dx dweight dbias",
+             autograd(lambda t, w, b: PF.batch_norm(
+                 t, torch.zeros(64, device="cuda", dtype=torch.bfloat16),
+                 ones.clone(), w, b, training=True),
+                 randn(128, 64, 112, 112), ones.clone(),
+                 torch.zeros_like(ones)))):
+        same = _repeatable(bwd, runs)
+        print(f"{label} bf16 backward, {runs} runs: "
+              f"{'repeatable' if same else 'NOT'} {_ms(bwd):.4f} ms",
+              flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--runs", type=int, default=300,
-                    help="backward passes compared per case (default 300)")
+    ap.add_argument("--runs", type=int, default=None,
+                    help="backward passes compared per case (default 300 "
+                    "for the embedding cases, 20 for the ResNet ones)")
+    ap.add_argument("--cases", choices=("all", "embedding", "resnet"),
+                    default="all", help="which cases (default all)")
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("torch_repeatability: no CUDA device", file=sys.stderr)
         return 2
+    if args.cases != "embedding":
+        resnet_cases(args.runs or 20)
+    if args.cases != "resnet":
+        embedding_cases(args.runs or 300)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip())
+    return 0
+
+
+def embedding_cases(runs):
+    import torch
+
     from paddle_tpu_torch.nn import functional as PF
 
     # the public switch first: its first call imports the inductor's config
@@ -105,17 +234,12 @@ def main(argv=None):
                              ("port forward+backward", port)):
                 first = fn().clone()
                 same = all(torch.equal(first, fn())
-                           for _ in range(args.runs - 1))
+                           for _ in range(runs - 1))
                 out.append(f"{name} {'repeatable' if same else 'NOT'} "
                            f"{ms(fn):.4f} ms")
             print(f"{label} ({N} ids, {V} rows) "
-                  f"{str(dtype).split('.')[-1]}, {args.runs} runs: "
+                  f"{str(dtype).split('.')[-1]}, {runs} runs: "
                   + "; ".join(out), flush=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip())
-    return 0
 
 
 if __name__ == "__main__":
