@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving path, its training steps (GPT, BERT,
-ResNet-50), its serving fleet, the step as one CUDA graph and its
-decoding once on one NVIDIA H100.
+ResNet-50), its serving fleet, the step as one CUDA graph, its decoding
+and its checkpointed and guarded training once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -168,6 +168,27 @@ any failed check:
              port's kernels (counts and profiler); the first loss near
              ln 1000; the replay's wall and imgs/s, the op-by-op step,
              peak memory and a profiled replay's busy share.
+
+17. checkpoint — bench_gpt's graphed step (as phase 14, each batch
+             times a float32 1.0, batches from RandomState(0)) saved,
+             killed and resumed (``framework.io``): 8 steps from seed 0
+             with a sync ``save_checkpoint`` after step 4, verified; that
+             checkpoint loaded back into the same model and optimizer,
+             steps 5-8 replayed with no new capture, the same losses and
+             state bitwise; the run again with ``async_=True`` after step
+             4 (steps 5-6 while the writer writes) and again after
+             step 6, bitwise; both
+             checkpoints resumed in a fresh Python process from a model
+             of another seed, steps 5-8 and the final state bitwise;
+             ``GuardedStep(TrainStep(check_nan=True))`` under
+             ``skip_step`` and under ``rollback`` (``snapshot_every=1``)
+             with ``nan_feed`` at call 3 bitwise 7 steps that never saw
+             batch 3 (losses, state, step count), one graph captured;
+             the truncate, bit-flip, crash and per-array drills at 2
+             layers of gpt_small's width. It logs the bytes on disk,
+             the sync save, the async snapshot, the loads, the verify,
+             the replays with and without the writer, and the guarded
+             replays against plain ones.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -917,15 +938,16 @@ def train_launches(config, cfg, steps):
             "flash_attention_bwd_dq": fl, "flash_attention_bwd_dkv": fl}
 
 
-def train_model(config):
-    """``TRAIN_CONFIGS[config]``'s model on the card, weights from seed 0:
-    ``gpt_small``, ``BertForPretraining(bert_base())`` or ``resnet50()``."""
+def train_model(config, seed=0):
+    """``TRAIN_CONFIGS[config]``'s model on the card, weights from
+    ``seed``: ``gpt_small``, ``BertForPretraining(bert_base())`` or
+    ``resnet50()``."""
     import torch
 
     from paddle_tpu_torch.models.nlp import bert, gpt
 
     c = TRAIN_CONFIGS[config]
-    g = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     if c["model"] == "resnet50":
         from paddle_tpu_torch.models.vision import resnet50
 
@@ -2733,6 +2755,491 @@ def train_resnet_phase(gpu, steps=4, timed=5):
     torch.cuda.empty_cache()
 
 
+# -- phase 17: checkpoints and guarded training (bench_gpt) ------------------
+
+CKPT_CONFIG = "bench_gpt"
+CKPT_STEPS = 8          # the reference run's steps
+CKPT_AT = 4             # the step saved, killed and resumed from
+CKPT_POISONED = 3       # the guarded run's nan_feed hit (1-based)
+CKPT_DRILL_LAYERS = 2   # the drills' depth, at gpt_small's width
+# the phase writes ~4 bench_gpt checkpoints of ~1.7 GB and the drills'
+CKPT_MIN_FREE = 16 * 10 ** 9
+
+
+def ckpt_loss(model, ids, labels, scale):
+    """bench_gpt's loss times a float32 batch item (1 in every batch), the
+    item ``nan_feed`` poisons in the guarded runs."""
+    from paddle_tpu_torch.models.nlp import gpt
+
+    return gpt.gpt_loss(model, ids, labels) * scale
+
+
+def ckpt_batches(model, n):
+    """``n`` bench_gpt batches from RandomState(0) (the first is
+    ``train_batch``'s), each ``(ids, labels, 1.0)``."""
+    c, cfg = TRAIN_CONFIGS[CKPT_CONFIG], model.cfg
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, cfg.vocab_size, (c["batch"], cfg.max_seq))
+        out.append((ids, np.roll(ids, -1, axis=1), np.ones((), np.float32)))
+    return out
+
+
+def timed_calls(fn, batches, each=None):
+    """``fn(*b)`` for each batch: ``(losses, host walls ms)``, each call
+    ended by a synchronize; ``each(i)`` after call ``i``."""
+    import torch
+
+    losses, walls = [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        loss = fn(*b)
+        losses.append(None if loss is None else float(loss))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if each is not None:
+            each(i)
+    return losses, walls
+
+
+def ms_list(walls):
+    return " ".join(f"{w:.1f}" for w in walls)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def ckpt_state_diff(path, state):
+    """The names whose saved value in checkpoint ``path`` differs from
+    snapshot ``state`` (parameters, then ``<name>.<slot>`` of the
+    optimizer), and a missing or extra name."""
+    import torch
+
+    from paddle_tpu_torch.framework import load
+
+    params, slots = state
+    model = load(os.path.join(path, "model.pdparams"))
+    opt = load(os.path.join(path, "opt.pdopt"))
+    want = dict(params)
+    want.update({f"{n}.{k}": v for n, s in slots.items()
+                 for k, v in s.items()})
+    got = dict(model)
+    got.update({k: v for k, v in opt.items() if not k.startswith("@")})
+    bad = sorted(set(want) ^ set(got))
+    for k, v in want.items():
+        if k in got and not torch_equal(
+                torch.as_tensor(got[k]).to(v.device), v):
+            bad.append(k)
+    return bad
+
+
+def ckpt_reference(gpu, root):
+    """Steps 1-8 of bench_gpt from seed 0, a sync checkpoint after step 4;
+    then the step-4 checkpoint loaded back into the same model and
+    optimizer, and steps 5-8 replayed from it: the same losses and state
+    bitwise, and no new capture. Returns the losses, the final state
+    (device copies) and the timings."""
+    import torch
+
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.framework import (TrainStep, load_checkpoint,
+                                            save_checkpoint,
+                                            verify_checkpoint)
+
+    sync_dir = os.path.join(root, "sync")
+    model = train_model(CKPT_CONFIG)
+    opt = train_optimizer(model, CKPT_CONFIG)
+    core.seed(1)
+    step = TrainStep(model, opt, ckpt_loss)
+    batches = ckpt_batches(model, CKPT_STEPS)
+    t = {}
+
+    def save_at(i):
+        if i + 1 == CKPT_AT:
+            t0 = time.perf_counter()
+            save_checkpoint(sync_dir, CKPT_AT, model, opt, keep_last=2)
+            t["save_ms"] = (time.perf_counter() - t0) * 1e3
+
+    losses, walls = timed_calls(step, batches, save_at)
+    final = snapshot(model, opt)
+    path = os.path.join(sync_dir, f"ckpt_{CKPT_AT}")
+    t["bytes"] = dir_bytes(path)
+    t0 = time.perf_counter()
+    ok, problems = verify_checkpoint(path)
+    t["verify_ms"] = (time.perf_counter() - t0) * 1e3
+    check(ok, f"checkpoint: the sync checkpoint fails verification: "
+          f"{problems}")
+    t["replay_ms"] = walls[2:]
+    log(f"checkpoint reference: {CKPT_CONFIG} from seed 0, {CKPT_STEPS} "
+        f"graphed steps, losses {losses}; step wall ms {ms_list(walls)}; "
+        f"sync save of step {CKPT_AT}: {t['bytes']} bytes on disk in "
+        f"{t['save_ms']:.1f} ms ({t['bytes'] / t['save_ms'] / 1e6:.2f} "
+        f"GB/s); deep verify {t['verify_ms']:.1f} ms [{gpu}]")
+    # the step-4 checkpoint loaded back into this model and optimizer
+    graphs, captures = list(step._graphs.values()), step.captures
+    t0 = time.perf_counter()
+    at = load_checkpoint(sync_dir, model, opt)
+    torch.cuda.synchronize()
+    t["load_ms"] = (time.perf_counter() - t0) * 1e3
+    check(at == CKPT_AT and opt._global_step == CKPT_AT,
+          f"checkpoint in-place load: resumed at {at}, global step "
+          f"{opt._global_step}, want {CKPT_AT}")
+    again, rwalls = timed_calls(step, batches[CKPT_AT:])
+    log(f"checkpoint in-place load: step {at} loaded into the live model "
+        f"and optimizer in {t['load_ms']:.1f} ms; steps {CKPT_AT + 1}-"
+        f"{CKPT_STEPS} replayed: losses {again}, step wall ms "
+        f"{ms_list(rwalls)}; graphs captured {step.captures} [{gpu}]")
+    check(step.captures == captures and
+          list(step._graphs.values()) == graphs and
+          all(g is not None for g in graphs),
+          f"checkpoint in-place load: it captured again ({step.captures} "
+          f"graphs, {captures} before): the load rebound storage")
+    check(again == losses[CKPT_AT:], f"checkpoint in-place load: losses "
+          f"{again} != the reference's {losses[CKPT_AT:]}")
+    bad = same_bits(snapshot(model, opt), final)
+    check(not bad, f"checkpoint in-place load: {len(bad)} tensors differ "
+          f"from the reference run's, e.g. {bad[:4]}")
+    t["replay_ms"] += rwalls[1:]
+    del step, model, opt
+    torch.cuda.empty_cache()
+    return losses, final, t
+
+
+def ckpt_async(gpu, root, losses, final):
+    """The reference run again with an async save after step 4: steps 5-6
+    run while the writer writes, ``wait_checkpoints()``; then a second
+    async save after step 6 (its snapshot reuses the first one's pinned
+    host buffers), steps 7-8, ``wait_checkpoints()``; the same losses and
+    final state bitwise. Returns the timings."""
+    import torch
+
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.framework import (TrainStep, save_checkpoint,
+                                            wait_checkpoints)
+
+    model = train_model(CKPT_CONFIG)
+    opt = train_optimizer(model, CKPT_CONFIG)
+    core.seed(1)
+    step = TrainStep(model, opt, ckpt_loss)
+    batches = ckpt_batches(model, CKPT_STEPS)
+    t, handle, writing = {}, [], []
+
+    def save_at(i):
+        if i + 1 == CKPT_AT:
+            t0 = time.perf_counter()
+            handle.append(save_checkpoint(os.path.join(root, "async"),
+                                          CKPT_AT, model, opt, keep_last=2,
+                                          async_=True))
+            t["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+        elif i + 1 == CKPT_AT + 2:
+            writing.append(not handle[0].done())
+            t0 = time.perf_counter()
+            wait_checkpoints()
+            t["wait_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            save_checkpoint(os.path.join(root, "async_again"), i + 1,
+                            model, opt, async_=True)
+            t["snapshot_again_ms"] = (time.perf_counter() - t0) * 1e3
+        elif i + 1 == CKPT_AT + 1:
+            writing.append(not handle[0].done())
+
+    got, walls = timed_calls(step, batches, save_at)
+    wait_checkpoints()
+    log(f"checkpoint async: step {CKPT_AT} snapshot (device-to-host copies, "
+        f"the step path's cost) {t['snapshot_ms']:.1f} ms; steps "
+        f"{CKPT_AT + 1}-{CKPT_AT + 2} while the writer wrote "
+        f"{ms_list(walls[CKPT_AT:CKPT_AT + 2])} ms (writer still running "
+        f"after each: {writing}); then waited {t['wait_ms']:.1f} ms for "
+        f"it; a second async snapshot after step {CKPT_AT + 2} (pinned "
+        f"buffers reused) {t['snapshot_again_ms']:.1f} ms; losses {got}; "
+        f"step wall ms {ms_list(walls)} [{gpu}]")
+    check(all(writing), f"checkpoint async: the writer was done before "
+          f"steps {CKPT_AT + 1}-{CKPT_AT + 2} ended (running after each: "
+          f"{writing}), so they did not overlap it")
+    check(got == losses, f"checkpoint async: losses {got} != the "
+          f"reference's {losses}")
+    bad = same_bits(snapshot(model, opt), final)
+    check(not bad, f"checkpoint async: {len(bad)} tensors differ from the "
+          f"reference run's, e.g. {bad[:4]}")
+    t["writer_ms"] = walls[CKPT_AT:CKPT_AT + 2]
+    del step, model, opt
+    torch.cuda.empty_cache()
+    return t
+
+
+def ckpt_resume_child(args):
+    """In a fresh process: for each ``(source dir, output dir)`` a model,
+    optimizer and ``TrainStep`` from seed 1, ``load_checkpoint`` of the
+    source, steps 5-8 and a checkpoint of the result at step 8. Prints
+    one JSON line of the losses and load times; returns 0."""
+    import torch
+
+    from paddle_tpu_torch.framework import (TrainStep, load_checkpoint,
+                                            save_checkpoint)
+    from paddle_tpu_torch.ops.kernels import _build
+
+    _build.build()
+    out = []
+    for src, dst in json.loads(args[0]):
+        model = train_model(CKPT_CONFIG, seed=1)
+        opt = train_optimizer(model, CKPT_CONFIG)
+        step = TrainStep(model, opt, ckpt_loss)
+        t0 = time.perf_counter()
+        at = load_checkpoint(src, model, opt)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        losses, walls = timed_calls(step, ckpt_batches(
+            model, CKPT_STEPS)[CKPT_AT:])
+        save_checkpoint(dst, CKPT_STEPS, model, opt)
+        out.append(dict(at=at, losses=losses, load_ms=load_ms, walls=walls,
+                        global_step=opt._global_step))
+        del step, model, opt
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
+def ckpt_resume(gpu, root, losses, final):
+    """A fresh Python process resumes from the sync and the async
+    checkpoint: each resumed run's steps 5-8 and final state must be the
+    reference run's, bitwise. Returns the child's load times."""
+    pairs = [(os.path.join(root, kind), os.path.join(root, f"{kind}_out"))
+             for kind in ("sync", "async")]
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke;"
+            " sys.exit(chip_smoke.ckpt_resume_child(sys.argv[2:]))")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code, here,
+                          json.dumps(pairs)], capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"checkpoint resume: the fresh process "
+          f"failed ({out.returncode}): {out.stderr[-3000:]}")
+    runs = json.loads(out.stdout.strip().splitlines()[-1])
+    for (src, dst), r in zip(pairs, runs):
+        kind = os.path.basename(src)
+        bad = ckpt_state_diff(os.path.join(dst, f"ckpt_{CKPT_STEPS}"),
+                              final)
+        log(f"checkpoint resume ({kind}, fresh process, model from seed 1):"
+            f" loaded step {r['at']} in {r['load_ms']:.1f} ms; steps "
+            f"{CKPT_AT + 1}-{CKPT_STEPS} losses {r['losses']}, step wall ms "
+            f"{ms_list(r['walls'])}; {len(bad)} saved tensors differ from "
+            f"the reference run's [{gpu}]")
+        check(r["at"] == CKPT_AT and r["global_step"] == CKPT_STEPS,
+              f"checkpoint resume ({kind}): resumed at {r['at']}, ended at "
+              f"global step {r['global_step']}")
+        check(r["losses"] == losses[CKPT_AT:], f"checkpoint resume "
+              f"({kind}): losses {r['losses']} != the reference's "
+              f"{losses[CKPT_AT:]}")
+        check(not bad, f"checkpoint resume ({kind}): {len(bad)} tensors "
+              f"differ from the reference run's, e.g. {bad[:4]}")
+    log(f"checkpoint resume: the fresh process took {wall:.1f} s")
+    return [r["load_ms"] for r in runs]
+
+
+def ckpt_guard_check(gpu):
+    """``GuardedStep(TrainStep(check_nan=True))`` with ``nan_feed`` at call
+    3, under ``skip_step`` and under ``rollback`` with
+    ``snapshot_every=1``: 8 calls equal, bitwise, 7 graphed steps that
+    never saw batch 3 (losses, parameters, masters, moments and the step
+    count), one graph captured. Returns the walls of the guarded and the
+    plain replays."""
+    import torch
+
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.framework import TrainStep
+    from paddle_tpu_torch.resilience import (GuardedStep, RecoveryPolicy,
+                                             inject)
+
+    model = train_model(CKPT_CONFIG)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = ckpt_batches(model, CKPT_STEPS)
+
+    def fresh():
+        model.load_state_dict(init)
+        core.seed(1)
+        return TrainStep(model, train_optimizer(model, CKPT_CONFIG),
+                         ckpt_loss, check_nan=True)
+
+    step = fresh()
+    kept = [b for i, b in enumerate(batches) if i + 1 != CKPT_POISONED]
+    want, pwalls = timed_calls(step, kept)
+    want_state = snapshot(model, step.optimizer)
+    want_gstep = step.optimizer._global_step
+    out = {"plain": pwalls[2:]}
+    del step
+    for policy, kw in (("skip_step", {}), ("rollback",
+                                           {"snapshot_every": 1})):
+        step = fresh()
+        guard = GuardedStep(step, RecoveryPolicy(on_nonfinite=policy, **kw))
+        with inject.chaos("nan_feed", at=CKPT_POISONED, var=2) as inj:
+            got, walls = timed_calls(guard, batches)
+        gstep = step.optimizer._global_step
+        log(f"checkpoint guard ({policy}{', snapshot_every=1' if kw else ''}"
+            f"): nan_feed fired {inj.fired} time(s) at call "
+            f"{CKPT_POISONED}; losses {got}; {guard.stats}; call wall ms "
+            f"{ms_list(walls)}; graphs captured {step.captures}; the run "
+            f"that never saw batch {CKPT_POISONED}: losses {want}, wall ms "
+            f"{ms_list(pwalls)} [{gpu}]")
+        check(inj.fired == 1 and got[CKPT_POISONED - 1] is None,
+              f"checkpoint guard ({policy}): call {CKPT_POISONED} was not "
+              f"discarded ({got})")
+        check([x for x in got if x is not None] == want,
+              f"checkpoint guard ({policy}): losses {got} != the omitted-"
+              f"batch run's {want}")
+        bad = same_bits(snapshot(model, step.optimizer), want_state)
+        check(not bad, f"checkpoint guard ({policy}): {len(bad)} tensors "
+              f"differ from the omitted-batch run's, e.g. {bad[:4]}")
+        check(gstep == want_gstep, f"checkpoint guard ({policy}): step "
+              f"count {gstep} != the omitted-batch run's {want_gstep}")
+        check(step.captures == 1 and len(step._graphs) == 1,
+              f"checkpoint guard ({policy}): {step.captures} graphs "
+              f"captured, {len(step._graphs)} keys: a restore rebound "
+              f"storage")
+        # the replays: calls after the capture, the poisoned one excepted
+        out[policy] = [w for i, w in enumerate(walls)
+                       if i >= 2 and i + 1 != CKPT_POISONED]
+        del guard, step
+    del model, init, want_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def ckpt_drills(gpu, root):
+    """The reference's checkpoint drills at gpt_small's width and
+    ``CKPT_DRILL_LAYERS`` layers (bf16, multi_precision AdamW, one step
+    before each save): a truncated, then a bit-flipped, newest checkpoint
+    makes ``load_checkpoint`` fall back to the one before (the loaded
+    state that one's, bitwise); ``ckpt_crash`` leaves only a
+    ``.tmp_ckpt_*`` orphan; an array edited with its file's crc
+    regenerated fails ``verify_checkpoint``, which names the array."""
+    import binascii
+    import shutil
+    import warnings
+
+    import torch
+
+    from paddle_tpu_torch.framework import (TrainStep, load,
+                                            load_checkpoint, save,
+                                            save_checkpoint,
+                                            verify_checkpoint)
+    from paddle_tpu_torch.models.nlp import gpt
+    from paddle_tpu_torch.resilience import SimulatedCrashError, inject
+
+    d = os.path.join(root, "drills")
+
+    def parts(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        cfg = gpt.gpt_small(dropout=0.0)
+        cfg.layers = CKPT_DRILL_LAYERS
+        m = gpt.GPT(cfg, generator=g).bfloat16()
+        return m, train_optimizer(m, CKPT_CONFIG)
+
+    model, opt = parts(0)
+    step = TrainStep(model, opt, ckpt_loss)
+    batches = ckpt_batches(model, 2)
+    step(*batches[0])
+    save_checkpoint(d, 1, model, opt)
+    one = snapshot(model, opt)
+    step(*batches[1])
+    for point, cfg in (("ckpt_truncate", {}), ("ckpt_bitflip", {"seed": 5})):
+        with inject.chaos(point, **cfg) as inj:
+            save_checkpoint(d, 2, model, opt)
+        ok, problems = verify_checkpoint(os.path.join(d, "ckpt_2"))
+        m2, o2 = parts(1)
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            at = load_checkpoint(d, m2, o2)
+        fell = any("falling back" in str(x.message) for x in w)
+        bad = same_bits(snapshot(m2, o2), one)
+        log(f"checkpoint drill {point} ({CKPT_DRILL_LAYERS} layers of "
+            f"gpt_small's width): fired {inj.fired}; verify of the newest: "
+            f"{problems}; load_checkpoint resumed at step {at} (fell back: "
+            f"{fell}); {len(bad)} tensors differ from step 1's [{gpu}]")
+        check(inj.fired == 1 and not ok and at == 1 and fell and not bad,
+              f"checkpoint drill {point}: no fallback to the intact "
+              f"checkpoint")
+        shutil.rmtree(os.path.join(d, "ckpt_2"))
+        del m2, o2
+    with inject.chaos("ckpt_crash"):
+        try:
+            save_checkpoint(d, 2, model, opt)
+            crashed = False
+        except SimulatedCrashError:
+            crashed = True
+    names = sorted(os.listdir(d))
+    log(f"checkpoint drill ckpt_crash ({CKPT_DRILL_LAYERS} layers): the "
+        f"save raised SimulatedCrashError: {crashed}; the directory holds "
+        f"{names}")
+    check(crashed and names == [".tmp_ckpt_2", "ckpt_1"],
+          f"checkpoint drill ckpt_crash: {names}")
+    # one array edited, the file's crc regenerated around it
+    path = os.path.join(d, "ckpt_1")
+    fpath = os.path.join(path, "model.pdparams")
+    state = load(fpath)
+    key = sorted(state)[0]
+    state[key] = state[key] + 1
+    save(state, fpath)
+    with open(fpath, "rb") as f:
+        blob = f.read()
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    manifest["files"]["model.pdparams"] = {
+        "size": len(blob), "crc32": binascii.crc32(blob) & 0xFFFFFFFF}
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    ok, problems = verify_checkpoint(path)
+    log(f"checkpoint drill per-array edit of {key!r} ({CKPT_DRILL_LAYERS} "
+        f"layers): verify_checkpoint says {problems}")
+    check(not ok and "per-array checksum mismatch" in problems[0]
+          and repr(key) in problems[0], f"checkpoint drill per-array edit: "
+          f"{problems}")
+    del step, model, opt, one
+    torch.cuda.empty_cache()
+
+
+def checkpoint_phase(gpu):
+    """Phase 17: bench_gpt's graphed step saved, killed and resumed, and
+    guarded; the checkpoint drills."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"checkpoint: writing under {root} ({free / 1e9:.1f} GB free)")
+        check(free >= CKPT_MIN_FREE, f"checkpoint: {free} bytes free under "
+              f"{root}, the phase needs {CKPT_MIN_FREE}")
+        losses, final, t = ckpt_reference(gpu, root)
+        t.update(ckpt_async(gpu, root, losses, final))
+        t["child_load_ms"] = ckpt_resume(gpu, root, losses, final)
+        del final
+        g = ckpt_guard_check(gpu)
+        ckpt_drills(gpu, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    log(f"checkpoint: {t['bytes']} bytes on disk; sync save "
+        f"{t['save_ms']:.1f} ms; async snapshot {t['snapshot_ms']:.1f} ms "
+        f"(again, pinned buffers reused: {t['snapshot_again_ms']:.1f} ms); "
+        f"in-place load {t['load_ms']:.1f} ms, fresh-process loads "
+        + " ".join(f"{x:.1f}" for x in t["child_load_ms"])
+        + f" ms; deep verify {t['verify_ms']:.1f} ms; replay median "
+        f"{med(t['replay_ms']):.2f} ms, with the async writer running "
+        + (" ".join(f"{x:.1f}" for x in t["writer_ms"]) or "none") + " ms; "
+        f"guarded replay median {med(g['skip_step']):.2f} ms (skip_step), "
+        f"{med(g['rollback']):.2f} ms (rollback, snapshot_every=1) vs plain "
+        f"{med(g['plain']):.2f} ms; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s [{gpu}]")
+
+
 def main():
     try:
         import torch
@@ -2758,6 +3265,7 @@ def main():
         import paddle_tpu_torch.optim.lr  # noqa: F401
         import paddle_tpu_torch.obs  # noqa: F401
         import paddle_tpu_torch.resilience.elastic  # noqa: F401
+        import paddle_tpu_torch.resilience.guard  # noqa: F401
         import paddle_tpu_torch.serving.fleet.drill  # noqa: F401
         import paddle_tpu_torch.serving.fleet.worker  # noqa: F401
         import paddle_tpu_torch.utils.envspec  # noqa: F401
@@ -2765,7 +3273,7 @@ def main():
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
-    check(not any(m.split(".")[0] in ("jax", "paddle_tpu")
+    check(not any(m.split(".")[0] in ("jax", "paddle_tpu", "ml_dtypes")
                   for m in sys.modules), "the JAX side was imported")
     check({"paddle_tpu_torch.serving.fleet.router",
            "paddle_tpu_torch.serving.fleet.pool",
@@ -2843,6 +3351,7 @@ def main():
     decode_phase(gpu)
     log(f"decode: phase took {time.perf_counter() - t0:.1f} s")
     train_resnet_phase(gpu)
+    checkpoint_phase(gpu)
 
     pa = kernels.KERNELS["paged_decode_attention"]
     rows = [{"name": "paged_decode_attention", "route": "cuda",

@@ -7,14 +7,15 @@ on a ported path is a kernel written by hand for Hopper (``sm_90a``),
 under ``csrc/``, built with ``nvcc`` at first use.
 
 What is ported so far is the serving path, the GPT, BERT and ResNet-50
-training steps and decoding:
+training steps, decoding, and checkpointed and guarded training:
 
 - ``serving``: paged KV cache, continuous-batching scheduler and
   ``ServeEngine`` with the one-layer ``TinyLM``;
 - ``ops.kernels.paged_attention``: the paged decode attention kernel
   (CUDA C++) with its plain PyTorch version;
 - ``obs`` and ``resilience``: the metrics, lockdep, trace, journal,
-  usage, retry and chaos pieces the serve loop calls;
+  usage, retry and chaos pieces the serve loop and the training guards
+  call;
 - ``models.nlp.gpt`` with ``nn`` (layers, functional ops, initializers),
   ``dist.tp_layers`` (single device), ``optim`` (Adam, AdamW, global-norm
   clip), ``framework.TrainStep`` and ``core.random``: the eager training
@@ -37,9 +38,17 @@ training steps and decoding:
   ``bench.py:bench_resnet50`` runs it, on cuDNN's conv (deterministic,
   no TF32) and no kernel of this package (the JAX package runs no Pallas
   kernel there either);
+- ``framework.io`` and ``resilience.guard``: ``save``/``load`` and
+  crash-safe training checkpoints in the JAX package's format (a
+  manifest of crc32s, a fallback to the newest intact checkpoint, an
+  async writer), loaded into the live storage so a graphed step replays
+  on; ``GuardedStep`` (skip or roll back a non-finite step, retry a
+  transient failure) with the chaos injectors that drill them,
+  ``utils.nan_guard`` and the journal's step records with ``obs.mfu``;
 - ``convert``: weights of the JAX ``TinyLM``, ``GPT``,
   ``BertForPretraining``, ``Transformer``, ``WMTTransformer`` and
-  ``ResNet`` into this package's.
+  ``ResNet`` into this package's, and a JAX optimizer's state dict under
+  this package's parameter names.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.

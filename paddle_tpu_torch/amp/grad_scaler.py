@@ -157,6 +157,19 @@ class GradScaler(DynamicLossScaler):
         self.step(optimizer)
         self.update()
 
+    def notify_skip(self, device=None):
+        """Record an externally-discarded step (``resilience.GuardedStep``'s
+        skip_step / rollback policies) as a found-inf event: the dynamic
+        loss scale shrinks exactly as it would for an in-graph overflow
+        (reference ``grad_scaler.py:130-138``). ``device`` is where the
+        state is made if it does not exist yet."""
+        if not self._enable:
+            return
+        state = self._state_on(device)
+        self._found_inf = torch.ones((), dtype=torch.bool,
+                                     device=state["scale"].device)
+        self.update()
+
     @torch.no_grad()
     def update(self):
         if not self._enable:

@@ -12,7 +12,7 @@ import torch
 __all__ = ["tinylm_params_from_jax", "gpt_params_from_jax",
            "bert_params_from_jax", "transformer_params_from_jax",
            "wmt_params_from_jax", "resnet_params_from_jax",
-           "optimizer_state_from_jax",
+           "optimizer_state_from_jax", "optimizer_state_dict_from_jax",
            "scaler_state_from_jax"]
 
 _TINYLM = ("embedding", "wq", "wk", "wv", "wo")
@@ -312,6 +312,44 @@ def optimizer_state_from_jax(jax_opt, torch_opt, names=None):
                                  f"{tuple(ts[k].shape)}")
             ts[k].copy_(torch.from_numpy(np.array(a)))
     torch_opt._global_step = int(jax_opt._global_step)
+
+
+def optimizer_state_dict_from_jax(state, torch_opt, names=None):
+    """A JAX optimizer's ``state_dict()`` — what a JAX checkpoint's
+    ``opt.pdopt`` holds: ``<JAX parameter name>.<slot>`` (Paddle's unique
+    names, such as ``linear_0.w_0.moment1``), ``@global_step`` and
+    ``@lr`` — with each parameter name replaced by the port's, for
+    ``torch_opt.set_state_dict``. Values are kept as they are.
+
+    ``names`` maps each JAX parameter name to the port's. By default the
+    JAX parameters are paired in order with ``torch_opt``'s parameters,
+    as ``optimizer_state_from_jax`` pairs them, the JAX order being the
+    one in which the names first appear in ``state``: the JAX optimizer's
+    first update, over its parameters in order (every one that had a
+    gradient; otherwise pass ``names``, e.g. from
+    ``[p.name for p in jax_opt._param_groups]``). Model state needs no
+    renaming: the port's names are the JAX ``state_dict`` names
+    (``gpt_params_from_jax``). Raises ``ValueError`` when the counts
+    differ or a name has no counterpart."""
+    if names is None:
+        jnames = list(dict.fromkeys(
+            k.rsplit(".", 1)[0] for k in state if not k.startswith("@")))
+        tnames = [n for n, _ in torch_opt._named_params]
+        if len(jnames) != len(tnames):
+            raise ValueError(f"{len(jnames)} JAX parameters, "
+                             f"{len(tnames)} in the port's optimizer")
+        names = dict(zip(jnames, tnames))
+    out = {}
+    for k, v in state.items():
+        if k.startswith("@"):
+            out[k] = v
+            continue
+        jn, slot = k.rsplit(".", 1)
+        if jn not in names:
+            raise ValueError(f"{k}: JAX parameter {jn!r} maps to no "
+                             f"parameter of the port's optimizer")
+        out[f"{names[jn]}.{slot}"] = v
+    return out
 
 
 def scaler_state_from_jax(state, step):

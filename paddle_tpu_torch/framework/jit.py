@@ -16,8 +16,11 @@ with one finite check over all of them, then clipped and applied; an
 overflowed step keeps parameters, masters, optimizer state and buffers
 bitwise as they were, and the scaler's state advances on the device.
 Without a scaler, ``check_nan`` flags a non-finite loss or gradient on
-the device, still applies the update, and raises ``FloatingPointError``
-on the host after the step. ``last_found_inf`` is the raw device flag.
+the device, still applies the update, and raises
+``utils.nan_guard.NanInfError`` (a ``FloatingPointError``) on the host
+after the step, with the loss's ``nonfinite_summary`` when the loss
+itself is non-finite (``jit.py:445-456``). ``last_found_inf`` is the
+raw device flag; ``captures`` counts the graphs captured.
 
 On a CUDA model, calls go in this order for each key — the batch
 signature, the storage of the parameters, of the model's buffers (a
@@ -64,6 +67,7 @@ import torch
 from ..core.random import default_generator
 from ..ops import kernels
 from ..ops.kernels import _route
+from ..utils.nan_guard import NanInfError, nonfinite_summary
 
 __all__ = ["TrainStep", "ProgramCache"]
 
@@ -115,6 +119,7 @@ class TrainStep:
                               if scaler is not None else None)
         self._graphs = {}     # key -> _Graph, or None once warmed
         self._stream = None
+        self.captures = 0
 
     def _device(self):
         return next(self.model.parameters()).device
@@ -217,6 +222,7 @@ class TrainStep:
         launched = {k: n - before[k] for k, n in kernels.launches().items()}
         kernels.add_launches({k: -n for k, n in launched.items()})
         grads = [(p, p.grad) for _, p in opt._named_params]
+        self.captures += 1
         return _Graph(graph, inputs, loss, found, grads, launched)
 
     def _replay(self, entry, batch):
@@ -256,11 +262,16 @@ class TrainStep:
         if self.check_nan and self.scaler is None and \
                 bool(self.last_found_inf):
             if K is None:
-                raise FloatingPointError(
+                # only the loss is still on hand: attach its summary when
+                # IT is the nonfinite value, none when only the gradients
+                # overflowed (a zero-count summary would mislead)
+                s = nonfinite_summary(loss)
+                raise NanInfError(
                     f"NaN/Inf in loss or gradients at step "
-                    f"{opt._global_step} (loss={float(loss)})")
+                    f"{opt._global_step} (loss={float(loss)})",
+                    summary=s if s["num_nan"] or s["num_inf"] else None)
             bad = torch.nonzero(found.cpu()).flatten().tolist()
-            raise FloatingPointError(
+            raise NanInfError(
                 f"NaN/Inf in loss or gradients in fused window ending at "
                 f"step {opt._global_step} (microbatch index(es) {bad} of "
                 f"{K})")

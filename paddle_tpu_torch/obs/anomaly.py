@@ -15,8 +15,8 @@ A fired anomaly becomes three things (wired by ``AnomalyEngine``):
 
 Detectors re-arm per streak: a 50-step plateau fires once, not 50 times.
 
-The port's journal records no training steps yet; the fleet uses the
-serving detectors through ``obs.slo``.
+The journal's ``record_step`` runs the step detectors on every step
+record; the fleet uses the serving detectors through ``obs.slo``.
 
 Thresholds are constructor kwargs; env ``PADDLE_TPU_ANOMALY`` overrides
 them process-wide with the chaos-spec grammar

@@ -9,10 +9,17 @@ path or env ``PADDLE_TPU_RUN_DIR``) holding
   activation, lock-order cycles, the reqtrace lifecycle marks),
 - one ``request`` record per finished request (lifecycle timestamps on
   the serving clock, derived latencies, pages and preemptions),
-- a ``backend`` event with the torch device probe, written with the
-  first request record (by then the run has touched its device) or
-  earlier through ``note_backend()``, and
-- one ``run_end`` summary.
+- a ``step`` record per training step (``record_step``: loss, fetches
+  summary, step_ms, examples/s, FLOPs when the caller knows them,
+  skipped/nonfinite marks),
+- ``anomaly`` records from the step detectors (``obs.anomaly``:
+  ``LossSpike``, ``LossPlateau``, ``NonfiniteStreak``,
+  ``ThroughputDrop``, ...) evaluated on every step record,
+- a ``backend`` event with the torch device probe and the peak FLOP/s,
+  written with the first request or step record (by then the run has
+  touched its device) or earlier through ``note_backend()``, and
+- one ``run_end`` summary with the MFU/goodput accounting
+  (``obs.mfu``).
 
 Write path: records buffer in memory and flush every ``flush_every``
 records or ``flush_interval_s`` seconds — a line is written whole, so a
@@ -23,12 +30,15 @@ an exception leaving the ``with`` block (or an explicit
 ``postmortem()``) also dumps ``postmortem.json``.
 
 Hook contract: every production hook is ``if _journal.ACTIVE is not
-None: ...`` — with no journal the serve path pays one None check.
+None: ...`` — with no journal the serve and step paths pay one None
+check. With a journal, summarizing a step's loss tensor costs one
+scalar device->host read.
 
-Not here yet: training step records and the anomaly detectors and
-MFU accounting that read them, and the start at import from
-``PADDLE_TPU_RUN_DIR`` (``start_run()`` reads that variable when it is
-given no directory).
+Not here yet: the executor hooks (``record_executor_run``,
+``record_fused_run``: no static executor in the port), ``sync_step``
+(the elastic gang), the plan and memory events, and the start at import
+from ``PADDLE_TPU_RUN_DIR`` (``start_run()`` reads that variable when it
+is given no directory).
 """
 from __future__ import annotations
 
@@ -42,6 +52,8 @@ from collections import deque
 from . import lockdep as _lockdep
 from . import metrics as _metrics
 from . import trace as _trace
+from .anomaly import AnomalyEngine, default_detectors
+from .mfu import MFUAccounting, peak_flops
 
 __all__ = ["RunJournal", "ACTIVE", "start_run", "end_run",
            "JOURNAL_FILE", "POSTMORTEM_FILE", "TRACE_FILE", "RANK_ENV",
@@ -117,6 +129,34 @@ def _backend_info():
                 "backend_error": f"{type(e).__name__}: {e}"}
 
 
+def _summarize_value(v):
+    """Small, JSON-safe summary of one fetched value: size-1 numerics
+    inline as a float (one host read), everything else as shape/dtype
+    metadata, so a large device tensor is never copied for logging."""
+    import numpy as np
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        if v.numel() == 1 and not v.is_complex():
+            return float(v.detach().reshape(()))
+        return {"shape": [int(s) for s in v.shape],
+                "dtype": str(v.dtype).replace("torch.", "")}
+    shape, dtype = getattr(v, "shape", None), getattr(v, "dtype", None)
+    if shape is None or dtype is None:
+        if isinstance(v, (bool, int, float)):
+            return float(v)
+        return {"repr": repr(v)[:80]}
+    size = 1
+    for s in shape:
+        size *= int(s)
+    try:
+        if size == 1 and np.dtype(dtype).kind in "fiub":
+            return float(np.asarray(v).reshape(()))
+    except (TypeError, ValueError):
+        pass
+    return {"shape": [int(s) for s in shape], "dtype": str(dtype)}
+
+
 class RunJournal:
     """One run's flight recorder. Usable three ways:
 
@@ -132,7 +172,8 @@ class RunJournal:
 
     def __init__(self, run_dir=None, *, rank=None, flush_every=32,
                  flush_interval_s=5.0, max_bytes=64 << 20,
-                 postmortem_events=64):
+                 postmortem_events=64, detectors=None,
+                 anomaly_callback=None, peak=None):
         run_dir = run_dir or os.environ.get("PADDLE_TPU_RUN_DIR")
         if not run_dir:
             raise ValueError(
@@ -159,9 +200,27 @@ class RunJournal:
         self._t_start = None
         self._requests = 0
         self._events = 0
+        self._step = 0
+        self._last_timer_ms = None
+        self._last_steps = deque(maxlen=int(postmortem_events))
         self._last_events = deque(maxlen=int(postmortem_events))
         self._postmortem_written = False
         self._backend_written = False
+        self.accounting = MFUAccounting(peak=peak)
+        if detectors is None:
+            try:
+                detectors = default_detectors()
+            except Exception as e:
+                # a typo'd PADDLE_TPU_ANOMALY spec must cost the
+                # detectors, not the whole flight recorder
+                import warnings
+
+                warnings.warn(
+                    f"anomaly detectors disabled — bad PADDLE_TPU_ANOMALY "
+                    f"spec? ({type(e).__name__}: {e})", RuntimeWarning)
+                detectors = []
+        self.anomalies = AnomalyEngine(detectors,
+                                       callback=anomaly_callback)
 
     # -- lifecycle -----------------------------------------------------------
     def start(self):
@@ -343,10 +402,73 @@ class RunJournal:
             self._write(rec, _locked=True)
         return rec
 
+    def record_step(self, loss=None, fetches=None, step_ms=None,
+                    examples=None, flops=None, skipped=False,
+                    nonfinite=False, source=None, **extra):
+        """Append one per-step record. ``loss`` is a number, a 0-d tensor
+        (read to the host here) or None; ``fetches`` a list of values
+        (the first four summarized). ``step_ms`` defaults to the last
+        ``note_step_ms``."""
+        import math
+
+        # host-side value summarization stays OUTSIDE the lock (it may
+        # read a scalar off the device); all shared mutation — step
+        # counter, accounting, detectors, buffers — happens under ONE
+        # lock hold so concurrent steppers can't lose counts
+        if loss is not None:
+            try:
+                loss = float(loss)
+            except (TypeError, ValueError):
+                loss = None
+        if loss is not None and not math.isfinite(loss):
+            nonfinite = True
+        fetch_summary = ([_summarize_value(v) for v in fetches[:4]]
+                         if fetches else None)
+        with self._lock:
+            if self._closed:
+                return None
+            self._note_backend_locked()
+            self._step += 1
+            if step_ms is None:
+                step_ms, self._last_timer_ms = self._last_timer_ms, None
+            rec = {"t": "step", "step": self._step, "ts": time.time(),
+                   "loss": loss, "step_ms": step_ms}
+            if fetch_summary:
+                rec["fetches"] = fetch_summary
+            if examples:
+                rec["examples"] = int(examples)
+                if step_ms:
+                    rec["examples_per_s"] = examples / (step_ms / 1e3)
+            if flops:
+                rec["flops"] = float(flops)
+            if skipped:
+                rec["skipped"] = True
+            if nonfinite:
+                rec["nonfinite"] = True
+            if source:
+                rec["source"] = source
+            rec.update(extra)
+            self.accounting.record(
+                step_ms=step_ms, flops=flops, examples=examples,
+                productive=not (skipped or nonfinite),
+                weight=rec.get("steps_fused") or 1)
+            self._last_steps.append(rec)
+            self._write(rec, _locked=True)
+            for fired in self.anomalies.observe(rec):
+                self._write({"t": "anomaly", "ts": time.time(), **fired},
+                            _locked=True)
+        return rec
+
+    def note_step_ms(self, ms):
+        """Step-timer feed: remember the latest timed step so the next
+        ``record_step`` without an explicit ``step_ms`` uses it."""
+        self._last_timer_ms = float(ms)
+
     def _note_backend_locked(self):
         if not self._backend_written:
             self._backend_written = True
-            self.event("backend", **_backend_info())
+            self.event("backend", peak_flops_per_s=peak_flops(),
+                       **_backend_info())
 
     def note_backend(self):
         """Write the ``backend`` event now unless it is written already:
@@ -363,8 +485,10 @@ class RunJournal:
         with self._lock:
             if self._closed:
                 return None
+            if kind.startswith("resilience.retry"):
+                self.accounting.note_retry()
             rec = {"t": "event", "kind": kind, "ts": time.time(),
-                   "step": 0, **fields}
+                   "step": self._step, **fields}
             self._events += 1
             self._last_events.append(rec)
             self._write(rec, _locked=True)
@@ -372,10 +496,18 @@ class RunJournal:
 
     # -- summaries -----------------------------------------------------------
     def summary(self):
-        out = {"steps": 0, "requests": self._requests,
-               "events": self._events}
+        out = self.accounting.summary()
+        out["steps"] = self._step
+        out["optimizer_steps"] = (self.accounting.productive
+                                  + self.accounting.skipped)
+        out["requests"] = self._requests
+        out["events"] = self._events
         if self._t_start is not None:
-            out["wall_s"] = time.monotonic() - self._t_start
+            wall = time.monotonic() - self._t_start
+            out["wall_s"] = wall
+            if wall > 0 and self._step:
+                out["steps_per_s"] = self._step / wall
+        out["anomalies_fired"] = len(self.anomalies.fired)
         return out
 
     def postmortem(self, exc=None, note=None):
@@ -386,7 +518,9 @@ class RunJournal:
             dump = {
                 "ts": time.time(), "run_dir": self.run_dir,
                 "note": note, "summary": self.summary(),
+                "last_steps": list(self._last_steps),
                 "last_events": list(self._last_events),
+                "anomalies": list(self.anomalies.fired),
                 "metrics": _metrics.snapshot(),
             }
             if exc is not None:

@@ -47,6 +47,12 @@ learning rate reaches each update as a 0-d float32 tensor on the device
 float or an ``optim.lr.LRScheduler``; ``get_lr`` and ``set_lr`` behave
 as the reference's (``:67-76``).
 
+``state_dict``/``set_state_dict`` keep the reference's layout
+(``optimizer.py:166-188``): ``<name>.<slot>`` per state value (a master
+is the slot ``master``), ``@global_step`` and, with a scheduler,
+``@lr``. ``set_state_dict`` copies into the state's storage and never
+rebinds it, so a captured step goes on replaying after a load.
+
 ``parameters`` is an iterable of tensors or of ``(name, tensor)`` pairs
 (``model.named_parameters()``); the names are what
 ``apply_decay_param_fun`` sees and ``lr_ratio`` reads as ``.name``
@@ -219,6 +225,54 @@ class Optimizer:
     def clear_grad(self):
         for _, p in self._named_params:
             p.grad = None
+
+    # -- serialization (optimizer.py:166-188) -----------------------------
+
+    def state_dict(self):
+        """``{"<name>.<slot>": tensor, "@global_step": int}``, plus
+        ``"@lr"`` (the scheduler's state dict) when the learning rate is
+        an ``LRScheduler``. ``<name>`` is the name the optimizer was given
+        for the parameter; the tensors are the state itself, not copies
+        (``framework.io`` copies them to the host)."""
+        out = {f"{name}.{k}": v for name, s in self._accumulators.items()
+               for k, v in s.items()}
+        out["@global_step"] = self._global_step
+        if isinstance(self._learning_rate, LRScheduler):
+            out["@lr"] = self._learning_rate.state_dict()
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state):
+        """Write ``state`` (``state_dict``'s layout; values are tensors,
+        numpy arrays or numbers) into the optimizer. Each value is copied
+        into the state tensor's storage, which a captured step reads; a
+        parameter without state yet gets it first (``_state_for``: its
+        master from the current parameter), then the copy. Raises
+        ``ValueError`` on a parameter the optimizer does not have, a slot
+        its rule does not keep or a shape that does not fit."""
+        params = dict(self._named_params)
+        for k, v in state.items():
+            if k == "@global_step":
+                self._global_step = int(v)
+            elif k == "@lr":
+                if isinstance(self._learning_rate, LRScheduler):
+                    self._learning_rate.set_state_dict(v)
+            else:
+                name, slot = k.rsplit(".", 1)
+                if name not in params:
+                    raise ValueError(f"{k}: the optimizer has no parameter "
+                                     f"{name!r}")
+                s = self._state_for(name, params[name])
+                if slot not in s:
+                    raise ValueError(f"{k}: {type(self).__name__} keeps "
+                                     f"{sorted(s)} for {name!r}")
+                src = torch.as_tensor(v)
+                if tuple(src.shape) != tuple(s[slot].shape):
+                    raise ValueError(f"{k} has shape {tuple(src.shape)}, "
+                                     f"the state {tuple(s[slot].shape)}")
+                s[slot].copy_(src)
+
+    set_dict = set_state_dict
 
 
 class SGD(Optimizer):

@@ -1,6 +1,7 @@
-"""Elastic replica supervision: the serve fleet's relaunch discipline.
+"""Elastic supervision: the serve fleet's relaunch discipline and a
+training worker's preemption handling.
 
-The serving part of ``paddle_tpu.resilience.elastic``:
+From ``paddle_tpu.resilience.elastic``:
 
 - workers write heartbeat files (:class:`Heartbeat`, path handed down
   via ``PADDLE_TPU_HEARTBEAT_FILE``) from their SERVE LOOP — not a
@@ -8,25 +9,34 @@ The serving part of ``paddle_tpu.resilience.elastic``:
   visible to the pool's watchdog;
 - the :class:`ReplicaSupervisor` owns each replica's restart budget and
   the seeded, jittered exponential backoff before a relaunch (one
-  formula, ``RecoveryPolicy.backoff_for``).
+  formula, ``RecoveryPolicy.backoff_for``);
+- a training worker installs :func:`graceful_shutdown`, which turns
+  SIGTERM/SIGINT into "checkpoint at the next step boundary, then exit
+  ``PREEMPTED_EXIT_CODE``" (reference :138-191);
+- :func:`newest_intact_step` names the checkpoint a relaunched worker's
+  ``framework.io.load_checkpoint`` will resume from (:244-263).
 
-Restarts land as ``resilience.*`` metrics and ``elastic.replica_*``
-journal events.
+Restarts land as ``resilience.*`` metrics and ``elastic.*`` journal
+events.
 
-Not here yet: the training gang's supervisor, graceful preemption,
-the program-state adapter and the checkpoint resume they drive.
+Not here yet: the training gang's ``GangSupervisor``, the
+``ProgramStateAdapter`` and ``fire_step_chaos`` (``dist/`` and
+``static_``, ROADMAP Queue 1 items 6 and 9).
 """
 from __future__ import annotations
 
 import json
 import os
+import signal
+import sys
 import time
 
 from ..obs import metrics as _metrics
 from .policy import RecoveryPolicy as _RecoveryPolicy
 
 __all__ = ["PREEMPTED_EXIT_CODE", "HEARTBEAT_ENV", "ATTEMPT_ENV",
-           "ElasticBudgetError", "Heartbeat", "ReplicaSupervisor"]
+           "ElasticBudgetError", "Heartbeat", "GracefulShutdown",
+           "graceful_shutdown", "newest_intact_step", "ReplicaSupervisor"]
 
 # EX_TEMPFAIL: "transient failure, retry" — distinct from every code a
 # crash produces, and stable across restarts of this module
@@ -36,6 +46,7 @@ ATTEMPT_ENV = "PADDLE_TPU_ELASTIC_ATTEMPT"
 
 _M_RESTARTS = _metrics.counter("resilience.restarts")
 _M_PREEMPTIONS = _metrics.counter("resilience.preemptions")
+_M_PREEMPT_SIGNALS = _metrics.counter("resilience.preempt_signals")
 
 
 class ElasticBudgetError(RuntimeError):
@@ -86,6 +97,71 @@ class Heartbeat:
             json.dump(payload, f)
         os.replace(tmp, self.path)  # watchdog never reads a torn file
         self.beats += 1
+
+
+class GracefulShutdown:
+    """SIGTERM/SIGINT -> ``.requested``: the preemption notice.
+
+    The handler only sets a flag — the TRAINING LOOP decides when the
+    model state is consistent (a step boundary), checkpoints there, and
+    calls :meth:`exit_preempted`. Usable as a context manager; install/
+    uninstall must run on the main thread (CPython signal rule)."""
+
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+        self.signals = tuple(signals)
+        self.requested = False
+        self.signum = None
+        self._prev = {}
+        self._installed = False
+
+    def install(self):
+        for s in self.signals:
+            self._prev[s] = signal.signal(s, self._handler)
+        self._installed = True
+        return self
+
+    def uninstall(self):
+        if self._installed:
+            for s, prev in self._prev.items():
+                signal.signal(s, prev)
+            self._prev.clear()
+            self._installed = False
+
+    def _handler(self, signum, frame):
+        self.requested = True
+        self.signum = signum
+        _M_PREEMPT_SIGNALS.inc()
+        _journal_event("elastic.preempt_signal", signum=int(signum))
+
+    def exit_preempted(self):
+        """Exit with the code a supervisor treats as a preemption
+        (restart-eligible, crash-budget-free). Call AFTER the
+        checkpoint is durable (``framework.io.wait_checkpoints()``)."""
+        sys.exit(PREEMPTED_EXIT_CODE)
+
+    def __enter__(self):
+        return self.install()
+
+    def __exit__(self, *exc):
+        self.uninstall()
+        return False
+
+
+def graceful_shutdown(signals=(signal.SIGTERM, signal.SIGINT)):
+    """Install and return the worker's preemption handler:
+    ``shutdown = resilience.graceful_shutdown()``, then once per step
+    boundary ``if shutdown.requested: save_checkpoint(...);
+    wait_checkpoints(); shutdown.exit_preempted()``."""
+    return GracefulShutdown(signals).install()
+
+
+def newest_intact_step(directory):
+    """Step of the newest checkpoint ``load_checkpoint`` accepts, or None
+    — what a relaunched worker will resume from
+    (``framework.io.newest_intact_step``)."""
+    from ..framework import io as _io
+
+    return _io.newest_intact_step(directory)
 
 
 class ReplicaSupervisor:

@@ -1,38 +1,56 @@
 """Deterministic fault injection: named chaos points.
 
-The serve-loop part of ``paddle_tpu.resilience.inject``: a registry of
-seed-driven injectors and the ``fire`` hook production code calls —
+The port of ``paddle_tpu.resilience.inject``: a registry of seed-driven
+injectors and the ``fire`` hook production code calls —
 
+- ``nan_feed``      corrupt one element of a fed batch (a copy of it) at
+                    step N, fired by ``resilience.GuardedStep``
+- ``transient_execute``
+                    raise a retryable error from the guarded step's
+                    invocation, N times then heal
+- ``ckpt_crash``    die between writing a checkpoint and publishing it
+                    (leaves an orphaned ``.tmp_ckpt_*`` dir)
+- ``ckpt_truncate`` / ``ckpt_bitflip``
+                    corrupt a published checkpoint file
+- ``ckpt_slow``     stall the checkpoint writer between writing files and
+                    the atomic publish (the window a killed writer leaves
+                    only a tmp orphan, and the window an async save must
+                    keep off the step path)
 - ``replica_kill``  hard-kill a serve replica process mid-flight, fired
                     from ``ServeEngine.step()``'s boundary hook with the
                     engine's serve-step count and replica id.
 
 Activation is explicit and scoped: the ``chaos("point", ...)`` context
-manager. When nothing is active, ``ACTIVE`` is an empty dict and every
-production hook is a single ``if not ACTIVE`` — no device sync, no
-allocation, nothing on the hot path.
+manager, or env ``PADDLE_TPU_CHAOS`` (read at import, or by
+``install_from_env()``): a fleet worker inherits its kill that way.
+When nothing is active, ``ACTIVE`` is an empty dict and every production
+hook is a single ``if not ACTIVE`` — no device sync, no allocation,
+nothing on the hot path.
 
 Determinism: an injector fires on hit indices ``at .. at+times-1`` of
-its chaos point (hits are counted per activation, under a lock), so the
-same (at, times) config always breaks the same run the same way.
+its chaos point (hits are counted per activation, under a lock) and any
+randomness (which element or bit to flip) comes from
+``np.random.RandomState(seed + fired)``. The same (at, times, seed)
+config always breaks the same run the same way.
 
-Activation is also possible from env ``PADDLE_TPU_CHAOS`` (read at
-import, or by ``install_from_env()``): a fleet worker inherits its kill
-that way.
-
-Not here yet: the training-side injectors (feeds, ops, compiles,
-checkpoints, loader and gang workers).
+Not here yet: ``nan_op`` (it needs the reference's eager dispatch hook,
+which the port does not have), the compile injectors (no compile step
+in the port) and the loader and gang-worker faults (``io_``, ``dist/``).
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import threading
+import time
+
+import numpy as np
+import torch
 
 __all__ = [
-    "ChaosError", "TransientChaosError", "Injector", "INJECTORS",
-    "ACTIVE", "ReplicaKillInjector", "register_injector", "chaos", "fire",
-    "clear", "install_from_env",
+    "ChaosError", "TransientChaosError", "SimulatedCrashError", "Injector",
+    "INJECTORS", "ACTIVE", "register_injector", "chaos", "fire", "clear",
+    "install_from_env",
 ]
 
 
@@ -43,6 +61,10 @@ class ChaosError(RuntimeError):
 class TransientChaosError(ChaosError):
     """Injected fault that models a *retryable* infrastructure error:
     recovery layers treat it like ``resilience.policy.TransientError``."""
+
+
+class SimulatedCrashError(ChaosError):
+    """The process 'died' at the injection point (e.g. mid-checkpoint)."""
 
 
 INJECTORS: dict[str, type] = {}  # point name -> injector class
@@ -79,6 +101,23 @@ class Injector:
                 return True
             return False
 
+    def _eligible(self):
+        """Count the hit but DON'T consume firing budget yet — for
+        injectors whose fault may turn out inapplicable at this hit
+        (see ``_commit_fire``). The window stays open until ``times``
+        faults actually landed."""
+        with self._lock:
+            self.hits += 1
+            return self.hits >= self.at and self.fired < self.times
+
+    def _commit_fire(self):
+        with self._lock:
+            self.fired += 1
+
+    def _rng(self):
+        # per-firing stream: firing twice corrupts two different elements
+        return np.random.RandomState(self.seed + self.fired)
+
     def fire(self, value=None, **ctx):  # pragma: no cover - overridden
         return value
 
@@ -99,6 +138,158 @@ def fire(point, value=None, **ctx):
 
 
 # -- injectors ---------------------------------------------------------------
+
+
+def _bad_value(kind):
+    return np.inf if str(kind) == "inf" else np.nan
+
+
+def _is_float(a):
+    if isinstance(a, torch.Tensor):
+        return a.is_floating_point() and a.numel() > 0
+    a = np.asarray(a)
+    return a.dtype.kind == "f" and a.size > 0
+
+
+@register_injector("nan_feed")
+class NanFeedInjector(Injector):
+    """Corrupt one element of one fed array (dict feed or batch list).
+
+    cfg: ``var`` — feed name (dict) or positional index (list); defaults
+    to the first sorted name / index 0. ``kind`` — "nan" (default) or
+    "inf". Items are numpy arrays or torch tensors (any device). The
+    corrupted container and item are copies; the caller's are never
+    mutated.
+    """
+
+    def fire(self, value=None, **ctx):
+        if value is None or not self._eligible():
+            return value
+        # locate the target FIRST: a hit whose feed has no corruptible
+        # target (name typo, int-only feed, empty batch) must not consume
+        # the firing budget — otherwise a drill can 'recover' from a
+        # fault that was never injected
+        if isinstance(value, dict):
+            name = self.cfg.get("var")
+            if name is None:
+                # default target is a USER feed: '@'-prefixed names are
+                # executor internals ('@lr'), and '@' sorts first
+                users = sorted(n for n in value if not n.startswith("@"))
+                name = users[0] if users else None
+            if name not in value or not _is_float(value[name]):
+                return value
+            key = name
+            container = dict(value)
+        else:
+            idx = int(self.cfg.get("var", 0))
+            if not (0 <= idx < len(value)) or not _is_float(value[idx]):
+                return list(value)
+            key = idx
+            container = list(value)
+        self._commit_fire()
+        kind = _bad_value(self.cfg.get("kind", "nan"))
+        item = container[key]
+        if isinstance(item, torch.Tensor):
+            a = item.clone()
+            a.view(-1)[int(self._rng().randint(a.numel()))] = float(kind)
+        else:
+            a = np.asarray(item).copy()
+            a.ravel()[int(self._rng().randint(a.size))] = kind
+        container[key] = a
+        return container
+
+
+@register_injector("transient_execute")
+class TransientExecuteInjector(Injector):
+    """The guarded step's invocation raises a retryable error."""
+
+    def fire(self, value=None, **ctx):
+        if self.should_fire():
+            raise TransientChaosError(
+                f"injected transient execute failure "
+                f"(hit {self.hits}, firing {self.fired}/{self.times})")
+        return value
+
+
+@register_injector("ckpt_crash")
+class CkptCrashInjector(Injector):
+    """Die after writing checkpoint files but BEFORE the atomic publish:
+    the orphaned ``.tmp_ckpt_*`` dir is exactly what a real mid-save
+    crash leaves behind."""
+
+    def fire(self, value=None, **ctx):
+        if self.should_fire():
+            raise SimulatedCrashError(
+                f"simulated crash before checkpoint publish (tmp={value})")
+        return value
+
+
+class _CkptFileCorruptor(Injector):
+    target_default = "model.pdparams"
+
+    def _target(self, ckpt_dir):
+        name = self.cfg.get("file", self.target_default)
+        path = os.path.join(ckpt_dir, name)
+        if not os.path.exists(path):
+            for fn in sorted(os.listdir(ckpt_dir)):
+                if fn != "manifest.json":
+                    return os.path.join(ckpt_dir, fn)
+        return path
+
+    def corrupt(self, path, rng):  # pragma: no cover - overridden
+        raise NotImplementedError
+
+    def fire(self, value=None, **ctx):
+        if value is None or not self.should_fire():
+            return value
+        path = self._target(value)
+        if path and os.path.exists(path):
+            self.corrupt(path, self._rng())
+        return value
+
+
+@register_injector("ckpt_truncate")
+class CkptTruncateInjector(_CkptFileCorruptor):
+    """Truncate a published checkpoint file to ``fraction`` of its size
+    (default 0.5) — a torn write / out-of-quota artifact."""
+
+    def corrupt(self, path, rng):
+        size = os.path.getsize(path)
+        frac = float(self.cfg.get("fraction", 0.5))
+        with open(path, "r+b") as f:
+            f.truncate(max(0, int(size * frac)))
+
+
+@register_injector("ckpt_bitflip")
+class CkptBitflipInjector(_CkptFileCorruptor):
+    """Flip one seeded bit of a published checkpoint file — silent media
+    corruption that only a checksum can catch."""
+
+    def corrupt(self, path, rng):
+        size = os.path.getsize(path)
+        if size == 0:
+            return
+        off = int(rng.randint(size))
+        bit = 1 << int(rng.randint(8))
+        with open(path, "r+b") as f:
+            f.seek(off)
+            b = f.read(1)
+            f.seek(off)
+            f.write(bytes([b[0] ^ bit]))
+
+
+@register_injector("ckpt_slow")
+class CkptSlowInjector(Injector):
+    """Stall the checkpoint writer for ``seconds`` (default 0.5) between
+    writing the checkpoint files and the atomic publish — a slow/remote
+    filesystem. Under ``save_checkpoint(async_=True)`` the stall runs on
+    the background writer thread; a process killed inside the stall
+    leaves only the ``.tmp_ckpt_*`` orphan (publish never ran)."""
+
+    def fire(self, value=None, **ctx):
+        if self.should_fire():
+            time.sleep(float(self.cfg.get("seconds", 0.5)))
+        return value
 
 
 class _WorkerFaultInjector(Injector):
@@ -160,8 +351,8 @@ def _journal_event(kind, **fields):
 def chaos(point, **cfg):
     """Activate one chaos point for the duration of the block.
 
-    >>> with chaos("replica_kill", at=3, rank=1):
-    ...     engine.run()
+    >>> with chaos("nan_feed", at=3, seed=7):
+    ...     guarded(x, y)
     """
     if point not in INJECTORS:
         raise KeyError(
@@ -192,7 +383,7 @@ def install_from_env(env=None):
 
     Format (shared ``utils.envspec`` grammar):
     ``"point:key=val,key=val;point2"`` — e.g.
-    ``PADDLE_TPU_CHAOS="replica_kill:at=4,rank=1"``.
+    ``PADDLE_TPU_CHAOS="transient_execute:times=2;nan_feed:at=3,seed=1"``.
     Returns the list of activated points.
     """
     from ..utils.envspec import parse_spec

@@ -3,8 +3,8 @@
 The reference reacts to faults operationally (fleet restarts the trainer,
 ``FLAGS_check_nan_inf`` aborts, the PS heartbeat re-elects); here the
 policy is an object its users interpret — the serve engine's page-
-pressure relief reads the retry half; the training guards that read
-the rest are not ported yet:
+pressure relief reads the retry half, ``guard.GuardedStep`` all of it
+but ``degrade_opt_level`` (the static executor's, not ported yet):
 
 - ``on_nonfinite`` — what a NaN/Inf training step becomes:
   ``"raise"`` (abort, the reference flag's behavior), ``"skip_step"``

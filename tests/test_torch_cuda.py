@@ -1,6 +1,8 @@
 """paddle_tpu_torch on the card: the CUDA kernels, the engine, the GPT
-training step on CUDA, the step as one CUDA graph, and decoding as one
-CUDA graph.
+training step on CUDA, the step as one CUDA graph, decoding as one CUDA
+graph, and checkpoints and guards around the graphed step (an in-place
+load replays the same graph; an async save's snapshot is complete when
+the call returns; a guarded skip keeps one graph).
 
 Every test here needs a Hopper card and skips without one (the
 decision is made inside the ``hopper`` fixture). The file imports
@@ -816,3 +818,95 @@ def test_graphed_tiny_resnet_step_is_the_eager_step(hopper):
     for n in gs:
         for k in gs[n]:
             assert torch.equal(gs[n][k], es[n][k]), (n, k)
+
+
+def test_in_place_load_keeps_the_graph(hopper, tmp_path):
+    """A bfloat16 tiny GPT with masters and a step-decay scheduler: 5
+    calls (op by op, captured, replays), a checkpoint after the third
+    loaded back into the same model, optimizer and scheduler: calls 4-5
+    replay the SAME graph and give the first run's losses bitwise."""
+    from paddle_tpu_torch.framework import load_checkpoint, save_checkpoint
+
+    m = _tiny_gpt(hopper, 0.0).bfloat16()
+    sched = optim.lr.StepDecay(1e-3, step_size=2)
+    opt = _adamw(m, sched, multi_precision=True)
+    step = TrainStep(m, opt, gpt.gpt_loss)
+    losses = []
+    for i in range(5):
+        losses.append(step(*_ids(i)))
+        sched.step()
+        if i == 2:
+            save_checkpoint(str(tmp_path), 3, m, opt, sched)
+    (graph,) = step._graphs.values()
+    assert step.captures == 1 and graph is not None
+    assert load_checkpoint(str(tmp_path), m, opt, sched) == 3
+    assert opt._global_step == 3 and sched.last_epoch == 3
+    again = []
+    for i in range(3, 5):
+        again.append(step(*_ids(i)))
+        sched.step()
+    assert step.captures == 1 and list(step._graphs.values()) == [graph]
+    assert torch.equal(torch.stack(again), torch.stack(losses[3:]))
+
+
+def test_async_snapshot_is_complete_when_save_returns(hopper, tmp_path):
+    """Every device-to-host copy has finished when ``save_checkpoint(
+    async_=True)`` returns: the state overwritten right after it still
+    saves as it was."""
+    from paddle_tpu_torch.framework import load, save_checkpoint
+
+    m = _tiny_gpt(hopper, 0.0).bfloat16()
+    opt = _adamw(m, multi_precision=True)
+    step = TrainStep(m, opt, gpt.gpt_loss)
+    for i in range(3):
+        step(*_ids(i))
+    want = {n: p.detach().clone() for n, p in m.named_parameters()}
+    slots = {f"{n}.{k}": v.clone() for n, s in opt._accumulators.items()
+             for k, v in s.items()}
+    h = save_checkpoint(str(tmp_path), 3, m, opt, async_=True)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(1.0)
+        for s in opt._accumulators.values():
+            for v in s.values():
+                v.fill_(-7.0)
+    path = h.result(timeout=120)
+    model = load(f"{path}/model.pdparams")
+    state = load(f"{path}/opt.pdopt")
+    for n, t in want.items():
+        assert torch.equal(torch.as_tensor(model[n]).to(hopper), t), n
+    for k, t in slots.items():
+        assert torch.equal(torch.as_tensor(state[k]).to(hopper), t), k
+
+
+def test_guarded_skip_replays_one_graph(hopper):
+    """``GuardedStep(skip_step)`` over the graphed step with a NaN batch
+    item at call 3: the other calls equal a run that never saw it,
+    bitwise, with one graph captured."""
+    from paddle_tpu_torch.resilience import (GuardedStep, RecoveryPolicy,
+                                             inject)
+
+    def loss_fn(model, ids, labels, scale):
+        return gpt.gpt_loss(model, ids, labels) * scale
+
+    batches = [_ids(i) + (np.ones((), np.float32),) for i in range(6)]
+    runs = []
+    for guarded in (True, False):
+        m = _tiny_gpt(hopper, 0.0).bfloat16()
+        step = TrainStep(m, _adamw(m, multi_precision=True), loss_fn,
+                         check_nan=True)
+        if guarded:
+            g = GuardedStep(step, RecoveryPolicy(on_nonfinite="skip_step"))
+            with inject.chaos("nan_feed", at=3, var=2):
+                losses = [g(*b) for b in batches]
+            assert losses[2] is None and g.stats.skipped == 1
+            losses = [x for x in losses if x is not None]
+        else:
+            losses = [step(*b) for i, b in enumerate(batches) if i != 2]
+        assert step.captures == 1 and len(step._graphs) == 1
+        runs.append((torch.stack(losses), dict(m.named_parameters()),
+                     step.optimizer))
+    (gl, gp, go), (el, ep, eo) = runs
+    assert torch.equal(gl, el) and go._global_step == eo._global_step == 5
+    for n in gp:
+        assert torch.equal(gp[n], ep[n]), n

@@ -470,7 +470,7 @@ class TestPortEngine:
             eng.run()
         assert inj.fired == 0 and not inject.ACTIVE
         with pytest.raises(KeyError, match="unknown chaos point"):
-            with inject.chaos("nan_feed"):
+            with inject.chaos("nan_op"):    # not ported: no dispatch hook
                 pass
 
 

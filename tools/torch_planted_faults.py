@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Check that ``chip_smoke.py``'s train phases catch planted faults: a
 backward kernel that drops one of its gradients, a graph that keeps its
-first learning rate, and ResNet-50's wrong convs and BatchNorm momentum.
+first learning rate, ResNet-50's wrong convs and BatchNorm momentum, and
+checkpoints and guards that rebind storage or drop state.
 
-    python3 tools/torch_planted_faults.py [--resnet]
+    python3 tools/torch_planted_faults.py [--resnet | --checkpoint]
 
 Builds the kernels, then runs the smoke's train phases with one fault
 planted at a time:
@@ -41,6 +42,19 @@ planted at a time:
 
 ``--resnet`` plants the three ResNet faults only.
 
+Then three faults in the checkpoint phase (17), each patched into the
+class it breaks (``--checkpoint`` plants these only):
+
+- an ``Optimizer.set_state_dict`` that rebinds each state tensor to a
+  new one instead of copying into it: the in-place load of the
+  step-4 checkpoint must fail by capturing again
+  (``chip_smoke.ckpt_reference``);
+- an ``Optimizer.state_dict`` without the beta powers: steps 5-8 after
+  that load must fail their losses (the powers stay at step 8's);
+- a ``GuardedStep`` restore that leaves ``_global_step`` alone: the
+  guarded run must fail its step count (``chip_smoke.ckpt_guard_check``;
+  the weights alone cannot show it, AdamW reads the powers).
+
 Each of the first phases runs 4 AdamW steps through the kernels and 4
 through the plain versions and compares the losses. A fault is planted
 by swapping the module's wrapper for one that calls the real kernel and
@@ -64,6 +78,8 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from paddle_tpu_torch.framework import TrainStep  # noqa: E402
+from paddle_tpu_torch.optim import Optimizer  # noqa: E402
+from paddle_tpu_torch.resilience import GuardedStep  # noqa: E402
 from paddle_tpu_torch.nn import functional as F  # noqa: E402
 from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
 from paddle_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
@@ -187,10 +203,74 @@ def kernel_faults(gpu):
     return missed
 
 
+def _rebinding_set_state_dict(self, state):
+    params = dict(self._named_params)
+    for k, v in state.items():
+        if k == "@global_step":
+            self._global_step = int(v)
+        elif not k.startswith("@"):
+            name, slot = k.rsplit(".", 1)
+            s = self._state_for(name, params[name])
+            s[slot] = torch.as_tensor(v).to(s[slot].device, s[slot].dtype)
+
+
+def _state_dict_without_powers(real):
+    return lambda self: {k: v for k, v in real(self).items()
+                         if not k.endswith(("beta1_pow", "beta2_pow"))}
+
+
+def _restore_keeping_global_step(self, snap):
+    snap.restore(self._state())
+
+
+CKPT_FAULTS = [
+    # (label, class, attribute, replacement from the real one, the part
+    # of phase 17 that runs, the failure that must catch it)
+    ("set_state_dict rebinds", Optimizer, "set_state_dict",
+     lambda real: _rebinding_set_state_dict, "reference", "captured again"),
+    ("state_dict without the beta powers", Optimizer, "state_dict",
+     _state_dict_without_powers, "reference", "in-place load: losses"),
+    ("restore leaves _global_step", GuardedStep, "_restore",
+     lambda real: _restore_keeping_global_step, "guard", "step count"),
+]
+
+
+def checkpoint_faults(gpu):
+    """The checkpoint faults, each planted while the part of phase 17
+    that must catch it runs: the labels it passed or did not fail by the
+    named check."""
+    import shutil
+    import tempfile
+
+    missed = []
+    for label, cls, attr, wrap, part, caught_by in CKPT_FAULTS:
+        real = getattr(cls, attr)
+        setattr(cls, attr, wrap(real))
+        root = tempfile.mkdtemp(prefix="planted_ckpt_")
+        try:
+            if part == "reference":
+                chip_smoke.ckpt_reference(gpu, root)
+            else:
+                chip_smoke.ckpt_guard_check(gpu)
+            missed.append(label)
+            print(f"planted {label}: the phase PASSED it")
+        except chip_smoke.CheckFailed as e:
+            if caught_by not in str(e):
+                missed.append(label)
+            print(f"planted {label}: the phase failed: {e}")
+        finally:
+            setattr(cls, attr, real)
+            shutil.rmtree(root, ignore_errors=True)
+            torch.cuda.empty_cache()
+    return missed
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--resnet", action="store_true",
                     help="plant the three ResNet faults only")
+    ap.add_argument("--checkpoint", action="store_true",
+                    help="plant the three checkpoint faults only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_planted_faults: no CUDA device", file=sys.stderr)
@@ -198,9 +278,11 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     _build.build()
     gpu = chip_smoke.gpu_line()
-    missed = op_faults(gpu)
-    if not args.resnet:
+    missed = [] if args.checkpoint else op_faults(gpu)
+    if not (args.resnet or args.checkpoint):
         missed += kernel_faults(gpu)
+    if not args.resnet:
+        missed += checkpoint_faults(gpu)
     print(gpu)
     if missed:
         print(f"not caught by the check named for them: {missed}")
