@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving path, its training steps (GPT, BERT,
-ResNet-50), its serving fleet, the step as one CUDA graph, its decoding
-and its checkpointed and guarded training once on one NVIDIA H100.
+ResNet-50), its serving fleet, the step as one CUDA graph, its decoding,
+its checkpointed and guarded training and its static graph once on one
+NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -189,6 +190,31 @@ any failed check:
              the sync save, the async snapshot, the loads, the verify,
              the replays with and without the writer, and the guarded
              replays against plain ones.
+
+18. static — the static graph (``static_``): (a) bench_lenet_exec
+             (``bench.py:468-529``): LeNet's program recorded in static
+             mode at B = 256 (seed 0, a ``RandomState(0)`` batch,
+             ``Momentum(0.01, 0.9).minimize``), the startup run, 4
+             ``Executor.run`` calls as CUDA graphs (op by op, capture,
+             replays) = the program op by op = the eager ``LeNet`` with
+             Momentum from the same weights, bitwise in losses,
+             parameters and velocities; losses finite, the 4th below
+             the 1st; no launch of the port's kernels (10 classes fail
+             ``fused_ce_ok``); bench's timing (3 warm and 20 timed
+             ``run`` calls, ``run_steps`` with K = 8); ``run_steps``'s
+             fetches (op by op, captured, replayed) = 8 sequential
+             ``run`` calls' bitwise; one compile and one capture each
+             for ``run`` and ``run_steps``. (b) In a fresh Python
+             process (its profiler keeps what a late one in this process
+             loses): a static ``Linear(768 -> 768)`` -> ``LayerNorm(768)``
+             -> ``Linear(768 -> 50304)`` -> ``cross_entropy`` program
+             over 8192 float32 rows with its ``append_backward``: ``layer_norm`` and the fused
+             ``cross_entropy_hard`` one op each; every call (op by op,
+             the capture's replay, a profiled replay) launches the LN
+             and CE kernels once each way, by the wrappers' counts and
+             the profiler; loss and gradients = the eager modules'
+             bitwise. It logs ``step_ms``, imgs/s, ``fused_step_ms``,
+             the op-by-op step and ``compiled_calls``.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -3240,6 +3266,370 @@ def checkpoint_phase(gpu):
         f"{time.perf_counter() - t_phase:.1f} s [{gpu}]")
 
 
+# -- phase 18: the static graph (bench_lenet_exec; LN/CE through it) ---------
+
+LENET_BATCH = 256         # bench.py:bench_lenet_exec's B
+LENET_STEPS = 4           # graphed = op by op = eager over these
+LENET_WARM, LENET_ITERS = 3, 20    # bench.py:499 (not SMOKE)
+LENET_K = 8               # bench_lenet_exec's K
+STATIC_LN_CE = dict(rows=8192, hidden=768, vocab=50304)
+STATIC_LN_CE_CALLS = 3    # warm, capture + replay, a profiled replay
+# one replay of phase 18(b)'s program: LN and CE, forward and backward
+STATIC_LN_CE_LAUNCHES = {"layer_norm_fwd": 1, "layer_norm_bwd": 1,
+                         "softmax_ce_fwd": 1, "softmax_ce_bwd": 1}
+
+
+def lenet_program(B=LENET_BATCH):
+    """bench_lenet_exec's program (``bench.py:474-496``) in a Scope and a
+    name generator of its own: ``(main, startup, loss, model, scope)``,
+    the model's parameter Variables in the Scope on the card."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import optim
+    from paddle_tpu_torch.models.vision import LeNet
+    from paddle_tpu_torch.utils import unique_name
+
+    scope = pt.static.Scope()
+    pt.seed(0)
+    with unique_name.guard(), pt.static.scope_guard(scope):
+        pt.enable_static()
+        try:
+            main, startup = pt.static.Program(), pt.static.Program()
+            with pt.program_guard(main, startup):
+                xv = pt.static.data("x", [B, 1, 28, 28], "float32")
+                yv = pt.static.data("y", [B], "int64")
+                model = LeNet()
+                loss = F.cross_entropy(model(xv), yv)
+                optim.Momentum(0.01, 0.9,
+                               parameters=model.parameters()).minimize(loss)
+        finally:
+            pt.disable_static()
+    return main, startup, loss, model, scope
+
+
+def lenet_batch(B=LENET_BATCH):
+    rng = np.random.RandomState(0)
+    return (rng.randn(B, 1, 28, 28).astype("float32"),
+            rng.randint(0, 10, (B,)).astype("int64"))
+
+
+def scope_state(main, scope):
+    """Copies of the program's persistables in ``scope``."""
+    return {n: scope.find_var(n).clone()
+            for n, v in main.global_block.vars.items() if v.persistable}
+
+
+def restore_scope(scope, state):
+    for n, t in state.items():
+        scope.find_var(n).copy_(t)
+
+
+def lenet_eager(model_vars, init, x, y, steps):
+    """``steps`` eager steps of the port's ``LeNet`` under
+    ``Momentum(0.01, 0.9)`` from the static model's weights ``init``:
+    ``(losses, {static name: parameter}, {static name: velocity})``."""
+    import torch
+
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import optim
+    from paddle_tpu_torch.models.vision import LeNet
+
+    model = LeNet()
+    names = [v.name for v in model_vars]
+    with torch.no_grad():
+        for n, p in zip(names, model.parameters()):
+            p.copy_(init[n])
+    opt = optim.Momentum(0.01, 0.9, parameters=model.parameters())
+    xt, yt = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    losses = []
+    for _ in range(steps):
+        loss = F.cross_entropy(model(xt), yt)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    params = dict(zip(names, model.parameters()))
+    vel = {n: opt._accumulators[f"param_{i}"]["velocity"]
+           for i, n in enumerate(names)}
+    return losses, params, vel
+
+
+def timed_runs(fn, warm, iters):
+    """``fn()`` ``warm`` times, then ``iters`` times timed on the host's
+    clock (each returns numpy: a host sync): ms a call."""
+    for _ in range(warm):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def lenet_exec_phase(gpu):
+    """Phase 18(a): bench_lenet_exec (``bench.py:468-529``) on the card:
+    B = 256, seed 0, ``RandomState(0)``'s batch, ``Momentum(0.01, 0.9)``,
+    the startup run. ``LENET_STEPS`` graphed ``Executor.run`` calls (the
+    first op by op, the second the capture) against the same program run
+    op by op (``use_cuda_graph=False``) and against the eager ``LeNet``
+    from the same weights, bitwise in the losses, every parameter and
+    velocity; the losses finite, the 4th below the 1st; no launch of the
+    port's kernels (10 classes fail ``fused_ce_ok``). Then bench's timing
+    (3 warm and 20 timed ``run``, then ``run_steps`` with K = 8), each
+    ``run_steps`` call's k-th fetch against the k-th of 8 sequential
+    ``run`` calls bitwise, from one state, and one compile each for
+    ``run`` and ``run_steps``. Returns the printed numbers."""
+    import math
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    B, K = LENET_BATCH, LENET_K
+    main, startup, loss, model, scope = lenet_program(B)
+    x, y = lenet_batch(B)
+    feed = {"x": x, "y": y}
+    exe = pt.static.Executor()
+    exe.run(startup, scope=scope)
+    init = scope_state(main, scope)
+
+    def run(e):
+        return float(e.run(main, feed=feed, fetch_list=[loss],
+                           scope=scope)[0])
+
+    out = {}
+    for kind, e in (("graphed", exe),
+                    ("op by op", pt.static.Executor(use_cuda_graph=False))):
+        restore_scope(scope, init)
+        kernels.reset_launches()
+        losses = [run(e) for _ in range(LENET_STEPS)]
+        launches = kernels.launches()
+        out[kind] = (losses, scope_state(main, scope))
+        log(f"static lenet {kind}: losses {losses}")
+        check(launches == dict.fromkeys(kernels.KERNELS, 0),
+              f"static lenet {kind}: the port's kernels launched "
+              f"{launches}; LeNet runs none")
+    check(exe.captures == 1, f"static lenet: {exe.captures} captures for "
+          f"one cache key")
+    (gl, gs), (ol, os_) = out["graphed"], out["op by op"]
+    check(all(math.isfinite(v) for v in gl) and gl[3] < gl[0],
+          f"static lenet: losses {gl} not finite or not falling")
+    bad = [n for n in gs if not torch_equal(gs[n], os_[n])]
+    check(gl == ol and not bad, f"static lenet: graphed {gl} != op by op "
+          f"{ol}, or {len(bad)} persistables differ, e.g. {bad[:4]}")
+    el, ep, ev = lenet_eager(list(model.parameters()), init, x, y,
+                             LENET_STEPS)
+    bad = [n for n in ep if not torch_equal(ep[n], gs[n])]
+    # a parameter without an update op has no velocity in the program
+    bad += [n for n in ev if f"{n}@OPT@velocity" not in gs
+            or not torch_equal(ev[n], gs[f"{n}@OPT@velocity"])]
+    check(el == gl and not bad, f"static lenet: the eager LeNet's losses "
+          f"{el} != the program's {gl}, or {len(bad)} parameters and "
+          f"velocities differ, e.g. {bad[:4]}")
+    log(f"static lenet: {LENET_STEPS} graphed steps = the program op by op "
+        f"= the eager LeNet with Momentum, bitwise (losses, {len(ep)} "
+        f"parameters, {len(ev)} velocities); one capture")
+
+    # bench_lenet_exec's timing
+    restore_scope(scope, init)
+    step_ms = timed_runs(lambda: run(exe), LENET_WARM, LENET_ITERS)
+    eager_exe = pt.static.Executor(use_cuda_graph=False)
+    restore_scope(scope, init)
+    op_ms = timed_runs(lambda: run(eager_exe), LENET_WARM, LENET_ITERS)
+    # run_steps against 8 sequential run calls, from one state
+    restore_scope(scope, init)
+    seq = [run(exe) for _ in range(K)]
+    seq_state = scope_state(main, scope)
+    feeds = [feed] * K
+    fused = []
+    for call in ("op by op", "capture", "replay"):
+        restore_scope(scope, init)
+        got = exe.run_steps(main, feeds=feeds, fetch_list=[loss],
+                            scope=scope)[0].tolist()
+        state = scope_state(main, scope)
+        bad = [n for n in state if not torch_equal(state[n], seq_state[n])]
+        check(got == seq and not bad, f"static lenet: run_steps ({call}) "
+              f"fetched {got}, 8 sequential runs {seq}; {len(bad)} "
+              f"persistables differ, e.g. {bad[:4]}")
+        fused.append(got)
+    iters = max(1, LENET_ITERS // K)
+    fused_ms = timed_runs(lambda: exe.run_steps(
+        main, feeds=feeds, fetch_list=[loss], scope=scope), 0, iters) / K
+    cs = exe.cache_stats()
+    calls = {"compiles": cs["misses"], "dispatches": exe.dispatches,
+             "entries": cs["size"]}
+    check(cs["misses"] == 2 and cs["size"] == 2, f"static lenet: "
+          f"{cs['misses']} compiles, {cs['size']} entries; one for run and "
+          f"one for run_steps")
+    check(exe.captures == 2, f"static lenet: {exe.captures} captures, one "
+          f"for run and one for run_steps")
+    res = {"step_ms": step_ms, "imgs_per_sec": B / step_ms * 1e3,
+           "op_by_op_step_ms": op_ms, "fused_step_ms": fused_ms,
+           "fused_imgs_per_sec": B / fused_ms * 1e3,
+           "fused_vs_loop": step_ms / fused_ms, "compiled_calls": calls}
+    log(f"static lenet: run_steps (K = {K}) fetches = 8 sequential runs "
+        f"bitwise, op by op, captured and replayed: {fused[-1]}")
+    log(f"static lenet: step_ms {step_ms:.4f} ({B / step_ms * 1e3:.0f} "
+        f"imgs/s) graphed, {op_ms:.4f} op by op; fused_step_ms "
+        f"{fused_ms:.4f} ({B / fused_ms * 1e3:.0f} imgs/s, "
+        f"{step_ms / fused_ms:.2f}x the loop); compiled_calls {calls}; "
+        f"phase took {time.perf_counter() - t_phase:.1f} s [{gpu}]")
+    return res
+
+
+def static_ln_ce_program(rows, hidden, vocab):
+    """A static ``Linear(hidden -> hidden)`` -> ``LayerNorm(hidden)`` ->
+    ``Linear(hidden -> vocab)`` -> ``cross_entropy`` over ``rows`` rows,
+    float32, and its ``append_backward``: ``(main, loss, [(param,
+    grad)], layers, scope)``."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.utils import unique_name
+
+    scope = pt.static.Scope()
+    pt.seed(0)
+    with unique_name.guard(), pt.static.scope_guard(scope):
+        pt.enable_static()
+        try:
+            main = pt.static.Program()
+            with pt.program_guard(main, pt.static.Program()):
+                x = pt.static.data("x", [rows, hidden], "float32")
+                lab = pt.static.data("label", [rows], "int64")
+                layers = (nn.Linear(hidden, hidden), nn.LayerNorm(hidden),
+                          nn.Linear(hidden, vocab))
+                h = x
+                for m in layers:
+                    h = m(h)
+                loss = F.cross_entropy(h, lab)
+                pg = pt.static.append_backward(loss)
+        finally:
+            pt.disable_static()
+    return main, loss, pg, layers, scope
+
+
+def static_ln_ce_phase(gpu):
+    """Phase 18(b): the LayerNorm and softmax-CE kernels through the
+    static graph: ``STATIC_LN_CE``'s program records ``layer_norm`` and
+    the fused ``cross_entropy_hard`` as one op each; every call (op by
+    op, the capture's replay, a profiled replay) launches the LN forward
+    and backward and the CE forward and backward kernels once each, by
+    the wrappers' counts and (the profiled replay) by ``torch.profiler``;
+    its loss and gradients equal the eager modules' (the same weights)
+    bitwise. Returns the replay's wall ms."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = STATIC_LN_CE
+    main, loss, pg, layers, scope = static_ln_ce_program(**cfg)
+    fwd = [op.type for op in main.global_block.ops
+           if not op.type.endswith("@grad") and op.type != "fill_ones_like"]
+    check(fwd == ["linear", "layer_norm", "linear", "cross_entropy_hard"],
+          f"static ln-ce: recorded forward ops {fwd}")
+    rng = np.random.RandomState(0)
+    x = rng.randn(cfg["rows"], cfg["hidden"]).astype("float32")
+    lab = rng.randint(0, cfg["vocab"], cfg["rows"]).astype("int64")
+    feed = {"x": x, "label": lab}
+    fetch = [loss] + [g for _, g in pg]
+    exe = pt.static.Executor()
+    want = dict.fromkeys(kernels.KERNELS, 0) | STATIC_LN_CE_LAUNCHES
+    walls, out = [], []
+
+    def one():
+        out[:] = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                         return_numpy=False)
+
+    for call in range(STATIC_LN_CE_CALLS):
+        if call == STATIC_LN_CE_CALLS - 1:
+            wall, busy, seen = profiled(one)
+            counted = kernels.launches()
+            check(seen == want, f"static ln-ce: the profiler saw {seen} in "
+                  f"a replay, want {want}")
+        else:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            counted = kernels.launches()
+        check(counted == want, f"static ln-ce: call {call + 1} launched "
+              f"{counted}, want {want}")
+    check(exe.captures == 1, f"static ln-ce: {exe.captures} captures")
+    eager = (nn.Linear(cfg["hidden"], cfg["hidden"]),
+             nn.LayerNorm(cfg["hidden"]),
+             nn.Linear(cfg["hidden"], cfg["vocab"]))
+    pairs = [(p, q) for m, e in zip(layers, eager)
+             for p, q in ((m.weight, e.weight), (m.bias, e.bias))]
+    with torch.no_grad():
+        for p, q in pairs:
+            q.copy_(scope.find_var(p.name))
+    h = torch.from_numpy(x).cuda()
+    for m in eager:
+        h = m(h)
+    el = F.cross_entropy(h, torch.from_numpy(lab).cuda())
+    el.backward()
+    grads = {p.name: g for (p, _), g in zip(pg, out[1:])}
+    bad = [p.name for p, q in pairs if not torch_equal(grads[p.name],
+                                                       q.grad)]
+    check(torch_equal(out[0], el.detach()) and not bad,
+          f"static ln-ce: loss {float(out[0])} vs eager "
+          f"{float(el.detach())}; gradients differ: {bad}")
+    log(f"static ln-ce: {cfg} float32: layer_norm and cross_entropy_hard "
+        f"one op each; LN fwd/bwd and CE fwd/bwd launched once each a "
+        f"call (op by op, replay, profiled replay: the profiler agrees); "
+        f"loss {float(out[0]):.6f} and {len(pairs)} gradients = the eager "
+        f"modules' bitwise; walls ms (op by op, capture + replay) " + " ".join(
+            f"{w:.2f}" for w in walls) + f", profiled replay {wall:.2f} ms, "
+        f"device busy {busy:.2f} ms [{gpu}]")
+    del exe, out, eager, h, el
+    torch.cuda.empty_cache()
+    return wall
+
+
+def static_ln_ce_child():
+    """``static_ln_ce_phase`` in a fresh process: builds (the libraries
+    the parent built are reused), runs the phase, returns 0, or 1 after
+    logging the failed check."""
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    try:
+        static_ln_ce_phase(gpu_line())
+    except CheckFailed as e:
+        log(f"static ln-ce: check failed: {e}")
+        return 1
+    return 0
+
+
+def static_phase(gpu):
+    """Phase 18: ``lenet_exec_phase``, then ``static_ln_ce_phase`` in a
+    fresh Python process. Late in this long process ``torch.profiler``
+    loses the first milliseconds of GPU activity of most of its
+    sessions, whatever the pause before the call (there, the replay's
+    forward kernels, LN's and CE's among them); a fresh process's
+    profiler keeps them, so the profiled check of 18(b) is made in one."""
+    t0 = time.perf_counter()
+    res = lenet_exec_phase(gpu)
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke;"
+            " sys.exit(chip_smoke.static_ln_ce_child())")
+    out = subprocess.run([sys.executable, "-c", code, here],
+                         capture_output=True, text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        log(line)
+    check(out.returncode == 0, f"static ln-ce: the fresh process failed "
+          f"({out.returncode}): {(out.stdout + out.stderr)[-3000:]}")
+    log(f"static: phase took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main():
     try:
         import torch
@@ -3268,6 +3658,8 @@ def main():
         import paddle_tpu_torch.resilience.guard  # noqa: F401
         import paddle_tpu_torch.serving.fleet.drill  # noqa: F401
         import paddle_tpu_torch.serving.fleet.worker  # noqa: F401
+        import paddle_tpu_torch.static_  # noqa: F401
+        import paddle_tpu_torch.analysis  # noqa: F401
         import paddle_tpu_torch.utils.envspec  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -3352,6 +3744,7 @@ def main():
     log(f"decode: phase took {time.perf_counter() - t0:.1f} s")
     train_resnet_phase(gpu)
     checkpoint_phase(gpu)
+    static_phase(gpu)
 
     pa = kernels.KERNELS["paged_decode_attention"]
     rows = [{"name": "paged_decode_attention", "route": "cuda",

@@ -45,6 +45,12 @@ training steps, decoding, and checkpointed and guarded training:
   on; ``GuardedStep`` (skip or roll back a non-finite step, retry a
   transient failure) with the chaos injectors that drill them,
   ``utils.nan_guard`` and the journal's step records with ``obs.mfu``;
+- ``static_`` (also ``paddle_tpu_torch.static``) and ``analysis``: the
+  static graph — ``Program``, recording in static mode
+  (``enable_static``, ``program_guard``), ``append_backward``, the
+  verifier and the compile passes, and ``Executor.run``/``run_steps``
+  as one CUDA graph per cache key — with ``models.vision.LeNet``, as
+  ``bench.py:bench_lenet_exec`` runs it;
 - ``convert``: weights of the JAX ``TinyLM``, ``GPT``,
   ``BertForPretraining``, ``Transformer``, ``WMTTransformer`` and
   ``ResNet`` into this package's, and a JAX optimizer's state dict under
@@ -55,4 +61,22 @@ Entry points run on the CUDA card unless the caller passes
 """
 from ._device import resolve_device, resolve_dtype
 
-__all__ = ["resolve_device", "resolve_dtype"]
+__all__ = ["resolve_device", "resolve_dtype", "static", "enable_static",
+           "disable_static", "in_static_mode", "program_guard", "seed"]
+
+# the static-graph surface under the names paddle scripts use
+# (``bench.py:bench_lenet_exec``), imported at first use
+_LAZY = {"enable_static": "static_", "disable_static": "static_",
+         "in_static_mode": "static_", "program_guard": "static_",
+         "seed": "core"}
+
+
+def __getattr__(name):
+    import importlib
+
+    if name == "static":
+        return importlib.import_module(".static_", __name__)
+    if name in _LAZY:
+        return getattr(importlib.import_module("." + _LAZY[name], __name__),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,5 +1,5 @@
-"""Carry weights, optimizer state and loss-scaler state from the JAX
-package into this package's.
+"""Carry weights, optimizer state, loss-scaler state and a static
+program's scope from the JAX package into this package's.
 
 The JAX side hands its arrays over as numpy (``np.asarray`` of each),
 so this module never imports JAX.
@@ -12,6 +12,7 @@ import torch
 __all__ = ["tinylm_params_from_jax", "gpt_params_from_jax",
            "bert_params_from_jax", "transformer_params_from_jax",
            "wmt_params_from_jax", "resnet_params_from_jax",
+           "lenet_params_from_jax", "scope_from_jax",
            "optimizer_state_from_jax", "optimizer_state_dict_from_jax",
            "scaler_state_from_jax"]
 
@@ -271,6 +272,55 @@ def resnet_params_from_jax(state):
     return _checked(arrs, bf16, want, f"width {width}, "
                     f"{'bottleneck' if bottleneck else 'basic'} blocks "
                     f"{depths}, {classes} classes")
+
+
+def lenet_params_from_jax(state):
+    """The JAX ``LeNet``'s ``state_dict`` (names to numpy arrays, or
+    anything ``np.asarray`` takes) as a state dict for the port's
+    ``LeNet``: float32 CPU tensors under the same names. The classes are
+    read from the last layer. Raises ``ValueError`` on a missing or extra
+    name or a shape that does not fit."""
+    arrs = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    classes = arrs.get("fc.4.weight", np.zeros((84, 0))).shape[1]
+    want = {"features.0.weight": (6, 1, 3, 3), "features.0.bias": (6,),
+            "features.3.weight": (16, 6, 5, 5), "features.3.bias": (16,),
+            "fc.0.weight": (400, 120), "fc.0.bias": (120,),
+            "fc.2.weight": (120, 84), "fc.2.bias": (84,),
+            "fc.4.weight": (84, classes), "fc.4.bias": (classes,)}
+    return _checked(arrs, set(), want, f"{classes} classes")
+
+
+def scope_from_jax(arrays, program, scope=None):
+    """Copy a JAX static ``Scope``'s values — ``{name: array}``, e.g.
+    ``{n: np.asarray(v) for n, v in jax_scope._vars.items()}`` — into the
+    port's ``scope`` (default: ``static_.global_scope()``) for every
+    persistable of the port's ``program``: parameters and the
+    ``<param>@OPT@<slot>`` optimizer slots, which a program recorded in
+    both packages names alike. Each value is copied into the tensor the
+    scope already holds (its storage, which a captured replay reads,
+    stays). Names of other programs in ``arrays`` are left alone. Raises
+    ``ValueError`` on a persistable missing from ``arrays`` or a shape
+    that does not fit."""
+    from .static_.program import global_scope
+
+    scope = scope if scope is not None else global_scope()
+    for name, v in program.global_block.vars.items():
+        if not v.persistable:
+            continue
+        if name not in arrays:
+            raise ValueError(f"persistable {name!r} is not in the JAX scope")
+        a = np.asarray(arrays[name])
+        a = a.astype(np.float32) if _is_bfloat16(a) else a
+        src = torch.from_numpy(np.array(a))
+        dst = scope.find_var(name)
+        if dst is None:
+            raise ValueError(f"persistable {name!r} has no value in the "
+                             "port's scope to copy into")
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name} has shape {tuple(src.shape)}, the "
+                             f"port's {tuple(dst.shape)}")
+        with torch.no_grad():
+            dst.copy_(src)
 
 
 def optimizer_state_from_jax(jax_opt, torch_opt, names=None):

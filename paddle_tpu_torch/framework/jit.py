@@ -56,6 +56,11 @@ whole decode (``GPT.generate_xla``, ``WMTTransformer
 .beam_search_decode_xla``) — the counterpart of the JAX models' jit
 caches (``_xla_gen_cache``, ``_xla_decode_cache``).
 
+``warm`` (a call op by op on the side stream that captures next) and
+``capture`` (the capture on it, its launches taken back) are the first
+two of the calls above; ``TrainStep``, ``ProgramCache`` and the static
+``Executor`` (``static_/executor.py``) each run them.
+
 Not ported: the gradient-exchange paths (``accumulate_steps``) and the
 AOT executable cache.
 """
@@ -69,7 +74,39 @@ from ..ops import kernels
 from ..ops.kernels import _route
 from ..utils.nan_guard import NanInfError, nonfinite_summary
 
-__all__ = ["TrainStep", "ProgramCache"]
+__all__ = ["TrainStep", "ProgramCache", "warm", "capture"]
+
+
+def warm(stream, fn):
+    """``fn()`` on the side ``stream``, after the current stream's work;
+    the current stream then waits for it. Returns ``fn()``'s result."""
+    main = torch.cuda.current_stream()
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        out = fn()
+    main.wait_stream(stream)
+    return out
+
+
+def capture(stream, fn, generators):
+    """``fn()`` captured into a new ``torch.cuda.CUDAGraph`` on ``stream``
+    (nothing runs), ``generators`` registered with it so that every
+    replay draws on from their state. Returns ``(graph, fn()'s result,
+    {kernel: launches one replay makes})``: the wrappers counted the
+    capture's launches, which did not run, so they are taken back here
+    and added for each replay (``kernels.add_launches``)."""
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    before = kernels.launches()
+    main = torch.cuda.current_stream()
+    stream.wait_stream(main)
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn()
+    main.wait_stream(stream)
+    launched = {k: n - before[k] for k, n in kernels.launches().items()}
+    kernels.add_launches({k: -n for k, n in launched.items()})
+    return graph, out, launched
 
 
 def _signature(batch):
@@ -196,31 +233,20 @@ class TrainStep:
     def _warm(self, batch, K):
         """The first call of a key: the step(s) op by op on the side
         stream that captures them next."""
-        main, side = torch.cuda.current_stream(), self._side_stream()
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            loss, found = self._run(batch, K)
-        main.wait_stream(side)
+        loss, found = warm(self._side_stream(),
+                           lambda: self._run(batch, K))
         for t in (loss, found):
-            t.record_stream(main)
+            t.record_stream(torch.cuda.current_stream())
         return loss, found
 
     def _capture(self, batch, K):
         dev = self._device()
         opt = self.optimizer
         inputs = [torch.empty_like(b, device=dev) for b in batch]
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(default_generator(dev))
         opt.clear_grad()
-        before = kernels.launches()
-        main, side = torch.cuda.current_stream(), self._side_stream()
-        side.wait_stream(main)
-        with torch.cuda.graph(graph, stream=side):
-            loss, found = self._body(inputs, K)
-        main.wait_stream(side)
-        # the wrappers counted launches that a capture does not run
-        launched = {k: n - before[k] for k, n in kernels.launches().items()}
-        kernels.add_launches({k: -n for k, n in launched.items()})
+        graph, (loss, found), launched = capture(
+            self._side_stream(), lambda: self._body(inputs, K),
+            [default_generator(dev)])
         grads = [(p, p.grad) for _, p in opt._named_params]
         self.captures += 1
         return _Graph(graph, inputs, loss, found, grads, launched)
@@ -411,26 +437,18 @@ class ProgramCache:
         dev = inputs[0].device
         if self._stream is None:
             self._stream = torch.cuda.Stream(device=dev)
-        main, side = torch.cuda.current_stream(), self._stream
         static = [x.clone() for x in inputs]
         gen = None if seed is None else torch.Generator(device=dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
+
+        def run():
             if gen is not None:
                 gen.manual_seed(int(seed))
             fn(*static, gen)
-        main.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(default_generator(dev))
-        if gen is not None:
-            graph.register_generator_state(gen)
-        before = kernels.launches()
-        with torch.cuda.graph(graph, stream=side):
-            outputs = fn(*static, gen)
-        main.wait_stream(side)
-        # the wrappers counted launches that a capture does not run
-        launched = {k: n - before[k] for k, n in kernels.launches().items()}
-        kernels.add_launches({k: -n for k, n in launched.items()})
+
+        warm(self._stream, run)
+        graph, outputs, launched = capture(
+            self._stream, lambda: fn(*static, gen),
+            [default_generator(dev)] + ([] if gen is None else [gen]))
         return _Program(graph, static, outputs, gen, launched)
 
     def _replay(self, program, inputs, seed):

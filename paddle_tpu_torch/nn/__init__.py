@@ -2,14 +2,17 @@
 ``ParamAttr`` of the ported training and decoding paths, under the JAX
 package's names."""
 from . import functional, initializer
+from torch.nn import Sequential
+
 from .layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
                      Embedding, LayerNorm, Linear, MaxPool2D,
-                     MultiHeadAttention, Transformer, TransformerDecoder,
-                     TransformerDecoderLayer, TransformerEncoder,
-                     TransformerEncoderLayer)
+                     MultiHeadAttention, ReLU, Transformer,
+                     TransformerDecoder, TransformerDecoderLayer,
+                     TransformerEncoder, TransformerEncoderLayer)
 from .param_attr import ParamAttr
 
-__all__ = ["functional", "initializer", "ParamAttr", "Linear", "Dropout",
+__all__ = ["functional", "initializer", "ParamAttr", "Sequential", "ReLU",
+           "Linear", "Dropout",
            "Embedding", "LayerNorm", "Conv2D", "BatchNorm2D", "MaxPool2D",
            "AdaptiveAvgPool2D", "MultiHeadAttention",
            "TransformerEncoderLayer", "TransformerEncoder",

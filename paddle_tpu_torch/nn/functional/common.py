@@ -11,13 +11,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...ops._base import register
+
 __all__ = ["linear", "embedding"]
 
 
 def linear(x, weight, bias=None):
     """``x @ weight + bias`` with ``weight (in, out)``."""
-    y = torch.matmul(x, weight)
-    return y if bias is None else y + bias
+    return _linear_nobias(x, weight) if bias is None else \
+        _linear(x, weight, bias)
+
+
+@register("linear", inputs=("x", "weight", "bias"))
+def _linear(x, weight, bias):
+    return torch.matmul(x, weight) + bias
+
+
+@register("linear_nobias", inputs=("x", "weight"))
+def _linear_nobias(x, weight):
+    return torch.matmul(x, weight)
 
 
 class _Embedding(torch.autograd.Function):
@@ -56,6 +68,7 @@ class _Embedding(torch.autograd.Function):
         return None, dw
 
 
+@register("embedding", inputs=("x", "weight"))
 def embedding(x, weight, padding_idx=None):
     """Rows of ``weight (num_embeddings, dim)`` at the indices ``x``; 0
     wherever ``x == padding_idx`` (so that row gets no gradient), as the

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ...ops._base import register
 from ...ops.kernels.softmax_ce import softmax_cross_entropy
 
 __all__ = ["cross_entropy", "fused_ce_ok"]
@@ -63,7 +64,8 @@ def _dense(logits, label, weight, axis, ignore_index, reduction,
     return loss
 
 
-def _soft(logits, label, axis, reduction, use_softmax, label_smoothing):
+@register("cross_entropy_soft", inputs=("logits", "label"))
+def _soft(logits, label, *, axis, reduction, use_softmax, label_smoothing):
     lf = logits.float()
     logp = torch.log_softmax(lf, dim=axis) if use_softmax else \
         torch.log(lf.clamp_min(1e-12))
@@ -83,15 +85,27 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     ``label`` of ``input``'s shape holding each row's class
     probabilities (``weight`` and ``ignore_index`` are not read)."""
     if soft_label:
-        return _soft(input, label, axis, reduction, bool(use_softmax),
-                     float(label_smoothing))
-    if fused_ce_ok(input, label, weight, axis, use_softmax,
+        return _soft(input, label, axis=axis, reduction=reduction,
+                     use_softmax=bool(use_softmax),
+                     label_smoothing=float(label_smoothing))
+    return _hard(input, label, weight, axis=axis,
+                 ignore_index=int(ignore_index), reduction=reduction,
+                 use_softmax=bool(use_softmax),
+                 label_smoothing=float(label_smoothing))
+
+
+@register("cross_entropy_hard", inputs=("logits", "label", "weight"))
+def _hard(logits, label, weight, *, axis, ignore_index, reduction,
+          use_softmax, label_smoothing):
+    """The JAX package's op ``cross_entropy_hard`` (``loss.py:50-89``):
+    the fused kernel where ``fused_ce_ok``, else the dense path."""
+    if fused_ce_ok(logits, label, weight, axis, use_softmax,
                    label_smoothing):
         lab = label if label.dim() == 1 else label.squeeze(-1)
-        loss = softmax_cross_entropy(input, lab, int(ignore_index))
+        loss = softmax_cross_entropy(logits, lab, ignore_index)
         if reduction == "mean":
             valid = (lab != ignore_index).float()
             return loss.sum() / valid.sum().clamp_min(1e-12)
         return _reduce(loss, reduction)
-    return _dense(input, label, weight, axis, int(ignore_index), reduction,
-                  bool(use_softmax), float(label_smoothing))
+    return _dense(logits, label, weight, axis, ignore_index, reduction,
+                  use_softmax, label_smoothing)

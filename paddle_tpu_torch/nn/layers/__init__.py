@@ -1,5 +1,6 @@
 """paddle_tpu_torch.nn.layers: the layers of the ported training and
 decoding paths."""
+from .activation import ReLU
 from .common import Dropout, Embedding, Linear, create_parameter
 from .conv import Conv2D
 from .norm import BatchNorm2D, LayerNorm
@@ -9,7 +10,7 @@ from .transformer import (MultiHeadAttention, Transformer,
                           TransformerEncoder, TransformerEncoderLayer,
                           static_kv_attention)
 
-__all__ = ["Linear", "Dropout", "Embedding", "LayerNorm", "Conv2D",
+__all__ = ["ReLU", "Linear", "Dropout", "Embedding", "LayerNorm", "Conv2D",
            "BatchNorm2D", "MaxPool2D", "AdaptiveAvgPool2D",
            "MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",

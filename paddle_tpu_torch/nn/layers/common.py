@@ -15,6 +15,8 @@ import torch
 from torch import nn
 
 from ..._device import resolve_device
+from ...ops._base import RECORDER
+from ...utils import unique_name
 from .. import functional as F
 from ..initializer import Constant, Normal, XavierUniform
 from ..param_attr import ParamAttr
@@ -26,8 +28,26 @@ __all__ = ["Linear", "Dropout", "Embedding", "create_parameter",
 _ATTRS = ("optimize_attr", "regularizer", "need_clip")
 
 
+def _camel_to_snake(name):
+    return "".join(("_" + c.lower()) if c.isupper() and i else c.lower()
+                   for i, c in enumerate(name))
+
+
+def _full_name(owner):
+    """The layer's name in the JAX package's scheme (``Layer.__init__``,
+    ``paddle_tpu/nn/layer.py:38-42``): its class in snake case, numbered,
+    given at its first static parameter."""
+    if owner is None:
+        return "param"
+    if not hasattr(owner, "_full_name"):
+        owner._full_name = unique_name.generate(
+            _camel_to_snake(type(owner).__name__))
+    return owner._full_name
+
+
 def create_parameter(shape, attr=None, is_bias=False,
-                     default_initializer=None, device=None, generator=None):
+                     default_initializer=None, device=None, generator=None,
+                     owner=None):
     """A float32 ``nn.Parameter`` of ``shape`` made as ``attr``
     (anything ``ParamAttr._to_attr`` takes) says, or ``None`` for
     ``attr=False``. The initializer is the attr's, else
@@ -35,14 +55,37 @@ def create_parameter(shape, attr=None, is_bias=False,
     ``XavierUniform`` otherwise (``paddle_tpu/nn/layer.py:75-88``). The
     parameter carries ``optimize_attr = {"learning_rate": ...}``,
     ``regularizer`` and ``need_clip``, and ``requires_grad`` is the
-    attr's ``trainable``."""
+    attr's ``trainable``.
+
+    In static mode (``static_.enable_static``) it is a persistable
+    parameter Variable of the default main program instead, named
+    ``attr.name`` or ``<owner's name>_w_<n>`` / ``_b_<n>`` as in the JAX
+    package (``owner``: the layer making it), and its value, made now on
+    ``device``, goes into ``static_.global_scope()``
+    (``paddle_tpu/nn/layer.py:89-104``): the startup program has nothing
+    left to do."""
     attr = ParamAttr._to_attr(attr)
     if attr is False:
         return None
     init = attr.initializer or default_initializer or (
         Constant(0.0) if is_bias else XavierUniform())
-    p = nn.Parameter(init(shape, torch.float32, resolve_device(device),
-                          generator), requires_grad=bool(attr.trainable))
+    value = init(shape, torch.float32, resolve_device(device), generator)
+    if RECORDER[0] is not None:
+        from ...static_.program import default_main_program, global_scope
+
+        name = attr.name or unique_name.generate(
+            _full_name(owner) + ("_b" if is_bias else "_w"))
+        v = default_main_program().global_block.create_var(
+            name=name, shape=shape, dtype=torch.float32, persistable=True,
+            stop_gradient=not attr.trainable)
+        v.is_parameter = True
+        v.trainable = bool(attr.trainable)
+        v.optimize_attr = {"learning_rate": attr.learning_rate}
+        v.regularizer = attr.regularizer
+        v.need_clip = attr.need_clip
+        global_scope().set(name, value)
+        return v
+    p = nn.Parameter(value, requires_grad=bool(attr.trainable))
     p.optimize_attr = {"learning_rate": attr.learning_rate}
     p.regularizer = attr.regularizer
     p.need_clip = attr.need_clip
@@ -67,11 +110,11 @@ class Linear(nn.Module):
         device = resolve_device(device)
         self.weight = create_parameter((in_features, out_features),
                                        weight_attr, device=device,
-                                       generator=generator)
+                                       generator=generator, owner=self)
         # bias_attr=False: no bias (None)
         self.bias = create_parameter((out_features,), bias_attr,
                                      is_bias=True, device=device,
-                                     generator=generator)
+                                     generator=generator, owner=self)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -112,7 +155,7 @@ class Embedding(nn.Module):
         self.weight = create_parameter(
             (num_embeddings, embedding_dim), weight_attr,
             default_initializer=Normal(0.0, 1.0),
-            device=resolve_device(device), generator=generator)
+            device=resolve_device(device), generator=generator, owner=self)
         if self._padding_idx is not None:
             with torch.no_grad():
                 self.weight[self._padding_idx] = 0.0

@@ -41,10 +41,10 @@ class Conv2D(nn.Module):
         self.weight = create_parameter(
             (out_channels, in_channels // groups, *self._kernel_size),
             weight_attr, default_initializer=Normal(0.0, std),
-            device=device, generator=generator)
+            device=device, generator=generator, owner=self)
         self.bias = create_parameter((out_channels,), bias_attr,
                                      is_bias=True, device=device,
-                                     generator=generator)
+                                     generator=generator, owner=self)
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, stride=self._stride,

@@ -41,10 +41,10 @@ class LayerNorm(nn.Module):
         self.weight = create_parameter(
             self._normalized_shape, weight_attr,
             default_initializer=Constant(1.0), device=device,
-            generator=generator)
+            generator=generator, owner=self)
         self.bias = create_parameter(self._normalized_shape, bias_attr,
                                      is_bias=True, device=device,
-                                     generator=generator)
+                                     generator=generator, owner=self)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ._base import register
+
 __all__ = ["gelu", "relu", "tanh"]
 
 
@@ -13,6 +15,7 @@ def gelu(x, approximate=False):
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
+@register("relu", inputs=("x",))
 def relu(x):
     return torch.relu(x)
 

@@ -31,6 +31,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ._base import register
+
 __all__ = ["conv2d", "max_pool2d", "adaptive_avg_pool2d"]
 
 
@@ -108,21 +110,29 @@ class _Conv2d(torch.autograd.Function):
         return dx, dw, None, None, None, None
 
 
+@register("conv2d", inputs=("x", "weight"))
+def _conv2d(x, weight, *, stride, padding, dilation, groups):
+    """The convolution without its bias, as the JAX package's op
+    ``conv2d`` (``conv.py:50-57``): ``padding`` normalised by
+    ``_conv_padding``."""
+    pads = _pads(padding, x.shape[2:], weight.shape[2:], stride, dilation)
+    if all(lo == hi for lo, hi in pads):
+        even = tuple(lo for lo, _ in pads)
+    else:
+        (t, b), (l, r) = pads
+        x, even = F.pad(x, (l, r, t, b)), (0, 0)
+    return _Conv2d.apply(x, weight, stride, even, dilation, groups)
+
+
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
     """2-D convolution of ``x`` (N, C, H, W) by ``weight`` (O, C / groups,
     kh, kw), plus ``bias`` (O,) when given. Padding as Paddle takes it:
     an int, one per axis, ``(top, bottom, left, right)``, pairs, or
     ``"SAME"``/``"VALID"``; an uneven padding is applied to ``x`` first
     (zeros), an even one by the convolution."""
-    stride, dilation = _pair(stride, 2), _pair(dilation, 2)
-    pads = _pads(_conv_padding(padding, 2), x.shape[2:], weight.shape[2:],
-                 stride, dilation)
-    if all(lo == hi for lo, hi in pads):
-        even = tuple(lo for lo, _ in pads)
-    else:
-        (t, b), (l, r) = pads
-        x, even = F.pad(x, (l, r, t, b)), (0, 0)
-    out = _Conv2d.apply(x, weight, stride, even, dilation, int(groups))
+    out = _conv2d(x, weight, stride=_pair(stride, 2),
+                  padding=_conv_padding(padding, 2),
+                  dilation=_pair(dilation, 2), groups=int(groups))
     return out if bias is None else out + bias.reshape(1, -1, 1, 1)
 
 
@@ -133,8 +143,13 @@ def max_pool2d(x, kernel_size, stride=None, padding=0):
     it.)"""
     ksize = _pair(kernel_size, 2)
     stride = ksize if stride is None else _pair(stride, 2)
-    pads = _pads(_conv_padding(padding, 2), x.shape[2:], ksize, stride,
-                 (1, 1))
+    return _max_pool2d(x, ksize=ksize, stride=stride,
+                       padding=_conv_padding(padding, 2))
+
+
+@register("max_pool2d", inputs=("x",))
+def _max_pool2d(x, *, ksize, stride, padding):
+    pads = _pads(padding, x.shape[2:], ksize, stride, (1, 1))
     if all(lo == hi and lo <= k // 2 for (lo, hi), k in zip(pads, ksize)):
         # PyTorch's own padding never wins a window: -inf padding's max
         return F.max_pool2d(x, ksize, stride, tuple(lo for lo, _ in pads))

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ._base import register
 from .kernels.layernorm import fused_layer_norm
 
 __all__ = ["layer_norm", "fused_ln_ok", "batch_norm"]
@@ -65,13 +66,27 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
             else list(normalized_shape)
         begin = x.dim() - len(ns)
     if weight is None:
-        bias = None
-    if fused_ln_ok(tuple(x.shape), begin, weight, bias):
+        return _layer_norm_noaffine(x, epsilon=float(epsilon),
+                                    begin_norm_axis=begin)
+    return _layer_norm(x, weight, bias, epsilon=float(epsilon),
+                       begin_norm_axis=begin)
+
+
+@register("layer_norm", inputs=("x", "weight", "bias"))
+def _layer_norm(x, weight, bias, *, epsilon, begin_norm_axis):
+    """The JAX package's op ``layer_norm`` (``norm_ops.py:64-87``): the
+    fused kernel where ``fused_ln_ok``, else the dense path."""
+    if fused_ln_ok(tuple(x.shape), begin_norm_axis, weight, bias):
         D = x.shape[-1]
         out = fused_layer_norm(x.reshape(-1, D).contiguous(), weight, bias,
-                               float(epsilon))
+                               epsilon)
         return out.reshape(x.shape)
-    return _dense(x, weight, bias, float(epsilon), begin)
+    return _dense(x, weight, bias, epsilon, begin_norm_axis)
+
+
+@register("layer_norm_noaffine", inputs=("x",))
+def _layer_norm_noaffine(x, *, epsilon, begin_norm_axis):
+    return _dense(x, None, None, epsilon, begin_norm_axis)
 
 
 class _BatchNormTrain(torch.autograd.Function):

@@ -18,12 +18,14 @@ from __future__ import annotations
 import torch
 
 from ..core.random import default_generator
+from ._base import register
 
 __all__ = ["dropout"]
 
 MODES = ("upscale_in_train", "downscale_in_infer")
 
 
+@register("dropout", inputs=("x",))
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             generator=None):
     """``where(keep, x / (1 - p), 0)`` (``upscale_in_train``) or
@@ -40,7 +42,8 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         return x if mode == "upscale_in_train" else x * (1.0 - p)
     if p == 0.0:
         return x
-    if generator is None:
+    if generator is None and x.device.type != "meta":
+        # on meta (a static Program's shape inference) nothing is drawn
         generator = default_generator(x.device)
     shape = x.shape
     if axis is not None:

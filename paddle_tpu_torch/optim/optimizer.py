@@ -53,6 +53,11 @@ is the slot ``master``), ``@global_step`` and, with a scheduler,
 ``@lr``. ``set_state_dict`` copies into the state's storage and never
 rebinds it, so a captured step goes on replaying after a load.
 
+``minimize(loss)`` on a static Program's loss Variable appends the
+backward and one ``optimize_<rule>`` op a parameter to the program
+(``static_.executor.append_update_ops``), whose replay runs this
+optimizer's ``_update``.
+
 ``parameters`` is an iterable of tensors or of ``(name, tensor)`` pairs
 (``model.named_parameters()``); the names are what
 ``apply_decay_param_fun`` sees and ``lr_ratio`` reads as ``.name``
@@ -225,6 +230,26 @@ class Optimizer:
     def clear_grad(self):
         for _, p in self._named_params:
             p.grad = None
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """A static Program's loss Variable: append its backward and this
+        optimizer's update ops to the program (``static_.executor
+        .build_optimize_ops``; ``parameters`` None: every parameter of
+        the program), returning ``(None, [(param, grad)])``. An eager
+        loss: ``backward()``, then ``step()`` (``optimizer.py:133-143``).
+        """
+        from ..static_.program import Variable
+
+        if isinstance(loss, Variable):
+            from ..static_.executor import build_optimize_ops
+
+            return build_optimize_ops(self, loss, parameters)
+        if not loss.requires_grad:
+            raise ValueError("loss needs no gradient; nothing to minimize")
+        loss.backward()
+        self.step()
+        return None, None
 
     # -- serialization (optimizer.py:166-188) -----------------------------
 

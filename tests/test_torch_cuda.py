@@ -1,8 +1,10 @@
 """paddle_tpu_torch on the card: the CUDA kernels, the engine, the GPT
 training step on CUDA, the step as one CUDA graph, decoding as one CUDA
-graph, and checkpoints and guards around the graphed step (an in-place
+graph, checkpoints and guards around the graphed step (an in-place
 load replays the same graph; an async save's snapshot is complete when
-the call returns; a guarded skip keeps one graph).
+the call returns; a guarded skip keeps one graph), and the static
+Executor (graphed = op by op, ``run_steps`` = sequential runs, the LN
+and CE kernels through a recorded program, a repeatable LeNet step).
 
 Every test here needs a Hopper card and skips without one (the
 decision is made inside the ``hopper`` fixture). The file imports
@@ -910,3 +912,105 @@ def test_guarded_skip_replays_one_graph(hopper):
     assert torch.equal(gl, el) and go._global_step == eo._global_step == 5
     for n in gp:
         assert torch.equal(gp[n], ep[n]), n
+
+
+def _lenet(B):
+    """bench_lenet_exec's program at batch ``B`` with its batch, an
+    Executor's startup run done and the Scope's first state."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    main, startup, loss, model, scope = chip_smoke.lenet_program(B)
+    x, y = chip_smoke.lenet_batch(B)
+    pt.static.Executor().run(startup, scope=scope)
+    return (main, loss, model, scope, {"x": x, "y": y},
+            chip_smoke.scope_state(main, scope))
+
+
+def _static_run(exe, main, loss, scope, feed, steps):
+    return [float(exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=scope)[0]) for _ in range(steps)]
+
+
+def test_static_lenet_graphed_is_op_by_op_bitwise(hopper):
+    """The static LeNet program: 4 graphed ``Executor.run`` calls (op by
+    op, capture, replays) = 4 op-by-op calls from one state, losses and
+    every persistable bitwise; one capture, no kernel of the port."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    main, loss, _, scope, feed, init = _lenet(32)
+    runs = []
+    for graph in (True, False):
+        chip_smoke.restore_scope(scope, init)
+        exe = pt.static.Executor(use_cuda_graph=graph)
+        kernels.reset_launches()
+        runs.append((_static_run(exe, main, loss, scope, feed, 4),
+                     chip_smoke.scope_state(main, scope), exe.captures))
+        assert kernels.launches() == dict.fromkeys(kernels.KERNELS, 0)
+    (gl, gs, gc), (ol, os_, oc) = runs
+    assert gl == ol and (gc, oc) == (1, 0)
+    assert all(torch.equal(gs[n], os_[n]) for n in gs)
+
+
+def test_static_run_steps_equals_sequential_runs(hopper):
+    """``run_steps`` with K = 4 (op by op, then captured and replayed)
+    fetches what 4 sequential graphed ``run`` calls fetch, bitwise, and
+    leaves the same persistables."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    main, loss, _, scope, feed, init = _lenet(32)
+    exe = pt.static.Executor()
+    seq = _static_run(exe, main, loss, scope, feed, 4)
+    after = chip_smoke.scope_state(main, scope)
+    for _ in range(3):
+        chip_smoke.restore_scope(scope, init)
+        got = exe.run_steps(main, feeds=[feed] * 4, fetch_list=[loss],
+                            scope=scope)[0]
+        assert got.tolist() == seq
+        state = chip_smoke.scope_state(main, scope)
+        assert all(torch.equal(state[n], after[n]) for n in state)
+    assert exe.captures == 2 and exe.cache_stats()["misses"] == 2
+
+
+def test_static_ln_ce_program_launches_the_kernels(hopper):
+    """A static Linear -> LayerNorm -> Linear -> cross-entropy program
+    (N % 8 == 0, V % 128 == 0: the kernels' routes) launches the LN and CE
+    kernels, forward and backward, once each a call: op by op, at the
+    capture's replay and at a replay."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    main, loss, pg, _, scope = chip_smoke.static_ln_ce_program(64, 128, 256)
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.randn(64, 128).astype("float32"),
+            "label": rng.randint(0, 256, 64).astype("int64")}
+    exe = pt.static.Executor()
+    want = dict.fromkeys(kernels.KERNELS, 0) | \
+        chip_smoke.STATIC_LN_CE_LAUNCHES
+    for _ in range(3):
+        kernels.reset_launches()
+        exe.run(main, feed=feed, fetch_list=[loss] + [g for _, g in pg],
+                scope=scope)
+        assert kernels.launches() == want
+    assert exe.captures == 1
+
+
+def test_static_lenet_step_is_repeatable(hopper):
+    """The static LeNet step op by op, before it joins a graph: 5 runs
+    from one state give the same loss and persistables, bitwise."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    main, loss, _, scope, feed, init = _lenet(256)
+    exe = pt.static.Executor(use_cuda_graph=False)
+    first = None
+    for _ in range(5):
+        chip_smoke.restore_scope(scope, init)
+        got = (_static_run(exe, main, loss, scope, feed, 1),
+               chip_smoke.scope_state(main, scope))
+        if first is None:
+            first = got
+        assert got[0] == first[0]
+        assert all(torch.equal(got[1][n], first[1][n]) for n in got[1])

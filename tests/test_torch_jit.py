@@ -187,6 +187,25 @@ step = TrainStep(m, opt, gpt.gpt_loss, scaler=amp.GradScaler())
 ids = np.random.RandomState(0).randint(0, 256, (4, 16))
 losses = step.run_fused([(ids, np.roll(ids, -1, 1))] * 2)
 assert losses.shape == (2,) and np.isfinite(losses.numpy()).all()
+import paddle_tpu_torch as pt
+from paddle_tpu_torch import analysis, static_
+from paddle_tpu_torch.models.vision import LeNet
+from paddle_tpu_torch.nn import functional as F
+pt.enable_static()
+try:
+    main = static_.Program()
+    with static_.program_guard(main, static_.Program()):
+        x = static_.data("x", [2, 1, 28, 28], "float32")
+        y = static_.data("y", [2], "int64")
+        loss = F.cross_entropy(LeNet(device="cpu")(x), y)
+        optim.SGD(0.1, parameters=[]).minimize(loss)
+finally:
+    pt.disable_static()
+exe = static_.Executor("cpu")
+out = exe.run_steps(main, feeds=[{"x": np.ones((2, 1, 28, 28), np.float32),
+                                  "y": np.zeros(2, np.int64)}] * 2,
+                    fetch_list=[loss])
+assert np.isfinite(out[0]).all() and exe.last_diagnostics.errors() == []
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad

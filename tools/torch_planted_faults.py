@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Check that ``chip_smoke.py``'s train phases catch planted faults: a
 backward kernel that drops one of its gradients, a graph that keeps its
-first learning rate, ResNet-50's wrong convs and BatchNorm momentum, and
-checkpoints and guards that rebind storage or drop state.
+first learning rate, ResNet-50's wrong convs and BatchNorm momentum,
+checkpoints and guards that rebind storage or drop state, and a static
+program that drops a gradient, a fused window or a velocity.
 
-    python3 tools/torch_planted_faults.py [--resnet | --checkpoint]
+    python3 tools/torch_planted_faults.py [--resnet | --checkpoint |
+                                           --static]
 
 Builds the kernels, then runs the smoke's train phases with one fault
 planted at a time:
@@ -55,6 +57,19 @@ class it breaks (``--checkpoint`` plants these only):
   guarded run must fail its step count (``chip_smoke.ckpt_guard_check``;
   the weights alone cannot show it, AdamW reads the powers).
 
+Then three faults in the static phase's bench_lenet_exec part (18(a),
+``chip_smoke.lenet_exec_phase``), each patched into the port's
+``static_`` (``--static`` plants these only):
+
+- an ``append_backward`` that drops one parameter's ``@grad`` (the last
+  pair it returns, so no update op is made for that parameter): the
+  program's parameters must differ from the eager LeNet's;
+- a ``run_steps`` that returns step 0's loss K times: the fused fetches
+  must differ from 8 sequential ``run`` calls';
+- an ``optimize_momentum`` op that does not write its velocity slot (it
+  returns the slot it read): the program must part from the eager
+  LeNet's losses and velocities.
+
 Each of the first phases runs 4 AdamW steps through the kernels and 4
 through the plain versions and compares the losses. A fault is planted
 by swapping the module's wrapper for one that calls the real kernel and
@@ -74,9 +89,12 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
+from paddle_tpu_torch.static_ import backward as static_backward  # noqa: E402
+from paddle_tpu_torch.static_ import executor as static_executor  # noqa: E402
 from paddle_tpu_torch.framework import TrainStep  # noqa: E402
 from paddle_tpu_torch.optim import Optimizer  # noqa: E402
 from paddle_tpu_torch.resilience import GuardedStep  # noqa: E402
@@ -265,12 +283,66 @@ def checkpoint_faults(gpu):
     return missed
 
 
+def _dropping_one_grad(real):
+    def append_backward(*a, **k):
+        return real(*a, **k)[:-1]
+    return append_backward
+
+
+def _first_loss_k_times(real):
+    def run_steps(self, *a, **k):
+        out = real(self, *a, **k)
+        return [np.repeat(out[0][:1], len(out[0]))] + out[1:]
+    return run_steps
+
+
+def _velocity_unwritten(real):
+    def update(self, p, g, lr, *slots):
+        return (real(self, p, g, lr, *slots)[0], *slots)
+    return update
+
+
+STATIC_FAULTS = [
+    # (label, module or class, attribute, replacement from the real one,
+    # the failure that must catch it)
+    ("append_backward drops a parameter's @grad", static_backward,
+     "append_backward", _dropping_one_grad, "eager LeNet"),
+    ("run_steps returns step 0's loss K times", static_executor.Executor,
+     "run_steps", _first_loss_k_times, "run_steps"),
+    ("optimize_momentum leaves its velocity", static_executor._UpdateFn,
+     "__call__", _velocity_unwritten, "eager LeNet"),
+]
+
+
+def static_faults(gpu):
+    """The static faults, each planted while phase 18(a) runs: the
+    labels it passed or did not fail by the named check."""
+    missed = []
+    for label, owner, attr, wrap, caught_by in STATIC_FAULTS:
+        real = getattr(owner, attr)
+        setattr(owner, attr, wrap(real))
+        try:
+            chip_smoke.lenet_exec_phase(gpu)
+            missed.append(label)
+            print(f"planted {label}: the phase PASSED it")
+        except chip_smoke.CheckFailed as e:
+            if caught_by not in str(e):
+                missed.append(label)
+            print(f"planted {label}: the phase failed: {e}")
+        finally:
+            setattr(owner, attr, real)
+            torch.cuda.empty_cache()
+    return missed
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--resnet", action="store_true",
                     help="plant the three ResNet faults only")
     ap.add_argument("--checkpoint", action="store_true",
                     help="plant the three checkpoint faults only")
+    ap.add_argument("--static", action="store_true",
+                    help="plant the three static-graph faults only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_planted_faults: no CUDA device", file=sys.stderr)
@@ -278,11 +350,14 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     _build.build()
     gpu = chip_smoke.gpu_line()
-    missed = [] if args.checkpoint else op_faults(gpu)
-    if not (args.resnet or args.checkpoint):
+    only = args.resnet or args.checkpoint or args.static
+    missed = op_faults(gpu) if args.resnet or not only else []
+    if not only:
         missed += kernel_faults(gpu)
-    if not args.resnet:
+    if args.checkpoint or not only:
         missed += checkpoint_faults(gpu)
+    if args.static or not only:
+        missed += static_faults(gpu)
     print(gpu)
     if missed:
         print(f"not caught by the check named for them: {missed}")

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Are the embedding's weight gradient and ResNet-50's conv, pooling and
-BatchNorm backwards repeatable on the card, and what do the repeatable
-ones cost?
+"""Are the embedding's weight gradient, ResNet-50's conv, pooling and
+BatchNorm backwards and the static LeNet step repeatable on the card,
+and what do the repeatable ones cost?
 
     python3 tools/torch_repeatability.py [--runs N]
-                                         [--cases all|embedding|resnet]
+                                         [--cases all|embedding|resnet|static]
 
 For the lookups of bench_bert and bench_gpt (8192 or 16384 ids: BERT's
 token types, all 0 of 2; its positions, 0-127 repeated; its words and
@@ -27,7 +27,13 @@ non-deterministic algorithms allowed) and under the port's
 port's ``max_pool2d`` backward on the stem's ReLU output (windows of
 tied zeros), its global ``adaptive_avg_pool2d`` backward and its
 BatchNorm backward, through autograd. Each: whether ``--runs``
-backwards give the same bits, and the time of one. Needs one CUDA card.
+backwards give the same bits, and the time of one.
+
+The static case: bench_lenet_exec's program (``chip_smoke.lenet_program``,
+B = 256, Momentum) run op by op (``Executor(use_cuda_graph=False)``, as
+before it joins a CUDA graph) ``--runs`` times from one state: whether
+every run gives the same loss and the same bits in every parameter and
+velocity, and the time of one step. Needs one CUDA card.
 """
 import argparse
 import os
@@ -148,12 +154,40 @@ def resnet_cases(runs):
               flush=True)
 
 
+def static_cases(runs):
+    import torch
+
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    main, startup, loss, _, scope = chip_smoke.lenet_program()
+    x, y = chip_smoke.lenet_batch()
+    exe = pt.static.Executor(use_cuda_graph=False)
+    exe.run(startup, scope=scope)
+    init = chip_smoke.scope_state(main, scope)
+
+    def step():
+        chip_smoke.restore_scope(scope, init)
+        out = exe.run(main, feed={"x": x, "y": y}, fetch_list=[loss],
+                      scope=scope, return_numpy=False)
+        return out + list(chip_smoke.scope_state(main, scope).values())
+
+    same = _repeatable(step, runs)
+    print(f"static LeNet step op by op (B = {chip_smoke.LENET_BATCH}, "
+          f"Momentum; loss, {len(init)} parameters and velocities), "
+          f"{runs} runs: {'repeatable' if same else 'NOT'} "
+          f"{_ms(step):.4f} ms", flush=True)
+    del exe
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--runs", type=int, default=None,
                     help="backward passes compared per case (default 300 "
                     "for the embedding cases, 20 for the ResNet ones)")
-    ap.add_argument("--cases", choices=("all", "embedding", "resnet"),
+    ap.add_argument("--cases", choices=("all", "embedding", "resnet",
+                                        "static"),
                     default="all", help="which cases (default all)")
     args = ap.parse_args(argv)
     import torch
@@ -161,10 +195,12 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("torch_repeatability: no CUDA device", file=sys.stderr)
         return 2
-    if args.cases != "embedding":
+    if args.cases in ("all", "resnet"):
         resnet_cases(args.runs or 20)
-    if args.cases != "resnet":
+    if args.cases in ("all", "embedding"):
         embedding_cases(args.runs or 300)
+    if args.cases in ("all", "static"):
+        static_cases(args.runs or 20)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

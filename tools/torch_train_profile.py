@@ -40,6 +40,19 @@ stack of profiler ranges and autograd nodes; ``RESNET_GROUPS``): the
 conv forward, its data and weight gradients, BatchNorm's elementwise
 passes and its reductions, pooling, ReLU, the loss, the optimizer and
 copies.
+``lenet_exec`` is ``bench.py:bench_lenet_exec``'s static program
+(``chip_smoke.lenet_program``: LeNet at B = 256, Momentum) through
+``Executor.run``: after the warm call and the capture it times
+``--steps`` replays (host wall, each ending in the fetch's host copy),
+profiles one replay (device time by kernel group, the number of
+kernels, the busy share) and one op-by-op call with a profiler range
+around each op (``static_.executor.OP_RANGE``), whose kernels' device
+time it sums by the op that launched them: the forward ops, their
+``@grad`` ops by the autograd node that ran each kernel, the
+``optimize_momentum`` ops, and, outside
+any op, the feeds' copies to the card, the updated parameters' and
+velocities' copies back into the Scope and the fetch's copy to the
+host.
 ``--json`` also writes the numbers to a file.
 Needs one CUDA card.
 """
@@ -168,9 +181,124 @@ def _group(name):
     return "other"
 
 
+def _device_by_group(prof, skip=()):
+    """(device ms by kernel group, kernels, busy ms) of a profile."""
+    from torch.autograd import DeviceType
+
+    device, n = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key in skip:
+            continue
+        if e.self_device_time_total > 0:
+            g = _group(e.key)
+            device[g] = device.get(g, 0.0) + e.self_device_time_total / 1e3
+            n += e.count
+    return device, n, sum(device.values())
+
+
+def _static_op(event):
+    """The op of CPU op ``event``: the ``static::`` range over it, or the
+    autograd node that ran it (a ``@grad`` op's ``torch.autograd.grad``
+    runs the nodes in autograd's own thread, outside the range), or,
+    outside both, the Executor's copies."""
+    e = event
+    while e is not None:
+        if e.name.startswith("static::"):
+            return e.name[len("static::"):]
+        if e.name.startswith("autograd::engine::evaluate_function: "):
+            return "@grad: " + e.name.split(": ", 1)[1]
+        e = e.cpu_parent
+    return "feed, write-back, fetch"
+
+
+def _profile(fn):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)     # see chip_smoke.profiled
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.2)
+    return prof, wall
+
+
+def lenet_exec_profile(args):
+    """``--config lenet_exec``: see the module docstring."""
+    import torch
+    from torch.profiler import record_function
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.static_ import executor
+
+    main, startup, loss, _, scope = chip_smoke.lenet_program()
+    x, y = chip_smoke.lenet_batch()
+    feed = {"x": x, "y": y}
+    out = {"device": torch.cuda.get_device_name(0), "config": "lenet_exec",
+           "batch": list(x.shape)}
+    for kind, exe in (("graphed", pt.static.Executor()),
+                      ("op_by_op", pt.static.Executor(use_cuda_graph=False))):
+        exe.run(startup, scope=scope)
+
+        def run(exe=exe):
+            return exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+        for _ in range(3):      # op by op, capture + replay, replay
+            run()
+        walls = []
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if kind == "op_by_op":
+            executor.OP_RANGE[0] = lambda t: record_function(f"static::{t}")
+        try:
+            prof, wall = _profile(run)
+        finally:
+            executor.OP_RANGE[0] = None
+        device, n, busy = _device_by_group(
+            prof, skip={e.name for e in prof.events()
+                        if e.name.startswith("static::")})
+        res = {"wall_ms": walls, "profiled_wall_ms": wall,
+               "device_ms": device, "kernels": n, "device_busy_ms": busy,
+               "device_busy_share": busy / wall}
+        if kind == "op_by_op":
+            by_op = {}
+            for e in prof.events():
+                for k in getattr(e, "kernels", ()):
+                    t = _static_op(e)
+                    by_op[t] = by_op.get(t, 0.0) + k.duration / 1e3
+            res["device_ms_by_op"] = by_op
+        out[kind] = res
+        med = sorted(walls)[len(walls) // 2]
+        print(f"lenet_exec {kind}: wall ms " + " ".join(
+            f"{w:.3f}" for w in walls) + f" (median {med:.3f} = "
+            f"{x.shape[0] / med * 1e3:.0f} imgs/s); profiled call {wall:.3f}"
+            f" ms, {n} kernels, device busy {busy:.3f} ms = "
+            f"{busy / wall * 100:.1f}%; by group: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in sorted(device.items())))
+        if kind == "op_by_op":
+            print("device ms by op: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(
+                    res["device_ms_by_op"].items(), key=lambda kv: -kv[1])))
+    print(chip_smoke.gpu_line())
+    if args.json:
+        d = os.path.dirname(args.json)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=sorted(chip_smoke.TRAIN_CONFIGS),
+    ap.add_argument("--config", choices=sorted(chip_smoke.TRAIN_CONFIGS)
+                    + ["lenet_exec"],
                     default="dropout0.1-float32",
                     help="the training configuration (default: "
                     "dropout0.1-float32)")
@@ -185,6 +313,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 2
+    if args.config == "lenet_exec":
+        return lenet_exec_profile(args)
     from paddle_tpu_torch import core
     from paddle_tpu_torch.ops import kernels
 
