@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving path, its training steps (GPT, BERT,
 ResNet-50), its serving fleet, the step as one CUDA graph, its decoding,
-its checkpointed and guarded training and its static graph once on one
-NVIDIA H100.
+its checkpointed and guarded training, its static graph, the serve bench
+and the int8 Predictor once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -215,6 +215,33 @@ any failed check:
              the profiler; loss and gradients = the eager modules'
              bitwise. It logs ``step_ms``, imgs/s, ``fused_step_ms``,
              the op-by-op step and ``compiled_calls``.
+
+19. serve-bench — bench_serve (``bench.py:304-465``) through
+             ``tools/torch_serve_bench.py``'s ``bench_serve_leg``: 48
+             requests of an open-loop Poisson trace at 100 req/s, tenants
+             ``a:rate=75,weight=3;b:rate=25,weight=1``, 256 pages of 16,
+             journaled and evaluated against ``SERVE_SLO_SPEC``, the
+             live ``/metrics`` scrape over localhost, and 24 requests
+             through a two-replica Router; (a) at bench's TinyLM (vocab
+             32, 2 x 8), (b) the same trace at the engine phase's full
+             width. Each: every request finished (none rejected or
+             stuck) with the dense oracle's tokens, no SLO violated, the
+             scraped gauge right, one paged launch for each decode step
+             of each engine; then the trace replayed on a ``ManualClock``
+             through one full-width engine, with the same checks. It
+             prints each run's dict on a line.
+
+20. int8   — bench_int8_predictor (``bench.py:246-293``): LeNet +
+             ``F.softmax`` at B = 256, seed 0, ``save_inference_model``,
+             ``quantize_inference_model`` (its int8 arrays and scales =
+             ``quantize_abs_max`` of the saved weights), an fp32 and an
+             int8 ``Predictor`` (one CUDA graph a feed signature), 3
+             warm-up and 20 timed calls each: bench's imgs/s, their
+             ratio and ``max_prob_diff`` (< ``INT8_PROB_TOL``); each
+             Predictor's replay = its op-by-op run bitwise, the fp32 one
+             = ``Executor.run`` bitwise; one capture each; none of the
+             port's kernels launched; the busy share of a profiled
+             window of calls.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -3630,6 +3657,324 @@ def static_phase(gpu):
     return res
 
 
+# -- phase 19: the serve bench (bench.py:bench_serve) ---------------------------
+
+# bench_serve's arguments (bench.py:304) and its tenants (:334-335)
+SERVE_BENCH = dict(requests=48, rate=100.0, pages=256, page_size=16)
+SERVE_TENANTS = "a:rate=75,weight=3;b:rate=25,weight=1"
+# run (a): bench's TinyLM; run (b): the engine phase's full width, the
+# same trace (token ids below 32); 256 pages of 16 hold every request of
+# the trace at once (644 prompt and 667 new tokens), so none is rejected
+SERVE_WIDTHS = {"bench": dict(vocab=32, heads=2, head_dim=8),
+                "full": dict(vocab=FULL["vocab_size"],
+                             heads=FULL["num_heads"],
+                             head_dim=FULL["head_dim"])}
+
+
+def serve_bench_tool():
+    """``tools/torch_serve_bench.py`` of this checkout, as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "torch_serve_bench.py")
+    spec = importlib.util.spec_from_file_location("torch_serve_bench", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class Oracle:
+    """The dense oracle's tokens (``TinyLM.reference_generate``) of one
+    model on the card, each (prompt, new tokens) computed once."""
+
+    def __init__(self, width):
+        from paddle_tpu_torch.serving import TinyLM
+
+        self.model = TinyLM(vocab_size=width["vocab"],
+                            num_heads=width["heads"],
+                            head_dim=width["head_dim"], seed=0)
+        self.tokens = {}
+
+    def __call__(self, prompt, new):
+        key = (tuple(prompt), new)
+        if key not in self.tokens:
+            self.tokens[key] = self.model.reference_generate(prompt, new)
+        return self.tokens[key]
+
+
+def serve_bench_run(sb, label, gpu):
+    """``bench_serve_leg`` at one of ``SERVE_WIDTHS``, the launch counts
+    zeroed just before and read just after: every request of the engine
+    and fleet legs finishes (none rejected or stuck) with the dense
+    oracle's tokens, no SLO of ``SERVE_SLO_SPEC`` is violated, the scraped
+    running gauge equals the engine's, and the paged kernel launches once
+    for each decode step of each engine the leg ran (the engine, the
+    export leg's and the two replicas). Returns the leg's dict and the
+    oracle."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels
+
+    width = SERVE_WIDTHS[label]
+    detail = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = sb.bench_serve_leg(**SERVE_BENCH, **width, detail=detail)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    log(f"serve bench ({label}) " + json.dumps(out, sort_keys=True))
+    eng, fleet, steps = detail["engine"], detail["fleet"], \
+        detail["decode_steps"]
+    check(out["finished"] == out["requests"] == SERVE_BENCH["requests"]
+          and eng["rejected"] == 0 and eng["stuck"] == 0,
+          f"serve bench ({label}): {out['finished']} of {out['requests']} "
+          f"finished, {eng['rejected']} rejected, {eng['stuck']} stuck")
+    check(out["slo_violations"] == [] and out["export_gauge_ok"] is True,
+          f"serve bench ({label}): SLO violations {out['slo_violations']}, "
+          f"export gauge ok {out['export_gauge_ok']}")
+    check(fleet["finished"] == 24 and fleet["rejected"] == 0
+          and fleet["stuck"] == 0 and out["replicas"] == 2,
+          f"serve bench ({label}): the fleet leg finished "
+          f"{fleet['finished']} of 24 ({fleet['rejected']} rejected, "
+          f"{fleet['stuck']} stuck) on {out['replicas']} replicas")
+    total = steps["engine"] + steps["export"] + sum(steps["fleet"])
+    want = dict.fromkeys(kernels.KERNELS, 0) | {
+        "paged_decode_attention": total}
+    check(launches == want and steps["engine"] and all(steps["fleet"]),
+          f"serve bench ({label}): launches {launches} for decode steps "
+          f"{steps}")
+    oracle = Oracle(width)
+    runs = detail["requests"] + detail["tokens"]
+    bad = [i for i, (p, n, toks) in enumerate(runs) if toks != oracle(p, n)]
+    check(len(runs) == 72 and not bad, f"serve bench ({label}): {len(bad)} "
+          f"of {len(runs)} requests' tokens differ from the dense oracle's")
+    log(f"serve bench ({label}): {width}; 48 + 24 requests finished with "
+        f"the dense oracle's tokens, no SLO violated, the scraped gauge "
+        f"right; paged launches {total} = decode steps {steps}; leg wall "
+        f"{wall:.2f} s [{gpu}]")
+    return out, oracle
+
+
+def serve_bench_replay(sb, oracle, gpu):
+    """The leg's trace on a ``ManualClock`` through one engine at full
+    width (``replay_manual``), the launch counts zeroed just before and
+    read just after: every request finishes with the dense oracle's
+    tokens and each decode step launches the paged kernel once."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import (ManualClock, PagedKVCache,
+                                          Scheduler, ServeEngine)
+
+    width = SERVE_WIDTHS["full"]
+    trace = sb.make_trace(SERVE_BENCH["requests"], SERVE_BENCH["rate"],
+                          tenants=sb.parse_tenants(SERVE_TENANTS))
+    clock = ManualClock()
+    cache = PagedKVCache(SERVE_BENCH["pages"], SERVE_BENCH["page_size"],
+                         width["heads"], width["head_dim"])
+    eng = ServeEngine(oracle.model, cache, scheduler=Scheduler(
+        cache, token_budget=512, clock=clock))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    reqs = sb.replay_manual(eng, clock, trace)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    check(all(r.state == "FINISHED" for r in reqs) and len(reqs) == 48,
+          "serve bench replay: not every request finished")
+    bad = [r.rid for r, t in zip(reqs, trace)
+           if r.generated != oracle(t["prompt"], t["max_new_tokens"])]
+    check(not bad, f"serve bench replay: {bad} differ from the dense oracle")
+    want = dict.fromkeys(kernels.KERNELS, 0) | {
+        "paged_decode_attention": eng.usage.decode_steps}
+    check(launches == want and eng.usage.decode_steps > 0,
+          f"serve bench replay: launches {launches} for "
+          f"{eng.usage.decode_steps} decode steps")
+    check(cache.verify() and cache.stats()["used_pages"] == 0,
+          f"serve bench replay: pool does not balance: {cache.stats()}")
+    log(f"serve bench replay: the trace on a ManualClock at full width: "
+        f"{eng.stats()['steps']} steps, {eng.usage.decode_steps} decode "
+        f"steps = paged launches, {eng.scheduler.preemptions} preemptions, "
+        f"tokens = the dense oracle's [{gpu}]")
+
+
+def serve_bench_phase(gpu):
+    """Phase 19: ``serve_bench_run`` at bench's width and at full width,
+    then ``serve_bench_replay``. Returns the two legs' dicts."""
+    import torch
+
+    t0 = time.perf_counter()
+    sb = serve_bench_tool()
+    out = {}
+    for label in SERVE_WIDTHS:
+        out[label], oracle = serve_bench_run(sb, label, gpu)
+    serve_bench_replay(sb, oracle, gpu)
+    del oracle
+    torch.cuda.empty_cache()
+    log(f"serve bench: phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# -- phase 20: the int8 Predictor (bench.py:bench_int8_predictor) -------------
+
+INT8_BATCH = 256                  # bench_int8_predictor's B
+INT8_WARM, INT8_ITERS = 3, 20     # bench.py:281 (not SMOKE)
+# max |fp32 - int8| of the two Predictors' probabilities. Seen on the CPU
+# (tests/test_torch_smoke_checks.py): 0.0116 from this sequence's weights,
+# 0.0115 from the JAX package's; one weight's scales doubled, the planted
+# fault of that test, gives 0.33
+INT8_PROB_TOL = 5e-2
+
+
+def int8_bundles(root, device=None, B=INT8_BATCH):
+    """bench_int8_predictor's sequence (``bench.py:257-277``) up to its
+    bundles: seed 0, LeNet + ``F.softmax`` recorded at B in a Scope and a
+    name generator of their own, ``save_inference_model`` and
+    ``quantize_inference_model``. Returns ``(prefix, main, prob, scope,
+    quantized names)``; ``prefix + "_int8"`` is the int8 bundle."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.framework import io
+    from paddle_tpu_torch.models.vision import LeNet
+    from paddle_tpu_torch.quant import quantize_inference_model
+    from paddle_tpu_torch.utils import unique_name
+
+    scope = pt.static.Scope()
+    pt.seed(0)
+    with unique_name.guard(), pt.static.scope_guard(scope):
+        pt.enable_static()
+        try:
+            main, startup = pt.static.Program(), pt.static.Program()
+            with pt.program_guard(main, startup):
+                xv = pt.static.data("x", [B, 1, 28, 28], "float32")
+                prob = F.softmax(LeNet(device=device)(xv), axis=-1)
+        finally:
+            pt.disable_static()
+        pt.static.Executor(device).run(startup)
+        prefix = os.path.join(root, "lenet")
+        io.save_inference_model(prefix, ["x"], [prob], program=main)
+    return prefix, main, prob, scope, quantize_inference_model(prefix)
+
+
+def int8_bundle_check(prefix, quantized):
+    """The int8 bundle holds, for each quantized weight, exactly
+    ``quantize_abs_max`` of the fp32 bundle's weight (per output channel:
+    axis 0 of a conv weight, axis 1 of a linear one), and the fp32
+    weights of the rest."""
+    from paddle_tpu_torch.quant import quantize_abs_max
+
+    fp = np.load(prefix + ".pdiparams.npz")
+    q8 = np.load(prefix + "_int8.pdiparams.npz")
+    for k in fp.files:
+        name = k[2:]
+        if name in quantized:
+            q, s = quantize_abs_max(fp[k], channel_axis=0 if name.startswith(
+                "conv") else 1)
+            check(q8["q!" + name].tobytes() == q.tobytes()
+                  and q8["s!" + name].tobytes() == s.tobytes(),
+                  f"int8: {name}'s int8 values or scales differ from "
+                  "quantize_abs_max of the saved weight")
+        elif k.startswith("w!"):
+            check(q8[k].tobytes() == fp[k].tobytes(),
+                  f"int8: {name} should stay float32")
+
+
+def max_prob_diff(a, b):
+    return float(np.abs(a - b).max())
+
+
+def int8_predict(prefix, x, device=None, use_cuda_graph=True):
+    """A Predictor of ``prefix`` (loaded in a Scope of its own) and its
+    output on ``x``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.inference import Config, Predictor
+
+    with pt.static.scope_guard(pt.static.Scope()):
+        pred = Predictor(Config(prefix, device=device,
+                                use_cuda_graph=use_cuda_graph))
+    return pred, pred.run({"x": x})[0]
+
+
+def int8_phase(gpu):
+    """Phase 20: bench_int8_predictor (``bench.py:246-293``) on the card:
+    B = 256, seed 0, the fp32 and int8 bundles (``int8_bundles``,
+    ``int8_bundle_check``), an fp32 and an int8 ``Predictor``, 3 warm-up
+    and 20 timed ``run`` calls each, the launch counts zeroed just before
+    and read just after (LeNet runs none of the port's kernels). Each
+    Predictor's output (after its capture, replayed) equals the same
+    Predictor's op by op (``use_cuda_graph=False``) bitwise; the fp32 one
+    equals ``Executor.run`` of the recorded program; ``max_prob_diff``
+    stays under ``INT8_PROB_TOL``; one signature and one capture each.
+    Logs bench's four numbers, the op-by-op time a call and the device's
+    busy share over a profiled window of calls. Returns bench's dict."""
+    import tempfile
+
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    B = INT8_BATCH
+    x = np.random.RandomState(0).randn(B, 1, 28, 28).astype("float32")
+    with tempfile.TemporaryDirectory() as root:
+        prefix, main, prob, scope, quantized = int8_bundles(root)
+        int8_bundle_check(prefix, quantized)
+        with pt.static.scope_guard(scope):
+            ref, = pt.static.Executor().run(main, feed={"x": x},
+                                            fetch_list=[prob])
+        preds, outs, rates, plain = {}, {}, {}, {}
+        for kind, p in (("fp32", prefix), ("int8", prefix + "_int8")):
+            pred, _ = int8_predict(p, x)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            for _ in range(INT8_WARM):
+                pred.run({"x": x})
+            t1 = time.perf_counter()
+            for _ in range(INT8_ITERS):
+                out, = pred.run({"x": x})
+            ms = (time.perf_counter() - t1) / INT8_ITERS * 1e3
+            launches = kernels.launches()
+            check(launches == dict.fromkeys(kernels.KERNELS, 0),
+                  f"int8: the {kind} Predictor launched {launches}; LeNet "
+                  f"runs none of the port's kernels")
+            eager, eager_out = int8_predict(p, x, use_cuda_graph=False)
+            plain[kind] = timed_runs(lambda: eager.run({"x": x}), INT8_WARM,
+                                     INT8_ITERS)
+            cs = pred.cache_stats()
+            check(np.array_equal(out, eager_out),
+                  f"int8: the {kind} Predictor's replay differs from its op "
+                  f"by op run (max {max_prob_diff(out, eager_out)})")
+            check(cs["size"] == cs["misses"] == 1 and pred.captures == 1,
+                  f"int8: the {kind} Predictor has {cs} and "
+                  f"{pred.captures} captures; one signature, one capture")
+            preds[kind], outs[kind], rates[kind] = pred, out, B / ms * 1e3
+            log(f"int8 {kind}: {ms:.4f} ms a call ({rates[kind]:.0f} "
+                f"imgs/s) graphed, {plain[kind]:.4f} ms op by op; replay = "
+                f"op by op bitwise; {cs}")
+        check(np.array_equal(outs["fp32"], ref),
+              "int8: the fp32 Predictor differs from Executor.run of the "
+              f"program (max {max_prob_diff(outs['fp32'], ref)})")
+        diff = max_prob_diff(outs["fp32"], outs["int8"])
+        check(diff < INT8_PROB_TOL, f"int8: max_prob_diff {diff} >= "
+              f"{INT8_PROB_TOL}")
+        window = 20
+        wall, busy, _ = profiled(lambda: [preds["int8"].run({"x": x})
+                                          for _ in range(window)])
+    res = {"imgs_per_sec_int8": rates["int8"],
+           "imgs_per_sec_fp32": rates["fp32"],
+           "int8_vs_fp32": rates["int8"] / rates["fp32"],
+           "max_prob_diff": diff}
+    log("int8 predictor " + json.dumps(res, sort_keys=True))
+    log(f"int8: quantized {sorted(quantized)}; the fp32 Predictor = "
+        f"Executor.run bitwise; max_prob_diff {diff:.6f} < {INT8_PROB_TOL}; "
+        f"a profiled window of {window} int8 calls: wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms ({busy / wall:.1%}); phase took "
+        f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+    return res
+
+
 def main():
     try:
         import torch
@@ -3660,6 +4005,7 @@ def main():
         import paddle_tpu_torch.serving.fleet.worker  # noqa: F401
         import paddle_tpu_torch.static_  # noqa: F401
         import paddle_tpu_torch.analysis  # noqa: F401
+        import paddle_tpu_torch.quant.passes  # noqa: F401
         import paddle_tpu_torch.utils.envspec  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -3745,6 +4091,11 @@ def main():
     train_resnet_phase(gpu)
     checkpoint_phase(gpu)
     static_phase(gpu)
+    serve_bench_phase(gpu)
+    int8_phase(gpu)
+    check(not any(m.split(".")[0] in ("jax", "paddle_tpu", "ml_dtypes")
+                  for m in sys.modules),
+          "the JAX side was imported by a phase")
 
     pa = kernels.KERNELS["paged_decode_attention"]
     rows = [{"name": "paged_decode_attention", "route": "cuda",

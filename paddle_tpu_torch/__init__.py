@@ -7,7 +7,8 @@ on a ported path is a kernel written by hand for Hopper (``sm_90a``),
 under ``csrc/``, built with ``nvcc`` at first use.
 
 What is ported so far is the serving path, the GPT, BERT and ResNet-50
-training steps, decoding, and checkpointed and guarded training:
+training steps, decoding, checkpointed and guarded training, the static
+graph and inference:
 
 - ``serving``: paged KV cache, continuous-batching scheduler and
   ``ServeEngine`` with the one-layer ``TinyLM``;
@@ -51,6 +52,11 @@ training steps, decoding, and checkpointed and guarded training:
   verifier and the compile passes, and ``Executor.run``/``run_steps``
   as one CUDA graph per cache key — with ``models.vision.LeNet``, as
   ``bench.py:bench_lenet_exec`` runs it;
+- ``framework.io``'s inference bundles and program-level I/O, ``quant``
+  (PTQ, QAT, the int8 bundle pass) and ``inference``'s ``Predictor``
+  (one CUDA graph per feed signature) and analysis API, as
+  ``bench.py:bench_int8_predictor`` runs them; ``bench.py:bench_serve``'s
+  legs are ``tools/torch_serve_bench.py``'s ``bench_serve_leg``;
 - ``convert``: weights of the JAX ``TinyLM``, ``GPT``,
   ``BertForPretraining``, ``Transformer``, ``WMTTransformer`` and
   ``ResNet`` into this package's, and a JAX optimizer's state dict under
@@ -61,7 +67,8 @@ Entry points run on the CUDA card unless the caller passes
 """
 from ._device import resolve_device, resolve_dtype
 
-__all__ = ["resolve_device", "resolve_dtype", "static", "enable_static",
+__all__ = ["resolve_device", "resolve_dtype", "static", "framework",
+           "enable_static",
            "disable_static", "in_static_mode", "program_guard", "seed"]
 
 # the static-graph surface under the names paddle scripts use
@@ -74,8 +81,10 @@ _LAZY = {"enable_static": "static_", "disable_static": "static_",
 def __getattr__(name):
     import importlib
 
-    if name == "static":
-        return importlib.import_module(".static_", __name__)
+    if name in ("static", "framework"):
+        # ``pt.framework.io.save_inference_model`` as bench.py spells it
+        return importlib.import_module(
+            ".static_" if name == "static" else ".framework", __name__)
     if name in _LAZY:
         return getattr(importlib.import_module("." + _LAZY[name], __name__),
                        name)

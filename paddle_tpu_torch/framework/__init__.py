@@ -1,6 +1,7 @@
 """paddle_tpu_torch.framework: ``TrainStep``, a training step as one CUDA
 graph, and ``ProgramCache``, an inference program as one (``jit``);
-``save``/``load`` and crash-safe training checkpoints (``io``)."""
+``save``/``load``, crash-safe training checkpoints, inference bundles
+and the program-level variable I/O (``io``)."""
 from . import io
 from .io import (AsyncCheckpoint, CheckpointError, load, load_checkpoint,
                  save, save_checkpoint, set_state_dict, verify_checkpoint,

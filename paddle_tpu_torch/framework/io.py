@@ -1,7 +1,9 @@
-"""Serialization: ``save``/``load`` and crash-safe training checkpoints.
+"""Serialization: ``save``/``load``, crash-safe training checkpoints,
+inference bundles and the program-level variable I/O.
 
-The port of ``paddle_tpu/framework/io.py``'s ``save``/``load`` (:67-86)
-and its checkpoint half (:235-735), with the JAX package's on-disk
+The port of ``paddle_tpu/framework/io.py``: ``save``/``load`` (:67-86),
+its checkpoint half (:235-735), its inference bundles (:88-232) and
+its var-level functions (:739-965), all in the JAX package's on-disk
 format, so a checkpoint crosses between the two packages: pickled dicts
 of numpy arrays (protocol 4) in ``model.pdparams``, ``opt.pdopt`` and
 ``meta.pkl``, and a ``manifest.json`` (``format: 1``) holding each
@@ -43,9 +45,17 @@ Checkpoints (``save_checkpoint``/``load_checkpoint``):
   journal events ``checkpoint.save``/``save_failed``/``load``/
   ``fallback`` as the reference's.
 
-Not ported: the program-level functions (``save_inference_model``,
-``load_inference_model``, ``save_vars``/``load_vars`` and the rest),
-which wait for ``static_`` (ROADMAP Queue 1 item 9).
+Inference bundles (``save_inference_model``/``load_inference_model``):
+``<prefix>.pdmodel`` is a pickle of plain Python (op types, variable
+names, attributes, shapes, numpy dtype names) and
+``<prefix>.pdiparams.npz`` holds the weights, so a bundle saved by
+either package loads in the other; ops are rebuilt from the registry
+(``ops._base``) by type. ``save_vars``/``load_vars`` and the rest write
+and read one ``.npz`` of a program's variables; a load writes into the
+tensors already in the scope where their shapes fit.
+
+Not ported: ``aot_warm`` (the AOT executable cache, ROADMAP Queue 1 item
+8) and ``batch`` (``reader.py``, item 10).
 """
 from __future__ import annotations
 
@@ -79,7 +89,11 @@ _M_FALLBACKS = _metrics.counter("checkpoint.fallbacks")
 __all__ = [
     "save", "load", "set_state_dict", "save_checkpoint", "load_checkpoint",
     "verify_checkpoint", "AsyncCheckpoint", "wait_checkpoints",
-    "CheckpointError",
+    "CheckpointError", "save_inference_model", "load_inference_model",
+    "save_vars", "load_vars", "save_params", "load_params",
+    "save_persistables", "load_persistables", "get_program_parameter",
+    "get_program_persistable_vars", "persistable_footprint",
+    "load_program_state", "set_program_state",
 ]
 
 
@@ -822,3 +836,430 @@ def _load_checkpoint(directory, model, optimizer, scheduler, step):
     if scheduler is not None and "scheduler" in meta:
         scheduler.set_state_dict(meta["scheduler"])
     return meta["step"]
+
+
+# -- inference bundles (ref: fluid.io save/load_inference_model) -------------
+
+
+def _registry():
+    """``ops._base.OP_REGISTRY`` with every module that registers an op
+    imported, so a bundle's op types resolve by name."""
+    from ..nn import functional  # noqa: F401  (linear, conv2d, ...)
+    from ..ops import misc  # noqa: F401  (dequantize_weight)
+    from ..ops._base import OP_REGISTRY
+
+    return OP_REGISTRY
+
+
+def _dtype_name(dtype):
+    """A torch dtype's numpy name (``"float32"``), as a bundle stores it."""
+    return str(dtype).replace("torch.", "")
+
+
+def _numpy(t):
+    """A scope value as a numpy array on the host."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    if t.dtype == torch.bfloat16:
+        raise ValueError("a bfloat16 value cannot go into an .npz archive "
+                         "without ml_dtypes, which this package does not "
+                         "import")
+    return t.detach().cpu().numpy()
+
+
+def _plain(v):
+    """True for an attribute a bundle can hold: plain Python values in
+    tuples, lists and string-keyed dicts."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return True
+    if isinstance(v, (list, tuple)):
+        return all(_plain(x) for x in v)
+    if isinstance(v, dict):
+        return all(isinstance(k, str) and _plain(x) for k, x in v.items())
+    return False
+
+
+def _forward_slice(program, feed_names, fetch_names):
+    """Ops needed to compute fetches from feeds, excluding grad/opt ops
+    (ref: prune() in framework.py)."""
+    needed = set(fetch_names)
+    ops = []
+    for op in reversed(program.global_block.ops):
+        if op.type.endswith("@grad") or op.type.startswith("optimize_") or \
+                op.type in ("fill_ones_like", "fill_zeros_like",
+                            "grad_accumulate", "grad_clip"):
+            continue
+        if any(o in needed for o in op.output_names):
+            ops.append(op)
+            needed.update(n for n in op.input_names if n is not None)
+    return list(reversed(ops)), needed
+
+
+def save_inference_model(path_prefix, feed_vars, fetch_vars, executor=None,
+                         program=None, main_program=None, aot_warm=None,
+                         **kwargs):
+    """ref: fluid.io.save_inference_model. Writes ``<prefix>.pdmodel`` and
+    ``<prefix>.pdiparams.npz`` in the JAX package's format: the pdmodel
+    is a pickle of plain Python only (feed and fetch names, each op as
+    ``(type, input names, output names, attrs)``, each variable's shape
+    and numpy dtype name), the npz holds ``w!<name>`` for each
+    persistable and ``c!<name>`` for each constant the fetches need.
+    ``main_program`` is the fluid-era spelling of ``program``.
+
+    Only ops of the registry (``ops._base``) can be saved: a loader
+    rebuilds each op from its type. An op the recorder took as a torch
+    call (``_TorchCall``), or one whose attributes are not plain values,
+    raises ``ValueError`` naming it. ``aot_warm`` as a directory raises:
+    the AOT executable cache is not ported (ROADMAP Queue 1 item 8);
+    ``None``/``False`` warm nothing, as in the JAX package with no cache
+    active."""
+    from ..static_.program import default_main_program, global_scope
+
+    if isinstance(aot_warm, (str, bytes, os.PathLike)):
+        raise NotImplementedError(
+            "save_inference_model(aot_warm=<dir>): the AOT executable "
+            "cache is not ported to paddle_tpu_torch yet (ROADMAP Queue 1 "
+            "item 8)")
+    registry = _registry()
+    program = program or main_program or default_main_program()
+    feed_names = [v if isinstance(v, str) else v.name for v in feed_vars]
+    fetch_names = [v if isinstance(v, str) else v.name for v in fetch_vars]
+    ops, needed = _forward_slice(program, feed_names, fetch_names)
+    for op in ops:
+        if registry.get(op.type) is not op.fn:
+            raise ValueError(
+                f"op {op!r} of type {op.type!r} is not a registered op "
+                "(ops._base.register); a bundle can hold registered ops "
+                "only")
+        if not _plain(op.attrs):
+            raise ValueError(f"op {op!r}: attributes {op.attrs} are not "
+                             "plain Python values")
+
+    blk = program.global_block
+    scope = global_scope()
+    weights, consts = {}, {}
+    for name in blk.vars:
+        if name not in needed:
+            continue
+        if name in program._constants:
+            consts[name] = _numpy(program._constants[name])
+        elif blk.var(name).persistable:
+            arr = scope.find_var(name)
+            if arr is not None:
+                weights[name] = _numpy(arr)
+
+    def meta(v):
+        with torch._C.DisableTorchFunction():
+            return list(v.shape), _dtype_name(v.dtype)
+
+    desc = {
+        "feed_names": feed_names,
+        "fetch_names": fetch_names,
+        "ops": [(op.type, list(op.input_names), list(op.output_names),
+                 dict(op.attrs)) for op in ops],
+        "vars": {v.name: meta(v) for v in blk.vars.values()},
+    }
+    d = os.path.dirname(path_prefix)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path_prefix + ".pdmodel", "wb") as f:
+        pickle.dump(desc, f, protocol=4)
+    np.savez(path_prefix + ".pdiparams", __consts__=np.array(list(consts)),
+             **{("c!" + k): v for k, v in consts.items()},
+             **{("w!" + k): v for k, v in weights.items()})
+    return feed_names
+
+
+def load_inference_model(path_prefix, executor=None, device=None, **kwargs):
+    """ref: fluid.io.load_inference_model -> ``(program, feed_names,
+    fetch_names)``; the weights land in the global scope, on ``device``
+    (default: the ``executor``'s place, else the card). Each op is
+    rebuilt from the registry by its type. An int8 bundle's
+    ``q!<name>``/``s!<name>`` pair becomes the persistables
+    ``<name>@INT8`` and ``<name>@SCALE`` and a ``dequantize_weight`` op,
+    put before the program's ops, that writes ``<name>``
+    (``quant.quantize_inference_model``)."""
+    from .._device import resolve_device
+    from ..static_.program import Operator, Program, global_scope
+
+    registry = _registry()
+    if device is None and executor is not None:
+        device = executor.place
+    device = resolve_device(device)
+    with open(path_prefix + ".pdmodel", "rb") as f:
+        desc = pickle.load(f)
+    data = np.load(path_prefix + ".pdiparams.npz"
+                   if os.path.exists(path_prefix + ".pdiparams.npz")
+                   else path_prefix + ".pdiparams")
+
+    program = Program()
+    blk = program.global_block
+    for name, (shape, dtype) in desc["vars"].items():
+        v = blk.create_var(name=name, shape=shape, dtype=dtype)
+        if "w!" + name in data.files:
+            v.persistable = True
+    scope = global_scope()
+    for k in data.files:
+        if k.startswith("w!"):
+            scope.set(k[2:], torch.as_tensor(data[k], device=device))
+        elif k.startswith("c!"):
+            program._constants[k[2:]] = torch.as_tensor(data[k])
+    dequant_ops = []
+    for k in data.files:
+        if not k.startswith("q!"):
+            continue
+        name = k[2:]
+        qarr, sarr = data[k], data["s!" + name]
+        dtype = desc["vars"].get(name, (None, "float32"))[1]
+        for suffix, arr in (("@INT8", qarr), ("@SCALE", sarr)):
+            v = blk.create_var(name=name + suffix, shape=list(arr.shape),
+                               dtype=str(arr.dtype))
+            v.persistable = True
+            scope.set(name + suffix, torch.as_tensor(arr, device=device))
+        dequant_ops.append(Operator(
+            "dequantize_weight", registry["dequantize_weight"],
+            [name + "@INT8", name + "@SCALE"], [name], {"dtype": dtype}))
+    for op in dequant_ops:
+        blk.append_op(op)
+    for type_, in_names, out_names, attrs in desc["ops"]:
+        if type_ not in registry:
+            raise ValueError(
+                f"op '{type_}' not in the op registry; the model was saved "
+                "with an op paddle_tpu_torch does not have")
+        blk.append_op(Operator(type_, registry[type_], list(in_names),
+                               list(out_names), dict(attrs)))
+    program.bump()
+    return program, desc["feed_names"], desc["fetch_names"]
+
+
+# -- fluid.io var-level save/load (ref: fluid/io.py __all__) -----------------
+
+
+def _program_vars(program, predicate):
+    return [v for v in program.global_block.vars.values() if predicate(v)]
+
+
+def get_program_parameter(program):
+    """ref: io.py get_program_parameter."""
+    return _program_vars(program, lambda v: v.is_parameter)
+
+
+def get_program_persistable_vars(program):
+    """ref: io.py get_program_persistable_vars."""
+    return _program_vars(program, lambda v: v.persistable)
+
+
+def persistable_footprint(program, scope=None):
+    """Byte footprint of a Program's persistables as they lie in the
+    scope: ``{"vars": [{name, shape, dtype, bytes}], "total_bytes": N}``;
+    a variable with no value in the scope reports its shape and type
+    with ``bytes=None``. Reads metadata only: no copy off the device."""
+    from ..static_.program import global_scope
+
+    scope = scope or global_scope()
+    rows, total = [], 0
+    for v in get_program_persistable_vars(program):
+        arr = scope.find_var(v.name)
+        if arr is not None:
+            shape = tuple(int(s) for s in arr.shape)
+            dtype = _dtype_name(arr.dtype)
+            nbytes = arr.numel() * arr.element_size()
+            total += nbytes
+        else:
+            with torch._C.DisableTorchFunction():
+                shape, dtype = tuple(v.shape), _dtype_name(v.dtype)
+            nbytes = None
+        rows.append({"name": v.name, "shape": shape, "dtype": dtype,
+                     "bytes": nbytes})
+    return {"vars": rows, "total_bytes": total}
+
+
+def _var_values(vars_):
+    from ..static_.program import global_scope
+
+    scope = global_scope()
+    out = {}
+    for v in vars_:
+        name = v if isinstance(v, str) else v.name
+        arr = scope.find_var(name)
+        if arr is not None:
+            out[name] = _numpy(arr)
+    return out
+
+
+def _vars_path(dirname, filename, default):
+    """np.savez appends .npz on write but np.load does NOT on read —
+    normalize once so non-default filenames round-trip."""
+    p = os.path.join(dirname, filename or default) if dirname \
+        else (filename or default)
+    return p if p.endswith(".npz") else p + ".npz"
+
+
+def _put(scope, name, arr, device):
+    """``arr`` into ``scope[name]``: copied into the tensor there when its
+    shape and type fit (its storage, which a captured graph reads,
+    stays), else as a new tensor on ``device`` (default: that tensor's
+    device, else the card)."""
+    from .._device import resolve_device
+
+    t = torch.as_tensor(np.asarray(arr))
+    old = scope.find_var(name)
+    if old is not None and old.shape == t.shape and old.dtype == t.dtype:
+        with torch.no_grad():
+            old.copy_(t)
+        return
+    if device is None and old is not None:
+        device = old.device
+    scope.set(name, t.to(resolve_device(device)))
+
+
+def save_vars(executor=None, dirname=None, main_program=None, vars=None,
+              predicate=None, filename=None):
+    """Save selected program variables as one npz (ref: io.py
+    save_vars; per-var files collapse into one archive here)."""
+    from ..static_.program import default_main_program
+
+    program = main_program or default_main_program()
+    if vars is None:
+        vars = _program_vars(program, predicate or
+                             (lambda v: v.persistable))
+    values = _var_values(vars)
+    wanted = [v if isinstance(v, str) else v.name for v in vars]
+    valueless = sorted(set(wanted) - set(values))
+    if valueless:  # a silent partial save only fails at restore time
+        raise ValueError(
+            f"save_vars: no value in scope for {valueless} — run the "
+            "startup program (initializers) before saving")
+    path = _vars_path(dirname, filename, "__vars__.npz")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **values)
+    return path
+
+
+def load_vars(executor=None, dirname=None, main_program=None, vars=None,
+              predicate=None, filename=None, scope=None):
+    """Load variables saved by save_vars into the scope (ref: io.py
+    load_vars): into the tensors already there, else onto the
+    ``executor``'s place (the card without one)."""
+    from ..static_.program import default_main_program, global_scope
+
+    program = main_program or default_main_program()
+    path = _vars_path(dirname, filename, "__vars__.npz")
+    data = np.load(path, allow_pickle=False)
+    scope = scope or global_scope()
+    want = None
+    if vars is not None:
+        want = {v if isinstance(v, str) else v.name for v in vars}
+    elif predicate is not None:
+        want = {v.name for v in _program_vars(program, predicate)}
+    if want is not None:
+        missing = sorted(want - set(data.files))
+        if missing:  # a silent partial restore looks like success
+            raise ValueError(
+                f"load_vars: {path} is missing variables {missing}")
+    device = None if executor is None else executor.place
+    for name in data.files:
+        if want is None or name in want:
+            _put(scope, name, data[name], device)
+
+
+def save_params(executor=None, dirname=None, main_program=None,
+                filename=None):
+    """ref: io.py save_params — parameters only."""
+    from ..static_.program import default_main_program
+
+    program = main_program or default_main_program()
+    return save_vars(executor, dirname, program,
+                     vars=get_program_parameter(program),
+                     filename=filename or "__params__.npz")
+
+
+def load_params(executor=None, dirname=None, main_program=None,
+                filename=None):
+    from ..static_.program import default_main_program
+
+    program = main_program or default_main_program()
+    load_vars(executor, dirname, program,
+              vars=get_program_parameter(program),
+              filename=filename or "__params__.npz")
+
+
+def save_persistables(executor=None, dirname=None, main_program=None,
+                      filename=None):
+    """ref: io.py save_persistables — all persistable vars (params +
+    optimizer state recorded in the program)."""
+    from ..static_.program import default_main_program
+
+    program = main_program or default_main_program()
+    return save_vars(executor, dirname, program,
+                     vars=get_program_persistable_vars(program),
+                     filename=filename or "__persistables__.npz")
+
+
+def load_persistables(executor=None, dirname=None, main_program=None,
+                      filename=None):
+    from ..static_.program import default_main_program
+
+    program = main_program or default_main_program()
+    load_vars(executor, dirname, program,
+              vars=get_program_persistable_vars(program),
+              filename=filename or "__persistables__.npz")
+
+
+def load_program_state(model_path, var_list=None):
+    """ref: io.py load_program_state -> dict name->ndarray. Accepts an
+    .npz path, a save_params/save_persistables dirname, or a save()
+    pickle path."""
+    p = model_path if model_path.endswith(".npz") else model_path + ".npz"
+    if os.path.isdir(model_path):
+        # the reference usage passes the save_* dirname
+        for fn in ("__params__.npz", "__persistables__.npz",
+                   "__vars__.npz"):
+            cand = os.path.join(model_path, fn)
+            if os.path.exists(cand):
+                p = cand
+                break
+        else:
+            raise FileNotFoundError(
+                f"no saved variable archive under {model_path}")
+    elif not os.path.exists(p):
+        if not os.path.exists(model_path):
+            raise FileNotFoundError(
+                f"no program state at {model_path} (tried {p} too)")
+        obj = load(model_path, return_numpy=True)  # a save() pickle
+        if not isinstance(obj, dict):
+            raise ValueError(
+                f"{model_path} holds {type(obj).__name__}, not a "
+                "name->array state dict")
+        state = {k: np.asarray(v) for k, v in obj.items()}
+        if var_list is not None:  # same strictness as the npz branch
+            want = {v if isinstance(v, str) else v.name
+                    for v in var_list}
+            missing = sorted(want - set(state))
+            if missing:
+                raise ValueError(
+                    f"load_program_state: {model_path} is missing "
+                    f"{missing}")
+            state = {k: v for k, v in state.items() if k in want}
+        return state
+    data = np.load(p, allow_pickle=False)
+    want = None if var_list is None else {
+        v if isinstance(v, str) else v.name for v in var_list}
+    if want is not None:
+        missing = sorted(want - set(data.files))
+        if missing:  # same strictness as load_vars
+            raise ValueError(
+                f"load_program_state: {p} is missing {missing}")
+    return {n: data[n] for n in data.files
+            if want is None or n in want}
+
+
+def set_program_state(program, state_dict, device=None):
+    """ref: io.py set_program_state: write arrays into the global scope,
+    into the tensors already there, else as new tensors on ``device``
+    (default: the card)."""
+    from ..static_.program import global_scope
+
+    scope = global_scope()
+    for name, arr in state_dict.items():
+        _put(scope, name, arr, device)

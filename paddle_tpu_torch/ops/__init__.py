@@ -1,8 +1,10 @@
 """paddle_tpu_torch.ops: the hand-written kernels (``ops.kernels``) and the
 ops of the ported paths that route to them or sit beside them
 (``norm_ops.layer_norm``, ``random_ops.dropout``, ``activation.gelu``,
-and ``conv``, ``norm_ops.batch_norm`` and ``manipulation.flatten``,
-which have no kernel under them)."""
-from .manipulation import flatten
+and ``conv``, ``norm_ops.batch_norm``, ``manipulation.flatten`` and
+``reshape``, ``math.add``, ``activation.softmax`` and
+``misc.dequantize_weight``, which have no kernel under them)."""
+from .manipulation import flatten, reshape
+from .math import add
 
-__all__ = ["flatten"]
+__all__ = ["flatten", "reshape", "add"]

@@ -32,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ._base import register
+from .manipulation import reshape
+from .math import add
 
 __all__ = ["conv2d", "max_pool2d", "adaptive_avg_pool2d"]
 
@@ -111,10 +113,16 @@ class _Conv2d(torch.autograd.Function):
 
 
 @register("conv2d", inputs=("x", "weight"))
-def _conv2d(x, weight, *, stride, padding, dilation, groups):
+def _conv2d(x, weight, *, stride, padding, dilation, groups,
+            data_format="NCHW"):
     """The convolution without its bias, as the JAX package's op
     ``conv2d`` (``conv.py:50-57``): ``padding`` normalised by
-    ``_conv_padding``."""
+    ``_conv_padding``. ``data_format`` is taken as the JAX op takes it,
+    so a bundle the JAX package saved loads here; only ``"NCHW"`` is
+    ported."""
+    if data_format != "NCHW":
+        raise NotImplementedError(
+            f"conv2d data_format={data_format!r}: only NCHW is ported")
     pads = _pads(padding, x.shape[2:], weight.shape[2:], stride, dilation)
     if all(lo == hi for lo, hi in pads):
         even = tuple(lo for lo, _ in pads)
@@ -129,11 +137,15 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
     kh, kw), plus ``bias`` (O,) when given. Padding as Paddle takes it:
     an int, one per axis, ``(top, bottom, left, right)``, pairs, or
     ``"SAME"``/``"VALID"``; an uneven padding is applied to ``x`` first
-    (zeros), an even one by the convolution."""
+    (zeros), an even one by the convolution. The bias goes through the
+    registered ``reshape`` and ``add``, as in the JAX package
+    (``conv.py:72-76``), so a static program records them with their
+    attributes."""
     out = _conv2d(x, weight, stride=_pair(stride, 2),
                   padding=_conv_padding(padding, 2),
-                  dilation=_pair(dilation, 2), groups=int(groups))
-    return out if bias is None else out + bias.reshape(1, -1, 1, 1)
+                  dilation=_pair(dilation, 2), groups=int(groups),
+                  data_format="NCHW")
+    return out if bias is None else add(out, reshape(bias, (1, -1, 1, 1)))
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0):

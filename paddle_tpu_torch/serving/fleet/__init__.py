@@ -21,10 +21,11 @@ consuming that scrape to drive scale-up / drain-based scale-down.
   (``python -m paddle_tpu_torch.serving.fleet.worker``).
 - ``drill`` — the kill-a-replica-mid-decode acceptance drill.
 
-Not here yet: the JAX package's shared AOT executable cache
-(``ReplicaSpec.aot_cache_dir`` raises) and its fleet tools
-(``tools/fleet_report.py``, ``tools/chaos_run.py``,
-``tools/serve_bench.py --replicas``).
+The trace bench over a fleet is ``tools/torch_serve_bench.py
+--replicas N`` and the kill drill ``tools/torch_chaos_run.py
+replica_kill``. Not here yet: the JAX package's shared AOT executable
+cache (``ReplicaSpec.aot_cache_dir`` raises) and its report tools
+(``tools/fleet_report.py`` and the rest, ROADMAP Queue 1 item 3).
 """
 from .autoscale import Autoscaler
 from .pool import LocalReplica, ProcessReplica, ReplicaPool, ReplicaSpec

@@ -26,8 +26,9 @@ has two hooks, both active between ``static_.enable_static()`` and
   cannot run on ``meta``), and with the mode below switched off, so
   that the torch calls inside it record nothing;
 - any other torch call on a Variable (a ``TorchFunctionMode``) records
-  one Operator holding that call, such as the bias's ``reshape`` and
-  ``add`` after a convolution (``ops/conv.py:conv2d``). A call that
+  one Operator holding that call, such as ``x * 2.0``; such an op has
+  no attributes a loader could read, so an inference bundle
+  (``framework.io.save_inference_model``) refuses it. A call that
   returns no tensor (``x.shape``, ``x.dim()``) records nothing; an
   in-place call on a Variable raises.
 

@@ -4,7 +4,9 @@ graph, checkpoints and guards around the graphed step (an in-place
 load replays the same graph; an async save's snapshot is complete when
 the call returns; a guarded skip keeps one graph), and the static
 Executor (graphed = op by op, ``run_steps`` = sequential runs, the LN
-and CE kernels through a recorded program, a repeatable LeNet step).
+and CE kernels through a recorded program, a repeatable LeNet step),
+the inference Predictor (graphed = op by op, fp32 and int8) and the
+serve bench's legs (one paged launch a decode step).
 
 Every test here needs a Hopper card and skips without one (the
 decision is made inside the ``hopper`` fixture). The file imports
@@ -1014,3 +1016,39 @@ def test_static_lenet_step_is_repeatable(hopper):
             first = got
         assert got[0] == first[0]
         assert all(torch.equal(got[1][n], first[1][n]) for n in got[1])
+
+
+def test_predictor_graph_is_op_by_op_bitwise(hopper, tmp_path):
+    """bench_int8_predictor's bundles at B = 8: each Predictor's warm
+    call, capture and replays equal its op-by-op run bitwise, a batch of
+    5 pads to the bucket of 8 (one signature, one capture)."""
+    import chip_smoke
+
+    prefix, *_ = chip_smoke.int8_bundles(str(tmp_path), B=8)
+    x = np.random.RandomState(0).randn(8, 1, 28, 28).astype("float32")
+    for p in (prefix, prefix + "_int8"):
+        pred, first = chip_smoke.int8_predict(p, x)
+        _, want = chip_smoke.int8_predict(p, x, use_cuda_graph=False)
+        outs = [first] + [pred.run({"x": x})[0] for _ in range(3)]
+        assert all(np.array_equal(o, want) for o in outs)
+        five = pred.run({"x": x[:5]})[0]
+        assert np.array_equal(five, chip_smoke.int8_predict(
+            p, x[:5], use_cuda_graph=False)[1])
+        assert pred.captures == 1 and pred.cache_stats()["size"] == 1
+
+
+def test_serve_bench_leg_launches_the_kernel_each_decode_step(hopper):
+    """bench_serve's legs at bench's TinyLM: one paged launch for each
+    decode step of each engine, every request finished."""
+    import chip_smoke
+
+    sb = chip_smoke.serve_bench_tool()
+    detail = {}
+    kernels.reset_launches()
+    out = sb.bench_serve_leg(detail=detail)
+    torch.cuda.synchronize()
+    steps = detail["decode_steps"]
+    assert kernels.launches()["paged_decode_attention"] == \
+        steps["engine"] + steps["export"] + sum(steps["fleet"])
+    assert out["finished"] == 48 and detail["fleet"]["finished"] == 24
+    assert out["slo_violations"] == [] and out["export_gauge_ok"]

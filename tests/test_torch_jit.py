@@ -206,6 +206,24 @@ out = exe.run_steps(main, feeds=[{"x": np.ones((2, 1, 28, 28), np.float32),
                                   "y": np.zeros(2, np.int64)}] * 2,
                     fetch_list=[loss])
 assert np.isfinite(out[0]).all() and exe.last_diagnostics.errors() == []
+import importlib.util
+import os
+import tempfile
+from paddle_tpu_torch import inference, quant
+from paddle_tpu_torch.framework import io
+from paddle_tpu_torch.quant import passes
+with tempfile.TemporaryDirectory() as d:
+    io.save_inference_model(os.path.join(d, "m"), ["x"], [loss],
+                            program=main)
+    quant.quantize_inference_model(os.path.join(d, "m"))
+    pred = inference.Predictor(inference.Config(os.path.join(d, "m_int8"),
+                                                device="cpu"))
+spec = importlib.util.spec_from_file_location(
+    "torch_serve_bench", os.path.join(sys.argv[1], "tools",
+                                      "torch_serve_bench.py"))
+sb = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(sb)
+assert len(sb.make_trace(4, 10.0)) == 4
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad

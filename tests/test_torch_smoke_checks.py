@@ -22,11 +22,14 @@ check and the stem BatchNorm check, run on the CPU at a small width,
 pass an honest model and fail the two faults
 ``tools/torch_planted_faults.py`` plants on the card (conv weights read
 transposed, a BatchNorm momentum taken as 1 - m) and a conv padded
-unevenly (the output's shape kept, its windows shifted).
+unevenly (the output's shape kept, its windows shifted). And the int8
+phase's: an int8 bundle with one weight's scales doubled fails both the
+bundle check and ``INT8_PROB_TOL``.
 """
 import pathlib
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -344,3 +347,27 @@ def test_resnet_checks_reject_planted_faults(monkeypatch, fault):
     else:
         with pytest.raises(cs.CheckFailed, match="stem BatchNorm"):
             cs.stem_bn_check(m, init, batch[0])
+
+
+def test_int8_checks_reject_a_scale_off_by_two(tmp_path):
+    """Phase 20's int8 checks on the CPU, at bench's B = 256: the honest
+    bundle passes ``int8_bundle_check`` and its ``max_prob_diff`` stays
+    under ``INT8_PROB_TOL``; each weight's scales doubled in turn fail
+    both."""
+    prefix, _, _, _, quantized = cs.int8_bundles(str(tmp_path), "cpu")
+    cs.int8_bundle_check(prefix, quantized)
+    x = np.random.RandomState(0).randn(cs.INT8_BATCH, 1, 28, 28).astype(
+        "float32")
+    _, o32 = cs.int8_predict(prefix, x, "cpu")
+    _, o8 = cs.int8_predict(prefix + "_int8", x, "cpu")
+    assert cs.max_prob_diff(o32, o8) < cs.INT8_PROB_TOL
+    honest = dict(np.load(prefix + "_int8.pdiparams.npz"))
+    assert len(quantized) == 4
+    for name in quantized:
+        planted = dict(honest)
+        planted["s!" + name] = planted["s!" + name] * 2
+        np.savez(prefix + "_int8.pdiparams", **planted)
+        with pytest.raises(cs.CheckFailed, match=name):
+            cs.int8_bundle_check(prefix, quantized)
+        _, bad = cs.int8_predict(prefix + "_int8", x, "cpu")
+        assert cs.max_prob_diff(o32, bad) > cs.INT8_PROB_TOL, name

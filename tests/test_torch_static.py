@@ -136,6 +136,11 @@ def test_lenet_records_the_jax_program():
     assert [op.type for op in tops[-10:]] == ["optimize_momentum"] * 10
     assert [(op.input_names, op.output_names) for op in tops] == \
         [(op.input_names, op.output_names) for op in jops]
+    # the forward ops' attributes, as an inference bundle saves them:
+    # the bias's reshape carries its shape, conv2d its data_format
+    assert [op.attrs for op in tops[:17]] == [op.attrs for op in jops[:17]]
+    assert tops[1].attrs == {"shape": (1, -1, 1, 1)}
+    assert tops[0].attrs["data_format"] == "NCHW"
     jv, tv = j.main.global_block.vars, t.main.global_block.vars
     assert list(tv) == list(jv)
     for n in jv:
