@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving path, its training steps (GPT, BERT,
 ResNet-50), its serving fleet, the step as one CUDA graph, its decoding,
-its checkpointed and guarded training, its static graph, the serve bench
-and the int8 Predictor once on one NVIDIA H100.
+its checkpointed and guarded training, its static graph, the serve bench,
+the int8 Predictor and float16 mixed precision with recompute once on
+one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -243,11 +244,35 @@ any failed check:
              port's kernels launched; the busy share of a profiled
              window of calls.
 
+21. amp    — float16 mixed precision and recompute (``amp_phase``):
+             every kernel's float16 variant against its plain version
+             (flash's backward also with dO at 2^13 x unit scale, where
+             the plain float32 dS passes float16's range: dQ/dK/dV
+             finite wherever the plain ones are), and a routed float16
+             LayerNorm launching its kernel; (a) bench_gpt (float32
+             parameters) under ``auto_cast(dtype="float16")`` with
+             ``DynamicLossScaler()`` in ``TrainStep``, 4 graphed steps =
+             4 op-by-op steps bitwise (and the scaler's state), launches
+             12/12/12 float16 flash, 25/25 float32 LayerNorm and 1/1
+             float32 cross-entropy a step, the plain versions' losses
+             within ``F16_TRAIN_LOSS_TOL``; (b) the same at O2 float16
+             (``amp.decorate``, multi_precision AdamW), every kernel in
+             float16; (c) bench_bert under O1 float16, LayerNorm
+             26/26 a step in float32; (d) bench_gpt with
+             ``use_recompute=True``: bitwise the run without, the
+             blocks' forward launched twice, peak memory of both; (e)
+             static AMP (``static_decorator.decorate(dtype="float16")``)
+             on phase 18's LeNet and LN/CE programs, graphed = op by op
+             bitwise, ``@amp@scale`` by the reference's rule; then the
+             float16 kernels timed at bench_gpt's shapes (the JSON
+             line's ``[float16]`` rows).
+
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or away from the repo, it exits non-zero and prints no
 result.
 """
+import contextlib
 import itertools
 import json
 import os
@@ -278,6 +303,10 @@ LOSS_NEAR_LN_V = 0.5
 # in another order; in bfloat16 also one rounding step of the output
 FLASH_F32_TOL = 1e-5
 FLASH_BF16_STEP = 2 ** -7      # a bfloat16 keeps 8 significant bits
+FLASH_F16_STEP = 2 ** -10      # a float16 keeps 11 significant bits
+# float16 kernels against their plain versions (LayerNorm's y and dx, the
+# cross-entropy's dlogits, the paged decode): two float16 steps
+FP16_TOL = 2 ** -9
 # losses of the bf16 kernel run vs its plain-version run, absolute on each
 # of the 4 steps. Seen on an H100 80GB HBM3 (700 W): bench_gpt 6.1e-5,
 # 4.0e-5, 7.9e-4, 2.8e-4 (bfloat16 roundings that flip between the two
@@ -1940,30 +1969,34 @@ def flash_kernel_phase():
 # -- phase 11: flash kernels timed at the path's shape -----------------------
 
 
-def flash_timing_phase(gpu):
+def flash_timing_phase(gpu, dtype=None):
     """Kernel, plain version and library call for each flash kernel at
-    the bench_gpt shape (B = 16, H = 12, L = 1024, D = 64, bfloat16,
-    causal), beside the least time the card could take: the bytes each
-    must move (every input read once, every output written once) over
-    3.35 TB/s against the operations the causal half needs over the
-    bfloat16 tensor-core rate (989 TFLOP/s)."""
+    the bench_gpt shape (B = 16, H = 12, L = 1024, D = 64, causal, in
+    ``dtype``: bfloat16 unless given), beside the least time the card
+    could take: the bytes each must move (every input read once, every
+    output written once) over 3.35 TB/s against the operations the
+    causal half needs over the tensor-core rate (989 TFLOP/s in bfloat16
+    and in float16). In bfloat16 also the forward at bench_bert's eval
+    shape."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
+    dtype = dtype or torch.bfloat16
+    dname = str(dtype).split(".")[-1]
     B, H, L, D = 16, 12, 1024, 64
     BH, scale = B * H, 1.0 / D ** 0.5
     g = torch.Generator(device="cuda").manual_seed(19)
     q, k, v, do = (torch.randn(B, H, L, D, generator=g, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(dtype) for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
     delta = fa.flash_delta(o, do)
     args = (q, k, v, do, lse, delta, True, scale)
     ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
     ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
     pairs = BH * L * (L + 1) // 2        # (query, key) pairs under the mask
-    t = BH * L * D * 2                   # one bfloat16 (BH, L, D) tensor
+    t = BH * L * D * 2                   # one 16-bit (BH, L, D) tensor
     row = BH * L * 4                     # one float32 (BH, L) row vector
     rows = {
         # name: (kernel, plain, library, bytes, operations)
@@ -1995,7 +2028,7 @@ def flash_timing_phase(gpu):
         t_ops = flops / BF16_FLOP_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"timing {name} B*H={BH} L={L} D={D} bfloat16 causal: kernel "
+        log(f"timing {name} B*H={BH} L={L} D={D} {dname} causal: kernel "
             f"{ms:.4f} ms (again {ms2:.4f}), plain {plain_ms:.4f} ms, "
             f"library {lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
             f"{nbytes / 1e6:.1f} MB at 3.35 TB/s, {flops / 1e9:.1f} GFLOP "
@@ -2015,10 +2048,12 @@ def flash_timing_phase(gpu):
     ms, lib_ms, ms2 = cuda_ms(bwd, 10), cuda_ms(bwd_lib, 10), cuda_ms(bwd, 10)
     bound = max((7 * t + 2 * row) / HBM_BYTES_PER_S,
                 10 * D * pairs / BF16_FLOP_PER_S) * 1e3
-    log(f"timing flash backward (dQ + dK/dV) B*H={BH} L={L} D={D} bfloat16 "
+    log(f"timing flash backward (dQ + dK/dV) B*H={BH} L={L} D={D} {dname} "
         f"causal: kernels {ms:.4f} ms (again {ms2:.4f}), library backward "
         f"{lib_ms:.4f} ms, bound {bound:.4f} ms = "
         f"{bound / min(ms, ms2) * 100:.2f}% of roofline [{gpu}]")
+    if dtype != torch.bfloat16:
+        return out
     # the forward at bench_bert's eval shape (no mask, not causal): the
     # 12 launches of the train-bert phase's eval forward, B*H = 64 * 12,
     # L = BERT_SEQ; every (query, key) pair counts
@@ -3975,6 +4010,668 @@ def int8_phase(gpu):
     return res
 
 
+# -- phase 21: mixed precision (float16 O1/O2, static AMP) and recompute ----
+
+
+def fp16_close(out, ref, grad):
+    """``flash_close`` in float16: rtol one float16 step
+    (``FLASH_F16_STEP``), atol ``FLASH_F32_TOL`` times 1 (O, lse) or the
+    largest ``|ref|`` (a gradient); compared only where ``ref`` is
+    finite, and there ``out`` must be finite too. Returns ``(ok, max abs
+    err)``."""
+    import torch
+
+    fin = torch.isfinite(ref.float())
+    o, r = out.float()[fin], ref.float()[fin]
+    if o.numel() == 0:
+        return True, 0.0
+    err = (o - r).abs()
+    m = r.abs().max() if grad else 1.0
+    ok = bool(torch.isfinite(o).all()
+              and (err <= FLASH_F16_STEP * r.abs() + FLASH_F32_TOL * m).all())
+    return ok, err.max().item()
+
+
+def fp16_kernel_phase():
+    """Each kernel's float16 variant against its plain version on the
+    card: LayerNorm forward and backward at bench_gpt's (16384, 768) and
+    (8, 128); cross-entropy at (16384, 50304) and a ragged V = 1000; the
+    flash kernels at bench_gpt's shape (B*H 192, L 1024, D 64, causal),
+    D = 128 and 256, a ragged L, and the backward again with dO at 2^13
+    times unit scale, where the plain version's float32 dS passes
+    float16's 65504 (checked): dQ, dK and dV must be finite wherever the
+    plain version's are; the paged decode over float16 pools; and a
+    float16 LayerNorm of a routed shape through ``ops.norm_ops``, which
+    must launch the kernel once. Returns the largest abs error of each
+    kernel."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops import norm_ops
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import layernorm as ln
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels import softmax_ce as ce
+
+    errs = dict.fromkeys(kernels.KERNELS, 0.0)
+    h = torch.float16
+
+    def note(kernel, label, what, res):
+        ok, err = res
+        errs[kernel] = max(errs[kernel], err)
+        check(ok, f"fp16 {kernel} {label}: {what} disagrees with the plain "
+              f"version (max abs err {err:.3e})")
+        return err
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for N, D in ((16384, 768), (8, 128), (8191, 768)):
+        label = f"({N}, {D}) float16"
+        x = (torch.randn(N, D, generator=g, device="cuda") * 2 + 0.5).to(h)
+        dy = torch.randn(N, D, generator=g, device="cuda").to(h)
+        gamma, beta = (torch.randn(D, generator=g, device="cuda").to(h)
+                       for _ in range(2))
+        y, mean, rstd = ln.layer_norm_fwd(x, gamma, beta, 1e-5)
+        dx, dg, db = ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
+        torch.cuda.synchronize()
+        yr, mr, rr = ln.layer_norm_fwd_reference(x, gamma, beta, 1e-5)
+        dxr, dgr, dbr = ln.layer_norm_bwd_reference(x, gamma, mean, rstd, dy)
+        xhat = (x.float() - mean) * rstd
+        e = [note("layer_norm_fwd", label, "y", within(y, yr, FP16_TOL)),
+             note("layer_norm_fwd", label, "mean",
+                  within(mean, mr, TRAIN_F32_TOL)),
+             note("layer_norm_fwd", label, "rstd",
+                  within(rstd, rr, TRAIN_F32_TOL)),
+             note("layer_norm_bwd", label, "dx", within(dx, dxr, FP16_TOL)),
+             note("layer_norm_bwd", label, "dgamma", within(
+                 dg, dgr, TRAIN_F32_TOL, (dy.float() * xhat).abs().sum(0))),
+             note("layer_norm_bwd", label, "dbeta", within(
+                 db, dbr, TRAIN_F32_TOL, dy.float().abs().sum(0)))]
+        log(f"fp16-kernel layer_norm {label}: max abs err y/mean/rstd/dx/"
+            f"dgamma/dbeta " + " ".join(f"{v:.2e}" for v in e)
+            + f" (tol {FP16_TOL})")
+    for name, N, V in (("path", 16384, 50304), ("tail", 16, 1000)):
+        label = f"{name} ({N}, {V}) float16"
+        x = (torch.randn(N, V, generator=g, device="cuda") * 3).to(h)
+        lab = torch.randint(0, V, (N,), generator=g, device="cuda")
+        lab[::5] = -100
+        gl = torch.rand(N, generator=g, device="cuda")
+        loss, lse = ce.softmax_ce_fwd(x, lab)
+        dx = ce.softmax_ce_bwd(x, lab, lse, gl)
+        torch.cuda.synchronize()
+        lr, lser = ce.softmax_ce_fwd_reference(x, lab)
+        dxr = ce.softmax_ce_bwd_reference(x, lab, lse, gl)
+        e = [note("softmax_ce_fwd", label, "loss",
+                  within(loss, lr, TRAIN_F32_TOL)),
+             note("softmax_ce_fwd", label, "lse",
+                  within(lse, lser, TRAIN_F32_TOL)),
+             note("softmax_ce_bwd", label, "dlogits",
+                  within(dx, dxr, FP16_TOL, ce_bwd_scale(x, lab, lse, gl)))]
+        log(f"fp16-kernel softmax_ce {label}: max abs err loss/lse/dlogits "
+            + " ".join(f"{v:.2e}" for v in e) + f" (tol {FP16_TOL})")
+        del x, dx, dxr
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    for label, B, H, Lq, Lk, D, causal, do_mul in (
+            ("path", 16, 12, 1024, 1024, 64, True, 1.0),
+            ("path-dO*2^13", 16, 12, 1024, 1024, 64, True, 2.0 ** 13),
+            ("d128", 2, 4, 512, 512, 128, True, 1.0),
+            ("d128-dO*2^13", 2, 4, 512, 512, 128, True, 2.0 ** 13),
+            ("d256", 1, 2, 256, 384, 256, True, 1.0),
+            ("ragged", 1, 2, 200, 200, 64, True, 1.0)):
+        tag = (f"{label} B*H={B * H} Lq={Lq} Lk={Lk} D={D} "
+               f"{'causal' if causal else 'full'} float16")
+        q, k, v, do = (torch.randn(B, H, L, D, generator=g, device="cuda")
+                       for L in (Lq, Lk, Lk, Lq))
+        q, k, v = q.to(h), k.to(h), v.to(h)
+        # |dO| <= 7 * 2^13 = 57344 < 65504
+        do = (do.clamp(-7, 7) * do_mul).to(h)
+        scale = 1.0 / D ** 0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+        delta = fa.flash_delta(o, do)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        dq = fa.flash_attention_bwd_dq(*args)
+        dk, dv = fa.flash_attention_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+        rdq = fa.flash_attention_bwd_dq_reference(*args)
+        rdk, rdv = fa.flash_attention_bwd_dkv_reference(*args)
+        if do_mul > 1:
+            _, ds = fa._p_ds(*args)
+            big = ds.abs().max().item()
+            check(big > 65504, f"fp16 flash {tag}: the plain dS peaks at "
+                  f"{big:.0f}, inside float16's range: the case tests "
+                  f"nothing")
+            del ds
+        e = []
+        for kernel, what, out, ref, grad in (
+                (names[0], "O", o, ro, False),
+                (names[0], "lse", lse, rlse, False),
+                (names[1], "dQ", dq, rdq, True),
+                (names[2], "dK", dk, rdk, True),
+                (names[2], "dV", dv, rdv, True)):
+            e.append(note(kernel, tag, what, fp16_close(out, ref, grad)))
+        fin = [bool(torch.isfinite(t.float()).all()) for t in (rdq, rdk, rdv)]
+        log(f"fp16-kernel flash {tag}: max abs err O/lse/dQ/dK/dV "
+            + " ".join(f"{x:.2e}" for x in e)
+            + f"; plain dQ/dK/dV all finite {fin}"
+            + (f"; plain |dS| peaks at {big:.0f}" if do_mul > 1 else ""))
+        del q, k, v, do, o, lse, dq, dk, dv, ro, rdq, rdk, rdv
+    lengths = [0, 1, 16, 17, 700, 2048]
+    q, kp, vp, table, ln_t = paged_inputs(lengths, 12, 64, 16, 1024, h, 5)
+    out = pa.paged_decode_attention(q, kp, vp, table, ln_t)
+    torch.cuda.synchronize()
+    ref = pa.paged_decode_attention_reference(q, kp, vp, table, ln_t)
+    # float32 q and output, float32 arithmetic over the same float16 pool
+    e = note("paged_decode_attention", "float16 pools", "out",
+             within(out, ref, F32_TOL))
+    log(f"fp16-kernel paged_decode_attention lengths {lengths} float16 "
+        f"pools: max abs err {e:.2e} (tol {F32_TOL})")
+    # timed at the engine's first decode step (phase 5's shape) over
+    # float16 pools: no main path runs them, so the row is logged only
+    rng = np.random.RandomState(0)
+    lengths = [int(n) + 1 for n in rng.randint(128, 2049, 16)]
+    args = paged_inputs(lengths, 12, 64, 16, POOL["num_pages"], h, 99)
+    ms = cuda_ms(lambda: pa.paged_decode_attention(*args), 50)
+    plain_ms = cuda_ms(lambda: pa.paged_decode_attention_reference(*args),
+                       10)
+    # SDPA takes one type: q in the pools' float16
+    lib_ms = cuda_ms(lambda: gather_sdpa(args[0].half(), *args[1:]), 10)
+    bound, bound_by, nbytes = paged_bound_ms(lengths, 16, 12, 64, 2,
+                                             args[3].shape[1])
+    log(f"timing paged_decode_attention B=16 H=12 D=64 float16 pools: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (gather + "
+        f"SDPA) {lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB at 3.35 TB/s) = {bound / ms * 100:.1f}% "
+        f"of roofline")
+    x = torch.randn(16, 1024, 768, generator=g, device="cuda").to(h)
+    w = torch.ones(768, device="cuda", dtype=h)
+    b = torch.zeros(768, device="cuda", dtype=h)
+    kernels.reset_launches()
+    y = norm_ops.layer_norm(x, None, w, b)
+    n = kernels.launches()["layer_norm_fwd"]
+    check(n == 1 and y.dtype == h, f"fp16: a routed float16 LayerNorm made "
+          f"{n} kernel launches (want 1) and gave {y.dtype}")
+    log("fp16-kernel: a float16 LayerNorm of (16, 1024, 768) through "
+        "ops.norm_ops launched layer_norm_fwd once")
+    torch.cuda.empty_cache()
+    return errs
+
+
+
+# phase 21's runs: ``AMP_STEPS`` steps each; the loss scaler is
+# ``DynamicLossScaler()`` at its defaults (2^15, x2 after 1000 clean
+# steps, x0.5 after each overflow), as ``paddle.amp.GradScaler``'s
+AMP_STEPS = 4
+# losses of a float16 kernel run vs its plain-version run, absolute on
+# each step. Seen on an H100 80GB HBM3 (700 W): O1 bench_gpt <= 4.1e-5,
+# O2 <= 2.0e-4, O1 bench_bert <= 2.1e-3. tools/torch_planted_faults.py
+# --amp plants float16 flash dV = 0 under O1 (0, 7.2e-2, 0.35, 0.53)
+# and float16 LayerNorm dx = 0 at O2 (5.7e-6, 0.12, 0.33, 0.26): both
+# fail
+F16_TRAIN_LOSS_TOL = 1e-2
+# the C++ type in a kernel's name for each tensor type
+CTYPES = {"torch.float32": "float", "torch.bfloat16": "__nv_bfloat16",
+          "torch.float16": "__half"}
+
+
+class Tally:
+    """Stands in for a kernel wrapper in its module and counts its calls
+    on CUDA tensors (a static program's shape inference calls some on
+    ``meta`` tensors) by the type of their first tensor, the type of the
+    kernel that launches; ``launches`` and every other attribute are the
+    wrapper's. Python runs only op by op (a captured step replays without
+    it), so the tally is taken over op-by-op steps."""
+
+    def __init__(self, fn, name, counts):
+        self.__dict__.update(fn=fn, name=name, counts=counts)
+
+    def __call__(self, *args, **kwargs):
+        if args[0].is_cuda:
+            self.counts[(self.name, str(args[0].dtype))] += 1
+        return self.fn(*args, **kwargs)
+
+    def __getattr__(self, attr):
+        return getattr(self.fn, attr)
+
+    def __setattr__(self, attr, value):
+        setattr(self.fn, attr, value)
+
+
+@contextlib.contextmanager
+def dtype_tally():
+    """The kernel wrappers' calls by ``(wrapper, dtype)`` while inside."""
+    import collections
+
+    from paddle_tpu_torch.ops import kernels
+
+    counts = collections.Counter()
+    saved = {name: getattr(mod, name)
+             for name, mod in kernels.KERNELS.items()}
+    try:
+        for name, mod in kernels.KERNELS.items():
+            setattr(mod, name, Tally(saved[name], name, counts))
+        yield counts
+    finally:
+        for name, mod in kernels.KERNELS.items():
+            setattr(mod, name, saved[name])
+
+
+def o1_gpt_loss(model, ids, labels):
+    """bench_gpt's loss under ``auto_cast(dtype="float16")`` (O1)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.nlp import gpt
+
+    with amp.auto_cast(dtype="float16"):
+        return gpt.gpt_loss(model, ids, labels)
+
+
+def o1_bert_loss(model, *batch):
+    """bench_bert's loss under ``auto_cast(dtype="float16")`` (O1)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.nlp import bert
+
+    with amp.auto_cast(dtype="float16"):
+        return bert.bert_pretrain_loss(model, *batch)
+
+
+def amp_model(config, level):
+    """``TRAIN_CONFIGS[config]``'s model from seed 0, in float32 (O1) or
+    through ``amp.decorate(level="O2", dtype="float16")`` (O2), and its
+    AdamW (multi_precision, as ``train_optimizer``)."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.nlp import bert, gpt
+
+    c = TRAIN_CONFIGS[config]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    if c["model"] == "bert_base":
+        model = bert.BertForPretraining(bert.bert_base(dropout=c["dropout"]),
+                                        generator=g)
+    else:
+        model = gpt.GPT(gpt.gpt_small(dropout=c["dropout"]), generator=g)
+    opt = train_optimizer(model, config)
+    if level == "O2":
+        model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    return model, opt
+
+
+def amp_run(config, level, loss_fn, batch, mode, steps=AMP_STEPS):
+    """``steps`` steps of ``config`` at ``level`` under a
+    ``DynamicLossScaler()`` from seed 0's weights, the dropout generator
+    reseeded: ``mode`` "graphed" (``TrainStep``), "eager" (its
+    ``_eager_step``, with the kernels' calls tallied by type) or "plain"
+    (op by op through the plain versions). Returns ``(losses, launches,
+    tally, snapshot, scaler state, found flags, step walls ms)``."""
+    import collections
+
+    import torch
+
+    from paddle_tpu_torch import amp, core
+    from paddle_tpu_torch.framework import TrainStep
+    from paddle_tpu_torch.ops import kernels
+
+    model, opt = amp_model(config, level)
+    core.seed(1)
+    step = TrainStep(model, opt, loss_fn, scaler=amp.DynamicLossScaler())
+    fn = step if mode == "graphed" else step._eager_step
+    ctx = (dtype_tally() if mode == "eager" else contextlib.nullcontext(
+        collections.Counter()))
+    losses, found, walls = [], [], []
+    with ctx as tally, (kernels.plain_versions() if mode == "plain"
+                        else contextlib.nullcontext()):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(fn(*batch)))
+            found.append(bool(step.last_found_inf))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = kernels.launches()
+    state = snapshot(model, opt)
+    scaler = {k: v.item() for k, v in step._scaler_state.items()}
+    del step, model, opt
+    torch.cuda.empty_cache()
+    return losses, launches, tally, state, scaler, found, walls
+
+
+def scaler_rule(found, init=2.0 ** 15, decr_ratio=0.5, decr_every=1):
+    """A dynamic loss scaler's state after the flags ``found``, on the
+    host: the reference's rule (``paddle_tpu/amp/grad_scaler.py``), x2
+    after 1000 clean steps; by default ``DynamicLossScaler()``'s, and
+    with ``decr_ratio=0.8, decr_every=2`` static AMP's defaults. The
+    scale is a float32 product, as on the device."""
+    scale, good, bad = np.float32(init), 0, 0
+    for f in found:
+        good, bad = (0, bad + 1) if f else (good + 1, 0)
+        if bad >= decr_every:
+            scale, bad = max(scale * np.float32(decr_ratio),
+                             np.float32(1.0)), 0
+        elif good >= 1000:
+            scale, good = scale * np.float32(2.0), 0
+    return {"scale": float(scale), "good": good, "bad": bad}
+
+
+def amp_compare(label, config, level, loss_fn, want_types, gpu):
+    """Phase 21(a)-(c): ``config`` at ``level`` in float16 under the
+    dynamic loss scaler, ``AMP_STEPS`` graphed steps, the same steps op by
+    op, then through the plain versions. Gates: finite losses on the
+    steps (a step the scaler skips still computed its loss; not every
+    step may be skipped), graphed = op by op bitwise (losses,
+    parameters, masters, moments, the scaler's state and its flags), the
+    scaler's state equal to the reference's rule over the flags, the
+    launch counts ``train_launches`` a step, every kernel call of the op
+    by op run in the type ``want_types`` names for it, and the plain run's
+    losses within ``F16_TRAIN_LOSS_TOL`` with the same steps skipped.
+    ``loss_fn`` None: the config's own loss (O2 runs without
+    ``auto_cast``). Returns the graphed run's launches and median replay
+    ms."""
+    import math
+
+    from paddle_tpu_torch.ops import kernels
+
+    model, _ = amp_model(config, level)
+    plain_loss, batch, first = train_batch(model, config)
+    loss_fn = loss_fn or plain_loss
+    cfg = model.cfg
+    B, L = batch[0].shape
+    del model
+    runs = {m: amp_run(config, level, loss_fn, batch, m)
+            for m in ("graphed", "eager", "plain")}
+    (g_loss, g_launch, _, g_state, g_scaler, g_found, g_walls) = \
+        runs["graphed"]
+    (e_loss, _, tally, e_state, e_scaler, e_found, e_walls) = runs["eager"]
+    p_loss, p_launch, _, _, p_scaler, p_found, _ = runs["plain"]
+    steady = sorted(g_walls[2:])[len(g_walls[2:]) // 2]
+    log(f"amp {label}: {config} {level} float16 under DynamicLossScaler(), "
+        f"batch {B} x {L}: graphed losses {g_loss}, flags {g_found}, "
+        f"scaler {g_scaler}; step wall ms "
+        + " ".join(f"{w:.1f}" for w in g_walls)
+        + f" (median of the replays {steady:.2f} ms = "
+        f"{B * L / steady * 1e3:.0f} tokens/s); op by op ms "
+        + " ".join(f"{w:.1f}" for w in e_walls)
+        + f"; launches {g_launch}; kernel calls by type op by op "
+        f"{dict(tally)} [{gpu}]")
+    check(all(math.isfinite(x) for x in g_loss) and not all(g_found),
+          f"amp {label}: non-finite losses {g_loss} or every step skipped "
+          f"({g_found})")
+    check(abs(g_loss[0] - first) < LOSS_NEAR_LN_V,
+          f"amp {label}: first loss {g_loss[0]} not within "
+          f"{LOSS_NEAR_LN_V} of {first:.4f}")
+    check(g_loss == e_loss,
+          f"amp {label}: graphed losses {g_loss} != op by op {e_loss}")
+    bad = same_bits(g_state, e_state)
+    check(not bad and g_scaler == e_scaler and g_found == e_found,
+          f"amp {label}: graphed and op by op differ in {bad[:4]} or the "
+          f"scaler ({g_scaler} vs {e_scaler}, flags {g_found} vs "
+          f"{e_found})")
+    check(g_scaler == scaler_rule(g_found), f"amp {label}: scaler state "
+          f"{g_scaler}, the rule gives {scaler_rule(g_found)}")
+    want = train_launches(config, cfg, AMP_STEPS)
+    check(g_launch == want, f"amp {label}: launches {g_launch}, want {want}")
+    typed = {}
+    for (name, dtype), n in tally.items():
+        typed.setdefault(name, set()).add(dtype)
+    for name, n in want.items():
+        if n:
+            check(typed.get(name) == {want_types[name.split("_")[0]]},
+                  f"amp {label}: {name} ran in {typed.get(name)}, want "
+                  f"{want_types[name.split('_')[0]]}")
+    check(set(p_launch.values()) == {0},
+          f"amp {label}: the plain run launched {p_launch}")
+    diffs = [abs(a - b) for a, b in zip(g_loss, p_loss)]
+    log(f"amp {label}: plain-version losses {p_loss}, flags {p_found}; "
+        f"|diff| " + " ".join(f"{d:.2e}" for d in diffs)
+        + f" (tol {F16_TRAIN_LOSS_TOL}); graphed = op by op bitwise "
+        f"({len(g_state[0])} parameters, every optimizer state value, the "
+        f"scaler); scaler = the reference's rule; kernel types "
+        f"{ {k: sorted(v) for k, v in typed.items()} }")
+    check(g_found == p_found and all(
+        d <= F16_TRAIN_LOSS_TOL for d, f in zip(diffs, g_found) if not f),
+          f"amp {label}: the kernel run's losses differ from the plain "
+          f"versions' (or other steps were skipped)")
+    del runs
+    return g_launch, steady
+
+
+def recompute_check(gpu):
+    """Phase 21(d): bench_gpt's recipe (bfloat16 O2, dropout 0) with
+    ``use_recompute=True``, ``AMP_STEPS`` graphed steps, against the same
+    steps without recompute: losses, parameters and optimizer state
+    bitwise equal; launches: the blocks' forward twice (LayerNorm
+    forward 2 x 12 + 1 + 2 x 12 a step, flash forward 2 x 12), the rest
+    as without; the peak device memory of each run logged."""
+    import torch
+
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.framework import TrainStep
+    from paddle_tpu_torch.ops import kernels
+
+    config = "bench_gpt"
+    out = {}
+    for rc in (False, True):
+        model = train_model(config)
+        if rc:
+            model.set_recompute(True)
+        loss_fn, batch, _ = train_batch(model, config)
+        core.seed(1)
+        step = TrainStep(model, train_optimizer(model, config), loss_fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        losses, walls = [], []
+        for _ in range(AMP_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(*batch)))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = kernels.launches()
+        peak = torch.cuda.max_memory_allocated()
+        steady = sorted(walls[2:])[len(walls[2:]) // 2]
+        out[rc] = (losses, snapshot(model, step.optimizer), launches, peak,
+                   steady)
+        log(f"recompute {rc}: bench_gpt losses {losses}; step wall ms "
+            + " ".join(f"{w:.1f}" for w in walls) + f" (median of the "
+            f"replays {steady:.2f} ms); peak memory {peak / 2 ** 30:.2f} "
+            f"GiB; launches {launches} [{gpu}]")
+        cfg = model.cfg
+        del step, model
+        torch.cuda.empty_cache()
+    base = train_launches(config, cfg, AMP_STEPS)
+    want = dict(base)
+    want["layer_norm_fwd"] += 2 * cfg.layers * AMP_STEPS
+    want["flash_attention_fwd"] += cfg.layers * AMP_STEPS
+    check(out[False][2] == base, f"recompute: without, launches "
+          f"{out[False][2]}, want {base}")
+    check(out[True][2] == want, f"recompute: launches {out[True][2]}, "
+          f"want {want}")
+    check(out[True][0] == out[False][0], f"recompute: losses "
+          f"{out[True][0]} != {out[False][0]} without")
+    bad = same_bits(out[True][1], out[False][1])
+    check(not bad, f"recompute: parameters or state differ in {bad[:4]}")
+    log(f"recompute: {AMP_STEPS} graphed steps = the same steps without "
+        f"recompute bitwise; peak memory {out[True][3] / 2 ** 30:.2f} GiB "
+        f"vs {out[False][3] / 2 ** 30:.2f} GiB without; replay "
+        f"{out[True][4]:.2f} ms vs {out[False][4]:.2f} ms [{gpu}]")
+    return out[True][2], {rc: (v[3], v[4]) for rc, v in out.items()}
+
+
+def static_amp_program(kind):
+    """A static program under ``static_decorator.decorate(dtype=
+    "float16")`` in its own Scope and name generator: ``"lenet"``, phase
+    18(a)'s bench_lenet_exec program (Momentum(0.01, 0.9)), or
+    ``"ln_ce"``, phase 18(b)'s ``STATIC_LN_CE`` program trained by SGD
+    (0.01). Returns ``(main, loss, decorated optimizer, scope, feeds)``."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import nn, optim
+    from paddle_tpu_torch.amp import static_decorator
+    from paddle_tpu_torch.models.vision import LeNet
+    from paddle_tpu_torch.utils import unique_name
+
+    scope = pt.static.Scope()
+    pt.seed(0)
+    with unique_name.guard(), pt.static.scope_guard(scope):
+        pt.enable_static()
+        try:
+            main = pt.static.Program()
+            with pt.program_guard(main, pt.static.Program()):
+                if kind == "lenet":
+                    xv = pt.static.data("x", [LENET_BATCH, 1, 28, 28],
+                                        "float32")
+                    yv = pt.static.data("y", [LENET_BATCH], "int64")
+                    model = LeNet()
+                    loss = F.cross_entropy(model(xv), yv)
+                    opt = optim.Momentum(0.01, 0.9,
+                                         parameters=model.parameters())
+                    x, y = lenet_batch()
+                    feeds = {"x": x, "y": y}
+                else:
+                    c = STATIC_LN_CE
+                    xv = pt.static.data("x", [c["rows"], c["hidden"]],
+                                        "float32")
+                    lab = pt.static.data("label", [c["rows"]], "int64")
+                    layers = (nn.Linear(c["hidden"], c["hidden"]),
+                              nn.LayerNorm(c["hidden"]),
+                              nn.Linear(c["hidden"], c["vocab"]))
+                    h = xv
+                    for m in layers:
+                        h = m(h)
+                    loss = F.cross_entropy(h, lab)
+                    opt = optim.SGD(0.01, parameters=[
+                        p for m in layers for p in m.parameters()])
+                    rng = np.random.RandomState(0)
+                    feeds = {"x": rng.randn(c["rows"], c["hidden"]).astype(
+                                 "float32"),
+                             "label": rng.randint(0, c["vocab"], c["rows"])
+                             .astype("int64")}
+                dec = static_decorator.decorate(opt, dtype="float16")
+                dec.minimize(loss)
+        finally:
+            pt.disable_static()
+    return main, loss, dec, scope, feeds
+
+
+def static_amp_check(gpu):
+    """Phase 21(e): each ``static_amp_program`` for ``AMP_STEPS`` steps
+    through the Executor's CUDA graph and the same steps op by op
+    (``use_cuda_graph=False``) from the same Scope state, LeNet's third
+    batch with an inf in one pixel: losses, found-inf flags and every
+    persistable (parameters, optimizer slots, ``@amp@scale`` and its
+    counters) bitwise equal; the inf step leaves the parameters as they
+    were; ``@amp@scale`` as the reference's rule gives it (2^15, x0.8
+    after every 2 overflows in a row). LN/CE's program launches the
+    LayerNorm and cross-entropy kernels once each a step, in float32
+    (black-listed), by counts and by type."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernels
+
+    for kind in ("lenet", "ln_ce"):
+        main, loss, dec, scope, feeds = static_amp_program(kind)
+        init = scope_state(main, scope)
+        runs = {}
+        for graphed in (True, False):
+            restore_scope(scope, init)
+            exe = pt.static.Executor(use_cuda_graph=graphed)
+            losses, flags, walls = [], [], []
+            ctx = (contextlib.nullcontext() if graphed else dtype_tally())
+            with pt.static.scope_guard(scope), ctx as tally:
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                for i in range(AMP_STEPS):
+                    f = dict(feeds)
+                    if kind == "lenet" and i == 2:
+                        f["x"] = f["x"].copy()
+                        f["x"][0, 0, 0, 0] = np.inf
+                    before = scope_state(main, scope)
+                    t0 = time.perf_counter()
+                    lv, fi = exe.run(main, feed=f,
+                                     fetch_list=[loss, "@amp@found_inf"])
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(float(lv))
+                    flags.append(bool(fi))
+                    if fi:
+                        after = scope_state(main, scope)
+                        moved = [n for n in before if not n.startswith(
+                            "@amp@") and not torch.equal(before[n],
+                                                         after[n])]
+                        check(not moved, f"static-amp {kind}: the inf "
+                              f"step moved {moved[:4]}")
+                launches = kernels.launches()
+            runs[graphed] = (losses, flags, scope_state(main, scope),
+                             launches, tally, walls, exe.captures)
+        (gl, gf, gs, glaunch, _, gw, caps), (el, ef, es, _, tally, ew, _) = \
+            runs[True], runs[False]
+        scale = float(gs["@amp@scale"])
+        rule = scaler_rule(gf, decr_ratio=0.8, decr_every=2)["scale"]
+        log(f"static-amp {kind}: float16 losses {gl}, found-inf {gf}, "
+            f"@amp@scale {scale} (rule {rule}); step wall ms graphed "
+            + " ".join(f"{w:.1f}" for w in gw) + ", op by op "
+            + " ".join(f"{w:.1f}" for w in ew) + f"; {caps} capture(s); "
+            f"launches {glaunch}; kernel calls by type op by op "
+            f"{dict(tally)} [{gpu}]")
+        # the inf step's loss is NaN in both
+        check(np.array_equal(gl, el, equal_nan=True) and gf == ef,
+              f"static-amp {kind}: graphed {gl} {gf} != op by op {el} {ef}")
+        diff = [n for n in gs if not torch.equal(gs[n], es[n])]
+        check(not diff, f"static-amp {kind}: graphed and op by op differ "
+              f"in {diff[:4]}")
+        check(scale == rule, f"static-amp {kind}: @amp@scale {scale}, the "
+              f"rule gives {rule}")
+        check((kind == "lenet") == any(gf), f"static-amp {kind}: found-inf "
+              f"flags {gf}")
+        if kind == "ln_ce":
+            one = {"layer_norm_fwd": AMP_STEPS, "layer_norm_bwd": AMP_STEPS,
+                   "softmax_ce_fwd": AMP_STEPS, "softmax_ce_bwd": AMP_STEPS}
+            check({k: v for k, v in glaunch.items() if v} == one,
+                  f"static-amp ln_ce: launches {glaunch}, want {one}")
+            check(set(tally) == {(k, "torch.float32") for k in one},
+                  f"static-amp ln_ce: kernel calls by type {dict(tally)}")
+        else:
+            check(set(glaunch.values()) == {0}, f"static-amp lenet: "
+                  f"launches {glaunch}")
+        del main, scope
+        torch.cuda.empty_cache()
+
+
+def amp_phase(gpu):
+    """Phase 21: float16 mixed precision and recompute on the card:
+    ``fp16_kernel_phase``; (a) bench_gpt under ``auto_cast(float16)``
+    (O1: float32 parameters, float16 flash, float32 LayerNorm and
+    cross-entropy); (b) bench_gpt at O2 float16 (``amp.decorate``,
+    multi_precision AdamW: every kernel in float16); (c) bench_bert under
+    O1 float16 (BASELINE config 3's fp16 AMP on one chip: LayerNorm in
+    float32, attention and cross-entropy dense); (d) recompute; (e)
+    static AMP; then the float16 kernels timed at bench_gpt's shapes.
+    Returns ``(errs, timings, launches)``: the float16 kernels' largest
+    errors, their timing rows and the launches of the run each row
+    belongs to (flash: O1; LayerNorm and cross-entropy: O2)."""
+    import torch
+
+    t0 = time.perf_counter()
+    errs = fp16_kernel_phase()
+    f32, f16 = "torch.float32", "torch.float16"
+    launch_o1, _ = amp_compare(
+        "O1 gpt", "bench_gpt", "O1", o1_gpt_loss,
+        {"layer": f32, "softmax": f32, "flash": f16}, gpu)
+    launch_o2, _ = amp_compare(
+        "O2 gpt", "bench_gpt", "O2", None,
+        {"layer": f16, "softmax": f16, "flash": f16}, gpu)
+    amp_compare("O1 bert", "bench_bert", "O1", o1_bert_loss,
+                {"layer": f32}, gpu)
+    recompute_check(gpu)
+    static_amp_check(gpu)
+    t = train_timing_phase(gpu, 16384, torch.float16)
+    t.update(flash_timing_phase(gpu, torch.float16))
+    launches = {name: (launch_o1 if name.startswith("flash") else
+                       launch_o2)[name] for name in t}
+    log(f"amp: phase took {time.perf_counter() - t0:.1f} s")
+    return errs, t, launches
+
 def main():
     try:
         import torch
@@ -4093,6 +4790,8 @@ def main():
     static_phase(gpu)
     serve_bench_phase(gpu)
     int8_phase(gpu)
+    torch.cuda.empty_cache()
+    f16_errs, f16_t, f16_launches = amp_phase(gpu)
     check(not any(m.split(".")[0] in ("jax", "paddle_tpu", "ml_dtypes")
                   for m in sys.modules),
           "the JAX side was imported by a phase")
@@ -4113,6 +4812,15 @@ def main():
                                          name).replaces,
                      "launches": ran[name],
                      "max_abs_err": train_errs[name], **tt})
+    # the float16 variants: flash timed and launched under O1, LayerNorm
+    # and cross-entropy under O2 (phase 21)
+    for name, tt in f16_t.items():
+        rows.append({"name": f"{name}[float16]", "route": "cuda",
+                     "source": kernels.KERNELS[name].SOURCE,
+                     "replaces": getattr(kernels.KERNELS[name],
+                                         name).replaces,
+                     "launches": f16_launches[name],
+                     "max_abs_err": f16_errs[name], **tt})
     log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} "
         f"s")
     log(gpu)

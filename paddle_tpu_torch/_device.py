@@ -13,7 +13,8 @@ import torch
 
 __all__ = ["resolve_device", "resolve_dtype", "as_ids"]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 def resolve_device(device=None):
@@ -33,7 +34,7 @@ def resolve_device(device=None):
 
 
 def resolve_dtype(dtype):
-    """``"float32"``/``"bfloat16"`` -> the torch dtype."""
+    """``"float32"``/``"bfloat16"``/``"float16"`` -> the torch dtype."""
     try:
         return _DTYPES[str(dtype)]
     except KeyError:

@@ -13,17 +13,21 @@
 //   dK  = (P o (dO v^T - delta))^T (q * scale),  dV = P^T dO
 //
 // with delta = rowsum(dO o O) computed by the caller from the stored O.
-// q, k, v, O, dO, dQ, dK and dV are all float32 or all bfloat16; every
+// q, k, v, O, dO, dQ, dK and dV are all float32, all bfloat16 or all
+// float16 (the TPU kernel computes in float32 whatever the type and rounds
+// only its stores, flash_attention.py:44-146); every
 // sum is float32, and P and dS hold float32 accuracy (to ~16 bits in
 // the tensor-core kernels below), as on the TPU.
 //
 // Two designs, chosen by a static dispatch on (dtype, D) and never as a
 // fallback:
 //
-//   bfloat16, D = 64 and 128: the forward, dQ and dK/dV on the tensor
+//   bfloat16 and float16, D = 64 and 128: the forward, dQ and dK/dV on
+//   the tensor
 //     cores (flash_fwd_tc_kernel, flash_bwd_dq_tc_kernel,
 //     flash_bwd_dkv_tc_kernel, "Tensor-core kernels" below);
-//   everything else (float32 at every D; bfloat16 at D = 192 and 256):
+//   everything else (float32 at every D; bfloat16 and float16 at D = 192
+//   and 256):
 //     the CUDA-core kernels, as follows.
 //
 // Float32 stays on the CUDA cores: no main path runs flash in float32
@@ -54,8 +58,10 @@
 // first. The products run on the CUDA cores in float32 (67 TFLOP/s on an
 // H100 SXM): q is scaled before QK^T, and P and dS stay float32.
 //
-// Tensor-core design (bfloat16, D = 64 and 128). 128 threads, 4 warps;
-// every product is mma.sync.m16n8k16 on bfloat16 operands with float32
+// Tensor-core design (bfloat16 and float16, D = 64 and 128; the kernels
+// are templates on the 16-bit type T, written below for bfloat16). 128
+// threads, 4 warps; every product is mma.sync.m16n8k16 on T operands
+// (.bf16 or .f16) with float32
 // sums (mma_bf16.cuh), fed by ldmatrix from shared memory, with rows
 // D + 8 bfloat16 apart (16 bytes of skew a row, so the 8 rows of one
 // ldmatrix hit 8 different bank groups). Tiles of the side a CTA loops
@@ -122,9 +128,12 @@
 // TMA, is the full path), so the tensor-core kernels aim at a few times
 // that bound, not at the bound.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -137,6 +146,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -146,6 +156,10 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // max and sum over the 16 lanes that share a row (xor offsets below 16
@@ -529,7 +543,20 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// -- tensor-core kernels (bfloat16, D = 64 and 128) --------------------------
+// -- tensor-core kernels (bfloat16 and float16, D = 64 and 128) -------------
+//
+// float16 differs from bfloat16 in its range: 65504 at most, subnormal
+// below 2^-14. P (in [0, 1]) and the stored operands fit it. dS does not:
+// under the dynamic loss scaler dO arrives multiplied by up to 2^15, and
+// dP = dO V^T, a float32 sum of D products, can then pass 65504, so a
+// dS rounded as it is would turn into inf where the TPU kernel's float32
+// dS (flash_attention.py:92-96) stays finite, and the scaler would skip
+// a step the reference takes. So in float16 each row of dS is multiplied
+// by an exact power of two before its split (fit_rows), and the
+// accumulator is brought back by the inverse power at the end: the
+// halves hold what float32 held, and no rounding to inf can happen where
+// the float32 value is finite. In bfloat16 (float32's range) the kernels
+// skip this and keep the bits they had.
 
 using bf16 = __nv_bfloat16;
 
@@ -547,8 +574,8 @@ struct TcCfg {
 
 // rows [row0, row0 + R) of src (L, D) into dst (R, LD) by cp.async; rows
 // at or past L are zeros
-template <int D, int R>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src,
+template <int D, int R, typename T>
+__device__ __forceinline__ void tile_async(T* dst, const T* src,
                                            int row0, int L) {
   constexpr int CH = D / 8;  // 16-byte chunks a row
   static_assert(R * CH % kTcThreads == 0, "a tile is whole chunks a thread");
@@ -585,8 +612,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // the B fragments of two n-tiles (16 rows of `tile`, an n-tile 8 of
 // them) at k-chunk kc, for a product with tile^T: rows are n, columns k
-template <int LD>
-__device__ __forceinline__ void ldsm_nk(uint32_t (&b)[4], const bf16* tile,
+template <int LD, typename T>
+__device__ __forceinline__ void ldsm_nk(uint32_t (&b)[4], const T* tile,
                                         int row0, int kc, int lane) {
   tc::ldsm_x4(b, tile + (row0 + (lane >> 4) * 8 + (lane & 7)) * LD +
                      kc * 16 + ((lane >> 3) & 1) * 8);
@@ -594,16 +621,16 @@ __device__ __forceinline__ void ldsm_nk(uint32_t (&b)[4], const bf16* tile,
 
 // the B fragments of two n-tiles (columns c0 .. c0 + 15 of `tile`) at the
 // 16 rows from k0, for a product with tile itself: rows are k, columns n
-template <int LD>
-__device__ __forceinline__ void ldsm_kn(uint32_t (&b)[4], const bf16* tile,
+template <int LD, typename T>
+__device__ __forceinline__ void ldsm_kn(uint32_t (&b)[4], const T* tile,
                                         int k0, int c0, int lane) {
   tc::ldsm_x4_t(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
                        c0 + (lane >> 4) * 8);
 }
 
 // the A fragment of rows row0 .. row0 + 15 of `tile` at k-chunk kc
-template <int LD>
-__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const bf16* tile,
+template <int LD, typename T>
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const T* tile,
                                        int row0, int kc, int lane) {
   tc::ldsm_x4(a, tile + (row0 + (lane & 15)) * LD + kc * 16 +
                      (lane >> 4) * 8);
@@ -611,31 +638,78 @@ __device__ __forceinline__ void ldsm_a(uint32_t (&a)[4], const bf16* tile,
 
 // the A fragments (hi and lo halves) of k-chunk kk of a 16 x 8n float32
 // accumulator: its n-tiles 2 kk and 2 kk + 1
+template <typename T>
 __device__ __forceinline__ void split_a(const float (&c0)[4],
                                         const float (&c1)[4],
                                         uint32_t (&hi)[4],
                                         uint32_t (&lo)[4]) {
-  tc::split(c0[0], c0[1], hi[0], lo[0]);
-  tc::split(c0[2], c0[3], hi[1], lo[1]);
-  tc::split(c1[0], c1[1], hi[2], lo[2]);
-  tc::split(c1[2], c1[3], hi[3], lo[3]);
+  tc::split<T>(c0[0], c0[1], hi[0], lo[0]);
+  tc::split<T>(c0[2], c0[3], hi[1], lo[1]);
+  tc::split<T>(c1[0], c1[1], hi[2], lo[2]);
+  tc::split<T>(c1[2], c1[3], hi[3], lo[3]);
 }
 
 // c[n] += a b[n] for the two n-tiles of one ldmatrix x4 of B, hi and lo
+template <typename T>
 __device__ __forceinline__ void mma_split(float (&c0)[4], float (&c1)[4],
                                           const uint32_t (&hi)[4],
                                           const uint32_t (&lo)[4],
                                           const uint32_t (&b)[4]) {
-  tc::mma(c0, hi, b[0], b[1]);
-  tc::mma(c0, lo, b[0], b[1]);
-  tc::mma(c1, hi, b[2], b[3]);
-  tc::mma(c1, lo, b[2], b[3]);
+  tc::mma<T>(c0, hi, b[0], b[1]);
+  tc::mma<T>(c0, lo, b[0], b[1]);
+  tc::mma<T>(c1, hi, b[2], b[3]);
+  tc::mma<T>(c1, lo, b[2], b[3]);
 }
 
-template <int D>
+// dS is split into float16 halves only after each of this lane's two
+// rows (accumulator entries e >> 1 == i) is multiplied by an exact power
+// of two, 2^(14 - ex[i]), ex[i] the largest exponent (ilogb) of the row's
+// |dS| so far: the row's largest value lands in [2^14, 2^15), below
+// float16's 65504, so no finite float32 dS rounds to inf (under a loss
+// scale of up to 2^15, dO V^T alone can pass 65504), and small ones keep
+// their bits instead of flushing to float16's subnormals. `acc` holds
+// the row's sums at the current scale; when a tile raises ex[i], acc's
+// row is brought to the new scale by an exact power of two. The caller
+// multiplies acc by 2^(ex[i] - 14) at the end. ex starts at kFitMinExp,
+// so the scale stays a normal float32. A NaN or all-zero row keeps its
+// scale (NaN flows on as it would in float32).
+constexpr int kFitMinExp = -112;
+constexpr int kFitTop = 14;
+
+template <int NT, int DT>
+__device__ __forceinline__ void fit_rows(float (&ds)[NT][4],
+                                         float (&acc)[DT][4], int (&ex)[2]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(ds[j][e]));
+  float mul[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m = quad_max(mx[i]);
+    const int e = m > 0.f ? (isinf(m) ? 127 : ilogbf(m)) : ex[i];
+    if (e > ex[i]) {
+      const float r = scalbnf(1.f, ex[i] - e);
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        acc[j][2 * i] *= r;
+        acc[j][2 * i + 1] *= r;
+      }
+      ex[i] = e;
+    }
+    mul[i] = scalbnf(1.f, kFitTop - ex[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ds[j][e] *= mul[e >> 1];
+}
+
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
                     float* __restrict__ lse, int Lq, int Lk, float scale,
                     int causal) {
   using C = TcCfg<D>;
@@ -643,9 +717,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int NT = BN / 8;  // n-tiles of S
   constexpr int DT = D / 8;   // n-tiles of O
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + BM * LD;      // two stages
-  bf16* vs = ks + 2 * BN * LD;  // two stages
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ks = qs + BM * LD;      // two stages
+  T* vs = ks + 2 * BN * LD;  // two stages
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int nq = (Lq + BM - 1) / BM, nk = (Lk + BN - 1) / BN;
@@ -654,8 +728,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = qi * BM, offset = Lk - Lq;
   const int wr = warp * 16;  // the warp's first row in the q-tile
   const int row_a = q0 + wr + g, row_b = row_a + 8;  // this lane's rows
-  const bf16* kb = k + (size_t)bh * Lk * D;
-  const bf16* vb = v + (size_t)bh * Lk * D;
+  const T* kb = k + (size_t)bh * Lk * D;
+  const T* vb = v + (size_t)bh * Lk * D;
   // skip the k-tiles past the diagonal (flash_attention.py:69-70)
   const int last = causal ? min(nk, (q0 + BM + BN - 1 + offset) / BN) : nk;
 
@@ -682,8 +756,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::cp_async_commit();
     tc::cp_async_wait<1>();  // this tile has landed
     __syncthreads();
-    const bf16* kst = ks + (kt & 1) * BN * LD;
-    const bf16* vst = vs + (kt & 1) * BN * LD;
+    const T* kst = ks + (kt & 1) * BN * LD;
+    const T* vst = vs + (kt & 1) * BN * LD;
     const int k0 = kt * BN;
 
     float s[NT][4] = {};
@@ -693,8 +767,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         ldsm_nk<LD>(b, kst, np * 16, kc, lane);
-        tc::mma(s[2 * np], qf[kc], b[0], b[1]);
-        tc::mma(s[2 * np + 1], qf[kc], b[2], b[3]);
+        tc::mma<T>(s[2 * np], qf[kc], b[0], b[1]);
+        tc::mma<T>(s[2 * np + 1], qf[kc], b[2], b[3]);
       }
 
     // scale, mask, and the online softmax of this lane's two rows
@@ -738,16 +812,16 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       acc[j][3] *= alpha[1];
     }
 
-    // O += P V, P in two bfloat16 halves straight from the registers of S
+    // O += P V, P in two halves of T straight from the registers of S
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t hi[4], lo[4];
-      split_a(s[2 * kk], s[2 * kk + 1], hi, lo);
+      split_a<T>(s[2 * kk], s[2 * kk + 1], hi, lo);
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t b[4];
         ldsm_kn<LD>(b, vst, kk * 16, dp * 16, lane);
-        mma_split(acc[2 * dp], acc[2 * dp + 1], hi, lo, b);
+        mma_split<T>(acc[2 * dp], acc[2 * dp + 1], hi, lo, b);
       }
     }
     __syncthreads();  // every warp is done with this stage before refill
@@ -758,34 +832,34 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const float li = fmaxf(quad_sum(l[i]), 1e-30f);
     if (rows[i] >= Lq) continue;
-    bf16* orow = o + ((size_t)bh * Lq + rows[i]) * D + 2 * t;
+    T* orow = o + ((size_t)bh * Lq + rows[i]) * D + 2 * t;
 #pragma unroll
     for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(acc[j][2 * i] / li, acc[j][2 * i + 1] / li);
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          tc::pack2<T>(acc[j][2 * i] / li, acc[j][2 * i + 1] / li);
     if (t == 0) lse[(size_t)bh * Lq + rows[i]] = m[i] + logf(li);
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q,
+                        const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                        T* __restrict__ dk, T* __restrict__ dv,
                         int Lq, int Lk, float scale, int causal) {
   using C = TcCfg<D>;
   constexpr int BN = C::BN, BQ = C::BQ, LD = C::LD, KC = C::KC;
   constexpr int NT = BQ / 8;  // n-tiles of S^T (queries)
   constexpr int DT = D / 8;   // n-tiles of dK and dV
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + BN * LD;
-  bf16* qs = vs + BN * LD;        // two stages
-  bf16* dos = qs + 2 * BQ * LD;   // two stages
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + BN * LD;
+  T* qs = vs + BN * LD;        // two stages
+  T* dos = qs + 2 * BQ * LD;   // two stages
   float* lse_s = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // two
   float* dlt_s = lse_s + 2 * BQ;                               // two
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -796,8 +870,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
   const int k0 = ki * BN, offset = Lk - Lq;
   const int wk = warp * 16;  // the warp's first key in the k-tile
   const int key_a = k0 + wk + g, key_b = key_a + 8;  // this lane's keys
-  const bf16* qb = q + (size_t)bh * Lq * D;
-  const bf16* ob = dout + (size_t)bh * Lq * D;
+  const T* qb = q + (size_t)bh * Lq * D;
+  const T* ob = dout + (size_t)bh * Lq * D;
   const float* lb = lse + (size_t)bh * Lq;
   const float* db = delta + (size_t)bh * Lq;
   // q-tiles before the diagonal never see this k-tile
@@ -816,14 +890,17 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
   tc::cp_async_commit();
 
   float dka[DT][4] = {}, dva[DT][4] = {};
+  // float16: dS^T's rows (keys) are fitted to its range (fit_rows)
+  constexpr bool kFit = std::is_same<T, __half>::value;
+  int ex[2] = {kFitMinExp, kFitMinExp};
   for (int qt = first; qt < nq; ++qt) {
     const int st = (qt - first) & 1;
     if (qt + 1 < nq) load_q(qt + 1, st ^ 1);
     tc::cp_async_commit();
     tc::cp_async_wait<1>();  // this q-tile (and K, V) have landed
     __syncthreads();
-    const bf16* qst = qs + st * BQ * LD;
-    const bf16* dost = dos + st * BQ * LD;
+    const T* qst = qs + st * BQ * LD;
+    const T* dost = dos + st * BQ * LD;
     const float* lst = lse_s + st * BQ;
     const float* dlst = dlt_s + st * BQ;
     const int q0 = qt * BQ;
@@ -839,11 +916,11 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         ldsm_nk<LD>(b, qst, np * 16, kc, lane);
-        tc::mma(s[2 * np], kf, b[0], b[1]);
-        tc::mma(s[2 * np + 1], kf, b[2], b[3]);
+        tc::mma<T>(s[2 * np], kf, b[0], b[1]);
+        tc::mma<T>(s[2 * np + 1], kf, b[2], b[3]);
         ldsm_nk<LD>(b, dost, np * 16, kc, lane);
-        tc::mma(dp[2 * np], vf, b[0], b[1]);
-        tc::mma(dp[2 * np + 1], vf, b[2], b[3]);
+        tc::mma<T>(dp[2 * np], vf, b[0], b[1]);
+        tc::mma<T>(dp[2 * np + 1], vf, b[2], b[3]);
       }
     }
 
@@ -872,19 +949,21 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
       }
     }
 
-    // dV += P^T dO and dK += dS^T Q, P^T and dS^T in two bfloat16 halves
+    if constexpr (kFit) fit_rows(dp, dka, ex);
+
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T in two halves of T
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       uint32_t ph[4], pl[4], sh[4], sl[4];
-      split_a(s[2 * kk], s[2 * kk + 1], ph, pl);
-      split_a(dp[2 * kk], dp[2 * kk + 1], sh, sl);
+      split_a<T>(s[2 * kk], s[2 * kk + 1], ph, pl);
+      split_a<T>(dp[2 * kk], dp[2 * kk + 1], sh, sl);
 #pragma unroll
       for (int dd = 0; dd < D / 16; ++dd) {
         uint32_t b[4];
         ldsm_kn<LD>(b, dost, kk * 16, dd * 16, lane);
-        mma_split(dva[2 * dd], dva[2 * dd + 1], ph, pl, b);
+        mma_split<T>(dva[2 * dd], dva[2 * dd + 1], ph, pl, b);
         ldsm_kn<LD>(b, qst, kk * 16, dd * 16, lane);
-        mma_split(dka[2 * dd], dka[2 * dd + 1], sh, sl, b);
+        mma_split<T>(dka[2 * dd], dka[2 * dd + 1], sh, sl, b);
       }
     }
     __syncthreads();  // every warp is done with this stage before refill
@@ -896,26 +975,27 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     if (keys[i] >= Lk) continue;
     const size_t off = ((size_t)bh * Lk + keys[i]) * D + 2 * t;
+    const float un = kFit ? scalbnf(1.f, ex[i] - kFitTop) : 1.f;
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8) =
-          __floats2bfloat162_rn(dka[j][2 * i] * scale,
-                                dka[j][2 * i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8) =
-          __floats2bfloat162_rn(dva[j][2 * i], dva[j][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dk + off + j * 8) =
+          tc::pack2<T>(dka[j][2 * i] * un * scale,
+                       dka[j][2 * i + 1] * un * scale);
+      *reinterpret_cast<uint32_t*>(dv + off + j * 8) =
+          tc::pack2<T>(dva[j][2 * i], dva[j][2 * i + 1]);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
-                       const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
+flash_bwd_dq_tc_kernel(const T* __restrict__ q,
+                       const T* __restrict__ k,
+                       const T* __restrict__ v,
+                       const T* __restrict__ dout,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
-                       bf16* __restrict__ dq, int Lq, int Lk, float scale,
+                       T* __restrict__ dq, int Lq, int Lk, float scale,
                        int causal) {
   using C = TcCfg<D>;
   constexpr int BM = C::BM, BN = C::BN, LD = C::LD, KC = C::KC;
@@ -926,10 +1006,10 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
   // read from shared memory again every k-tile
   constexpr bool kHold = D <= 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + BM * LD;
-  bf16* ks = dos + BM * LD;     // two stages
-  bf16* vs = ks + 2 * BN * LD;  // two stages
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* dos = qs + BM * LD;
+  T* ks = dos + BM * LD;     // two stages
+  T* vs = ks + 2 * BN * LD;  // two stages
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int nq = (Lq + BM - 1) / BM, nk = (Lk + BN - 1) / BN;
@@ -938,8 +1018,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
   const int q0 = qi * BM, offset = Lk - Lq;
   const int wr = warp * 16;  // the warp's first row in the q-tile
   const int row_a = q0 + wr + g, row_b = row_a + 8;  // this lane's rows
-  const bf16* kb = k + (size_t)bh * Lk * D;
-  const bf16* vb = v + (size_t)bh * Lk * D;
+  const T* kb = k + (size_t)bh * Lk * D;
+  const T* vb = v + (size_t)bh * Lk * D;
   // (flash_attention.py:104-105)
   const int last = causal ? min(nk, (q0 + BM + BN - 1 + offset) / BN) : nk;
 
@@ -968,6 +1048,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
   }
 
   float acc[DT][4] = {};
+  // float16: dS's rows are fitted to its range (fit_rows)
+  constexpr bool kFit = std::is_same<T, __half>::value;
+  int ex[2] = {kFitMinExp, kFitMinExp};
   for (int kt = 0; kt < last; ++kt) {
     if (kt + 1 < last) {  // the next tile into the other stage
       const int st = (kt + 1) & 1;
@@ -977,8 +1060,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
     tc::cp_async_commit();
     tc::cp_async_wait<1>();  // this tile has landed
     __syncthreads();
-    const bf16* kst = ks + (kt & 1) * BN * LD;
-    const bf16* vst = vs + (kt & 1) * BN * LD;
+    const T* kst = ks + (kt & 1) * BN * LD;
+    const T* vst = vs + (kt & 1) * BN * LD;
     const int k0 = kt * BN;
 
     // S = Q K^T and dP = dO V^T: 16 queries x BN keys a warp
@@ -1000,11 +1083,11 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         ldsm_nk<LD>(b, kst, np * 16, kc, lane);
-        tc::mma(s[2 * np], qa, b[0], b[1]);
-        tc::mma(s[2 * np + 1], qa, b[2], b[3]);
+        tc::mma<T>(s[2 * np], qa, b[0], b[1]);
+        tc::mma<T>(s[2 * np + 1], qa, b[2], b[3]);
         ldsm_nk<LD>(b, vst, np * 16, kc, lane);
-        tc::mma(dp[2 * np], ga, b[0], b[1]);
-        tc::mma(dp[2 * np + 1], ga, b[2], b[3]);
+        tc::mma<T>(dp[2 * np], ga, b[0], b[1]);
+        tc::mma<T>(dp[2 * np + 1], ga, b[2], b[3]);
       }
     }
 
@@ -1028,16 +1111,18 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
         dp[j][e] = p * (dp[j][e] - dlt_r[i]);
       }
 
-    // dQ += dS K, dS in two bfloat16 halves straight from the registers
+    if constexpr (kFit) fit_rows(dp, acc, ex);
+
+    // dQ += dS K, dS in two halves of T straight from the registers
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t hi[4], lo[4];
-      split_a(dp[2 * kk], dp[2 * kk + 1], hi, lo);
+      split_a<T>(dp[2 * kk], dp[2 * kk + 1], hi, lo);
 #pragma unroll
       for (int dd = 0; dd < D / 16; ++dd) {
         uint32_t b[4];
         ldsm_kn<LD>(b, kst, kk * 16, dd * 16, lane);
-        mma_split(acc[2 * dd], acc[2 * dd + 1], hi, lo, b);
+        mma_split<T>(acc[2 * dd], acc[2 * dd + 1], hi, lo, b);
       }
     }
     __syncthreads();  // every warp is done with this stage before refill
@@ -1048,12 +1133,13 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (rows[i] >= Lq) continue;
-    bf16* row = dq + ((size_t)bh * Lq + rows[i]) * D + 2 * t;
+    T* row = dq + ((size_t)bh * Lq + rows[i]) * D + 2 * t;
+    const float un = kFit ? scalbnf(1.f, ex[i] - kFitTop) : 1.f;
 #pragma unroll
     for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + j * 8) =
-          __floats2bfloat162_rn(acc[j][2 * i] * scale,
-                                acc[j][2 * i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(row + j * 8) =
+          tc::pack2<T>(acc[j][2 * i] * un * scale,
+                       acc[j][2 * i + 1] * un * scale);
   }
 }
 
@@ -1146,65 +1232,69 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
            int BH, int Lq, int Lk, float scale, int causal, cudaStream_t s) {
   constexpr size_t smem = fwd_tc_smem<D>();
-  int err = set_smem(flash_fwd_tc_kernel<D>, smem);
+  int err = set_smem(flash_fwd_tc_kernel<T, D>, smem);
   if (err) return err;
   const dim3 grid((Lq + TcCfg<D>::BM - 1) / TcCfg<D>::BM, BH);
-  flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+  flash_fwd_tc_kernel<T, D><<<grid, kTcThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), Lq, Lk, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int bwd_dq_tc(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int BH, int Lq,
               int Lk, float scale, int causal, cudaStream_t s) {
   constexpr size_t smem = dq_tc_smem<D>();
-  int err = set_smem(flash_bwd_dq_tc_kernel<D>, smem);
+  int err = set_smem(flash_bwd_dq_tc_kernel<T, D>, smem);
   if (err) return err;
   const dim3 grid((Lq + TcCfg<D>::BM - 1) / TcCfg<D>::BM, BH);
-  flash_bwd_dq_tc_kernel<D><<<grid, kTcThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+  flash_bwd_dq_tc_kernel<T, D><<<grid, kTcThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), Lq, Lk, scale, causal);
+      static_cast<T*>(dq), Lq, Lk, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int BH,
                int Lq, int Lk, float scale, int causal, cudaStream_t s) {
   constexpr size_t smem = dkv_tc_smem<D>();
-  int err = set_smem(flash_bwd_dkv_tc_kernel<D>, smem);
+  int err = set_smem(flash_bwd_dkv_tc_kernel<T, D>, smem);
   if (err) return err;
   const dim3 grid((Lk + TcCfg<D>::BN - 1) / TcCfg<D>::BN, BH);
-  flash_bwd_dkv_tc_kernel<D><<<grid, kTcThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+  flash_bwd_dkv_tc_kernel<T, D><<<grid, kTcThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Lq, Lk, scale, causal);
+      static_cast<T*>(dk), static_cast<T*>(dv), Lq, Lk, scale, causal);
   return (int)cudaGetLastError();
 }
 
-// returns CALL(T, D) for the (dtype, D) pair, TC(D) for the bfloat16 pairs
-// that have a tensor-core kernel, or cudaErrorInvalidValue for a pair
-// that is not instantiated
+// returns CALL(T, D) for the (dtype, D) pair, TC(T, D) for the bfloat16
+// and float16 pairs that have a tensor-core kernel, or
+// cudaErrorInvalidValue for a pair that is not instantiated
 #define DISPATCH(dtype, D, CALL, TC)                              \
   switch ((dtype) * 1000 + (D)) {                                 \
     case 64: return CALL(float, 64);                              \
     case 128: return CALL(float, 128);                            \
     case 192: return CALL(float, 192);                            \
     case 256: return CALL(float, 256);                            \
-    case 1064: return TC(64);                                     \
-    case 1128: return TC(128);                                    \
+    case 1064: return TC(__nv_bfloat16, 64);                      \
+    case 1128: return TC(__nv_bfloat16, 128);                     \
     case 1192: return CALL(__nv_bfloat16, 192);                   \
     case 1256: return CALL(__nv_bfloat16, 256);                   \
+    case 2064: return TC(__half, 64);                             \
+    case 2128: return TC(__half, 128);                            \
+    case 2192: return CALL(__half, 192);                          \
+    case 2256: return CALL(__half, 256);                          \
   }                                                               \
   return (int)cudaErrorInvalidValue;
 
@@ -1212,7 +1302,8 @@ int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv); D one
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, o, dout, dq,
+// dk, dv); D one
 // of 64, 128, 192, 256; lse and delta (BH, Lq) float32; all contiguous.
 // Each returns the cudaError_t of its launch (0 on success). The caller
 // checks shapes, types and contiguity, and launches nothing when BH, Lq
@@ -1223,7 +1314,7 @@ int flash_attention_fwd_launch(int dtype, int D, const void* q, const void* k,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FWD(T, DD) fwd<T, DD>(q, k, v, o, lse, BH, Lq, Lk, scale, causal, s)
-#define FWD_TC(DD) fwd_tc<DD>(q, k, v, o, lse, BH, Lq, Lk, scale, causal, s)
+#define FWD_TC(T, DD) fwd_tc<T, DD>(q, k, v, o, lse, BH, Lq, Lk, scale, causal, s)
   DISPATCH(dtype, D, FWD, FWD_TC)
 #undef FWD_TC
 #undef FWD
@@ -1238,8 +1329,8 @@ int flash_attention_bwd_dq_launch(int dtype, int D, const void* q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DQ(T, DD) \
   bwd_dq<T, DD>(q, k, v, dout, lse, delta, dq, BH, Lq, Lk, scale, causal, s)
-#define DQ_TC(DD) \
-  bwd_dq_tc<DD>(q, k, v, dout, lse, delta, dq, BH, Lq, Lk, scale, causal, s)
+#define DQ_TC(T, DD) \
+  bwd_dq_tc<T, DD>(q, k, v, dout, lse, delta, dq, BH, Lq, Lk, scale, causal, s)
   DISPATCH(dtype, D, DQ, DQ_TC)
 #undef DQ_TC
 #undef DQ
@@ -1255,8 +1346,8 @@ int flash_attention_bwd_dkv_launch(int dtype, int D, const void* q,
 #define DKV(T, DD)                                                          \
   bwd_dkv<T, DD>(q, k, v, dout, lse, delta, dk, dv, BH, Lq, Lk, scale, causal, \
                  s)
-#define DKV_TC(DD)                                                         \
-  bwd_dkv_tc<DD>(q, k, v, dout, lse, delta, dk, dv, BH, Lq, Lk, scale, causal, \
+#define DKV_TC(T, DD)                                                      \
+  bwd_dkv_tc<T, DD>(q, k, v, dout, lse, delta, dk, dv, BH, Lq, Lk, scale, causal, \
                  s)
   DISPATCH(dtype, D, DKV, DKV_TC)
 #undef DKV_TC

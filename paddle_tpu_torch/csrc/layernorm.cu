@@ -12,8 +12,11 @@
 //   backward  dx = (g*dy - xhat*mean(g*dy*xhat) - mean(g*dy)) * rstd,
 //             dgamma = sum_rows dy*xhat, dbeta = sum_rows dy (float32)
 //
-// x, dy, y, dx, gamma and beta are all float32 or all bfloat16; all
-// arithmetic is float32.
+// x, dy, y, dx, gamma and beta are all float32, all bfloat16 or all
+// float16; all arithmetic is float32 and only what is written is rounded,
+// as the TPU kernel rounds only its stores (layernorm.py:28,45). float16
+// takes every path below that bfloat16 takes, with the same vector
+// widths (both are two bytes).
 //
 // Forward design. One warp per row at a time, four warps to a CTA of 128
 // threads, from a grid of as many CTAs as the card holds at once (the
@@ -76,6 +79,7 @@
 // their ~10 float32 operations an element are far below the 67 TFLOP/s
 // float32 rate at 3.35 TB/s.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,6 +98,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -103,6 +108,10 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -149,7 +158,7 @@ ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
   }
 }
 
-// 16 bytes of T: 4 float32 or 8 bfloat16
+// 16 bytes of T: 4 float32, or 8 bfloat16 or float16
 template <typename T>
 constexpr int kVec = 16 / sizeof(T);
 
@@ -590,7 +599,8 @@ using bf16 = __nv_bfloat16;
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, gamma, beta, y, dy, dx). Returns
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, gamma, beta, y, dy,
+// dx). Returns
 // the cudaError_t of the launch (0 on success); the caller checks
 // shapes, types, contiguity and the shared-memory limit, and launches
 // nothing for N == 0.
@@ -601,6 +611,7 @@ int layer_norm_fwd_launch(int dtype, const void* x, const void* gamma,
   switch (dtype) {
     case 0: return fwd<float>(x, gamma, beta, y, mean, rstd, N, D, eps, s);
     case 1: return fwd<bf16>(x, gamma, beta, y, mean, rstd, N, D, eps, s);
+    case 2: return fwd<__half>(x, gamma, beta, y, mean, rstd, N, D, eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -613,6 +624,7 @@ int layer_norm_bwd_ctas(int dtype, int N, int D, const void* x,
   switch (dtype) {
     case 0: return bwd_ctas<float>(N, D, x, gamma, dy, dx, ctas);
     case 1: return bwd_ctas<bf16>(N, D, x, gamma, dy, dx, ctas);
+    case 2: return bwd_ctas<__half>(N, D, x, gamma, dy, dx, ctas);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -630,6 +642,9 @@ int layer_norm_bwd_launch(int dtype, const void* x, const void* gamma,
     case 1:
       return bwd<bf16>(x, gamma, mean, rstd, dy, dx, dg, db, dg_ws, db_ws, N,
                        D, G, s);
+    case 2:
+      return bwd<__half>(x, gamma, mean, rstd, dy, dx, dg, db, dg_ws, db_ws,
+                         N, D, G, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,13 @@
-// Tensor-core building blocks for Hopper (sm_90a) kernels on bfloat16
-// operands: cp.async copies into shared memory, ldmatrix fragment loads
-// and the warp-level mma.sync m16n8k16 product with float32 sums.
+// Tensor-core building blocks for Hopper (sm_90a) kernels on bfloat16 or
+// float16 operands: cp.async copies into shared memory, ldmatrix fragment
+// loads and the warp-level mma.sync m16n8k16 product with float32 sums.
+// The functions that depend on the operand type take it as T
+// (__nv_bfloat16 or __half); both are 16-bit, so fragments, ldmatrix and
+// the layouts below are the same for the two.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 g + t, g = 0..7,
-// t = 0..3), each register two bfloat16 (lower column in the low half):
+// t = 0..3), each register two 16-bit values (lower column in the low
+// half):
 //
 //   A 16 x 16, row-major:  a0 (g, 2t..2t+1)    a1 (g+8, 2t..2t+1)
 //                          a2 (g, 2t+8..2t+9)  a3 (g+8, 2t+8..2t+9)
@@ -16,6 +20,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace tc {
@@ -69,28 +74,66 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
-// c += a b, a 16 x 16 and b 16 x 8 bfloat16, c 16 x 8 float32
+// c += a b, a 16 x 16 and b 16 x 8 of T, c 16 x 8 float32
+template <typename T>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
+                                    uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma<__nv_bfloat16>(float (&c)[4],
+                                                   const uint32_t (&a)[4],
+                                                   uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat162 h) {
-  return *reinterpret_cast<uint32_t*>(&h);
+template <>
+__device__ __forceinline__ void mma<__half>(float (&c)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// (x, y) as two bfloat16 halves: hi rounds (x, y), lo rounds what hi
-// leaves, so hi + lo holds ~16 significant bits
+// (x, y) rounded to two values of T in one register, x in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x, float y);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float x, float y) {
+  const __half2 h = __floats2half2_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// the two values of T in a register, as float32
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u);
+template <>
+__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(uint32_t u) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&u));
+}
+
+// (x, y) as two halves of T: hi rounds (x, y), lo rounds what hi leaves,
+// so hi + lo holds ~16 significant bits in bfloat16 and ~22 in float16
+// (where neither is subnormal)
+template <typename T>
 __device__ __forceinline__ void split(float x, float y, uint32_t& hi,
                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 f = __bfloat1622float2(h);
-  hi = pack(h);
-  lo = pack(__floats2bfloat162_rn(x - f.x, y - f.y));
+  hi = pack2<T>(x, y);
+  const float2 f = unpack2<T>(hi);
+  lo = pack2<T>(x - f.x, y - f.y);
 }
 
 }  // namespace tc

@@ -8,7 +8,7 @@
 // lane's page table.
 //
 //   q        (B, H, D)          float32
-//   k/v pool (P, page, H, D)    float32 or bfloat16
+//   k/v pool (P, page, H, D)    float32, bfloat16 or float16
 //   table    (B, W)             int32, entries clamped to [0, P-1]
 //   lengths  (B,)               int32, tokens in the cache, query included
 //   out      (B, H, D)          float32 (q's dtype)
@@ -41,7 +41,8 @@
 //
 // In a warp, LPT lanes share one token (LPT = the head's vectors,
 // rounded up to a power of two, at most 32), so 32 / LPT tokens are
-// read per load instruction, 16 bytes a lane (4 float32 or 8 bfloat16;
+// read per load instruction, 16 bytes a lane (4 float32 or 8 bfloat16 or
+// float16, which takes bfloat16's path throughout;
 // narrower only where D or the pool's alignment forbids). A stage is
 // 8 loads a lane of K and of V in float32 and 4 in bfloat16: 16 tokens
 // at D = 64 in both. The next stage's loads are issued into a second
@@ -63,6 +64,7 @@
 // m_c. Only the lane's live chunks are read. No atomics anywhere: the
 // output is the same bits on every run.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,6 +80,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 // NE elements of the pool, loaded as one access of NE * sizeof(T) bytes
 template <typename T, int NE>
@@ -389,7 +392,7 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
 
 extern "C" {
 
-// pool_dtype: 0 = float32, 1 = bfloat16. part: (B, H, chunks, D + 2)
+// pool_dtype: 0 = float32, 1 = bfloat16, 2 = float16. part: (B, H, chunks, D + 2)
 // float32 scratch, chunks = ceil(W / chunk_pages). Returns the
 // cudaError_t of the launches (0 on success); the caller checks shapes,
 // types and limits.
@@ -414,6 +417,10 @@ int paged_decode_attention_launch(int pool_dtype, const void* q,
     return dispatch<__nv_bfloat16>(q, k_pages, v_pages, table, lengths, out,
                                    part, B, H, D, P, page, W, chunk_pages,
                                    chunks, heads_per_cta, scale, s);
+  if (pool_dtype == 2)
+    return dispatch<__half>(q, k_pages, v_pages, table, lengths, out, part,
+                            B, H, D, P, page, W, chunk_pages, chunks,
+                            heads_per_cta, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,7 +14,8 @@
 //   backward  dlogits = (exp(x - lse) - onehot(label)) * g * valid, in the
 //             logits' type, for the per-row loss gradient g (N,) float32
 //
-// Logits are float32 or bfloat16; all arithmetic is float32.
+// Logits are float32, bfloat16 or float16; all arithmetic is float32,
+// and only dx is rounded to the logits' type (softmax_ce.py:66).
 //
 // Design. The TPU forward walks the vocabulary as a sequential grid axis
 // of 2048-wide blocks and carries (max, sum of exp, label logit) in VMEM
@@ -33,6 +34,7 @@
 // ~0.49 ms and ~0.98 ms at 3.35 TB/s. The few float32 operations an
 // element (one exp, a compare, an add) are far below the compute rates.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,6 +51,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -58,6 +61,10 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // (m, s) <- the pair of the union of the elements behind (m, s) and
@@ -160,9 +167,9 @@ int bwd(const void* logits, const void* labels, const void* lse,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (the logits). Returns the cudaError_t
-// of the launch (0 on success); the caller checks shapes, types and
-// contiguity, and launches nothing for N == 0.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the logits). Returns the
+// cudaError_t of the launch (0 on success); the caller checks shapes,
+// types and contiguity, and launches nothing for N == 0.
 int softmax_ce_fwd_launch(int dtype, const void* logits, const void* labels,
                           void* loss, void* lse, int N, int V,
                           int ignore_index, void* stream) {
@@ -170,6 +177,8 @@ int softmax_ce_fwd_launch(int dtype, const void* logits, const void* labels,
   if (dtype == 0) return fwd<float>(logits, labels, loss, lse, N, V, ignore_index, s);
   if (dtype == 1)
     return fwd<__nv_bfloat16>(logits, labels, loss, lse, N, V, ignore_index, s);
+  if (dtype == 2)
+    return fwd<__half>(logits, labels, loss, lse, N, V, ignore_index, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -181,6 +190,8 @@ int softmax_ce_bwd_launch(int dtype, const void* logits, const void* labels,
     return bwd<float>(logits, labels, lse, g, dx, N, V, ignore_index, s);
   if (dtype == 1)
     return bwd<__nv_bfloat16>(logits, labels, lse, g, dx, N, V, ignore_index, s);
+  if (dtype == 2)
+    return bwd<__half>(logits, labels, lse, g, dx, N, V, ignore_index, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -26,7 +26,9 @@ On a CUDA model, calls go in this order for each key — the batch
 signature, the storage of the parameters, of the model's buffers (a
 BatchNorm's running statistics, which the step updates in place) and of
 the optimizer state (``data_ptr``), ``model.training``, which
-parameters train, and whether ``kernels.plain_versions()`` is active:
+parameters train, whether ``kernels.plain_versions()`` is active, and
+the calling thread's ``amp.auto_cast`` state (``amp_key``: a captured
+step replays the casts it captured):
 
 1. the first call runs the step op by op on a side stream: it counts as
    a training step, and it loads the kernel libraries, makes the
@@ -69,6 +71,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..amp.autocast import amp_key
 from ..core.random import default_generator
 from ..ops import kernels
 from ..ops.kernels import _route
@@ -223,7 +226,7 @@ class TrainStep:
                          for t in s.values()))
         return (K, _signature(batch), _route.forced(), self.model.training,
                 tuple(p.requires_grad for _, p in opt._named_params),
-                storage)
+                amp_key(), storage)
 
     def _side_stream(self):
         if self._stream is None:
@@ -393,8 +396,9 @@ class ProgramCache:
     (as the JAX package's ``PRNGKey(seed)`` does).
 
     On a CUDA device the key is ``signature``, whether
-    ``kernels.plain_versions()`` is active, ``module.training`` and the
-    storage of the module's parameters (``data_ptr``). The first call of
+    ``kernels.plain_versions()`` is active, ``module.training``, the
+    ``amp.auto_cast`` state (``amp_key``) and the storage of the module's
+    parameters (``data_ptr``). The first call of
     a key runs ``fn`` op by op on a side stream (it loads the kernel
     libraries and warms cuBLAS), captures it on that stream, and replays
     the capture; every later call copies ``inputs`` into the graph's
@@ -418,7 +422,8 @@ class ProgramCache:
     def __call__(self, module, signature, fn, inputs, seed=None):
         dev = inputs[0].device
         storage = tuple(p.data_ptr() for p in module.parameters())
-        key = (signature, _route.forced(), module.training, storage)
+        key = (signature, _route.forced(), module.training, amp_key(),
+               storage)
         if key not in self._programs:
             # graphs of storage that has moved can never replay again
             self._programs = {k: g for k, g in self._programs.items()

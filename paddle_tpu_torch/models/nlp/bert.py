@@ -33,6 +33,7 @@ from torch import nn
 from ..._device import resolve_device
 from ...nn import functional as F
 from ...nn.initializer import Normal
+from ...ops.math import matmul
 from ...nn.layers import (Dropout, Embedding, LayerNorm, Linear,
                           TransformerEncoder, TransformerEncoderLayer,
                           create_parameter)
@@ -149,7 +150,7 @@ class BertForPretraining(nn.Module):
     def forward(self, ids, token_type_ids=None, attention_mask=None):
         seq, pooled = self.bert(ids, token_type_ids, attention_mask)
         h = self.transform_norm(F.gelu(self.transform(seq)))
-        mlm_logits = torch.matmul(h, self.bert.embeddings.word.weight.t())
+        mlm_logits = matmul(h, self.bert.embeddings.word.weight.t())
         return mlm_logits + self.mlm_bias, self.nsp(pooled)
 
 

@@ -41,8 +41,16 @@ every floating parameter and buffer, as the JAX ``GPT`` does through
 ``model.bfloat16()`` does the same to a float32 model. Logits come out
 in the parameters' type.
 
+``GPTConfig(use_recompute=True)`` (or ``GPT.set_recompute``, which
+fleet's ``DistributedStrategy.recompute`` calls in the reference) runs
+each block under ``framework.recompute`` in training without a cache,
+as the reference's ``jax.checkpoint`` per block (:218-221): the
+backward runs each block's forward again.
+
+``GPTConfig(dtype="float16")`` works as ``"bfloat16"`` does.
+
 Not ported yet: ring attention and the tensor-parallel mesh (they wait
-for ``dist/``), recompute and ``GPTPipeline``.
+for ``dist/``) and ``GPTPipeline``.
 """
 from __future__ import annotations
 
@@ -57,10 +65,12 @@ from ...core.random import default_generator
 from ...dist.tp_layers import (ColumnParallelLinear, RowParallelLinear,
                                VocabParallelEmbedding)
 from ...framework.jit import ProgramCache
+from ...framework.recompute import recompute
 from ...nn import functional as F
 from ...nn.initializer import Normal
 from ...nn.layers import Dropout, Embedding, LayerNorm
 from ...nn.layers.transformer import MultiHeadAttention, static_kv_attention
+from ...ops.math import matmul
 
 StaticKVCache = MultiHeadAttention.StaticKVCache  # the shared cache record
 NEG_INF = -1e30
@@ -72,8 +82,8 @@ __all__ = ["GPTConfig", "GPT", "GPTBlock", "GPTAttention", "gpt_loss",
 class GPTConfig:
     def __init__(self, vocab_size=50304, hidden=768, layers=12, heads=12,
                  max_seq=1024, dropout=0.1, dtype="float32",
-                 initializer_range=0.02):
-        resolve_dtype(dtype)   # float32 or bfloat16, else ValueError
+                 initializer_range=0.02, use_recompute=False):
+        resolve_dtype(dtype)   # float32, bfloat16 or float16, else ValueError
         self.vocab_size = vocab_size
         self.hidden = hidden
         self.layers = layers
@@ -82,6 +92,7 @@ class GPTConfig:
         self.dropout = dropout
         self.dtype = dtype
         self.initializer_range = initializer_range
+        self.use_recompute = use_recompute
 
 
 def gpt_tiny(**kw):
@@ -210,14 +221,22 @@ class GPT(nn.Module):
         new_caches = None if cache is None else []
         for i, blk in enumerate(self.blocks):
             if cache is None:
-                x = blk(x)
+                if self.cfg.use_recompute and self.training:
+                    x = recompute(blk, x)
+                else:
+                    x = blk(x)
             else:
                 x, c = blk(x, cache=cache[i])
                 new_caches.append(c)
         x = self.ln_f(x)
         # LM head tied to the token embedding
-        logits = torch.matmul(x, self.wte.weight.t())
+        logits = matmul(x, self.wte.weight.t())
         return logits if cache is None else (logits, new_caches)
+
+    def set_recompute(self, value=True):
+        """Run the blocks under recompute in training (fleet's
+        ``DistributedStrategy.recompute`` in the reference)."""
+        self.cfg.use_recompute = bool(value)
 
     def _check_positions(self, n):
         """Raise ``ValueError`` unless positions ``0..n-1`` fit in

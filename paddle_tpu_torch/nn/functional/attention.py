@@ -10,11 +10,16 @@ forward and backward; on the CPU, or inside ``plain_versions()``, it
 runs their plain versions. Everywhere else — with a mask, or at dropout
 > 0 in training, as ``gpt_small`` trains by default — attention is the
 dense path below, the JAX package's own.
+
+``sdpa_bhld`` is the registered op ``sdpa`` (the JAX package's dispatch
+name), so ``amp.auto_cast`` casts q, k, v and the mask by its list entry
+and a static Program records attention as one op.
 """
 from __future__ import annotations
 
 import torch
 
+from ...ops._base import register
 from ...ops.kernels.flash_attention import flash_attention
 from ...ops.random_ops import dropout
 
@@ -52,6 +57,7 @@ def _dense(q, k, v, mask, scale, is_causal, dropout_p, generator):
     return torch.matmul(p.to(v.dtype), v)
 
 
+@register("sdpa", inputs=("query", "key", "value", "attn_mask"))
 def sdpa_bhld(query, key, value, attn_mask=None, scale=None,
               is_causal=False, dropout_p=0.0, training=True, generator=None):
     """Attention over ``(B, H, L, D)`` tensors; ``is_causal`` aligns the

@@ -18,17 +18,26 @@ unless a static Program is being recorded (``static_.enable_static``)
 and one of its arguments is a Program ``Variable``: then the recorder
 (``RECORDER[0]``) appends one ``Operator`` and returns its output
 Variables.
+
+It is also where ``amp.auto_cast`` casts, as the JAX dispatcher does
+(``core/dispatch.py:211-218``): while an ``auto_cast`` is active in any
+thread (``AMP_ACTIVE[0]`` counts them), the op goes through
+``amp.autocast.amp_call``, which casts its tensor inputs by the op's
+``name`` and the calling thread's lists. Without one, the op costs one
+more ``if``.
 """
 from __future__ import annotations
 
 import functools
 import inspect
 
-__all__ = ["OP_REGISTRY", "RECORDER", "register"]
+__all__ = ["OP_REGISTRY", "RECORDER", "AMP_ACTIVE", "register"]
 
 OP_REGISTRY: dict = {}
 # the active static-mode recorder, or None (static_.enable_static sets it)
 RECORDER = [None]
+# the auto_cast contexts active in the process (amp.autocast keeps it)
+AMP_ACTIVE = [0]
 
 
 def register(name, inputs):
@@ -50,6 +59,10 @@ def register(name, inputs):
                 attrs = {k: v for k, v in bound.arguments.items()
                          if k not in inputs}
                 return rec.record_op(name, fn, ins, attrs)
+            if AMP_ACTIVE[0]:
+                from ..amp.autocast import amp_call
+
+                return amp_call(name, fn, sig, inputs, args, kwargs)
             return fn(*args, **kwargs)
 
         op.raw = fn

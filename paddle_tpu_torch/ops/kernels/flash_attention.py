@@ -24,7 +24,7 @@ source note in the ``.cu`` file gives the kernels' design and their
 bound on an H100.
 
 Layout: q ``(B, H, Lq, D)``, k and v ``(B, H, Lk, D)``, all float32 or
-all bfloat16; lse and delta ``(B*H, Lq, 1)`` float32. ``causal`` aligns
+all bfloat16 or all float16; lse and delta ``(B*H, Lq, 1)`` float32. ``causal`` aligns
 the last query with the last key (offset ``Lk - Lq``) and masks with an
 additive -1e30, as the TPU kernel does. The kernels take D = 64, 128,
 192 or 256 (every D the flash gate admits) and any Lq and Lk.
@@ -51,7 +51,7 @@ HEAD_DIMS = (64, 128, 192, 256)
 MAX_BH = 65535    # B * H rides on the grid's y dimension
 NEG_INF = -1e30
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _scores(q, k, causal, scale):
@@ -112,7 +112,7 @@ def flash_delta(o, do):
 def _check(q, k, v, **others):
     """Raise ``ValueError`` on anything the kernels do not take: q
     ``(B, H, Lq, D)``, k and v ``(B, H, Lk, D)``, ``do`` like q, all of
-    one type (float32 or bfloat16); ``lse`` and ``delta`` ``(B*H, Lq, 1)``
+    one type (float32, bfloat16 or float16); ``lse`` and ``delta`` ``(B*H, Lq, 1)``
     float32; D in HEAD_DIMS; B*H <= MAX_BH; all contiguous and on q's
     device."""
     if q.dim() != 4:
@@ -120,7 +120,8 @@ def _check(q, k, v, **others):
     B, H, Lq, D = q.shape
     Lk = k.shape[2] if k.dim() == 4 else -1
     if q.dtype not in _DTYPES:
-        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+        raise ValueError(f"q must be float32, bfloat16 or float16, got "
+                         f"{q.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} is not one of {HEAD_DIMS}")
     if B * H > MAX_BH:

@@ -17,7 +17,7 @@ They replace the Pallas kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
 ``paddle_tpu/ops/pallas/layernorm.py``; the source note in the ``.cu``
 file gives the kernels' design and their bound on an H100.
 
-Layout: ``x`` and ``dy`` ``(N, D)`` float32 or bfloat16; ``gamma`` and
+Layout: ``x`` and ``dy`` ``(N, D)`` float32, bfloat16 or float16; ``gamma`` and
 ``beta`` ``(D,)`` of x's type; statistics in float32 whatever the type.
 """
 from __future__ import annotations
@@ -41,7 +41,7 @@ WARPS = 4                 # a CTA of the kernels (csrc kWarps)
 # shared memory
 MAX_D = MAX_SMEM_BYTES // (2 * WARPS * 4)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def layer_norm_fwd_reference(x, gamma, beta, eps=1e-5):
@@ -71,14 +71,15 @@ def layer_norm_bwd_reference(x, gamma, mean, rstd, dy):
 
 def _check(x, gamma, **others):
     """Raise ``ValueError`` on anything the kernels do not take: x
-    ``(N, D)`` float32 or bfloat16 with D <= MAX_D; ``gamma``/``beta``
+    ``(N, D)`` float32, bfloat16 or float16 with D <= MAX_D; ``gamma``/``beta``
     ``(D,)`` and ``dy`` ``(N, D)`` of x's type; ``mean``/``rstd`` ``(N, 1)``
     float32; all contiguous and on x's device."""
     if x.dim() != 2:
         raise ValueError(f"x must be (N, D), got {tuple(x.shape)}")
     N, D = x.shape
     if x.dtype not in _DTYPES:
-        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+        raise ValueError(f"x must be float32, bfloat16 or float16, got "
+                         f"{x.dtype}")
     if not 0 < D <= MAX_D:
         raise ValueError(f"D = {D} outside 1..{MAX_D} (shared memory)")
     want = {"x": ((N, D), x.dtype), "gamma": ((D,), x.dtype),

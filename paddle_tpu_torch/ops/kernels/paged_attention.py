@@ -50,7 +50,7 @@ HEADS_PER_CTA = 4
 SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:46"
 
-_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def chunk_pages(page):
@@ -106,7 +106,7 @@ def dense_decode_reference(q, k, v, lengths=None):
 
 def check_kernel_args(q, k_pages, v_pages, page_table, lengths):
     """Raise ``ValueError`` on anything the CUDA kernel does not take:
-    q float32 ``(B, H, D)`` with D <= 256; pools float32 or bfloat16
+    q float32 ``(B, H, D)`` with D <= 256; pools float32, bfloat16 or float16
     ``(P, page, H, D)`` of one type; int32 ``(B, W)`` table and ``(B,)``
     lengths; all contiguous and on q's device; one page's K and V in
     float32 within a block's shared memory (the kernel itself keeps no
@@ -124,7 +124,8 @@ def check_kernel_args(q, k_pages, v_pages, page_table, lengths):
             f"pools must both be (P, page, {H}, {D}), got "
             f"{tuple(k_pages.shape)} and {tuple(v_pages.shape)}")
     if k_pages.dtype not in _POOL_DTYPES or v_pages.dtype != k_pages.dtype:
-        raise ValueError(f"pools must be float32 or bfloat16 of one type, "
+        raise ValueError(f"pools must be float32, bfloat16 or float16 of "
+                         f"one type, "
                          f"got {k_pages.dtype} and {v_pages.dtype}")
     if page_table.dim() != 2 or page_table.shape[0] != B or \
             tuple(lengths.shape) != (B,):

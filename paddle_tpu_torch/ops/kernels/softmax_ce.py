@@ -17,7 +17,7 @@ They replace the Pallas kernels ``_fwd_kernel`` and ``_bwd_kernel`` of
 ``paddle_tpu/ops/pallas/softmax_ce.py``; the source note in the ``.cu``
 file gives the kernels' design and their bound on an H100.
 
-Layout: logits ``(N, V)`` float32 or bfloat16; labels ``(N,)`` int32
+Layout: logits ``(N, V)`` float32, bfloat16 or float16; labels ``(N,)`` int32
 (int64 is cast to int32 before launch); loss, lse and g ``(N,)`` float32.
 A row whose label is ``ignore_index`` has loss 0 and gradient 0.
 """
@@ -37,7 +37,7 @@ SOURCE = "paddle_tpu_torch/csrc/softmax_ce.cu"
 REPLACES = "paddle_tpu/ops/pallas/softmax_ce.py:25"
 REPLACES_BWD = "paddle_tpu/ops/pallas/softmax_ce.py:55"
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _picked(xf, labels):
@@ -87,12 +87,12 @@ def _labels32(logits, labels):
 
 def _check(logits, *rows):
     """Raise ``ValueError`` on anything the kernels do not take: logits
-    ``(N, V)`` float32 or bfloat16, contiguous, with float32 ``(N,)``
+    ``(N, V)`` float32, bfloat16 or float16, contiguous, with float32 ``(N,)``
     rows (lse, g) beside them on their device."""
     if logits.dim() != 2:
         raise ValueError(f"logits must be (N, V), got {tuple(logits.shape)}")
     if logits.dtype not in _DTYPES:
-        raise ValueError(f"logits must be float32 or bfloat16, got "
+        raise ValueError(f"logits must be float32, bfloat16 or float16, got "
                          f"{logits.dtype}")
     if logits.shape[1] == 0:
         raise ValueError("logits have no classes")

@@ -12,6 +12,10 @@ is then of size 1 along it). The mask comes from an explicit
 (``core.random.default_generator`` unless the caller passes one), so a
 run is reproducible from one seed.
 ``torch.nn.functional.dropout`` takes no generator, hence this op.
+
+Inside a recompute segment (``framework.recompute``) ``MASK_TAPE`` holds
+the segment's tape: its forward appends each mask it draws, its
+recomputed forward takes them back in order and draws nothing.
 """
 from __future__ import annotations
 
@@ -20,9 +24,12 @@ import torch
 from ..core.random import default_generator
 from ._base import register
 
-__all__ = ["dropout"]
+__all__ = ["dropout", "MASK_TAPE"]
 
 MODES = ("upscale_in_train", "downscale_in_infer")
+# None, or the active recompute segment's (masks to append to, masks to
+# replay): one of the two is None
+MASK_TAPE = [None]
 
 
 @register("dropout", inputs=("x",))
@@ -51,7 +58,13 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         axes = [a % x.dim() for a in axes]
         shape = [n if i in axes else 1 for i, n in enumerate(x.shape)]
     keep = 1.0 - p
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    tape = MASK_TAPE[0]
+    if tape is not None and tape[1] is not None:
+        mask = next(tape[1])
+    else:
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        if tape is not None:
+            tape[0].append(mask)
     kept = x / keep if mode == "upscale_in_train" else x
     return torch.where(mask, kept, torch.zeros((), dtype=x.dtype,
                                                device=x.device))

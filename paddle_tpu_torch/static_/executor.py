@@ -29,10 +29,20 @@ CPU, and with ``Executor(use_cuda_graph=False)``, every call runs op by
 op. ``cache_stats()`` and ``dispatches`` count as the JAX Executor's do:
 a miss is a new key (its passes), a dispatch a call of an entry.
 
+Static AMP (``amp.static_decorator``): a program with ``_amp_cfg`` has
+each op's floating inputs cast by the white and black lists where the
+replay calls the op (``_amp_cast_fn``; a ``@grad`` op follows its
+forward op's entry), so on the card the casts are inside the graph; the
+loss scaling, the finite check and unscale, the guarded updates and the
+scale's update are program ops (``append_amp_backward``,
+``append_update_ops``). An optimizer with ``multi_precision`` keeps a
+float32 ``<param>@OPT@master`` beside each bfloat16 or float16
+parameter, updated in its place.
+
 Raise ``NotImplementedError``, naming their ROADMAP Queue 1 item: data
-parallelism, the gradient exchange and sharding plans (item 6), AMP
-(item 5), the chaos points (item 7), the AOT executable cache (item 8)
-and the dataset loops (item 10).
+parallelism, the gradient exchange and sharding plans (item 6), the
+chaos points (item 7), the AOT executable cache (item 8) and the
+dataset loops (item 10).
 """
 from __future__ import annotations
 
@@ -100,8 +110,9 @@ class _Compiled:
     the device, and its CUDA graphs (by persistables' storage)."""
 
     def __init__(self, ops, feed_names, updated, frozen, fetch_names,
-                 consts):
+                 consts, amp_cast=None):
         self.ops = ops
+        self.amp_cast = amp_cast
         self.feed_names = feed_names
         self.updated = updated
         self.frozen = frozen
@@ -216,8 +227,9 @@ class Executor:
         frozen = tuple(n for n in persist_in if n not in written)
         consts = {n: c.to(self.place)
                   for n, c in program._constants.items()}
+        amp_cast = _amp_cast_fn(getattr(program, "_amp_cfg", None))
         compiled = _Compiled(ops, feed_names, updated, frozen, fetch_names,
-                             consts)
+                             consts, amp_cast)
         compiled.program_uid = program._uid
         compiled.program_version = program._version
         compiled.op_count = len(blk.ops)  # pre-optimization: mirrors _version
@@ -266,6 +278,8 @@ class Executor:
         forward uid -> (inputs, outputs)), a differentiated forward op on
         detached inputs with its graph kept, any other op as it is."""
         args = [env[n] if n is not None else None for n in op.input_names]
+        if compiled.amp_cast is not None:
+            args = compiled.amp_cast(op.type, args)
         fn = op.fn
         if isinstance(fn, GradFn):
             got = saved.pop(fn.fwd_uid, None)
@@ -373,8 +387,6 @@ class Executor:
             program = program._program
         if getattr(program, "_transpiled_dp", False):
             raise _not_ported("a transpiled data-parallel program", 6)
-        if getattr(program, "_amp_cfg", None):
-            raise _not_ported("static AMP", 5)
         return program
 
     @staticmethod
@@ -496,33 +508,137 @@ class Executor:
         raise _not_ported("Executor.infer_from_dataset", 10)
 
 
+def _amp_cast_fn(amp_cfg):
+    """The list-driven cast of a static AMP program (the counterpart of
+    the JAX Executor's ``_amp_cast_fn``, ``executor.py:1347-1375``, and
+    of the reference's cast-op insertion, ``fp16_utils.py``
+    ``rewrite_program``): a white-listed op's floating inputs go to the
+    half type, a black-listed op's to float32; a ``<type>@grad`` op
+    follows its forward op's entry, so its cotangents meet the forward
+    in the same types. None for a program without AMP."""
+    if not amp_cfg:
+        return None
+    wl = amp_cfg["lists"].white_list
+    bl = amp_cfg["lists"].black_list
+    half = torch.bfloat16 if amp_cfg["dtype"] == "bfloat16" \
+        else torch.float16
+
+    def amp_cast(op_type, args):
+        base = op_type[:-5] if op_type.endswith("@grad") else op_type
+        if base in wl:
+            dt = half
+        elif base in bl:
+            dt = torch.float32
+        else:
+            return args
+        return [a.to(dt) if isinstance(a, torch.Tensor)
+                and a.is_floating_point() else a for a in args]
+
+    return amp_cast
+
+
+def _amp_scale_loss(loss, scale):
+    return loss * scale.to(loss.dtype)
+
+
 def append_amp_backward(amp_decorator, loss, parameter_list=None):
-    raise _not_ported("static AMP (append_amp_backward)", 5)
+    """The AMP backward phase (ref: ``decorator.py`` backward and
+    ``amp_nn.py`` ``check_finite_and_unscale``; JAX ``executor.py``
+    :1377-1427): the persistable scale state, an op scaling the loss, the
+    grad ops, then one op that checks every gradient for an inf or a NaN
+    and unscales it to float32. Returns ``([(param, unscaled grad)],
+    found-inf variable name)``."""
+    from .backward import append_backward
+
+    program = default_main_program()
+    blk = program.global_block
+    scope = global_scope()
+    program._amp_cfg = {"dtype": amp_decorator._dtype,
+                        "lists": amp_decorator._amp_lists}
+
+    if not blk.has_var("@amp@scale"):
+        device = next((scope.find_var(v.name).device
+                       for v in blk.vars.values() if v.is_parameter
+                       and scope.find_var(v.name) is not None), None)
+        if device is None:
+            raise ValueError("the program has no parameter in the global "
+                             "scope to place the loss scale beside")
+        init = {"@amp@scale": (amp_decorator._init_loss_scaling,
+                               torch.float32),
+                "@amp@good": (0, torch.int32), "@amp@bad": (0, torch.int32)}
+        for name, (value, dtype) in init.items():
+            blk.create_var(name=name, shape=(), dtype=dtype,
+                           persistable=True)
+            scope.set(name, torch.tensor(value, dtype=dtype, device=device))
+
+    sname = loss.name + "@SCALED"
+    with torch._C.DisableTorchFunction():
+        shape, dtype = tuple(loss.shape), loss.dtype
+    sv = blk.create_var(name=sname, shape=shape, dtype=dtype,
+                        stop_gradient=False)
+    blk.append_op(Operator("amp_scale_loss", _amp_scale_loss,
+                           [loss.name, "@amp@scale"], [sname], {}))
+    amp_decorator._scaled_loss = sv
+
+    params_grads = append_backward(sv, parameter_list=parameter_list)
+
+    gnames = [g.name for _, g in params_grads]
+    fi = "@amp@found_inf"
+    if not blk.has_var(fi):
+        blk.create_var(name=fi, shape=(), dtype="bool")
+    out_names = [n + "@UNSCALED" for n in gnames]
+    for (_, g), on in zip(params_grads, out_names):
+        with torch._C.DisableTorchFunction():
+            shape = tuple(g.shape)
+        blk.create_var(name=on, shape=shape, dtype="float32")
+    blk.append_op(Operator(
+        "amp_check_finite_and_unscale",
+        amp_decorator.check_and_unscale_rule,
+        ["@amp@scale"] + gnames, [fi] + out_names, {}))
+    program.bump()
+    return ([(p, blk.var(on)) for (p, _), on in
+             zip(params_grads, out_names)], fi)
 
 
 class _UpdateFn:
     """The function of an ``optimize_<opt>`` op: one parameter's update,
-    as ``Optimizer._apply`` makes it (the gradient in the parameter's
+    as ``Optimizer._apply`` makes it (the gradient in the updated value's
     type, the regularizer, the parameter's learning-rate ratio), from
-    ``(param, grad, lr, *slots)`` to ``(new param, *new slots)``."""
+    ``(param, grad, lr[, found_inf], *slots)`` to ``(new param, *new
+    slots)``. With a ``master`` slot the update runs on the float32
+    master and the parameter is the new master rounded to its type;
+    with ``found_inf`` (static AMP) a set flag leaves the parameter and
+    every slot as they were (ref: ``update_loss_scaling``'s skip)."""
 
-    __slots__ = ("opt", "name", "reg", "ratio", "skeys")
+    __slots__ = ("opt", "name", "reg", "ratio", "skeys", "guarded")
 
-    def __init__(self, opt, name, reg, ratio, skeys):
+    def __init__(self, opt, name, reg, ratio, skeys, guarded=False):
         self.opt, self.name, self.reg = opt, name, reg
         self.ratio, self.skeys = ratio, skeys
+        self.guarded = guarded
 
-    def __call__(self, p, g, lr, *slots):
+    def __call__(self, p, g, lr, *rest):
         from ..optim.optimizer import AdamW
 
-        g = g.to(p.dtype)
+        found, slots = (rest[0], rest[1:]) if self.guarded else (None, rest)
+        s = dict(zip(self.skeys, slots))
+        master = s.get("master")
+        pw = p if master is None else master
+        g = g.to(pw.dtype)
         if self.reg is not None and not isinstance(self.opt, AdamW):
-            g = self.reg(p, g)
+            g = self.reg(pw, g)
         if self.ratio != 1.0:
             lr = lr * self.ratio
-        s = dict(zip(self.skeys, slots))
-        new_p, new_s = self.opt._update(self.name, p, g, s, lr, {})
-        return (new_p, *[new_s.get(k, s[k]) for k in self.skeys])
+        new_w, new_s = self.opt._update(self.name, pw, g, s, lr, {})
+        new_s = {k: new_s.get(k, s[k]) for k in self.skeys}
+        if master is not None:
+            new_s["master"] = new_w
+        new_p = new_w.to(p.dtype)
+        if found is not None:
+            new_p = torch.where(found, p, new_p)
+            new_s = {k: torch.where(found, s[k], v)
+                     for k, v in new_s.items()}
+        return (new_p, *[new_s[k] for k in self.skeys])
 
 
 class _ClipFn:
@@ -538,14 +654,18 @@ class _ClipFn:
         return tuple(g for _, g in self.clip(list(zip(self.params, grads))))
 
 
-def append_update_ops(optimizer, params_grads):
+def append_update_ops(optimizer, params_grads, amp_decorator=None,
+                      found_inf_name=None):
     """Append the clip op and one ``optimize_<opt>`` op a parameter (the
-    update phase of the reference's ``Optimizer.minimize``). Each
-    parameter's state lives in persistables ``<param>@OPT@<slot>``, made
-    in ``global_scope()`` beside the parameter; the learning rate is the
-    fed scalar ``@lr``, read from ``optimizer.get_lr`` at each run."""
-    if optimizer._multi_precision:
-        raise _not_ported("multi_precision masters in a static program", 5)
+    update phase of the reference's ``Optimizer.minimize`` /
+    ``apply_gradients``). Each parameter's state lives in persistables
+    ``<param>@OPT@<slot>``, made in ``global_scope()`` beside the
+    parameter (with ``multi_precision``, a float32 ``master`` slot for a
+    bfloat16 or float16 parameter, and the other slots in float32, as
+    ``Optimizer._state_for`` makes them); the learning rate is the fed
+    scalar ``@lr``, read from ``optimizer.get_lr`` at each run. With an
+    AMP decorator every update reads the found-inf flag, and with its
+    dynamic loss scaling one more op advances the scale's state."""
     program = default_main_program()
     blk = program.global_block
     scope = global_scope()
@@ -574,6 +694,10 @@ def append_update_ops(optimizer, params_grads):
             raise ValueError(f"parameter '{p.name}' has no value in the "
                              "global scope")
         state = optimizer._init_state(value)
+        if optimizer._multi_precision and value.dtype in (torch.bfloat16,
+                                                          torch.float16):
+            state = {k: v.float() for k, v in state.items()}
+            state["master"] = value.detach().float()
         skeys = sorted(state)
         sname = {k: f"{p.name}@OPT@{k}" for k in skeys}
         for k in skeys:
@@ -582,11 +706,18 @@ def append_update_ops(optimizer, params_grads):
             scope.set(sname[k], state[k])
         reg = getattr(p, "regularizer", None) or optimizer._regularization
         ratio = p.optimize_attr.get("learning_rate", 1.0)
+        amp_in = [found_inf_name] if amp_decorator is not None else []
         blk.append_op(Operator(
             "optimize_" + type(optimizer).__name__.lower(),
-            _UpdateFn(optimizer, p.name, reg, ratio, skeys),
-            [p.name, g.name, "@lr"] + [sname[k] for k in skeys],
+            _UpdateFn(optimizer, p.name, reg, ratio, skeys,
+                      guarded=amp_decorator is not None),
+            [p.name, g.name, "@lr"] + amp_in + [sname[k] for k in skeys],
             [p.name] + [sname[k] for k in skeys], {}))
+    if amp_decorator is not None and amp_decorator._use_dynamic:
+        blk.append_op(Operator(
+            "amp_update_loss_scaling", amp_decorator.update_scaling_rule,
+            ["@amp@scale", "@amp@good", "@amp@bad", found_inf_name],
+            ["@amp@scale", "@amp@good", "@amp@bad"], {}))
     program.bump()
 
 

@@ -224,7 +224,12 @@ def test_decorate_o2_matches_the_reference():
     opt.step()
     assert opt._accumulators["weight"]["master"].dtype == torch.float32
     assert amp.decorate([tl], None) == [tl]
-    with pytest.raises(NotImplementedError):
-        amp.decorate(tl, opt, level="O1")
+    # O1 casts nothing, in both packages (auto_cast does the work)
+    jl1 = jnn.Linear(8, 8)
+    t1 = nn.Linear(8, 8, device="cpu")
+    assert jamp.decorate(jl1, level="O1") is jl1
+    assert amp.decorate(t1, level="O1") is t1
+    assert str(jl1.weight.dtype) == "float32"
+    assert t1.weight.dtype == torch.float32
     with pytest.raises(ValueError):
         amp.decorate(tl, opt, level="O3")

@@ -5,8 +5,12 @@ load replays the same graph; an async save's snapshot is complete when
 the call returns; a guarded skip keeps one graph), and the static
 Executor (graphed = op by op, ``run_steps`` = sequential runs, the LN
 and CE kernels through a recorded program, a repeatable LeNet step),
-the inference Predictor (graphed = op by op, fp32 and int8) and the
-serve bench's legs (one paged launch a decode step).
+the inference Predictor (graphed = op by op, fp32 and int8), the
+serve bench's legs (one paged launch a decode step), and float16: each
+kernel's float16 variant, the flash backward with dO at a loss scale
+(finite wherever the plain version is), a routed float16 LayerNorm that
+launches, an O1 step under ``auto_cast`` and recompute in a graphed
+step.
 
 Every test here needs a Hopper card and skips without one (the
 decision is made inside the ``hopper`` fixture). The file imports
@@ -23,13 +27,15 @@ bfloat16 pools; LayerNorm and softmax-cross-entropy 1e-5 in float32 and
 the sum of the magnitudes of their terms; flash attention as
 ``chip_smoke.flash_close``: float32 1e-5 (rtol, and atol of 1 for O and
 lse, of the largest entry for a gradient), bfloat16 one bfloat16 step
-(rtol 2^-7) with the same atol.
+(rtol 2^-7) with the same atol; float16 as ``chip_smoke.fp16_close``
+(rtol 2^-10, compared where the plain version is finite), LayerNorm's
+y and dx and the cross-entropy's dlogits 2^-9.
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import flash_close
+from chip_smoke import FP16_TOL, flash_close, fp16_close
 from paddle_tpu_torch import amp, core, optim
 from paddle_tpu_torch.framework import TrainStep
 from paddle_tpu_torch.models.nlp import gpt
@@ -1052,3 +1058,142 @@ def test_serve_bench_leg_launches_the_kernel_each_decode_step(hopper):
         steps["engine"] + steps["export"] + sum(steps["fleet"])
     assert out["finished"] == 48 and detail["fleet"]["finished"] == 24
     assert out["slo_violations"] == [] and out["export_gauge_ok"]
+
+
+# -- float16 ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("N, D", [(8, 128), (13, 768), (1024, 256),
+                                  (16, 1000)])
+def test_float16_layer_norm_kernels_match_plain_versions(hopper, N, D):
+    g = torch.Generator().manual_seed(N + D)
+    x, dy = (torch.randn(N, D, generator=g).half().to(hopper)
+             for _ in range(2))
+    gamma, beta = (torch.randn(D, generator=g).half().to(hopper)
+                   for _ in range(2))
+    y, mean, rstd = ln.layer_norm_fwd(x, gamma, beta)
+    dx, dg, db = ln.layer_norm_bwd(x, gamma, mean, rstd, dy)
+    yr, mr, rr = ln.layer_norm_fwd_reference(x, gamma, beta)
+    dxr, dgr, dbr = ln.layer_norm_bwd_reference(x, gamma, mean, rstd, dy)
+    torch.testing.assert_close(y.float(), yr.float(), rtol=FP16_TOL,
+                               atol=FP16_TOL)
+    torch.testing.assert_close(dx.float(), dxr.float(), rtol=FP16_TOL,
+                               atol=FP16_TOL)
+    torch.testing.assert_close(mean, mr, rtol=1e-5, atol=1e-5)
+    xhat = (x.float() - mean) * rstd
+    for got, want, scale in ((dg, dgr, (dy.float() * xhat).abs().sum(0)),
+                             (db, dbr, dy.float().abs().sum(0))):
+        assert bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all())
+
+
+def test_float16_softmax_ce_kernels_match_plain_versions(hopper):
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(16, 1000, generator=g) * 3).half().to(hopper)
+    lab = torch.randint(0, 1000, (16,), generator=g).to(hopper)
+    lab[::5] = -100
+    gl = torch.rand(16, generator=g).to(hopper)
+    loss, lse = ce.softmax_ce_fwd(x, lab)
+    dx = ce.softmax_ce_bwd(x, lab, lse, gl)
+    lr, lser = ce.softmax_ce_fwd_reference(x, lab)
+    dxr = ce.softmax_ce_bwd_reference(x, lab, lse, gl)
+    torch.testing.assert_close(loss, lr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, lser, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dx.float(), dxr.float(), rtol=FP16_TOL,
+                               atol=FP16_TOL)
+
+
+@pytest.mark.parametrize("Lq, Lk, D, causal", [
+    (256, 256, 64, True), (128, 384, 128, True), (200, 200, 64, False),
+    (128, 128, 256, True)])
+@pytest.mark.parametrize("do_scale", [1.0, 2.0 ** 13])
+def test_float16_flash_kernels_match_plain_versions(hopper, Lq, Lk, D,
+                                                    causal, do_scale):
+    """With ``do_scale`` 2^13 (|dO| <= 7 * 2^13, inside float16) the plain
+    version's float32 dS passes float16's range at D 64 and 128; dQ, dK
+    and dV must be finite wherever the plain ones are."""
+    g = torch.Generator().manual_seed(Lq + Lk + D)
+    q, k, v, do = (torch.randn(2, 4, L, D, generator=g)
+                   for L in (Lq, Lk, Lk, Lq))
+    q, k, v = (t.half().to(hopper) for t in (q, k, v))
+    do = (do.clamp(-7, 7) * do_scale).half().to(hopper)
+    scale = D ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    args = (q, k, v, do, lse, fa.flash_delta(o, do), causal, scale)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    refs = (fa.flash_attention_bwd_dq_reference(*args),
+            *fa.flash_attention_bwd_dkv_reference(*args))
+    for out, ref, grad in ((o, ro, False), (lse, rlse, False),
+                           *zip((dq, dk, dv), refs, (True,) * 3)):
+        ok, err = fp16_close(out, ref, grad)
+        assert ok, f"max abs err {err}"
+
+
+def test_float16_paged_pools_match_the_plain_version(hopper):
+    args = _inputs([0, 1, 17, 300], 4, 64, 16, 64, 32, torch.float16,
+                   hopper)
+    torch.testing.assert_close(pa.paged_decode_attention(*args),
+                               pa.paged_decode_attention_reference(*args),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_float16_layer_norm_of_a_routed_shape_launches(hopper):
+    from paddle_tpu_torch.ops import norm_ops
+
+    x = torch.randn(4, 8, 128, device=hopper).half()
+    w, b = (torch.ones(128, device=hopper).half(),
+            torch.zeros(128, device=hopper).half())
+    kernels.reset_launches()
+    y = norm_ops.layer_norm(x, None, w, b)
+    assert y.dtype == torch.float16
+    assert kernels.launches()["layer_norm_fwd"] == 1
+
+
+def test_o1_float16_graphed_step_is_the_eager_step(hopper):
+    """A tiny GPT (D 64: flash routes) under ``auto_cast(float16)`` with
+    a dynamic loss scaler: 3 graphed steps = 3 eager ones bitwise;
+    flash in float16, LayerNorm and cross-entropy in float32 (launch
+    counts by wrapper)."""
+    def loss_fn(model, ids, labels):
+        with amp.auto_cast(dtype="float16"):
+            return gpt.gpt_loss(model, ids, labels)
+
+    ids = np.random.RandomState(0).randint(0, 512, (4, 128))
+    out = []
+    for eager in (False, True):
+        m = _tiny_gpt(hopper, 0.0)
+        opt = optim.AdamW(parameters=m.named_parameters(),
+                          learning_rate=1e-3)
+        step = TrainStep(m, opt, loss_fn, scaler=amp.DynamicLossScaler())
+        fn = step._eager_step if eager else step
+        kernels.reset_launches()
+        losses = [float(fn(ids, np.roll(ids, -1, axis=1)))
+                  for _ in range(3)]
+        out.append((losses, [p.detach().clone() for p in m.parameters()],
+                    kernels.launches()))
+    assert out[0][0] == out[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    assert out[0][2]["flash_attention_fwd"] == 6
+    assert out[0][2]["layer_norm_fwd"] == 15
+    assert out[0][2]["softmax_ce_fwd"] == 3
+
+
+def test_recompute_in_a_graphed_step_is_bitwise(hopper):
+    ids = np.random.RandomState(1).randint(0, 512, (4, 128))
+    out = []
+    for rc in (False, True):
+        m = _tiny_gpt(hopper, 0.1)
+        m.set_recompute(rc)
+        opt = optim.AdamW(parameters=m.named_parameters(),
+                          learning_rate=1e-3)
+        step = TrainStep(m, opt, gpt.gpt_loss)
+        core.seed(2)
+        kernels.reset_launches()
+        losses = [float(step(ids, np.roll(ids, -1, axis=1)))
+                  for _ in range(3)]
+        out.append((losses, [p.detach().clone() for p in m.parameters()],
+                    kernels.launches()["layer_norm_fwd"]))
+    assert out[0][0] == out[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    assert (out[0][2], out[1][2]) == (15, 27)

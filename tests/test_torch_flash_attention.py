@@ -9,7 +9,7 @@ CPU: ``_flash_fwd`` for O and lse, ``_flash_bwd`` for dQ, dK and dV, and
 PyTorch versions — what the port's wrappers run for CPU tensors — and
 its ``autograd.Function``. Cases: causal and not, Lq = Lk and Lq < Lk
 (offset Lk - Lq), the JAX kernel's block_q 64 and 128, float32 and
-bfloat16.
+bfloat16; float16 at one shape, within one float16 step (rtol 2^-10).
 
 Tolerances (the two sides differ in the order of their float32 sums and,
 in bfloat16, in where a sum that lands near a rounding boundary rounds):
@@ -45,8 +45,11 @@ jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 
 F32 = dict(out=1e-5, grad=1e-5, rtol_out=1e-5, rtol_grad=1e-5)
 BF16 = dict(out=1e-5, grad=1e-5, rtol_out=2 ** -7, rtol_grad=2 ** -7)
-TOLS = {"float32": F32, "bfloat16": BF16}
-_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float16: one float16 step (11 significant bits) relative
+F16 = dict(out=1e-5, grad=1e-5, rtol_out=2 ** -10, rtol_grad=2 ** -10)
+TOLS = {"float32": F32, "bfloat16": BF16, "float16": F16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 SHAPES = [(128, 128), (128, 256)]   # (Lq, Lk): offset 0 and 128
 
 
@@ -179,3 +182,12 @@ def test_kernel_argument_checks_reject_what_the_kernels_do_not_take(case):
            "kv": lambda: fa._check(q, k, v[:, :, :128].contiguous())}
     with pytest.raises(ValueError):
         bad[case]()
+
+
+def test_float16_plain_versions_match_pallas_kernels():
+    """The float16 plain versions against the Pallas kernels in
+    interpret mode at float16: one shape (causal, Lq = Lk = 128, block_q
+    64), O and lse, then dQ, dK and dV, and the autograd Function
+    against ``jax.vjp`` (Lq 128 < Lk 256), within one float16 step."""
+    test_plain_versions_match_pallas_kernels(True, 128, 128, 64, "float16")
+    test_autograd_function_matches_jax_vjp(128, 256, True, "float16")

@@ -224,6 +224,16 @@ spec = importlib.util.spec_from_file_location(
 sb = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(sb)
 assert len(sb.make_trace(4, 10.0)) == 4
+import torch
+from paddle_tpu_torch import amp
+from paddle_tpu_torch.amp import static_decorator
+from paddle_tpu_torch.framework import recompute as _rc
+from paddle_tpu_torch.models.nlp import gpt
+m = gpt.GPT(gpt.gpt_tiny(dropout=0.1, use_recompute=True), device="cpu")
+ids = torch.zeros(1, 8, dtype=torch.int64)
+with amp.auto_cast(dtype="float16"):
+    gpt.gpt_loss(m, ids, ids).backward()
+assert static_decorator.decorate(optim.SGD(0.1, parameters=[]))
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad

@@ -258,7 +258,7 @@ class TestWrapper:
         (lambda a: (a[0][..., :0],) + a[1:], "head_dim"),
         (lambda a: a[:3] + (a[3].long(), a[4]), "int32"),
         (lambda a: (a[0], a[1], a[2][..., :4], a[3], a[4]), "pools"),
-        (lambda a: (a[0], a[1].half(), a[2].half()) + a[3:], "bfloat16"),
+        (lambda a: (a[0], a[1].double(), a[2].double()) + a[3:], "float16"),
         (lambda a: a[:3] + (a[3].t().contiguous().t(), a[4]), "contiguous"),
         (lambda a: a[:4] + (a[4][:1],), r"lengths \(3,\)"),
     ])

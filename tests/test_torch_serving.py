@@ -193,8 +193,10 @@ class TestPagedKVCache:
         assert c.k_pages.dtype == torch.bfloat16
         assert c.k_pages.device.type == "cpu"
         assert c.page_bytes == 2 * 4 * 2 * 8 * 2
+        assert PagedKVCache(9, 4, 2, 8, dtype="float16",
+                            device="cpu").k_pages.dtype == torch.float16
         with pytest.raises(ValueError, match="unsupported dtype"):
-            PagedKVCache(9, 4, 2, 8, dtype="float16", device="cpu")
+            PagedKVCache(9, 4, 2, 8, dtype="float64", device="cpu")
 
     def test_write_tokens_matches_jax_scatter_in_place(self):
         rng = np.random.RandomState(0)

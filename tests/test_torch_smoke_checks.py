@@ -24,7 +24,16 @@ pass an honest model and fail the two faults
 transposed, a BatchNorm momentum taken as 1 - m) and a conv padded
 unevenly (the output's shape kept, its windows shifted). And the int8
 phase's: an int8 bundle with one weight's scales doubled fails both the
-bundle check and ``INT8_PROB_TOL``.
+bundle check and ``INT8_PROB_TOL``. And the mixed-precision phase's
+(21): ``fp16_close`` passes an honest float16 result and fails planted
+faults (a zeroed gradient, an inf where the plain version is finite);
+the float16 tensor-core kernels' arithmetic, emulated, passes it with
+dS fitted to float16's range by a power of two a row before its split
+(``fit_rows``), and fails it without the fit once dO carries a loss
+scale of 2^14 (the split halves turn to inf where the plain float32 dS
+is finite); ``scaler_rule`` is ``DynamicLossScaler()``'s state machine,
+and a scaler that shrinks by 0.8 instead of 0.5 fails it; ``Tally``
+passes the kernels' launch counts through.
 """
 import pathlib
 import re
@@ -371,3 +380,131 @@ def test_int8_checks_reject_a_scale_off_by_two(tmp_path):
             cs.int8_bundle_check(prefix, quantized)
         _, bad = cs.int8_predict(prefix + "_int8", x, "cpu")
         assert cs.max_prob_diff(o32, bad) > cs.INT8_PROB_TOL, name
+
+
+# -- the mixed-precision phase's checks (21) ---------------------------------
+
+
+def _f16_case(Lq, Lk, causal, do_mul, seed):
+    """Float16 flash inputs; with ``do_mul`` > 1, dO at that multiple of
+    its usual scale (|dO| <= 3.5 do_mul) and q three times as large (P
+    peaked on a few keys), so that the plain float32 dS passes 65504 at
+    these small shapes too (on the card the path's shape does it at
+    2^13 unpeaked)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(1, 8, L, 64, generator=g)
+                   for L in (Lq, Lk, Lk, Lq))
+    if do_mul > 1:
+        q = q * 3
+    q, k, v = q.half(), k.half(), v.half()
+    do = (do.clamp(-3.5, 3.5) * do_mul).half()
+    scale = 0.125
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    return (q, k, v, do, lse, fa.flash_delta(o, do), causal, scale), o
+
+
+def _f16_operand(x, fit):
+    """float16 hi and lo halves of a float32 ``x`` (rows on the last
+    axis but one... each row of the last axis), after ``fit_rows``'s
+    power of two a row when ``fit``: returns the halves and the row
+    scale to undo."""
+    mul = torch.ones(x.shape[:-1] + (1,))
+    if fit:
+        m = x.abs().amax(-1, keepdim=True)
+        e = torch.where(m > 0, torch.floor(torch.log2(m)),
+                        torch.full_like(m, -112.0)).clamp(-112, 127)
+        mul = torch.exp2(14 - e)
+    y = x * mul
+    hi = y.half().float()
+    return (hi, (y - hi).half().float()), mul
+
+
+def _f16_emulation(q, k, v, do, lse, delta, causal, scale, fit):
+    """dQ, dK and dV as the float16 dQ and dK/dV kernels compute them:
+    float16 operands as stored, float32 sums, dS in two float16 halves
+    (after the row fit when ``fit``), the fit undone in float32."""
+    B, H, Lq, _ = q.shape
+    s = _tc_scores(q, k, causal, scale)
+    p = torch.exp(s - lse.reshape(B, H, Lq, 1))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta.reshape(B, H, Lq, 1))
+    halves, mul = _f16_operand(ds, fit)
+    dq = sum(torch.matmul(h, k.float()) for h in halves) / mul * scale
+    halves, mul = _f16_operand(ds.transpose(-1, -2), fit)
+    dk = sum(torch.matmul(h, q.float()) for h in halves) / mul * scale
+    halves, _ = _f16_operand(p.transpose(-1, -2), False)
+    dv = sum(torch.matmul(h, do.float()) for h in halves)
+    return dq.half(), dk.half(), dv.half()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp16_close_rejects_planted_faults(causal):
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    args, o = _f16_case(128, 128, causal, 1.0, 7)
+    dq = fa.flash_attention_bwd_dq_reference(*args)
+    dk, dv = fa.flash_attention_bwd_dkv_reference(*args)
+    honest = dict(zip(("O", "lse", "dQ", "dK", "dV"), _flash_f64(*args)))
+    for name, ref in (("O", o), ("dQ", dq), ("dK", dk), ("dV", dv)):
+        assert cs.fp16_close(honest[name].half(), ref, name != "O")[0], name
+    assert not cs.fp16_close(torch.zeros_like(dv), dv, True)[0]
+    bad = dq.clone()
+    bad.view(-1)[3] = float("inf")
+    assert not cs.fp16_close(bad, dq, True)[0]
+    # an inf where the plain version has one is not compared
+    assert cs.fp16_close(bad, bad, True)[0]
+
+
+@pytest.mark.parametrize("Lq, Lk, causal", [(128, 128, True),
+                                            (128, 256, True),
+                                            (256, 256, False)])
+def test_fp16_backward_needs_ds_fitted_to_float16(Lq, Lk, causal):
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    for do_mul in (1.0, 2.0 ** 14):
+        args, _ = _f16_case(Lq, Lk, causal, do_mul, Lq + Lk)
+        refs = (fa.flash_attention_bwd_dq_reference(*args),
+                *fa.flash_attention_bwd_dkv_reference(*args))
+        fitted = _f16_emulation(*args, fit=True)
+        for name, ref, out in zip(("dQ", "dK", "dV"), refs, fitted):
+            assert cs.fp16_close(out, ref, True)[0], (name, do_mul)
+        if do_mul == 1.0:
+            continue
+        _, ds = fa._p_ds(*args)
+        assert ds.abs().max() > 65504
+        raw = _f16_emulation(*args, fit=False)
+        assert not all(cs.fp16_close(out, ref, True)[0]
+                       for out, ref in zip(raw[:2], refs[:2]))
+
+
+def test_scaler_rule_is_the_dynamic_scalers():
+    from paddle_tpu_torch import amp
+
+    sc = amp.DynamicLossScaler()
+    state = sc.state("cpu")
+    flags = [False, True, True, False, False, True, False]
+    for i in range(len(flags)):
+        state = sc.update_state(state, torch.tensor(flags[i]))
+        assert {k: v.item() for k, v in state.items()} == \
+            cs.scaler_rule(flags[:i + 1])
+    slow = amp.DynamicLossScaler(decr_ratio=0.8)
+    s2 = slow.update_state(slow.state("cpu"), torch.tensor(True))
+    assert s2["scale"].item() != cs.scaler_rule([True])["scale"]
+
+
+def test_tally_passes_the_launch_counts_through():
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import layernorm as ln
+
+    kernels.reset_launches()
+    with cs.dtype_tally() as counts:
+        assert isinstance(ln.layer_norm_fwd, cs.Tally)
+        ln.layer_norm_fwd.launches += 2
+        assert kernels.launches()["layer_norm_fwd"] == 2
+        x = torch.randn(8, 128)
+        ln.layer_norm_fwd(x, torch.ones(128), torch.zeros(128))
+        kernels.reset_launches()
+    assert not isinstance(ln.layer_norm_fwd, cs.Tally)
+    assert ln.layer_norm_fwd.launches == 0 and not counts

@@ -9,7 +9,8 @@ tensors — forward and backward, and through the port's
 ``autograd.Function``s. Tolerances, atol and rtol: 1e-5 in float32,
 where the two differ only in summation order; 2e-2 in bfloat16 inputs
 and outputs (a bound at bf16 resolution, 2^-7 ~ 7.8e-3 a step; both
-sides compute in float32). dlogits, whose entries off the label column
+sides compute in float32); 2^-9 in float16 (two float16 steps), at one
+shape each. dlogits, whose entries off the label column
 are ~g/V, is held entry by entry to that tolerance times the magnitudes
 of its two terms, ``p * g + onehot * g``. The routing gates are held to
 the JAX package's over a grid of shapes.
@@ -38,7 +39,10 @@ from paddle_tpu_torch.ops.kernels import softmax_ce as ce
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
 DTYPES = [("float32", F32_TOL), ("bfloat16", BF16_TOL)]
-_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+# float16: two float16 steps (11 significant bits), relative and absolute
+FP16_TOL = 2 ** -9
 
 
 def _both(a, dtype):
@@ -285,3 +289,15 @@ def test_plain_versions_context_is_explicit_and_scoped():
         assert _route.plain(t)
     assert not _route.plain(t)
     assert _route.plain(torch.empty(1))   # CPU tensors always
+
+
+@pytest.mark.parametrize("which", ["layer_norm", "softmax_ce"])
+def test_float16_plain_versions_match_pallas_kernels(which):
+    """The float16 plain versions (float32 inside, rounding only what
+    they write, as the kernels do) against the Pallas kernels in
+    interpret mode at float16, one shape each, within ``FP16_TOL``."""
+    if which == "layer_norm":
+        test_layer_norm_matches_pallas_kernel(16, 128, "float16", FP16_TOL)
+    else:
+        test_softmax_ce_matches_pallas_kernel(16, 384, (1, 7, 8), "float16",
+                                              FP16_TOL)

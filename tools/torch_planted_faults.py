@@ -6,7 +6,7 @@ checkpoints and guards that rebind storage or drop state, and a static
 program that drops a gradient, a fused window or a velocity.
 
     python3 tools/torch_planted_faults.py [--resnet | --checkpoint |
-                                           --static]
+                                           --static | --amp]
 
 Builds the kernels, then runs the smoke's train phases with one fault
 planted at a time:
@@ -70,6 +70,22 @@ Then three faults in the static phase's bench_lenet_exec part (18(a),
   returns the slot it read): the program must part from the eager
   LeNet's losses and velocities.
 
+Then four faults in the mixed-precision phase (21, ``--amp`` plants
+these only):
+
+- dV of every float16 ``flash_attention_bwd_dkv`` call zeroed, while
+  21(a) runs bench_gpt under ``auto_cast(float16)``, and dx of every
+  float16 ``layer_norm_bwd`` call zeroed while 21(b) runs it at O2: the
+  kernel run's losses must part from the plain versions' by more than
+  ``F16_TRAIN_LOSS_TOL`` (``chip_smoke.amp_compare``);
+- a recompute segment that does not hand its parameters to autograd
+  (``framework.recompute``'s ``_segment_params`` finding none), so they
+  get no gradient: 21(d) must find the losses differ from the run
+  without recompute (``chip_smoke.recompute_check``);
+- a static AMP scale that doubles after every clean step: 21(e) must
+  find ``@amp@scale`` off the reference's rule
+  (``chip_smoke.static_amp_check``).
+
 Each of the first phases runs 4 AdamW steps through the kernels and 4
 through the plain versions and compares the losses. A fault is planted
 by swapping the module's wrapper for one that calls the real kernel and
@@ -102,6 +118,7 @@ from paddle_tpu_torch.nn import functional as F  # noqa: E402
 from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
 from paddle_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops.kernels import layernorm as ln  # noqa: E402
+from paddle_tpu_torch.amp import static_decorator  # noqa: E402
 
 LOSSES = "losses differ"
 FAULTS = [
@@ -335,6 +352,84 @@ def static_faults(gpu):
     return missed
 
 
+def _zeroing(real, index):
+    def planted(*args):
+        out = list(real(*args))
+        if args[0].dtype == torch.float16:
+            out[index] = torch.zeros_like(out[index])
+        return tuple(out)
+    planted.launches = 0
+    return planted
+
+
+def _no_segment_params(real):
+    return lambda function, models: []
+
+
+def _scale_grows_each_step(real):
+    def rule(self, scale, good, bad, found_inf):
+        return (torch.where(found_inf, scale, scale * 2), good * 0,
+                bad * 0)
+    return rule
+
+
+def _amp_phase_part(part, gpu):
+    f32, f16 = "torch.float32", "torch.float16"
+    if part == "O1":
+        chip_smoke.amp_compare("O1 gpt", "bench_gpt", "O1",
+                               chip_smoke.o1_gpt_loss,
+                               {"layer": f32, "softmax": f32, "flash": f16},
+                               gpu)
+    elif part == "O2":
+        chip_smoke.amp_compare("O2 gpt", "bench_gpt", "O2", None,
+                               {"layer": f16, "softmax": f16, "flash": f16},
+                               gpu)
+    elif part == "recompute":
+        chip_smoke.recompute_check(gpu)
+    else:
+        chip_smoke.static_amp_check(gpu)
+
+
+def amp_faults(gpu):
+    """The mixed-precision faults, each planted while the part of phase
+    21 that must catch it runs: the labels it passed or did not fail by
+    the named check."""
+    import importlib
+
+    rc = importlib.import_module("paddle_tpu_torch.framework.recompute")
+    faults = [
+        # (label, owner, attribute, replacement from the real one, part
+        # of phase 21, the failure that must catch it)
+        ("float16 flash dV = 0 under O1", fa, "flash_attention_bwd_dkv",
+         lambda real: _zeroing(real, 1), "O1", "plain versions'"),
+        ("float16 layer_norm_bwd dx = 0 at O2", ln, "layer_norm_bwd",
+         lambda real: _zeroing(real, 0), "O2", "plain versions'"),
+        ("recompute leaves the parameters without gradients", rc,
+         "_segment_params", _no_segment_params, "recompute",
+         "recompute: losses"),
+        ("static AMP scale doubles every clean step",
+         static_decorator.OptimizerWithMixedPrecision,
+         "update_scaling_rule", _scale_grows_each_step, "static",
+         "@amp@scale"),
+    ]
+    missed = []
+    for label, owner, attr, wrap, part, caught_by in faults:
+        real = getattr(owner, attr)
+        setattr(owner, attr, wrap(real))
+        try:
+            _amp_phase_part(part, gpu)
+            missed.append(label)
+            print(f"planted {label}: the phase PASSED it")
+        except chip_smoke.CheckFailed as e:
+            if caught_by not in str(e):
+                missed.append(label)
+            print(f"planted {label}: the phase failed: {e}")
+        finally:
+            setattr(owner, attr, real)
+            torch.cuda.empty_cache()
+    return missed
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--resnet", action="store_true",
@@ -343,6 +438,8 @@ def main(argv=None):
                     help="plant the three checkpoint faults only")
     ap.add_argument("--static", action="store_true",
                     help="plant the three static-graph faults only")
+    ap.add_argument("--amp", action="store_true",
+                    help="plant the four mixed-precision faults only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_planted_faults: no CUDA device", file=sys.stderr)
@@ -350,7 +447,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     _build.build()
     gpu = chip_smoke.gpu_line()
-    only = args.resnet or args.checkpoint or args.static
+    only = args.resnet or args.checkpoint or args.static or args.amp
     missed = op_faults(gpu) if args.resnet or not only else []
     if not only:
         missed += kernel_faults(gpu)
@@ -358,6 +455,8 @@ def main(argv=None):
         missed += checkpoint_faults(gpu)
     if args.static or not only:
         missed += static_faults(gpu)
+    if args.amp or not only:
+        missed += amp_faults(gpu)
     print(gpu)
     if missed:
         print(f"not caught by the check named for them: {missed}")
