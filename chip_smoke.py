@@ -2,8 +2,9 @@
 """Drive paddle_tpu_torch's serving path, its training steps (GPT, BERT,
 ResNet-50), its serving fleet, the step as one CUDA graph, its decoding,
 its checkpointed and guarded training, its static graph, the serve bench,
-the int8 Predictor and float16 mixed precision with recompute once on
-one NVIDIA H100.
+the int8 Predictor, float16 mixed precision with recompute, and the rest
+of Paddle's optimizers, initializers and run reports once on one NVIDIA
+H100.
 
     python3 chip_smoke.py
 
@@ -266,6 +267,27 @@ any failed check:
              bitwise, ``@amp@scale`` by the reference's rule; then the
              float16 kernels timed at bench_gpt's shapes (the JSON
              line's ``[float16]`` rows).
+
+22. rare   — the rest of Paddle's optimizers, initializers and reports
+             (``rare_phase``): Ftrl, DecayedAdagrad, LarsMomentum,
+             DGCMomentum and Dpsgd each against its plain float64
+             formula on a (768, 3072) weight (``rule_value_check``,
+             within ``RULE_TOL``); then bench_gpt's step (phase 10's
+             configuration) under each of them in AdamW's place: 4
+             graphed steps = 4 op-by-op steps bitwise from one generator
+             seed (Dpsgd's noise included), launches 25/25/1/1/12/12/12
+             a step, finite losses, 5 replays timed beside AdamW's, every
+             step journaled; Dpsgd's noise new at each replay
+             (``dpsgd_noise_check``); ``ExponentialMovingAverage`` and
+             ``ModelAverage`` after each replay of AdamW's step, their
+             ``apply()`` = their plain arithmetic and ``restore()`` the
+             trained parameters bitwise; ``LookAhead(AdamW, k=2)`` over 4
+             eager steps, its pulls = the plain formula; each random
+             initializer filling a (768, 3072) weight on the card, held
+             to its law (``init_check``); a static LeNet ``Executor.run``,
+             ``run_steps`` and a ``Predictor.run`` under a journal; then
+             the five report tools over the journals of phases 13, 19
+             and 22 (``report_check``).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -813,12 +835,13 @@ def fleet_local(prompts, max_new, gpu):
     return launches
 
 
-def fleet_drill(gpu):
+def fleet_drill(gpu, root=None):
     """The kill drill on the card: two worker processes at FLEET_DRILL,
     replica 1 killed by ``replica_kill`` mid-decode and relaunched. Every
     drill assertion must hold, every incarnation's journal must name this
     card, and the survivor's decode steps after its ready line must each
-    have launched the paged kernel once."""
+    have launched the paged kernel once. With ``root`` the drill's
+    journals stay under ``root/run`` for phase 22."""
     import torch
 
     from paddle_tpu_torch.serving.fleet import drill
@@ -828,7 +851,7 @@ def fleet_drill(gpu):
              for n in rng.randint(128, 513, drill.N_REQUESTS)]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = drill.run_drill(geometry=FLEET_DRILL, trace=trace)
+    res = drill.run_drill(geometry=FLEET_DRILL, trace=trace, root=root)
     wall = time.perf_counter() - t0
     check(res["failures"] == [], f"fleet drill: {res['failures']}")
     name = torch.cuda.get_device_name(0)
@@ -862,9 +885,9 @@ def fleet_drill(gpu):
     return res
 
 
-def fleet_phase(prompts, gpu):
+def fleet_phase(prompts, gpu, journals=None):
     launches = fleet_local(prompts, 32, gpu)
-    fleet_drill(gpu)
+    fleet_drill(gpu, journals and os.path.join(journals, "fleet_drill"))
     return launches
 
 
@@ -3737,15 +3760,15 @@ class Oracle:
         return self.tokens[key]
 
 
-def serve_bench_run(sb, label, gpu):
+def serve_bench_run(sb, label, gpu, journal_dir=None):
     """``bench_serve_leg`` at one of ``SERVE_WIDTHS``, the launch counts
     zeroed just before and read just after: every request of the engine
     and fleet legs finishes (none rejected or stuck) with the dense
     oracle's tokens, no SLO of ``SERVE_SLO_SPEC`` is violated, the scraped
     running gauge equals the engine's, and the paged kernel launches once
     for each decode step of each engine the leg ran (the engine, the
-    export leg's and the two replicas). Returns the leg's dict and the
-    oracle."""
+    export leg's and the two replicas). ``journal_dir`` keeps the engine
+    leg's journal. Returns the leg's dict and the oracle."""
     import torch
 
     from paddle_tpu_torch.ops import kernels
@@ -3755,7 +3778,8 @@ def serve_bench_run(sb, label, gpu):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    out = sb.bench_serve_leg(**SERVE_BENCH, **width, detail=detail)
+    out = sb.bench_serve_leg(**SERVE_BENCH, **width, detail=detail,
+                             journal_dir=journal_dir)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launches()
@@ -3834,16 +3858,20 @@ def serve_bench_replay(sb, oracle, gpu):
         f"tokens = the dense oracle's [{gpu}]")
 
 
-def serve_bench_phase(gpu):
+def serve_bench_phase(gpu, journals=None):
     """Phase 19: ``serve_bench_run`` at bench's width and at full width,
-    then ``serve_bench_replay``. Returns the two legs' dicts."""
+    then ``serve_bench_replay``. Returns the two legs' dicts. With
+    ``journals`` each leg's engine journal stays under
+    ``journals/serve_bench/<label>`` for phase 22."""
     import torch
 
     t0 = time.perf_counter()
     sb = serve_bench_tool()
     out = {}
     for label in SERVE_WIDTHS:
-        out[label], oracle = serve_bench_run(sb, label, gpu)
+        out[label], oracle = serve_bench_run(
+            sb, label, gpu, journals and os.path.join(
+                journals, "serve_bench", label))
     serve_bench_replay(sb, oracle, gpu)
     del oracle
     torch.cuda.empty_cache()
@@ -4672,6 +4700,584 @@ def amp_phase(gpu):
     log(f"amp: phase took {time.perf_counter() - t0:.1f} s")
     return errs, t, launches
 
+# -- phase 22: the rest of Paddle's optimizers, initializers and reports ------
+
+RARE_RULES = ("ftrl", "decayed_adagrad", "lars_momentum", "dgc_momentum",
+              "dpsgd")
+# a rule's float32 update against its plain float64 formula, relative to
+# the formula's largest |update| (each case's update is >= 1e4 float32
+# steps of the weight)
+RULE_TOL = 1e-4
+INIT_SHAPE = (768, 3072)      # gpt_small's fc1 weight: fan_in 768, out 3072
+INIT_STD_RTOL = 0.01          # 2.36M draws: the std within 1%
+ORTHO_TOL = 1e-4              # |QᵀQ - I| of a float32 QR, 3072 x 768
+TRUNC_STD = 0.8796256610342398   # std of N(0, 1) truncated to [-2, 2]
+RARE_TIMED = 5
+
+
+def rare_optimizer(kind, params):
+    """bench_gpt's optimizer with the rule ``kind`` in AdamW's place:
+    ``multi_precision``, global-norm clip 1.0 (Dpsgd clips by its own
+    norm), learning rates at which the 4 steps stay finite."""
+    from paddle_tpu_torch import optim
+
+    kw = dict(parameters=params, multi_precision=True)
+    clip = optim.ClipGradByGlobalNorm(1.0)
+    if kind == "adamw":
+        return optim.AdamW(parameters=params, learning_rate=1e-4,
+                           weight_decay=0.01, grad_clip=clip,
+                           multi_precision=True)
+    if kind == "ftrl":
+        return optim.Ftrl(1e-4, l1=1e-6, l2=1e-6, grad_clip=clip, **kw)
+    if kind == "decayed_adagrad":
+        return optim.DecayedAdagrad(1e-4, decay=0.95, grad_clip=clip, **kw)
+    if kind == "lars_momentum":
+        return optim.LarsMomentum(0.1, momentum=0.9, lars_coeff=0.001,
+                                  lars_weight_decay=0.0005, grad_clip=clip,
+                                  **kw)
+    if kind == "dgc_momentum":
+        return optim.DGCMomentum(1e-3, 0.9, rampup_begin_step=1,
+                                 sparsity=(0.999,), grad_clip=clip, **kw)
+    return optim.Dpsgd(1e-3, clip=1.0, batch_size=16.0, sigma=1.0, **kw)
+
+
+# each rule's case in ``rule_value_check``: learning rate, gradient
+# scale; Lars's gradient norm is of the size of ``lars_weight_decay *
+# |p|``, so its decay term weighs as much as the gradient's
+RULE_CASES = {"ftrl": (0.01, 1e-2), "decayed_adagrad": (0.01, 1e-2),
+              "lars_momentum": (10.0, 1e-5), "dgc_momentum": (0.01, 1e-2),
+              "dpsgd": (10.0, 1e-2)}
+
+
+def plain_rule(kind, p, g, steps):
+    """``steps`` updates of ``p`` by ``g`` (float64 copies) written out
+    from the reference's formulas (``paddle_tpu/optim/optimizer.py``), at
+    ``rule_value_check``'s hyperparameters."""
+    import torch
+
+    lr = RULE_CASES[kind][0]
+    p, g = p.double(), g.double()
+    s = torch.zeros_like(p)           # squared / moment / velocity
+    z = torch.zeros_like(p)           # Ftrl's linear
+    for _ in range(steps):
+        if kind == "ftrl":           # l1 1e-6, l2 1e-2, lr_power -0.5
+            n = s + g * g
+            z = z + g - (n.sqrt() - s.sqrt()) / lr * p
+            s = n
+            p = torch.where(z.abs() > 1e-6,
+                            (z.sign() * 1e-6 - z) / (n.sqrt() / lr + 2e-2),
+                            torch.zeros_like(p))
+        elif kind == "decayed_adagrad":          # decay 0.9, eps 1e-6
+            s = 0.9 * s + 0.1 * g * g
+            p = p - lr * g / (s.sqrt() + 1e-6)
+        elif kind == "lars_momentum":   # mu 0.9, coeff 1e-3, decay 5e-4
+            wn, gn = p.norm(), g.norm()
+            local = lr * 1e-3 * wn / (gn + 5e-4 * wn).clamp(min=1e-12)
+            s = 0.9 * s + local * (g + 5e-4 * p)
+            p = p - s
+        elif kind == "dgc_momentum":     # mu 0.9
+            s = 0.9 * s + g
+            p = p - lr * s
+        else:                            # sigma 0, clip 0.5, batch 4
+            p = p - lr * g * min(1.0, 0.5 / max(float(g.norm()), 1e-12))
+    return p
+
+
+def rule_value_check(kind, device="cuda", steps=3):
+    """``steps`` updates of ``kind`` (``RULE_CASES``) on a (768, 3072)
+    float32 weight against ``plain_rule``: the update within
+    ``RULE_TOL`` of the plain one's largest magnitude. Returns the worst
+    relative difference."""
+    import torch
+
+    from paddle_tpu_torch import optim
+
+    lr, scale = RULE_CASES[kind]
+    gen = torch.Generator(device=device).manual_seed(22)
+    p0 = torch.randn(INIT_SHAPE, generator=gen, device=device) * 0.02
+    g = torch.randn(INIT_SHAPE, generator=gen, device=device) * scale
+    p = torch.nn.Parameter(p0.clone())
+    opt = {"ftrl": lambda ps: optim.Ftrl(lr, l1=1e-6, l2=1e-2,
+                                         parameters=ps),
+           "decayed_adagrad": lambda ps: optim.DecayedAdagrad(
+               lr, decay=0.9, parameters=ps),
+           "lars_momentum": lambda ps: optim.LarsMomentum(
+               lr, momentum=0.9, parameters=ps),
+           "dgc_momentum": lambda ps: optim.DGCMomentum(lr, 0.9,
+                                                        parameters=ps),
+           "dpsgd": lambda ps: optim.Dpsgd(lr, clip=0.5, batch_size=4.0,
+                                           sigma=0.0, parameters=ps),
+           }[kind]([("w", p)])
+    for _ in range(steps):
+        p.grad = g.clone()
+        opt.step()
+    want = plain_rule(kind, p0, g, steps) - p0.double()
+    got = p.detach().double() - p0.double()
+    err = float((got - want).abs().max() / want.abs().max())
+    check(err <= RULE_TOL, f"rare {kind}: the update differs from the "
+          f"plain formula's by {err:.3g} of its largest magnitude "
+          f"(limit {RULE_TOL})")
+    return err
+
+
+def rule_run(model, init, loss_fn, batches, eager, make_opt, run_dir,
+             timed=0, each=None):
+    """``len(batches)`` steps of bench_gpt from ``init`` under
+    ``make_opt(model)``, the device's generator reseeded, through the
+    graphed ``TrainStep`` or its ``_eager_step``, every step journaled
+    under ``run_dir`` (loss, wall, tokens) as a training loop journals
+    it and followed by ``each()``; launches counted over those steps and
+    the state ``snapshot`` after them; then ``timed`` more steps,
+    journaled too. Returns ``(step, losses, walls, launches, timed
+    walls, state)``."""
+    import torch
+
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.framework import TrainStep
+    from paddle_tpu_torch.obs import journal
+    from paddle_tpu_torch.ops import kernels
+
+    model.load_state_dict(init)
+    core.seed(1)
+    step = TrainStep(model, make_opt(model), loss_fn)
+    fn = step._eager_step if eager else step
+    B, L = batches[0][0].shape
+    walls, losses, more = [], [], []
+    with journal.RunJournal(run_dir, flush_every=64) as j:
+        def one(b, into):
+            t0 = time.perf_counter()
+            loss = float(fn(*b))   # syncs on the loss
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            into.append(ms)
+            j.record_step(loss=loss, step_ms=ms, examples=B * L,
+                          source="train_step")
+            if each is not None:
+                each()
+            return loss
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        losses = [one(b, walls) for b in batches]
+        launches = kernels.launches()
+        state = snapshot(model, step.optimizer)
+        for _ in range(timed):
+            one(batches[0], more)
+    return step, losses, walls, launches, more, state
+
+
+def rule_compare(kind, model, init, loss_fn, batch, gpu, journals,
+                 steps=4):
+    """bench_gpt's step under ``kind`` (``rare_optimizer``): ``steps``
+    graphed steps against ``steps`` op-by-op ones from the same weights
+    and generator seed, the same bits in losses, parameters, masters and
+    state; launches ``train_launches``; finite losses; then
+    ``RARE_TIMED`` replays timed. AdamW is timed alone, beside them
+    (phase 14 compares it). Returns the median replay's ms."""
+    import math
+
+    import torch
+
+    B, L = batch[0].shape
+    runs = {}
+    for eager in ((False, True) if kind != "adamw" else (False,)):
+        tag = "eager" if eager else "graphed"
+        step, losses, walls, launches, more, state = rule_run(
+            model, init, loss_fn, [batch] * steps, eager,
+            lambda m: rare_optimizer(kind, m.named_parameters()),
+            os.path.join(journals, "rules", f"{kind}_{tag}"),
+            0 if eager else RARE_TIMED)
+        runs[tag] = (losses, state, more)
+        want = train_launches("bench_gpt", model.cfg, steps)
+        check(launches == want, f"rare {kind} {tag}: launches {launches}, "
+              f"want {want}")
+        check(all(math.isfinite(x) for x in losses),
+              f"rare {kind} {tag}: losses {losses}")
+        del step
+    losses, state, more = runs["graphed"]
+    med = sorted(more)[len(more) // 2]
+    if kind != "adamw":
+        bad = same_bits(state, runs["eager"][1])
+        check(losses == runs["eager"][0] and not bad,
+              f"rare {kind}: graphed and op by op differ (losses "
+              f"{losses} vs {runs['eager'][0]}; {len(bad)} tensors, e.g. "
+              f"{bad[:4]})")
+    log(f"rare {kind} (bench_gpt, 16 x 1024 bf16, multi_precision): "
+        f"losses {losses}; graphed = op by op bitwise; launches "
+        f"25/25/1/1/12/12/12 a step; replay ms "
+        + " ".join(f"{w:.2f}" for w in more) + f" (median {med:.2f} ms "
+        f"= {B * L / med * 1e3:.0f} tokens/s) [{gpu}]")
+    del runs
+    torch.cuda.empty_cache()
+    return med
+
+
+def dpsgd_noise_check(model, init, batch, gpu):
+    """Dpsgd's noise in the graphed step: with the loss times 0 (zero
+    gradients), lr 1, clip 1, batch_size 1, sigma 1, each replay moves
+    every float32 master by minus its noise: the two replays' moves of
+    the largest master differ and each has mean 0 and std 1 (within 1%)."""
+    import torch
+
+    from paddle_tpu_torch import core, optim
+    from paddle_tpu_torch.framework import TrainStep
+    from paddle_tpu_torch.models.nlp import gpt
+
+    model.load_state_dict(init)
+    core.seed(1)
+    opt = optim.Dpsgd(1.0, clip=1.0, batch_size=1.0, sigma=1.0,
+                      parameters=model.named_parameters(),
+                      multi_precision=True)
+    step = TrainStep(model, opt,
+                     lambda m, *b: gpt.gpt_loss(m, *b) * 0.0)
+    name = max(opt._named_params, key=lambda np_: np_[1].numel())[0]
+    masters = []
+    for _ in range(4):
+        step(*batch)
+        masters.append(opt._accumulators[name]["master"].clone())
+    d3, d4 = masters[2] - masters[1], masters[3] - masters[2]
+    stats = [(float(d.mean()), float(d.std())) for d in (d3, d4)]
+    check(not torch.equal(d3, d4), "rare dpsgd: two replays drew the same "
+          "noise")
+    check(all(abs(m) < 0.01 and abs(s - 1) < 0.01 for m, s in stats),
+          f"rare dpsgd: replay noise (mean, std) {stats}, want (0, 1)")
+    log(f"rare dpsgd noise: replays 3 and 4 of {name} ({d3.numel()} "
+        f"values) moved by fresh noise, (mean, std) {stats} [{gpu}]")
+    del step, opt, masters
+    torch.cuda.empty_cache()
+
+
+def wrapper_check(model, init, loss_fn, batch, gpu, journals, steps=4):
+    """bench_gpt's graphed AdamW step with ``ExponentialMovingAverage``
+    (decay 0.999, ``thres_steps``) updated and ``ModelAverage`` stepped
+    after each replay: the EMA shadows equal their arithmetic written
+    out (bfloat16 scalars, as the reference's weak types), the average
+    the float32 sum over the steps divided by their count; ``apply()``
+    sets them and ``restore()`` gives every parameter back bitwise."""
+    import torch
+
+    from paddle_tpu_torch import optim
+
+    snaps = []
+
+    def each():
+        ema.update()
+        ma.step()
+        snaps.append({n: p.detach().clone()
+                      for n, p in model.named_parameters()})
+
+    model.load_state_dict(init)
+    ema = optim.ExponentialMovingAverage(model, decay=0.999, thres_steps=1)
+    ma = optim.ModelAverage(0.15, model, min_average_window=2,
+                            max_average_window=10)
+    step, _, _, _, _, _ = rule_run(
+        model, init, loss_fn, [batch] * steps, False,
+        lambda m: rare_optimizer("adamw", m.named_parameters()),
+        os.path.join(journals, "wrappers"), each=each)
+    params = dict(model.named_parameters())
+    shadow = {n: init[n].clone() for n in params}
+    total = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in params.items()}
+    for t, snap in enumerate(snaps, 1):
+        d = min(0.999, (1 + t) / (10 + t))
+        for n, s in shadow.items():
+            full = torch.full((), d, dtype=s.dtype, device=s.device)
+            rest = torch.full((), 1 - d, dtype=s.dtype, device=s.device)
+            shadow[n] = full * s + rest * snap[n]
+            total[n] += snap[n].float()
+    last = snaps[-1]
+    for label, wrapper, want in (
+            ("EMA", ema, shadow),
+            ("ModelAverage", ma, {n: (v / steps).to(params[n].dtype)
+                                  for n, v in total.items()})):
+        wrapper.apply()
+        bad = [n for n, p in params.items() if not torch.equal(p, want[n])]
+        check(not bad, f"rare {label}: apply() differs from the plain "
+              f"arithmetic in {len(bad)} parameters, e.g. {bad[:3]}")
+        wrapper.restore()
+        bad = [n for n, p in params.items() if not torch.equal(p, last[n])]
+        check(not bad, f"rare {label}: restore() did not give back "
+              f"{len(bad)} parameters, e.g. {bad[:3]}")
+    log(f"rare wrappers: EMA (thres_steps) and ModelAverage after each of "
+        f"{steps} replays: apply() = their plain arithmetic and restore() "
+        f"= the trained parameters bitwise, {len(params)} parameters "
+        f"[{gpu}]")
+    del step, ema, ma, snaps, shadow, total
+    torch.cuda.empty_cache()
+
+
+def lookahead_check(model, init, batch, gpu, journals, steps=4):
+    """``LookAhead(AdamW, alpha 0.5, k 2)`` over bench_gpt's model, 4 eager
+    steps (``backward``, ``step``, ``clear_grad``), journaled: at steps 2
+    and 4 every parameter is its slow weight pulled halfway to the fast
+    weights the inner step left, ``slow + 0.5 * (fast - slow)`` in
+    float32 rounded to bfloat16, and the slow weights are that sum."""
+    import torch
+
+    from paddle_tpu_torch import optim
+    from paddle_tpu_torch.models.nlp import gpt
+    from paddle_tpu_torch.obs import journal
+
+    model.load_state_dict(init)
+    la = optim.LookAhead(rare_optimizer("adamw", model.named_parameters()),
+                         alpha=0.5, k=2)
+    inner_step, fast = la.inner.step, {}
+
+    def spy():
+        inner_step()
+        fast.update({n: p.detach().float()
+                     for n, p in la.inner._named_params})
+
+    la.inner.step = spy
+    ids, labels = (torch.from_numpy(b).cuda() for b in batch)
+    slow = {n: p.detach().float() for n, p in la.inner._named_params}
+    losses = []
+    with journal.RunJournal(os.path.join(journals, "lookahead")) as j:
+        for k in range(1, steps + 1):
+            t0 = time.perf_counter()
+            loss = gpt.gpt_loss(model, ids, labels)
+            loss.backward()
+            la.step()
+            la.clear_grad()
+            losses.append(float(loss.detach()))
+            j.record_step(loss=losses[-1],
+                          step_ms=(time.perf_counter() - t0) * 1e3,
+                          examples=ids.numel(), source="lookahead")
+            if k % 2:
+                continue
+            bad = []
+            for n, p in la.inner._named_params:
+                want = slow[n] + 0.5 * (fast[n] - slow[n])
+                if not (torch.equal(la._slow[n], want)
+                        and torch.equal(p, want.to(p.dtype))):
+                    bad.append(n)
+                slow[n] = want
+            check(not bad, f"rare lookahead: the pull at step {k} differs "
+                  f"from slow + 0.5 * (fast - slow) in {len(bad)} "
+                  f"parameters, e.g. {bad[:3]}")
+    log(f"rare lookahead (AdamW, k 2): losses {losses}; the pulls at steps "
+        f"2 and 4 = slow + 0.5 * (fast - slow) bitwise [{gpu}]")
+    del la, fast, slow
+    torch.cuda.empty_cache()
+
+
+def init_check(gpu):
+    """Each random initializer fills a (768, 3072) weight on the card: a
+    uniform's bounds, every mean within 5 standard errors, every std
+    within ``INIT_STD_RTOL`` of the one its law and the fans give,
+    TruncatedNormal inside mean +- 2 std, Orthogonal's QQᵀ = I within
+    ``ORTHO_TOL``; the same generator seed the same bits."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.nn import initializer as I
+
+    fi, fo = INIT_SHAPE
+    laws = {
+        "Uniform(-0.3, 0.5)": (I.Uniform(-0.3, 0.5), "u", -0.3, 0.5),
+        "Normal(0.1, 0.2)": (I.Normal(0.1, 0.2), "n", 0.1, 0.2),
+        "TruncatedNormal(0.05, 0.02)": (I.TruncatedNormal(0.05, 0.02), "t",
+                                        0.05, 0.02),
+        "XavierUniform": (I.XavierUniform(), "u",
+                          *(s * math.sqrt(6 / (fi + fo)) for s in (-1, 1))),
+        "XavierNormal": (I.XavierNormal(), "n", 0.0,
+                         math.sqrt(2 / (fi + fo))),
+        "KaimingUniform": (I.KaimingUniform(), "u",
+                           *(s * math.sqrt(2) * math.sqrt(3 / fi)
+                             for s in (-1, 1))),
+        "KaimingNormal": (I.KaimingNormal(), "n", 0.0,
+                          math.sqrt(2) / math.sqrt(fi)),
+    }
+    out = []
+    for label, (init, law, a, b) in laws.items():
+        x = init(INIT_SHAPE, generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        again = init(INIT_SHAPE, generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        check(x.is_cuda and torch.equal(x, again),
+              f"rare init {label}: the same seed gave other bits")
+        xd = x.double()
+        if law == "u":
+            mean, std = (a + b) / 2, (b - a) / math.sqrt(12)
+            check(float(xd.min()) >= a and float(xd.max()) < b,
+                  f"rare init {label}: values outside [{a}, {b})")
+        elif law == "n":
+            mean, std = a, b
+        else:
+            mean, std = a, b * TRUNC_STD
+            check(float(xd.min()) >= a - 2 * b and
+                  float(xd.max()) <= a + 2 * b,
+                  f"rare init {label}: values outside mean +- 2 std")
+        m, s = float(xd.mean()), float(xd.std())
+        check(abs(m - mean) < 5 * std / math.sqrt(x.numel())
+              and abs(s / std - 1) < INIT_STD_RTOL,
+              f"rare init {label}: mean {m}, std {s}, want {mean}, {std}")
+        out.append(f"{label} mean {m:.3g} std {s:.4g} (want {std:.4g})")
+    q = I.Orthogonal()(INIT_SHAPE, generator=torch.Generator(
+        device="cuda").manual_seed(0)).double()
+    err = float((q @ q.T - torch.eye(fi, dtype=torch.float64,
+                                     device="cuda")).abs().max())
+    check(err <= ORTHO_TOL, f"rare init Orthogonal: |QQᵀ - I| {err}")
+    log(f"rare init {INIT_SHAPE} on the card: " + "; ".join(out)
+        + f"; Orthogonal |QQᵀ - I| {err:.3g}; same seed, same bits [{gpu}]")
+
+
+def static_journal_check(gpu, journals):
+    """A static LeNet ``Executor.run`` (4 calls), a ``run_steps`` window
+    (K 2) and a ``Predictor.run`` (3 calls, B 100, bucketed) under an
+    active journal: one ``executor`` step record a call (``steps_fused``
+    2 on the window), ``predictor`` records with the caller's batch as
+    their examples, the losses the ones ``run`` returned."""
+    import json as _json
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.obs import journal
+
+    run_dir = os.path.join(journals, "static")
+    main, startup, loss, _, scope = lenet_program()
+    x, y = lenet_batch()
+    exe = pt.static.Executor()
+    with pt.static.scope_guard(scope):
+        exe.run(startup)
+        journal.start_run(run_dir)
+        try:
+            losses = [float(exe.run(main, feed={"x": x, "y": y},
+                                    fetch_list=[loss])[0])
+                      for _ in range(4)]
+            exe.run_steps(main, feeds=[{"x": x, "y": y}] * 2,
+                          fetch_list=[loss])
+            prefix, _, _, _, _ = int8_bundles(run_dir)
+            pred, _ = int8_predict(prefix, x)
+            for _ in range(3):
+                pred.run({"x": x[:100]})
+        finally:
+            journal.end_run()
+    with open(os.path.join(run_dir, "journal.jsonl")) as f:
+        steps = [r for r in map(_json.loads, f) if r["t"] == "step"]
+    srcs = [s["source"] for s in steps]
+    check(srcs == ["executor"] * 5 + ["predictor"] * 4
+          and [s["loss"] for s in steps[:4]] == losses
+          and steps[4].get("steps_fused") == 2
+          and [s["examples"] for s in steps[5:]] == [256, 100, 100, 100],
+          f"rare static journal: step records {srcs}, "
+          f"{[s.get('examples') for s in steps]}")
+    log(f"rare static journal: {len(steps)} step records (4 run, 1 "
+        f"run_steps K 2, 4 Predictor.run), losses = run's [{gpu}]")
+    return run_dir
+
+
+def report_tool(name):
+    """``tools/torch_<name>_report.py`` of this checkout, as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", f"torch_{name}_report.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}_report",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def report(name, *argv):
+    """``(exit code, stdout)`` of ``torch_<name>_report`` on ``argv``."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = report_tool(name).main(list(argv))
+    return rc, buf.getvalue()
+
+
+def report_check(gpu, journals):
+    """The five report tools over this run's journals: ``torch_run_report``
+    renders each rule's run and the static one and ``--diff``s Lars
+    against DGC; ``torch_fleet_report`` and ``torch_request_report``
+    render the kill drill's run (phase 13), ``torch_slo_report`` (with
+    ``SERVE_SLO_SPEC``), ``torch_usage_report`` and
+    ``torch_request_report`` the serve bench's journal (phase 19,
+    against the leg's ``SERVE_SLO_SPEC``)."""
+    rules = os.path.join(journals, "rules")
+    seen = []
+    for kind in RARE_RULES:
+        rc, out = report("run", os.path.join(rules, f"{kind}_graphed"),
+                         "--json")
+        rep = json.loads(out)
+        check(rc == 0 and len(rep["steps"]) == 4 + RARE_TIMED,
+              f"rare run_report {kind}: rc {rc}, {len(rep['steps'])} steps")
+    rc, text = report("run", os.path.join(rules, "lars_momentum_graphed"))
+    check(rc == 0 and "step" in text, "rare run_report: no table")
+    rc, out = report("run", "--diff",
+                     os.path.join(rules, "lars_momentum_graphed"),
+                     os.path.join(rules, "dgc_momentum_graphed"), "--json")
+    diff = json.loads(out)
+    check(rc in (0, 1) and "regression" in diff,
+          f"rare run_report --diff: rc {rc}")
+    seen.append(f"run_report: 5 rules rendered, lars vs dgc mean step "
+                f"{diff.get('base_mean_step_ms')} -> "
+                f"{diff.get('new_mean_step_ms')} ms (regression "
+                f"{diff['regression']})")
+    rc, out = report("run", os.path.join(journals, "static"), "--json")
+    check(rc == 0 and len(json.loads(out)["steps"]) == 9,
+          "rare run_report: the static journal")
+    drill = os.path.join(journals, "fleet_drill", "run")
+    rc, out = report("fleet", drill, "--json")
+    agg = json.loads(out)
+    check(rc == 0 and agg.get("nranks", 0) >= 2,
+          f"rare fleet_report: rc {rc}, nranks {agg.get('nranks')}")
+    rc, out = report("request", drill, "--json")
+    check(rc == 0 and json.loads(out)["requests"] > 0,
+          "rare request_report: the drill")
+    seen.append(f"fleet_report: {agg['nranks']} ranks; request_report: "
+                f"the drill's requests")
+    serve = os.path.join(journals, "serve_bench", "full")
+    rc, out = report("slo", serve, "--json", "--spec",
+                     json.dumps(serve_bench_tool().SERVE_SLO_SPEC))
+    slo = json.loads(out)
+    check(rc == 0 and slo["evaluation"]["violations"] == [],
+          f"rare slo_report: rc {rc}, {slo.get('evaluation')}")
+    rc, out = report("usage", serve, "--json")
+    usage = json.loads(out)
+    check(rc == 0 and set(usage["tenants"]) == {"a", "b"},
+          f"rare usage_report: rc {rc}, tenants {usage.get('tenants')}")
+    rc, out = report("request", serve, "--json")
+    check(rc == 0 and json.loads(out)["requests"] == SERVE_BENCH["requests"],
+          f"rare request_report: the serve bench: {out[:200]}")
+    seen.append("slo_report: no violation; usage_report: tenants "
+                + ", ".join(f"{t} {r['device_ns']} device-ns"
+                            for t, r in sorted(usage["tenants"].items())))
+    log("rare reports: " + "; ".join(seen) + f" [{gpu}]")
+
+
+def rare_phase(gpu, journals):
+    """Phase 22: the rest of Paddle's optimizers, the wrappers, the
+    initializers and the report tools. Returns each rule's median replay
+    ms."""
+    import torch
+
+    t0 = time.perf_counter()
+    errs = {kind: rule_value_check(kind) for kind in RARE_RULES}
+    log("rare rules against their plain formulas (relative): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    model = train_model("bench_gpt")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    loss_fn, batch, _ = train_batch(model, "bench_gpt")
+    ms = {kind: rule_compare(kind, model, init, loss_fn, batch, gpu,
+                             journals)
+          for kind in ("adamw",) + RARE_RULES}
+    dpsgd_noise_check(model, init, batch, gpu)
+    wrapper_check(model, init, loss_fn, batch, gpu, journals)
+    lookahead_check(model, init, batch, gpu, journals)
+    del model, init
+    torch.cuda.empty_cache()
+    init_check(gpu)
+    static_journal_check(gpu, journals)
+    report_check(gpu, journals)
+    log(f"rare: phase took {time.perf_counter() - t0:.1f} s")
+    return ms
+
+
 def main():
     try:
         import torch
@@ -4684,9 +5290,8 @@ def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        from paddle_tpu_torch.ops import kernels
-        from paddle_tpu_torch.ops.kernels import _build
-        from paddle_tpu_torch.serving import PagedKVCache, TinyLM
+        import paddle_tpu_torch.ops.kernels._build  # noqa: F401
+        import paddle_tpu_torch.serving  # noqa: F401
         # every module of the fleet and training paths, imported before
         # the check below
         import paddle_tpu_torch.amp  # noqa: F401
@@ -4704,6 +5309,8 @@ def main():
         import paddle_tpu_torch.analysis  # noqa: F401
         import paddle_tpu_torch.quant.passes  # noqa: F401
         import paddle_tpu_torch.utils.envspec  # noqa: F401
+        import paddle_tpu_torch.nn.initializer  # noqa: F401
+        import paddle_tpu_torch.obs.report  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -4715,7 +5322,9 @@ def main():
            "paddle_tpu_torch.serving.fleet.autoscale",
            "paddle_tpu_torch.obs.export", "paddle_tpu_torch.obs.slo",
            "paddle_tpu_torch.obs.timeseries", "paddle_tpu_torch.obs.anomaly",
-           "paddle_tpu_torch.obs.reqtrace", "paddle_tpu_torch.obs.fleet"}
+           "paddle_tpu_torch.obs.reqtrace", "paddle_tpu_torch.obs.fleet",
+           "paddle_tpu_torch.obs.report", "paddle_tpu_torch.nn.initializer",
+           "paddle_tpu_torch.nn.param_attr", "paddle_tpu_torch.optim.optimizer"}
           <= set(sys.modules), "a module of the fleet path was not imported")
     # float32 products in full float32: no TF32 anywhere on this path
     torch.backends.cudnn.allow_tf32 = False
@@ -4727,6 +5336,26 @@ def main():
     log(f"device: {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+
+    import shutil
+    import tempfile
+
+    # the journals phases 13 and 19 write and phase 22 reads
+    journals = tempfile.mkdtemp(prefix="chip_smoke_journals_")
+    try:
+        return phases(gpu, journals)
+    finally:
+        shutil.rmtree(journals, ignore_errors=True)
+
+
+def phases(gpu, journals):
+    """Phases 1-22 in order, the journals of 13, 19 and 22 under
+    ``journals``; prints the ``kernels`` and ``ok`` lines."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.serving import PagedKVCache, TinyLM
 
     t0 = t_start = time.perf_counter()
     libs = _build.build()
@@ -4779,7 +5408,7 @@ def main():
     train_t.update(train_timing_phase(gpu, 64 * BERT_SEQ, torch.bfloat16,
                                       V=None))
     torch.cuda.empty_cache()
-    fleet_phase(prompts, gpu)
+    fleet_phase(prompts, gpu, journals)
     train_graph_phase(gpu)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4788,10 +5417,12 @@ def main():
     train_resnet_phase(gpu)
     checkpoint_phase(gpu)
     static_phase(gpu)
-    serve_bench_phase(gpu)
+    serve_bench_phase(gpu, journals)
     int8_phase(gpu)
     torch.cuda.empty_cache()
     f16_errs, f16_t, f16_launches = amp_phase(gpu)
+    torch.cuda.empty_cache()
+    rare_phase(gpu, journals)
     check(not any(m.split(".")[0] in ("jax", "paddle_tpu", "ml_dtypes")
                   for m in sys.modules),
           "the JAX side was imported by a phase")

@@ -323,6 +323,13 @@ def scope_from_jax(arrays, program, scope=None):
             dst.copy_(src)
 
 
+def _inner(opt):
+    """The optimizer a wrapper (anything with an ``inner``) steps."""
+    while "inner" in vars(opt):
+        opt = vars(opt)["inner"]
+    return opt
+
+
 def optimizer_state_from_jax(jax_opt, torch_opt, names=None):
     """Write the JAX optimizer's state — moments, velocities, accumulators,
     beta powers, masters, per parameter, and its step count — into the
@@ -332,8 +339,11 @@ def optimizer_state_from_jax(jax_opt, torch_opt, names=None):
     optimizers' parameters are paired in order. The port's state is made
     first where it is missing; every value must have the port's shape and
     state keys, and is copied into the port's type (a bfloat16 value is
-    exact in float32). Raises ``ValueError`` on a parameter, key or shape
-    that does not fit."""
+    exact in float32). A wrapper on either side (``LookAhead``,
+    ``RecomputeOptimizer``, ``PipelineOptimizer``) stands for its inner
+    optimizer, whose state it is. Raises ``ValueError`` on a parameter,
+    key or shape that does not fit."""
+    jax_opt, torch_opt = _inner(jax_opt), _inner(torch_opt)
     jparams = list(jax_opt._param_groups)
     tparams = dict(torch_opt._named_params)
     if names is None:
@@ -379,13 +389,14 @@ def optimizer_state_dict_from_jax(state, torch_opt, names=None):
     gradient; otherwise pass ``names``, e.g. from
     ``[p.name for p in jax_opt._param_groups]``). Model state needs no
     renaming: the port's names are the JAX ``state_dict`` names
-    (``gpt_params_from_jax``). Raises ``ValueError`` when the counts
-    differ or a name has no counterpart."""
+    (``gpt_params_from_jax``). A rule without state (Dpsgd without
+    masters) has only the ``@`` entries. Raises ``ValueError`` when the
+    counts differ or a name has no counterpart."""
     if names is None:
         jnames = list(dict.fromkeys(
             k.rsplit(".", 1)[0] for k in state if not k.startswith("@")))
         tnames = [n for n, _ in torch_opt._named_params]
-        if len(jnames) != len(tnames):
+        if jnames and len(jnames) != len(tnames):
             raise ValueError(f"{len(jnames)} JAX parameters, "
                              f"{len(tnames)} in the port's optimizer")
         names = dict(zip(jnames, tnames))

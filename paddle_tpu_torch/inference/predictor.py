@@ -26,6 +26,9 @@ construction and passed as arguments. Here:
 signature, a hit a call of a known one; ``dispatches`` counts calls and
 ``captures`` the graphs captured. The ``predictor.*`` metrics and the
 ``predictor.compile``/``predictor.run`` spans are the JAX package's.
+With a run journal active, a new signature journals a ``compile`` event
+and each ``run`` one step record with ``source="predictor"`` and the
+caller's batch as its examples (``RunJournal.record_executor_run``).
 
 Not ported: the AOT executable cache (``Config.aot_cache_dir``, ROADMAP
 Queue 1 item 8).
@@ -224,13 +227,21 @@ class Predictor:
         t0 = time.perf_counter()
         with _trace.span("predictor.run", uid=self._program._uid):
             outs = self._dispatch(sig, feeds)
-        _M_RUN_MS.observe((time.perf_counter() - t0) * 1e3)
+        run_ms = (time.perf_counter() - t0) * 1e3
+        _M_RUN_MS.observe(run_ms)
         if pad_to is not None:
             # slice padding back off any fetch that kept the batch dim
             outs = [o[:B] if o.dim() and o.shape[0] == pad_to else o
                     for o in outs]
         if return_numpy:
             outs = [o.cpu().numpy() for o in outs]
+        if _journal.ACTIVE is not None:
+            # from the fetches as the caller gets them (host arrays, or
+            # device tensors summarized by shape alone); B is the batch
+            # before bucket padding
+            _journal.ACTIVE.record_executor_run(
+                self, outs, run_ms, synced=return_numpy,
+                source="predictor", examples=B)
         return outs
 
     __call__ = run

@@ -9,9 +9,10 @@ from .layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
                      MultiHeadAttention, ReLU, Transformer,
                      TransformerDecoder, TransformerDecoderLayer,
                      TransformerEncoder, TransformerEncoderLayer)
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 
-__all__ = ["functional", "initializer", "ParamAttr", "Sequential", "ReLU",
+__all__ = ["functional", "initializer", "ParamAttr", "WeightNormParamAttr",
+           "Sequential", "ReLU",
            "Linear", "Dropout",
            "Embedding", "LayerNorm", "Conv2D", "BatchNorm2D", "MaxPool2D",
            "AdaptiveAvgPool2D", "MultiHeadAttention",

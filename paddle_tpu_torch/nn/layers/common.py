@@ -18,7 +18,8 @@ from ..._device import resolve_device
 from ...ops._base import RECORDER
 from ...utils import unique_name
 from .. import functional as F
-from ..initializer import Constant, Normal, XavierUniform
+from ..initializer import (Constant, Normal, XavierUniform,
+                           global_initializer)
 from ..param_attr import ParamAttr
 
 __all__ = ["Linear", "Dropout", "Embedding", "create_parameter",
@@ -51,8 +52,10 @@ def create_parameter(shape, attr=None, is_bias=False,
     """A float32 ``nn.Parameter`` of ``shape`` made as ``attr``
     (anything ``ParamAttr._to_attr`` takes) says, or ``None`` for
     ``attr=False``. The initializer is the attr's, else
-    ``default_initializer``, else ``Constant(0)`` for a bias and
-    ``XavierUniform`` otherwise (``paddle_tpu/nn/layer.py:75-88``). The
+    ``default_initializer``, else the global one
+    (``initializer.set_global_initializer``), else ``Constant(0)`` for a
+    bias and ``XavierUniform`` otherwise
+    (``paddle_tpu/nn/layer.py:75-88``). The
     parameter carries ``optimize_attr = {"learning_rate": ...}``,
     ``regularizer`` and ``need_clip``, and ``requires_grad`` is the
     attr's ``trainable``.
@@ -67,8 +70,9 @@ def create_parameter(shape, attr=None, is_bias=False,
     attr = ParamAttr._to_attr(attr)
     if attr is False:
         return None
-    init = attr.initializer or default_initializer or (
-        Constant(0.0) if is_bias else XavierUniform())
+    init = (attr.initializer or default_initializer
+            or global_initializer(is_bias)
+            or (Constant(0.0) if is_bias else XavierUniform()))
     value = init(shape, torch.float32, resolve_device(device), generator)
     if RECORDER[0] is not None:
         from ...static_.program import default_main_program, global_scope

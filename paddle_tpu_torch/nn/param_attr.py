@@ -1,8 +1,11 @@
-"""``ParamAttr``: how a layer makes one of its parameters.
+"""``ParamAttr``: how a layer makes one of its parameters; and
+``WeightNormParamAttr``.
 
-The counterpart of ``paddle_tpu/nn/param_attr.py``'s: the initializer,
+The counterparts of ``paddle_tpu/nn/param_attr.py``'s: the initializer,
 the learning-rate multiplier, a regularizer, whether the parameter is
-trained and whether global-norm clipping counts its gradient. A layer
+trained, whether it joins a model average (``do_model_average``, kept
+and not read, as in the reference) and whether global-norm clipping
+counts its gradient. ``WeightNormParamAttr`` adds the norm's ``dim``. A layer
 hands the attr to ``nn.layers.common.create_parameter``, which sets
 them on the parameter for the optimizer and the clip to read.
 """
@@ -10,17 +13,19 @@ from __future__ import annotations
 
 from .initializer import Initializer
 
-__all__ = ["ParamAttr"]
+__all__ = ["ParamAttr", "WeightNormParamAttr"]
 
 
 class ParamAttr:
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
-                 regularizer=None, trainable=True, need_clip=True):
+                 regularizer=None, trainable=True, do_model_average=True,
+                 need_clip=True):
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate
         self.regularizer = regularizer
         self.trainable = trainable
+        self.do_model_average = do_model_average
         self.need_clip = need_clip
 
     @staticmethod
@@ -43,3 +48,9 @@ class ParamAttr:
         if arg is False:
             return False
         raise TypeError(f"invalid ParamAttr spec: {arg!r}")
+
+
+class WeightNormParamAttr(ParamAttr):
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim

@@ -14,12 +14,14 @@
 - ``anomaly``: stateful detectors over step and serving signals;
 - ``reqtrace``: per-request timelines across router and replicas;
 - ``fleet``: cross-rank aggregation over per-rank journals and the
-  merged Chrome trace.
+  merged Chrome trace;
+- ``report``: the metrics registry rendered as a table or JSON.
 
 The JAX package's SPMD views and XLA cost analyses are not ported yet.
 """
 from . import (anomaly, export, fleet, journal, lockdep, metrics, mfu,
-               reqtrace, slo, timeseries, trace, usage)
+               report, reqtrace, slo, timeseries, trace, usage)
 
 __all__ = ["anomaly", "export", "fleet", "journal", "lockdep", "metrics",
-           "mfu", "reqtrace", "slo", "timeseries", "trace", "usage"]
+           "mfu", "report", "reqtrace", "slo", "timeseries", "trace",
+           "usage"]

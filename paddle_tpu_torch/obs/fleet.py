@@ -33,8 +33,7 @@ those N single-rank records back into ONE run:
   device 0 never share a pid).
 
 ``obs.export`` serves the live-signal complement (Prometheus SLO
-gauges). The JAX package's ``tools/fleet_report.py`` CLI is not ported
-yet.
+gauges); ``tools/torch_fleet_report.py`` is the CLI over this module.
 """
 from __future__ import annotations
 

@@ -34,11 +34,19 @@ None: ...`` — with no journal the serve and step paths pay one None
 check. With a journal, summarizing a step's loss tensor costs one
 scalar device->host read.
 
-Not here yet: the executor hooks (``record_executor_run``,
-``record_fused_run``: no static executor in the port), ``sync_step``
-(the elastic gang), the plan and memory events, and the start at import
-from ``PADDLE_TPU_RUN_DIR`` (``start_run()`` reads that variable when it
-is given no directory).
+The static ``Executor`` journals each ``run`` as one step record
+(``record_executor_run``, ``source="executor"``) and each ``run_steps``
+window as one record with ``steps_fused=K`` (``record_fused_run``); the
+``Predictor`` journals each ``run`` with ``source="predictor"`` and the
+caller's batch as its examples. Their ``flops`` and ``comm`` stay None:
+the reference reads them from XLA's analysis of the compiled entry,
+which the port's CUDA graphs have no counterpart of yet (ROADMAP Queue
+1 item 8). ``record_plan`` journals any object with ``event_fields()``;
+``record_memory`` journals the byte fields its caller gives (the
+compiled-entry prediction waits for ``analysis/memory.py``, item 9).
+
+Not here yet: the start at import from ``PADDLE_TPU_RUN_DIR``
+(``start_run()`` reads that variable when it is given no directory).
 """
 from __future__ import annotations
 
@@ -129,15 +137,19 @@ def _backend_info():
                 "backend_error": f"{type(e).__name__}: {e}"}
 
 
-def _summarize_value(v):
+def _summarize_value(v, sync=True):
     """Small, JSON-safe summary of one fetched value: size-1 numerics
     inline as a float (one host read), everything else as shape/dtype
-    metadata, so a large device tensor is never copied for logging."""
+    metadata, so a large device tensor is never copied for logging.
+    ``sync=False`` forbids even that read for a tensor off the host (a
+    lazy or async fetch must not pay a hidden device->host sync for
+    logging); host values stay readable."""
     import numpy as np
     import torch
 
     if isinstance(v, torch.Tensor):
-        if v.numel() == 1 and not v.is_complex():
+        readable = sync or v.device.type == "cpu"
+        if readable and v.numel() == 1 and not v.is_complex():
             return float(v.detach().reshape(()))
         return {"shape": [int(s) for s in v.shape],
                 "dtype": str(v.dtype).replace("torch.", "")}
@@ -404,11 +416,13 @@ class RunJournal:
 
     def record_step(self, loss=None, fetches=None, step_ms=None,
                     examples=None, flops=None, skipped=False,
-                    nonfinite=False, source=None, **extra):
+                    nonfinite=False, source=None, comm=None, **extra):
         """Append one per-step record. ``loss`` is a number, a 0-d tensor
         (read to the host here) or None; ``fetches`` a list of values
         (the first four summarized). ``step_ms`` defaults to the last
-        ``note_step_ms``."""
+        ``note_step_ms``. ``comm``, a dict of the step's collective bytes
+        (``all_reduce_bytes``, ``total_bytes``, ``wire_bytes``), is kept
+        on the record when given."""
         import math
 
         # host-side value summarization stays OUTSIDE the lock (it may
@@ -422,8 +436,9 @@ class RunJournal:
                 loss = None
         if loss is not None and not math.isfinite(loss):
             nonfinite = True
-        fetch_summary = ([_summarize_value(v) for v in fetches[:4]]
-                         if fetches else None)
+        fetch_summary = extra.pop("_fetch_summary", None)
+        if fetch_summary is None and fetches:
+            fetch_summary = [_summarize_value(v) for v in fetches[:4]]
         with self._lock:
             if self._closed:
                 return None
@@ -441,6 +456,8 @@ class RunJournal:
                     rec["examples_per_s"] = examples / (step_ms / 1e3)
             if flops:
                 rec["flops"] = float(flops)
+            if comm:
+                rec["comm"] = comm
             if skipped:
                 rec["skipped"] = True
             if nonfinite:
@@ -459,10 +476,88 @@ class RunJournal:
                             _locked=True)
         return rec
 
+    def record_plan(self, plan, **fields):
+        """One ``plan`` event: ``plan.event_fields()`` (the mesh shape,
+        per-axis roles, canonical axes, predicted vs measured collective
+        wire bytes and their ``mismatch``) plus ``fields``, the payload
+        ``tools/torch_run_report.py`` renders and gates on."""
+        return self.event("plan", **plan.event_fields(), **fields)
+
+    def record_memory(self, compiled=None, analysis=None,
+                      predicted_bytes=None, per_device_bytes=None,
+                      measured_bytes=None, **fields):
+        """One ``memory`` event: the predicted peak bytes, the measured
+        ones and ``drift``, their relative delta, from the byte fields
+        the caller gives. A compiled entry's own prediction needs
+        ``analysis/memory.py`` (ROADMAP Queue 1 item 9): ``compiled`` or
+        ``analysis`` raise ``NotImplementedError``."""
+        if compiled is not None or analysis is not None:
+            raise NotImplementedError(
+                "record_memory of a compiled entry needs analysis/memory.py,"
+                " which is not ported to paddle_tpu_torch yet (ROADMAP "
+                "Queue 1 item 9): pass the byte fields")
+        drift = None
+        ref = per_device_bytes or predicted_bytes
+        if ref and measured_bytes:
+            drift = abs(ref - measured_bytes) / measured_bytes
+        return self.event(
+            "memory", predicted_peak_bytes=predicted_bytes,
+            per_device_bytes=per_device_bytes,
+            measured_peak_bytes=measured_bytes, drift=drift, **fields)
+
+    def record_executor_run(self, compiled, fetches, run_ms, synced=True,
+                            source="executor", examples=None):
+        """One step record for a static ``Executor.run`` (or, with
+        ``source="predictor"``, a ``Predictor.run``): the first four
+        fetches summarized once (``synced=False``: no device read), the
+        first as the loss when it is a number, ``run_ms`` as the step's
+        time, ``examples`` (default: the entry's largest leading feed
+        dimension, ``examples_hint``)."""
+        summary = [_summarize_value(v, sync=synced)
+                   for v in fetches[:4]] if fetches else None
+        loss = summary[0] if summary and isinstance(summary[0], float) \
+            else None
+        if examples is None:
+            examples = getattr(compiled, "examples_hint", None)
+        return self.record_step(
+            loss=loss, step_ms=run_ms, examples=examples, source=source,
+            _fetch_summary=summary)
+
+    def record_fused_run(self, compiled, fetches, run_ms, steps,
+                         synced=True):
+        """One step record for a ``run_steps`` window of K steps, with
+        ``steps_fused=K``: the loss is the last microbatch's, the
+        examples cover all K."""
+        import numpy as np
+
+        steps = int(steps)
+        summary = [_summarize_value(v, sync=synced)
+                   for v in fetches[:4]] if fetches else None
+        loss = None
+        if fetches and synced:
+            try:  # the stacked (K,) losses -> the last one
+                arr = np.asarray(fetches[0])
+                if arr.shape == (steps,) and arr.dtype.kind in "fiub":
+                    loss = float(arr[-1])
+            except (TypeError, ValueError):
+                pass
+        hint = getattr(compiled, "examples_hint", None)
+        return self.record_step(
+            loss=loss, step_ms=run_ms,
+            examples=hint * steps if hint else None, source="executor",
+            steps_fused=steps, _fetch_summary=summary)
+
     def note_step_ms(self, ms):
         """Step-timer feed: remember the latest timed step so the next
         ``record_step`` without an explicit ``step_ms`` uses it."""
         self._last_timer_ms = float(ms)
+
+    def sync_step(self, global_step):
+        """Number the next step record ``global_step``: a trainer's own
+        step count, so records line up across ranks and relaunches
+        (``obs.fleet.align_steps``)."""
+        with self._lock:
+            self._step = int(global_step) - 1
 
     def _note_backend_locked(self):
         if not self._backend_written:

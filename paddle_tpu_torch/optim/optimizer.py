@@ -1,11 +1,19 @@
 """Optimizers: the ``Optimizer`` base, ``SGD``, ``Momentum``, ``Adagrad``,
-``Adadelta``, ``RMSProp``, ``Adam``, ``AdamW``, ``Adamax`` and ``Lamb``.
+``Adadelta``, ``RMSProp``, ``Adam``, ``AdamW``, ``Adamax``, ``Lamb``,
+``Ftrl``, ``DecayedAdagrad``, ``Dpsgd``, ``LarsMomentum`` and
+``DGCMomentum``, and the wrappers ``ExponentialMovingAverage``,
+``LookAhead``, ``ModelAverage``, ``RecomputeOptimizer`` and
+``PipelineOptimizer``.
 
 The counterparts of ``paddle_tpu/optim/optimizer.py``'s (:36-131,
-:190-392). Each rule is the reference's, operation for operation and in
+:190-699). Each rule is the reference's, operation for operation and in
 its order, so that a float32 step gives the reference's bits wherever
-its operations are elementwise (Lamb's two norms are sums, taken in
-another order):
+its operations are elementwise and correctly rounded. The exceptions:
+Lamb's and LarsMomentum's norms, and Dpsgd's clip norm, are sums taken
+in another order; Ftrl's power ``n ** -lr_power`` is XLA's ``pow``
+in the reference, which is not correctly rounded on the CPU, and
+torch's here (a correctly rounded square root at the default
+``lr_power = -0.5``; exact at ``-1``):
 
 - SGD: ``p - lr*g``; Momentum: ``v = mu*v + g``, ``p - lr*v`` (Nesterov:
   ``p - lr*(g + mu*v)``); Adagrad: ``m += g*g``, ``p - lr*g/(sqrt(m) +
@@ -14,6 +22,15 @@ another order):
 - Adam: ``m = b1*m + (1-b1)*g``, ``v = b2*v + (1-b2)*g*g``,
   ``p -= lr * (m / (1-b1^t)) / (sqrt(v / (1-b2^t)) + eps)``; Adamax and
   Lamb (the trust ratio ``|p| / |r|``) as ``:339-392``;
+- Ftrl: float32 ``squared``/``linear`` accumulators and the proximal
+  step of ``:394-415``; DecayedAdagrad: ``m = decay*m + (1-decay)*g*g``,
+  ``p - lr*g/(sqrt(m) + eps)``; Dpsgd: the gradient clipped to norm
+  ``clip``, plus N(0, (sigma*clip)^2) noise over ``batch_size``, then
+  SGD (``:524-554``); LarsMomentum: the local rate ``lr * coeff * |p| /
+  (|g| + decay*|p|)`` in float32, ``v = mu*v + local*(g + decay*p)``
+  in the parameter's type (``:557-581``); DGCMomentum is ``Momentum``
+  (``:584-598``: the compression half is a transport optimization the
+  reference does not keep either);
 - AdamW: the Adam step, then decoupled decay ``p -= lr*coeff*p_old``
   on every parameter that ``apply_decay_param_fun(name)`` does not
   exclude, with ``lr`` scaled by ``lr_ratio(param)`` when given, where
@@ -32,9 +49,12 @@ its type (``:108-124``). The state starts as the reference's
 ``_init_state`` makes it from the parameter (``zeros_like(p)``, an
 Adagrad accumulator rounded to the parameter's type), in float32 beside
 a master, as the reference's turns float32 at the first update. A
-low-precision parameter without a master is updated in its own type by
-torch's rules, not bitwise the reference's (torch keeps a Python scalar
-in float32 where JAX rounds it to the parameter's type first).
+low-precision parameter without a master is updated in its own type.
+The rules up to Lamb use torch's rules there, not bitwise the
+reference's (torch keeps a Python scalar in float32 where JAX rounds it
+to the parameter's type first); the later ones round each such scalar,
+and the learning rate, to the parameter's type first (``_weak``), as
+the reference's eager step does.
 
 State lives on the parameter's device and is updated in place, as the
 reference's step donates its buffers: the moments, the powers
@@ -46,6 +66,21 @@ learning rate reaches each update as a 0-d float32 tensor on the device
 ``float32(get_lr())`` before the update runs. ``learning_rate`` is a
 float or an ``optim.lr.LRScheduler``; ``get_lr`` and ``set_lr`` behave
 as the reference's (``:67-76``).
+
+Dpsgd draws its noise from the device's generator
+(``core.random.default_generator``), which ``TrainStep`` registers with
+its CUDA graph: every replay draws new noise, the noise the op-by-op
+step would draw from the same generator state, never a constant of the
+capture (the reference refuses a bare ``jax.jit`` for the same reason,
+``:535-543``).
+
+The wrappers act on the parameters' storage outside any graph, after a
+``step()`` or a ``TrainStep`` call: ``ExponentialMovingAverage.update``
+and ``ModelAverage.step`` accumulate, ``apply()`` copies the average
+into each parameter after keeping a copy, ``restore()`` copies it back.
+``LookAhead`` steps its inner optimizer, then every ``k`` steps pulls
+each parameter toward its float32 slow weight (``:456-500``); like the
+reference it writes the parameter, not an inner ``master``.
 
 ``state_dict``/``set_state_dict`` keep the reference's layout
 (``optimizer.py:166-188``): ``<name>.<slot>`` per state value (a master
@@ -76,11 +111,15 @@ from __future__ import annotations
 
 import torch
 
+from ..core.random import default_generator
 from .lr import LRScheduler
 from .regularizer import L2Decay
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adadelta",
-           "RMSProp", "Adam", "AdamW", "Adamax", "Lamb"]
+           "RMSProp", "Adam", "AdamW", "Adamax", "Lamb", "Ftrl",
+           "ExponentialMovingAverage", "LookAhead", "DecayedAdagrad",
+           "Dpsgd", "LarsMomentum", "DGCMomentum", "ModelAverage",
+           "RecomputeOptimizer", "PipelineOptimizer"]
 
 
 def _named(parameters):
@@ -103,6 +142,29 @@ def _sqrt(v):
     if v.device.type == "cpu":
         return torch.sqrt(v.double()).to(v.dtype)
     return torch.sqrt(v)
+
+
+def _weak(x, like):
+    """A Python number (or the 0-d float32 learning rate) as the
+    reference's weak-typed scalar meets a tensor of ``like``'s type: for
+    a bfloat16 or float16 ``like`` rounded to that type first, as JAX
+    rounds it; as it is otherwise. A device fill, so it can be
+    captured."""
+    if like.dtype not in (torch.bfloat16, torch.float16):
+        return x
+    if isinstance(x, torch.Tensor):
+        return x.to(like.dtype)
+    return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
+def _pow(x, e):
+    """``x ** e`` in ``x``'s type, a new tensor: the correctly rounded
+    square root at 0.5, a copy of ``x`` at 1."""
+    if e == 0.5:
+        return _sqrt(x)
+    if e == 1.0:
+        return x.clone()
+    return torch.pow(x, e)
 
 
 def _commit(dst, new, found_inf):
@@ -540,3 +602,339 @@ class Lamb(Optimizer):
         trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             1.0)
         return (pf - lr * trust * r).to(p.dtype), new
+
+
+class Ftrl(Optimizer):
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _init_state(self, p):
+        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"squared": z, "linear": z.clone()}
+
+    def _update(self, name, p, g, s, lr, into):
+        gf, pf = g.float(), p.float()
+        e = -self._lr_power
+        old_pow = _pow(s["squared"], e)    # before it is overwritten
+        n = torch.add(s["squared"], gf * gf, out=into.get("squared"))
+        new_pow = _pow(n, e)
+        sigma = (new_pow - old_pow) / lr
+        z = torch.sub(s["linear"] + gf, sigma * pf, out=into.get("linear"))
+        denom = new_pow / lr + 2 * self._l2
+        new_p = torch.where(torch.abs(z) > self._l1,
+                            (torch.sign(z) * self._l1 - z) / denom, 0.0)
+        return new_p.to(p.dtype), {"squared": n, "linear": z}
+
+
+class DecayedAdagrad(Optimizer):
+    """``moment = decay * moment + (1 - decay) * g^2`` in the parameter's
+    type (``optimizer.py:503-521``)."""
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def _init_state(self, p):
+        return {"moment": torch.zeros_like(p)}
+
+    def _update(self, name, p, g, s, lr, into):
+        d = self._decay
+        m = torch.add(_weak(d, p) * s["moment"], _weak(1 - d, p) * g * g,
+                      out=into.get("moment"))
+        step = _weak(lr, p) * g / (_sqrt(m) + _weak(self._epsilon, p))
+        return p - step, {"moment": m}
+
+
+class Dpsgd(Optimizer):
+    """Differentially private SGD (``optimizer.py:524-554``): the
+    gradient clipped to L2 norm ``clip``, plus Gaussian noise of standard
+    deviation ``sigma * clip`` divided by ``batch_size``, then ``p -
+    lr*g``. The noise comes from the device's generator, float32, so a
+    captured step draws new noise at every replay. ``seed`` is kept and
+    not read, as in the reference."""
+
+    def __init__(self, learning_rate=0.001, clip=0.9, batch_size=0.999,
+                 sigma=1.0, parameters=None, seed=0, multi_precision=False):
+        super().__init__(learning_rate, parameters, None, None,
+                         multi_precision)
+        self._clip = clip
+        self._batch = batch_size
+        self._sigma = sigma
+
+    def _update(self, name, p, g, s, lr, into):
+        gf = g.float()
+        norm = _sqrt(torch.sum(gf * gf))
+        # a divided tensor: torch computes ``number / tensor`` as the
+        # number times the tensor's reciprocal
+        clip = torch.full((), self._clip, dtype=torch.float32,
+                          device=g.device)
+        scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
+        g = g * scale.to(g.dtype)
+        noise = torch.randn(g.shape, generator=default_generator(g.device),
+                            device=g.device, dtype=torch.float32)
+        noise = noise * (self._sigma * self._clip)
+        g = g + (noise / self._batch).to(g.dtype)
+        return p - _weak(lr, p) * g, {}
+
+
+class LarsMomentum(Optimizer):
+    """Layer-wise adaptive rate scaling (``optimizer.py:557-581``): the
+    local rate ``lr * lars_coeff * |p| / max(|g| + lars_weight_decay *
+    |p|, 1e-12)`` from float32 norms (each one ``torch.sum``: a fixed
+    reduction tree, no atomics), and ``velocity`` in the parameter's
+    type."""
+
+    def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, parameters=None, grad_clip=None,
+                 multi_precision=False):
+        super().__init__(learning_rate, parameters, None, grad_clip,
+                         multi_precision)
+        self._momentum = momentum
+        self._coeff = lars_coeff
+        self._decay = lars_weight_decay
+
+    def _init_state(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def _update(self, name, p, g, s, lr, into):
+        pf, gf = p.float(), g.float()
+        wn = _sqrt(torch.sum(pf * pf))
+        gn = _sqrt(torch.sum(gf * gf))
+        local = lr * self._coeff * wn / torch.clamp(gn + self._decay * wn,
+                                                    min=1e-12)
+        v = torch.add(_weak(self._momentum, p) * s["velocity"],
+                      (local * (gf + self._decay * pf)).to(p.dtype),
+                      out=into.get("velocity"))
+        return p - v, {"velocity": v}
+
+
+class DGCMomentum(Momentum):
+    """Deep gradient compression's optimizer as the reference keeps it
+    (``optimizer.py:584-598``): plain ``Momentum``; the ramp-up and
+    sparsity arguments are taken and not read."""
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step=0,
+                 rampup_step=1, sparsity=(0.999,), parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False):
+        super().__init__(learning_rate, momentum, parameters=parameters,
+                         use_nesterov=use_nesterov,
+                         weight_decay=weight_decay, grad_clip=grad_clip,
+                         multi_precision=multi_precision)
+
+
+# -- the wrappers (optimizer.py:418-500, :601-699) ---------------------------
+
+
+def _model_params(model_or_params):
+    """``[(name, parameter)]`` of an ``nn.Module`` (its
+    ``named_parameters()``) or of an iterable as ``Optimizer`` takes
+    it."""
+    if isinstance(model_or_params, torch.nn.Module):
+        return list(model_or_params.named_parameters())
+    return _named(model_or_params or [])
+
+
+class _Swap:
+    """``apply()``/``restore()`` of an averaging wrapper: ``apply`` keeps a
+    copy of each parameter and writes the average into its storage,
+    ``restore`` writes the copy back, bitwise."""
+
+    def _average(self, name, p):
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def apply(self, executor=None, need_restore=True):
+        self._backup = {n: p.detach().clone() for n, p in self._params}
+        for n, p in self._params:
+            p.copy_(self._average(n, p))
+
+    @torch.no_grad()
+    def restore(self, executor=None):
+        for n, p in self._params:
+            p.copy_(self._backup[n])
+        self._backup = {}
+
+
+class ExponentialMovingAverage(_Swap):
+    """``shadow = d * shadow + (1 - d) * p`` at each ``update()``, in the
+    parameter's type, with ``d = decay``, or with ``thres_steps`` given
+    ``min(decay, (1 + t) / (10 + t))`` at the t-th update
+    (``optimizer.py:418-453``). ``apply()`` writes the shadows into the
+    parameters, ``restore()`` puts them back."""
+
+    def __init__(self, model_or_params, decay=0.999, thres_steps=None):
+        self._params = _model_params(model_or_params)
+        self._decay = decay
+        self._thres_steps = thres_steps
+        self._shadow = {n: p.detach().clone() for n, p in self._params}
+        self._backup = {}
+        self._step = 0
+
+    @torch.no_grad()
+    def update(self):
+        self._step += 1
+        d = self._decay
+        if self._thres_steps is not None:
+            d = min(d, (1 + self._step) / (10 + self._step))
+        for n, p in self._params:
+            sh = self._shadow[n]
+            torch.add(_weak(d, sh) * sh, _weak(1 - d, sh) * p.to(sh.dtype),
+                      out=sh)
+
+    def _average(self, name, p):
+        return self._shadow[name]
+
+
+class ModelAverage(_Swap):
+    """Running float32 sums of the parameters, one ``step()`` after each
+    update; ``apply()`` writes ``sum / count`` into the parameters. The
+    window restarts (the sum becomes the current parameters, the count
+    1) once the count passes both ``max_average_window`` and
+    ``min_average_window`` (``optimizer.py:601-651``). ``apply()``
+    before any ``step()`` raises ``RuntimeError``."""
+
+    def __init__(self, average_window_rate, model_or_params=None,
+                 min_average_window=10000, max_average_window=10000,
+                 parameters=None):
+        src = model_or_params if model_or_params is not None else parameters
+        self._params = _model_params(src)
+        self.rate = average_window_rate
+        self.min_w = min_average_window
+        self.max_w = max_average_window
+        self._sum = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in self._params}
+        self._count = 0
+        self._backup = {}
+
+    @torch.no_grad()
+    def step(self):
+        self._count += 1
+        restart = self._count > self.max_w and self._count > self.min_w
+        for n, p in self._params:
+            if restart:
+                self._sum[n].copy_(p)
+            else:
+                torch.add(self._sum[n], p.float(), out=self._sum[n])
+        if restart:
+            self._count = 1
+
+    def apply(self, executor=None, need_restore=True):
+        if self._count == 0:
+            raise RuntimeError(
+                "ModelAverage.apply() before any step(): no accumulated "
+                "window to average (parameters would be zeroed)")
+        super().apply(executor, need_restore)
+
+    def _average(self, name, p):
+        return (self._sum[name] / self._count).to(p.dtype)
+
+
+class LookAhead(Optimizer):
+    """``k`` steps of ``inner_optimizer``, then each parameter pulled
+    toward its float32 slow weight: ``slow += alpha * (p - slow)``, ``p =
+    slow`` (``optimizer.py:456-500``). The slow weights start from the
+    parameters at the first ``step()``. As in the reference, the pull
+    writes the parameter only: an inner ``multi_precision`` master keeps
+    the fast weights. Eager only; ``state_dict`` is the inner
+    optimizer's."""
+
+    def __init__(self, inner_optimizer, alpha=0.5, k=5):
+        self.inner = inner_optimizer
+        self.alpha = alpha
+        self.k = k
+        self._slow = None
+        self._steps = 0
+
+    @property
+    def _named_params(self):
+        return self.inner._named_params
+
+    def get_lr(self):
+        return self.inner.get_lr()
+
+    @torch.no_grad()
+    def step(self):
+        if self._slow is None:
+            self._slow = {n: p.detach().to(torch.float32, copy=True)
+                          for n, p in self.inner._named_params}
+        self.inner.step()
+        self._steps += 1
+        if self._steps % self.k == 0:
+            for n, p in self.inner._named_params:
+                slow = self._slow[n]
+                torch.add(slow, self.alpha * (p.float() - slow), out=slow)
+                p.copy_(slow)
+
+    def clear_grad(self):
+        self.inner.clear_grad()
+
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, **kw):
+        loss.backward()
+        self.step()
+        return None, None
+
+    def state_dict(self):
+        return self.inner.state_dict()
+
+    def set_state_dict(self, state):
+        self.inner.set_state_dict(state)
+
+
+class _Delegating:
+    """A recipe wrapper: ``minimize`` is ``backward()`` then the inner
+    optimizer's ``step()``; every other attribute is the inner
+    optimizer's."""
+
+    def minimize(self, loss, **kw):
+        loss.backward()
+        self.inner.step()
+        return None, None
+
+    def __getattr__(self, item):
+        if item == "inner":
+            raise AttributeError(item)
+        return getattr(self.inner, item)
+
+
+class RecomputeOptimizer(_Delegating):
+    """The reference's recompute recipe shape (``optimizer.py:654-681``):
+    ``_set_checkpoints`` keeps the segment spec, everything else goes to
+    the inner optimizer. Recompute itself is a property of the forward
+    (``framework.recompute``)."""
+
+    def __init__(self, optimizer):
+        self.inner = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = checkpoints
+
+    def backward(self, loss, **kw):
+        loss.backward()
+        return []
+
+    def apply_gradients(self, params_grads=None):
+        self.inner.step()
+
+
+class PipelineOptimizer(_Delegating):
+    """The reference's pipeline recipe shape (``optimizer.py:684-699``):
+    keeps ``num_microbatches`` and delegates stepping to the inner
+    optimizer. Stage-parallel training is ``dist`` (ROADMAP Queue 1 item
+    6)."""
+
+    def __init__(self, optimizer, num_microbatches=1, start_cpu_core_id=0):
+        self.inner = optimizer
+        self.num_microbatches = num_microbatches

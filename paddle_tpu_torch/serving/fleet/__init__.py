@@ -23,9 +23,10 @@ consuming that scrape to drive scale-up / drain-based scale-down.
 
 The trace bench over a fleet is ``tools/torch_serve_bench.py
 --replicas N`` and the kill drill ``tools/torch_chaos_run.py
-replica_kill``. Not here yet: the JAX package's shared AOT executable
-cache (``ReplicaSpec.aot_cache_dir`` raises) and its report tools
-(``tools/fleet_report.py`` and the rest, ROADMAP Queue 1 item 3).
+replica_kill``; its journals render through
+``tools/torch_{fleet,request,slo,usage,run}_report.py``. Not here yet:
+the JAX package's shared AOT executable cache
+(``ReplicaSpec.aot_cache_dir`` raises).
 """
 from .autoscale import Autoscaler
 from .pool import LocalReplica, ProcessReplica, ReplicaPool, ReplicaSpec

@@ -29,6 +29,13 @@ CPU, and with ``Executor(use_cuda_graph=False)``, every call runs op by
 op. ``cache_stats()`` and ``dispatches`` count as the JAX Executor's do:
 a miss is a new key (its passes), a dispatch a call of an entry.
 
+With a run journal active (``obs.journal``), each new key journals a
+``compile`` event, each ``run`` one step record
+(``record_executor_run``) and each ``run_steps`` one record with
+``steps_fused=K`` (``record_fused_run``), from the fetches already on
+the host (with ``return_numpy=False`` or ``fetch_async=True`` from
+their shapes alone, no device read); with none, one ``None`` check.
+
 Static AMP (``amp.static_decorator``): a program with ``_amp_cfg`` has
 each op's floating inputs cast by the white and black lists where the
 replay calls the op (``_amp_cast_fn``; a ``@grad`` op follows its
@@ -55,6 +62,7 @@ import torch
 from .._device import resolve_device
 from ..core.random import default_generator
 from ..framework.jit import capture, warm
+from ..obs import journal as _journal
 from ..obs import metrics as _metrics
 from ..ops import kernels
 from ..ops.kernels import _route
@@ -198,7 +206,14 @@ class Executor:
         t0 = time.perf_counter()
         compiled = self._build(program, feed_names, fetch_names, shapes,
                                fetch_list, optimize_level, steps, scope)
-        _M_COMPILE_MS.observe((time.perf_counter() - t0) * 1e3)
+        compile_ms = (time.perf_counter() - t0) * 1e3
+        _M_COMPILE_MS.observe(compile_ms)
+        if _journal.ACTIVE is not None:
+            extra = {"steps_fused": int(steps)} if steps else {}
+            _journal.ACTIVE.event(
+                "compile", uid=program._uid, version=program._version,
+                optimize_level=int(optimize_level), ms=compile_ms,
+                source="executor", **extra)
         self._cache[key] = compiled
         return compiled
 
@@ -238,6 +253,9 @@ class Executor:
         compiled.steps = None if steps is None else int(steps)
         compiled.feed_dtypes = {n: blk.var(n).dtype for n in feed_names
                                 if blk.has_var(n) and blk.var(n).is_data}
+        # examples a step for the journal: the largest leading feed dim
+        lead = [sh[0] for sh, _ in shapes if len(sh) >= 1 and sh[0] > 0]
+        compiled.examples_hint = max(lead) if lead else None
         return compiled
 
     def cache_stats(self, per_entry=False):
@@ -429,7 +447,12 @@ class Executor:
                  for n in compiled.feed_names]
         out = self._materialize(self._dispatch(compiled, feeds, scope, None),
                                 return_numpy, fetch_async)
-        _M_RUN_MS.observe((time.perf_counter() - t0) * 1e3)
+        run_ms = (time.perf_counter() - t0) * 1e3
+        _M_RUN_MS.observe(run_ms)
+        if _journal.ACTIVE is not None:
+            _journal.ACTIVE.record_executor_run(
+                compiled, out, run_ms,
+                synced=bool(return_numpy) and not fetch_async)
         return out
 
     def run_steps(self, program=None, feeds=None, fetch_list=None,
@@ -498,7 +521,12 @@ class Executor:
                  for n in compiled.feed_names]
         out = self._materialize(self._dispatch(compiled, feeds, scope, K),
                                 return_numpy, fetch_async)
-        _M_RUN_MS.observe((time.perf_counter() - t0) * 1e3)
+        run_ms = (time.perf_counter() - t0) * 1e3
+        _M_RUN_MS.observe(run_ms)
+        if _journal.ACTIVE is not None:
+            _journal.ACTIVE.record_fused_run(
+                compiled, out, run_ms, steps=K,
+                synced=bool(return_numpy) and not fetch_async)
         return out
 
     def train_from_dataset(self, *args, **kwargs):

@@ -10,7 +10,9 @@ serve bench's legs (one paged launch a decode step), and float16: each
 kernel's float16 variant, the flash backward with dO at a loss scale
 (finite wherever the plain version is), a routed float16 LayerNorm that
 launches, an O1 step under ``auto_cast`` and recompute in a graphed
-step.
+step; and the rest of Paddle's optimizers (Ftrl, DecayedAdagrad,
+LarsMomentum, DGCMomentum, Dpsgd) in the graphed step, equal to the op
+by op step bitwise, Dpsgd drawing new noise at each replay.
 
 Every test here needs a Hopper card and skips without one (the
 decision is made inside the ``hopper`` fixture). The file imports
@@ -1197,3 +1199,54 @@ def test_recompute_in_a_graphed_step_is_bitwise(hopper):
     assert out[0][0] == out[1][0]
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
     assert (out[0][2], out[1][2]) == (15, 27)
+
+
+# -- the rest of Paddle's optimizers in the graphed step -----------------------
+
+RARE = {
+    "ftrl": lambda ps: optim.Ftrl(1e-3, l1=1e-5, parameters=ps),
+    "decayed_adagrad": lambda ps: optim.DecayedAdagrad(1e-3, parameters=ps),
+    "lars_momentum": lambda ps: optim.LarsMomentum(0.1, parameters=ps),
+    "dgc_momentum": lambda ps: optim.DGCMomentum(1e-2, 0.9, parameters=ps),
+    "dpsgd": lambda ps: optim.Dpsgd(1e-3, clip=1.0, batch_size=8.0,
+                                    sigma=1.0, parameters=ps),
+}
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16-master"])
+@pytest.mark.parametrize("kind", sorted(RARE))
+def test_rare_rule_graphed_step_is_the_eager_step(hopper, kind, bf16):
+    """Four steps of a tiny GPT at dropout 0.1 under each rule (bfloat16
+    with masters too): losses and parameters are the eager twin's bits,
+    Dpsgd's noise included (the same generator seed)."""
+    def make(m):
+        opt = RARE[kind](m.named_parameters())
+        opt._multi_precision = bf16
+        return opt
+
+    gs, es, gl, el, gla, ela = _graph_twins(
+        hopper, 0.1, make, lambda step, fn: [fn(*_ids(i)) for i in range(4)],
+        bf16=bf16)
+    assert torch.equal(torch.stack(gl), torch.stack(el))
+    assert all(np.isfinite(float(x)) for x in gl)
+    _same_parameters(gs, es)
+    assert gla == ela
+
+
+def test_dpsgd_draws_fresh_noise_at_each_replay(hopper):
+    """With zero gradients (the loss times 0), lr 1, clip 1, batch_size 1,
+    sigma 1, each replay moves every parameter by minus its noise: two
+    replays' moves differ, each N(0, 1)."""
+    m = _tiny_gpt(hopper, 0.0)
+    opt = optim.Dpsgd(1.0, clip=1.0, batch_size=1.0, sigma=1.0,
+                      parameters=m.named_parameters())
+    step = TrainStep(m, opt, lambda mm, *b: gpt.gpt_loss(mm, *b) * 0.0)
+    w = m.wte.weight
+    seen = []
+    for i in range(4):
+        step(*_ids(i))
+        seen.append(w.detach().clone())
+    d3, d4 = seen[2] - seen[1], seen[3] - seen[2]
+    assert step.captures == 1 and not torch.equal(d3, d4)
+    for d in (d3, d4):
+        assert abs(float(d.mean())) < 0.05 and abs(float(d.std()) - 1) < 0.05

@@ -234,6 +234,30 @@ ids = torch.zeros(1, 8, dtype=torch.int64)
 with amp.auto_cast(dtype="float16"):
     gpt.gpt_loss(m, ids, ids).backward()
 assert static_decorator.decorate(optim.SGD(0.1, parameters=[]))
+from paddle_tpu_torch.nn import initializer
+from paddle_tpu_torch.obs import report
+p = torch.nn.Parameter(initializer.Orthogonal()((4, 4), device="cpu"))
+for rule in (optim.Ftrl(0.1, parameters=[p]),
+             optim.DecayedAdagrad(0.1, parameters=[p]),
+             optim.Dpsgd(0.1, parameters=[p]),
+             optim.LarsMomentum(0.1, parameters=[p]),
+             optim.DGCMomentum(0.1, 0.9, parameters=[p])):
+    p.grad = torch.ones(4, 4)
+    rule.step()
+for wrapper in (optim.ExponentialMovingAverage([p]),
+                optim.ModelAverage(0.1, [p])):
+    getattr(wrapper, "update", getattr(wrapper, "step", None))()
+    wrapper.apply()
+    wrapper.restore()
+assert report.render({}) and optim.LookAhead(optim.SGD(0.1, parameters=[p]))
+for tool in ("run", "fleet", "request", "slo", "usage"):
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{tool}_report", os.path.join(
+            sys.argv[1], "tools", f"torch_{tool}_report.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if tool in ("run", "slo"):     # host-only: every module they read
+        assert mod.main(["--self-test"]) == 0
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad

@@ -33,7 +33,11 @@ dS fitted to float16's range by a power of two a row before its split
 scale of 2^14 (the split halves turn to inf where the plain float32 dS
 is finite); ``scaler_rule`` is ``DynamicLossScaler()``'s state machine,
 and a scaler that shrinks by 0.8 instead of 0.5 fails it; ``Tally``
-passes the kernels' launch counts through.
+passes the kernels' launch counts through. And the rare optimizers'
+phase (22): ``rule_value_check`` passes each honest rule on the CPU
+(seen: 3.3e-6 of the update at most, limit ``RULE_TOL`` 1e-4) and fails
+LarsMomentum planted without its decay term, the fault
+``tools/torch_planted_faults.py --rare`` plants on the card.
 """
 import pathlib
 import re
@@ -508,3 +512,23 @@ def test_tally_passes_the_launch_counts_through():
         kernels.reset_launches()
     assert not isinstance(ln.layer_norm_fwd, cs.Tally)
     assert ln.layer_norm_fwd.launches == 0 and not counts
+
+
+@pytest.mark.parametrize("kind", cs.RARE_RULES)
+def test_rule_value_check_passes_each_honest_rule(kind):
+    assert cs.rule_value_check(kind, device="cpu") <= cs.RULE_TOL
+
+
+def test_rule_value_check_rejects_lars_without_its_decay_term(monkeypatch):
+    import importlib.util
+
+    from paddle_tpu_torch.optim import LarsMomentum
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_planted_faults", ROOT / "tools" / "torch_planted_faults.py")
+    faults = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(faults)
+    monkeypatch.setattr(LarsMomentum, "_update",
+                        faults._lars_without_decay(LarsMomentum._update))
+    with pytest.raises(cs.CheckFailed, match="plain formula"):
+        cs.rule_value_check("lars_momentum", device="cpu")

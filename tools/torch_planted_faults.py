@@ -6,7 +6,7 @@ checkpoints and guards that rebind storage or drop state, and a static
 program that drops a gradient, a fused window or a velocity.
 
     python3 tools/torch_planted_faults.py [--resnet | --checkpoint |
-                                           --static | --amp]
+                                           --static | --amp | --rare]
 
 Builds the kernels, then runs the smoke's train phases with one fault
 planted at a time:
@@ -86,6 +86,13 @@ these only):
   find ``@amp@scale`` off the reference's rule
   (``chip_smoke.static_amp_check``).
 
+Then one fault in the optimizers of phase 22 (``--rare`` plants it
+only): LarsMomentum's local learning rate without its weight-decay term
+(``lr * coeff * |p| / |g|``), which ``chip_smoke.rule_value_check`` must
+find off the plain formula (its case gives the decay term the weight of
+the gradient's norm); graphed = op by op cannot see it, both run the
+planted rule.
+
 Each of the first phases runs 4 AdamW steps through the kernels and 4
 through the plain versions and compares the losses. A fault is planted
 by swapping the module's wrapper for one that calls the real kernel and
@@ -112,7 +119,8 @@ import chip_smoke  # noqa: E402
 from paddle_tpu_torch.static_ import backward as static_backward  # noqa: E402
 from paddle_tpu_torch.static_ import executor as static_executor  # noqa: E402
 from paddle_tpu_torch.framework import TrainStep  # noqa: E402
-from paddle_tpu_torch.optim import Optimizer  # noqa: E402
+from paddle_tpu_torch.optim import LarsMomentum, Optimizer  # noqa: E402
+from paddle_tpu_torch.optim import optimizer as optim_rules  # noqa: E402
 from paddle_tpu_torch.resilience import GuardedStep  # noqa: E402
 from paddle_tpu_torch.nn import functional as F  # noqa: E402
 from paddle_tpu_torch.ops.kernels import _build  # noqa: E402
@@ -430,6 +438,38 @@ def amp_faults(gpu):
     return missed
 
 
+def _lars_without_decay(real):
+    """``LarsMomentum._update`` with the local learning rate ``lr * coeff
+    * |p| / |g|``: the weight-decay term dropped from the denominator."""
+    def planted(self, name, p, g, s, lr, into):
+        pf, gf = p.float(), g.float()
+        wn = optim_rules._sqrt(torch.sum(pf * pf))
+        gn = optim_rules._sqrt(torch.sum(gf * gf))
+        local = lr * self._coeff * wn / torch.clamp(gn, min=1e-12)
+        v = torch.add(self._momentum * s["velocity"],
+                      (local * (gf + self._decay * pf)).to(p.dtype),
+                      out=into.get("velocity"))
+        return p - v, {"velocity": v}
+    return planted
+
+
+def rare_faults(gpu):
+    """Phase 22's fault, planted while ``rule_value_check`` runs the
+    Lars case: the labels it passed or did not fail by that check."""
+    real = LarsMomentum._update
+    LarsMomentum._update = _lars_without_decay(real)
+    label = "LarsMomentum's local lr without its decay term"
+    try:
+        chip_smoke.rule_value_check("lars_momentum")
+        print(f"planted {label}: the check PASSED it")
+        return [label]
+    except chip_smoke.CheckFailed as e:
+        print(f"planted {label}: the check failed: {e}")
+        return [] if "plain formula" in str(e) else [label]
+    finally:
+        LarsMomentum._update = real
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--resnet", action="store_true",
@@ -440,6 +480,8 @@ def main(argv=None):
                     help="plant the three static-graph faults only")
     ap.add_argument("--amp", action="store_true",
                     help="plant the four mixed-precision faults only")
+    ap.add_argument("--rare", action="store_true",
+                    help="plant the optimizer fault of phase 22 only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_planted_faults: no CUDA device", file=sys.stderr)
@@ -447,7 +489,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     _build.build()
     gpu = chip_smoke.gpu_line()
-    only = args.resnet or args.checkpoint or args.static or args.amp
+    only = (args.resnet or args.checkpoint or args.static or args.amp
+            or args.rare)
     missed = op_faults(gpu) if args.resnet or not only else []
     if not only:
         missed += kernel_faults(gpu)
@@ -457,6 +500,8 @@ def main(argv=None):
         missed += static_faults(gpu)
     if args.amp or not only:
         missed += amp_faults(gpu)
+    if args.rare or not only:
+        missed += rare_faults(gpu)
     print(gpu)
     if missed:
         print(f"not caught by the check named for them: {missed}")

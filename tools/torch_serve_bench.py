@@ -501,7 +501,7 @@ def _export_leg(vocab, heads, head_dim, device):
 
 def bench_serve_leg(requests=48, rate=100.0, pages=256, page_size=16,
                     vocab=32, heads=2, head_dim=8, device=None,
-                    detail=None):
+                    detail=None, journal_dir=None):
     """``bench.py:bench_serve`` (``:304-465``) on the port: the weighted
     two-tenant trace (rates 3:1, weights 3:1) through one engine,
     journaled and evaluated against ``SERVE_SLO_SPEC``; the export
@@ -517,7 +517,9 @@ def bench_serve_leg(requests=48, rate=100.0, pages=256, page_size=16,
     requests as ``(prompt, max_new_tokens, generated)``), ``tokens``
     (each fleet request's prompt, max_new_tokens and tokens, in arrival
     order) and ``decode_steps`` of each engine (``engine``, ``export``,
-    ``fleet``: one per replica)."""
+    ``fleet``: one per replica). The engine leg journals into
+    ``journal_dir`` when one is given, and leaves it there; else into a
+    temporary directory it removes."""
     from paddle_tpu_torch.obs import journal
     from paddle_tpu_torch.obs.slo import evaluate_run
 
@@ -525,7 +527,7 @@ def bench_serve_leg(requests=48, rate=100.0, pages=256, page_size=16,
                  device=device, trace_vocab=32)
     tenants = parse_tenants(
         f"a:rate={0.75 * rate:g},weight=3;b:rate={0.25 * rate:g},weight=1")
-    slo_dir = tempfile.mkdtemp(prefix="pt_serve_slo_")
+    slo_dir = journal_dir or tempfile.mkdtemp(prefix="pt_serve_slo_")
     try:
         journal.start_run(slo_dir)
         try:
@@ -538,7 +540,8 @@ def bench_serve_leg(requests=48, rate=100.0, pages=256, page_size=16,
         violations = evaluate_run(slo_dir, SERVE_SLO_SPEC,
                                   duration_s=rep["wall_s"])["violations"]
     finally:
-        shutil.rmtree(slo_dir, ignore_errors=True)
+        if journal_dir is None:
+            shutil.rmtree(slo_dir, ignore_errors=True)
     out = {k: rep.get(k) for k in (
         "tokens_per_sec", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
         "tpot_p99_ms", "requests", "finished", "preemptions",
