@@ -2,9 +2,9 @@
 """Drive paddle_tpu_torch's serving path, its training steps (GPT, BERT,
 ResNet-50), its serving fleet, the step as one CUDA graph, its decoding,
 its checkpointed and guarded training, its static graph, the serve bench,
-the int8 Predictor, float16 mixed precision with recompute, and the rest
-of Paddle's optimizers, initializers and run reports once on one NVIDIA
-H100.
+the int8 Predictor, float16 mixed precision with recompute, the rest of
+Paddle's optimizers, initializers and run reports, and its layer library
+with the book's sentiment nets once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -288,6 +288,23 @@ any failed check:
              ``run_steps`` and a ``Predictor.run`` under a journal; then
              the five report tools over the journals of phases 13, 19
              and 22 (``report_check``).
+23. layers — Paddle's layer library (``layers_phase``): (a) the book's
+             stacked LSTM (``StackedLSTMSentiment``: embed 128, hidden
+             128, 3 layers, dropout 0.2) and (b) its text-CNN
+             (``ConvSentiment``: 128 filters of widths 3 and 4) at
+             vocabulary 5148, batch 128 x 63 ids from RandomState(0)
+             (lengths 16-63, padded with 0; the LSTM reads them as
+             ``seq_len`` on the card), each 4 steps of Adam(1e-2)
+             through ``TrainStep`` graphed = op by op bitwise (losses,
+             parameters, Adam's moments), losses finite, the first
+             within ``SENT_REF_TOL`` of a float64 CPU forward of the same
+             weights and dropout mask (the LSTM's also near ln 2), no
+             launch of the port's kernels, then 5 calls of each
+             timed and a replay profiled; (c) every layer class at a
+             small size on the card against the CPU (``LAYER_F32_TOL``),
+             forward and backward, run twice: the classes whose bits
+             move are printed, and none of (a)'s or (b)'s may be among
+             them.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -5278,6 +5295,487 @@ def rare_phase(gpu, journals):
     return ms
 
 
+# -- phase 23: the layer library (the book's sentiment nets) ------------------
+
+SENT_VOCAB = 5148        # paddle_tpu/dataset/imdb.py:9, the synthetic dict
+SENT_BATCH = 128
+SENT_LEN = 63            # ids padded to the reader's longest sentence
+SENT_MIN_LEN = 16        # the synthetic reader's shortest (imdb.py:18-22)
+SENT_LR = 1e-2           # tests/book/test_nlp_models.py:20-23's Adam
+SENT_STEPS = 4
+SENT_TIMED = 5
+# the stacked LSTM's first loss at init: within this of ln 2 (its pooled
+# outputs are small). The text-CNN's is not near ln 2: each filter's
+# tanh, max-pooled over 63+ steps, sits near 1 for every row, so its
+# logits are two sums of ~256 Xavier weights (std ~1.4), about the same
+# for every row; its first loss (2.44 on an H100 80GB HBM3 at 700 W, PR
+# 19) is held to the float64 reference below instead, as the LSTM's is
+SENT_LOSS_NEAR = 0.5
+# the first step's loss against a float64 CPU forward of the same weights,
+# batch and dropout mask (sentiment_reference_loss): float32 sums over at
+# most 63 LSTM steps or 512-term conv windows, absolute
+SENT_REF_TOL = 1e-4
+# the nets at the JAX package's default widths (sentiment.py:25-26, 50-51)
+SENT_NETS = {
+    "lstm": dict(embed_dim=128, hidden=128, num_layers=3, num_classes=2,
+                 dropout=0.2),
+    "conv": dict(embed_dim=128, num_filters=128, widths=(3, 4),
+                 num_classes=2, dropout=0.2),
+}
+# the layers (a) and (b) run: none of them may change its bits between
+# two runs on the card
+SENT_PATH_LAYERS = {"Embedding", "LSTM", "Conv1D", "Linear", "Dropout"}
+# phase 23(c): a layer on the card against the same layer on the CPU, both
+# float32 (TF32 off): sums in other orders and CUDA's own exp/log/tanh,
+# a few ulps each, as a share of the largest |value| of each array
+LAYER_F32_TOL = 1e-4
+
+
+def sentiment_batch(device):
+    """RandomState(0): ``SENT_BATCH`` rows of ids in [2, vocab) padded
+    with 0 past each row's length (drawn in [16, 63]), labels in {0, 1},
+    and the lengths; int64 tensors on ``device``."""
+    import torch
+
+    rng = np.random.RandomState(0)
+    n = rng.randint(SENT_MIN_LEN, SENT_LEN + 1, SENT_BATCH)
+    ids = rng.randint(2, SENT_VOCAB, (SENT_BATCH, SENT_LEN))
+    ids[np.arange(SENT_LEN)[None] >= n[:, None]] = 0
+    y = rng.randint(0, 2, SENT_BATCH)
+    return [torch.from_numpy(a.astype(np.int64)).to(device)
+            for a in (ids, y, n)]
+
+
+def sentiment_loss(kind):
+    """``loss_fn(model, ids, y, lengths)``: the LSTM reads the lengths as
+    its ``seq_len``, the text-CNN does not."""
+    from paddle_tpu_torch.nn import functional as F
+
+    if kind == "lstm":
+        return lambda m, ids, y, n: F.cross_entropy(m(ids, n), y)
+    return lambda m, ids, y, n: F.cross_entropy(m(ids), y)
+
+
+def sentiment_net(kind, device="cuda"):
+    """The phase's ``kind`` net on ``device``, weights from seed 0."""
+    import torch
+
+    from paddle_tpu_torch.models.nlp import (ConvSentiment,
+                                             StackedLSTMSentiment)
+
+    cls = StackedLSTMSentiment if kind == "lstm" else ConvSentiment
+    return cls(SENT_VOCAB, **SENT_NETS[kind], device=device,
+               generator=torch.Generator(device).manual_seed(0))
+
+
+def sentiment_reference_loss(kind, state, batch, device="cuda", p=None):
+    """The first step's loss, recomputed in float64 on the CPU with plain
+    torch ops from the net's weights ``state``: the embedding rows, the
+    convs (or the LSTM's cells, masked at each row's padded steps), tanh
+    and the max over time, the dropout (rate ``p``, default the phase's)
+    with the mask the first step draws (``device``'s generator from seed
+    1: the path's first draw), the FC and the cross-entropy."""
+    import torch
+    import torch.nn.functional as F
+
+    sd = {k: v.detach().double().cpu() for k, v in state.items()}
+    ids, y, n = [b.cpu() for b in batch]
+    x = sd["embed.weight"][ids]                       # (B, L, E)
+    if kind == "conv":
+        feats, i = [], 0
+        while f"convs.{i}.weight" in sd:
+            w = sd[f"convs.{i}.weight"]
+            h = F.conv1d(x.transpose(1, 2), w, sd[f"convs.{i}.bias"],
+                         padding=w.shape[-1] // 2)
+            feats.append(torch.tanh(h).amax(-1))
+            i += 1
+        h = torch.cat(feats, -1)
+    else:
+        i = 0
+        while f"lstm.{i}.weight_ih" in sd:
+            w_ih, w_hh = sd[f"lstm.{i}.weight_ih"], sd[f"lstm.{i}.weight_hh"]
+            b = sd[f"lstm.{i}.bias_ih"] + sd[f"lstm.{i}.bias_hh"]
+            H = w_hh.shape[1]
+            hs = cs = torch.zeros(x.shape[0], H, dtype=torch.float64)
+            outs = []
+            for t in range(x.shape[1]):
+                gi, gf, gg, go = (x[:, t] @ w_ih.t() + hs @ w_hh.t()
+                                  + b).split(H, -1)
+                c2 = torch.sigmoid(gf) * cs + torch.sigmoid(gi) * \
+                    torch.tanh(gg)
+                h2 = torch.sigmoid(go) * torch.tanh(c2)
+                keep = (t < n)[:, None]
+                hs, cs = torch.where(keep, h2, hs), torch.where(keep, c2, cs)
+                outs.append(torch.where(keep, h2, torch.zeros(())))
+            x = torch.stack(outs, 1)
+            i += 1
+        h = x.amax(1)
+    p = SENT_NETS[kind]["dropout"] if p is None else p
+    gen = torch.Generator(device).manual_seed(1)
+    keep = torch.rand(h.shape, generator=gen, device=device) < 1.0 - p
+    h = torch.where(keep.cpu(), h / (1.0 - p), torch.zeros(()))
+    return float(F.cross_entropy(h @ sd["fc.weight"] + sd["fc.bias"], y))
+
+
+def sentiment_compare(kind, gpu):
+    """Phase 23(a)/(b): ``SENT_STEPS`` steps through ``TrainStep`` with
+    Adam(1e-2) — the first op by op, the second captured, then replays —
+    against as many op-by-op steps from the same weights and dropout
+    seed: losses, parameters and Adam's state the same bits; losses
+    finite, the first within ``SENT_LOSS_NEAR`` of ln 2; no launch of
+    the port's kernels; the first loss within ``SENT_REF_TOL`` of
+    ``sentiment_reference_loss`` (the LSTM's also near ln 2). Then
+    ``SENT_TIMED`` more calls of each, timed, and one profiled replay.
+    Returns the median ms of each."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import optim
+    from paddle_tpu_torch.ops import kernels
+
+    model = sentiment_net(kind)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = sentiment_batch("cuda")
+    loss_fn = sentiment_loss(kind)
+
+    def adam(m):
+        return optim.Adam(SENT_LR, parameters=m.named_parameters())
+
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"layers {kind}: {type(model).__name__} {SENT_NETS[kind]}, vocab "
+        f"{SENT_VOCAB}, {n_params / 1e6:.3f}M parameters; batch "
+        f"{SENT_BATCH} x {SENT_LEN}, lengths {int(batch[2].min())}-"
+        f"{int(batch[2].max())}; Adam({SENT_LR})")
+    out, zero = {}, dict.fromkeys(kernels.KERNELS, 0)
+    for eager in (False, True):
+        what = "op by op" if eager else "graphed"
+        step, losses, walls, launches = graph_run(
+            model, None, init, loss_fn, [batch] * SENT_STEPS, eager,
+            make_opt=adam)
+        state = snapshot(model, step.optimizer)
+        fn = step._eager_step if eager else step
+        more = []
+        for _ in range(SENT_TIMED):
+            t0 = time.perf_counter()
+            fn(*batch)
+            torch.cuda.synchronize()
+            more.append((time.perf_counter() - t0) * 1e3)
+        wall, busy, seen = profiled(lambda: fn(*batch))
+        med = sorted(more)[len(more) // 2]
+        out[what] = dict(losses=losses, state=state, ms=med)
+        log(f"layers {kind} {what}: losses {losses}; step wall ms "
+            + " ".join(f"{w:.2f}" for w in walls) + "; then "
+            + " ".join(f"{w:.2f}" for w in more) + f" (median {med:.2f} ms "
+            f"= {SENT_BATCH / med * 1e3:.0f} samples/s); one profiled step: "
+            f"wall {wall:.2f} ms, device busy {busy:.2f} ms = "
+            f"{busy / wall * 100:.1f}% of it, {busy / med * 100:.1f}% of the "
+            f"median step [{gpu}]")
+        check(launches == zero and seen == zero and
+              kernels.launches() == zero,
+              f"layers {kind} {what}: the port's kernels launched "
+              f"{launches} (the profiler saw {seen}); this path runs none")
+        del step
+    g, e = out["graphed"], out["op by op"]
+    bad = same_bits(g["state"], e["state"])
+    check(g["losses"] == e["losses"] and not bad,
+          f"layers {kind}: graphed losses {g['losses']} vs op by op "
+          f"{e['losses']}; {len(bad)} tensors differ, e.g. {bad[:4]}")
+    first = g["losses"][0]
+    ref = sentiment_reference_loss(kind, init, batch)
+    check(all(math.isfinite(v) for v in g["losses"]) and
+          abs(first - ref) < SENT_REF_TOL,
+          f"layers {kind}: losses {g['losses']}: not finite, or the first "
+          f"not within {SENT_REF_TOL} of the float64 reference {ref}")
+    check(kind != "lstm" or abs(first - math.log(2)) < SENT_LOSS_NEAR,
+          f"layers {kind}: first loss {first} not within {SENT_LOSS_NEAR} "
+          f"of ln 2")
+    log(f"layers {kind}: {SENT_STEPS} graphed steps = {SENT_STEPS} op-by-op "
+        f"steps bitwise (losses, {len(g['state'][0])} parameters, Adam's "
+        f"moments); first loss {first} vs float64 reference {ref} "
+        f"({abs(first - ref):.3g}; ln 2 = {math.log(2):.4f}); replay "
+        f"{g['ms']:.2f} ms vs op by op {e['ms']:.2f} ms a step [{gpu}]")
+    del model, init
+    torch.cuda.empty_cache()
+    return g["ms"], e["ms"]
+
+
+def _fl(*shape, scale=1.0):
+    return lambda r: (r.randn(*shape) * scale).astype(np.float32)
+
+
+def _ints(high, *shape):
+    return lambda r: r.randint(0, high, shape).astype(np.int64)
+
+
+def _const(a):
+    return lambda r: np.asarray(a)
+
+
+_X = (2, 6, 5, 4)
+_PROB = lambda r: (1 / (1 + np.exp(-r.randn(4, 5)))).astype(np.float32)
+_Y01 = lambda r: (r.rand(4, 5) > 0.5).astype(np.float32)
+_PM1 = lambda r: np.where(r.rand(4) > 0.5, 1.0, -1.0).astype(np.float32)
+_LOGP = lambda r: np.log(np.full((6, 2, 4), 0.25) + r.rand(6, 2, 4) *
+                         0.1).astype(np.float32)
+_LENS = _const(np.array([6, 3, 5]))
+
+
+def _flatten(v):
+    """Nested tuples and lists of tensors as one list."""
+    if isinstance(v, (tuple, list)):
+        return [t for x in v for t in _flatten(x)]
+    return [v]
+
+
+def _rnn_call(m, x, n):
+    return _flatten(m(x, sequence_length=n))
+
+
+# phase 23(c): (class, kwargs, inputs, call); the port's layers with
+# parameters or buffers take device= and generator=, ``call(layer,
+# *inputs)`` is the forward (default: the layer)
+LAYER_CASES = [
+    *[(n, {}, [_fl(3, 8, scale=4.0)], None) for n in (
+        "ReLU", "ReLU6", "Sigmoid", "LogSigmoid", "Tanh", "Tanhshrink",
+        "Softsign", "Silu", "Swish", "Mish", "Hardsigmoid", "Hardswish",
+        "SELU", "GELU", "LogSoftmax", "Softmax")],
+    ("LeakyReLU", dict(negative_slope=0.2), [_fl(3, 8, scale=4.0)], None),
+    ("ELU", dict(alpha=0.7), [_fl(3, 8, scale=4.0)], None),
+    ("CELU", dict(alpha=1.5), [_fl(3, 8, scale=4.0)], None),
+    ("Softplus", dict(beta=2.0, threshold=6.0), [_fl(3, 8, scale=4.0)],
+     None),
+    ("Softshrink", dict(threshold=1.0), [_fl(3, 8, scale=4.0)], None),
+    ("Hardtanh", dict(min=-2.0, max=3.0), [_fl(3, 8, scale=4.0)], None),
+    ("Hardshrink", dict(threshold=1.0), [_fl(3, 8, scale=4.0)], None),
+    ("ThresholdedReLU", dict(threshold=1.5), [_fl(3, 8, scale=4.0)], None),
+    ("Maxout", dict(groups=3), [_fl(*_X)], None),
+    ("GLU", dict(axis=1), [_fl(*_X)], None),
+    ("PReLU", dict(num_parameters=6), [_fl(*_X)], None),
+    ("Identity", {}, [_fl(*_X)], None),
+    ("Linear", dict(in_features=4, out_features=3), [_fl(2, 5, 4)], None),
+    ("Dropout", dict(p=0.3), [_fl(*_X)], None),
+    ("Dropout2D", dict(p=0.3), [_fl(*_X)], None),
+    ("Dropout3D", dict(p=0.3), [_fl(2, 3, 2, 2, 2)], None),
+    ("AlphaDropout", dict(p=0.3), [_fl(*_X)], None),
+    ("Embedding", dict(num_embeddings=9, embedding_dim=4, padding_idx=0),
+     [_ints(9, 64, 16)], None),
+    ("Flatten", dict(start_axis=1, stop_axis=2), [_fl(*_X)], None),
+    ("Pad1D", dict(padding=[1, 2], mode="reflect"), [_fl(2, 3, 5)], None),
+    ("Pad2D", dict(padding=[1, 0, 2, 1], value=1.5), [_fl(*_X)], None),
+    ("Pad3D", dict(padding=[1, 1, 0, 1, 1, 0], mode="replicate"),
+     [_fl(1, 2, 3, 3, 4)], None),
+    ("ZeroPad2D", dict(padding=[2, 1, 0, 1]), [_fl(*_X)], None),
+    ("Upsample", dict(scale_factor=1.5, mode="bicubic"), [_fl(*_X)], None),
+    ("UpsamplingNearest2D", dict(scale_factor=2), [_fl(*_X)], None),
+    ("UpsamplingBilinear2D", dict(scale_factor=2), [_fl(*_X)], None),
+    ("CosineSimilarity", dict(axis=2), [_fl(*_X), _fl(*_X)], None),
+    ("PairwiseDistance", dict(p=1.0), [_fl(4, 6), _fl(4, 6)], None),
+    ("Bilinear", dict(in1_features=3, in2_features=4, out_features=5),
+     [_fl(6, 3), _fl(6, 4)], None),
+    ("Unfold", dict(kernel_sizes=3, strides=2, paddings=1), [_fl(*_X)],
+     None),
+    ("PixelShuffle", dict(upscale_factor=2), [_fl(2, 8, 3, 3)], None),
+    ("ChannelShuffle", dict(groups=2), [_fl(*_X)], None),
+    ("Conv1D", dict(in_channels=4, out_channels=6, kernel_size=3,
+                    padding=1), [_fl(2, 4, 7)], None),
+    ("Conv2D", dict(in_channels=6, out_channels=4, kernel_size=3, stride=2,
+                    groups=2), [_fl(*_X)], None),
+    ("Conv3D", dict(in_channels=3, out_channels=2, kernel_size=2,
+                    dilation=(1, 2, 1)), [_fl(2, 3, 3, 5, 4)], None),
+    ("Conv1DTranspose", dict(in_channels=4, out_channels=6, kernel_size=3,
+                             stride=2, output_padding=1), [_fl(2, 4, 5)],
+     None),
+    ("Conv2DTranspose", dict(in_channels=6, out_channels=4, kernel_size=3,
+                             stride=2, padding=1, groups=2), [_fl(*_X)],
+     None),
+    ("Conv3DTranspose", dict(in_channels=3, out_channels=2, kernel_size=2,
+                             stride=2), [_fl(1, 3, 2, 3, 2)], None),
+    ("MaxPool1D", dict(kernel_size=2), [_fl(2, 3, 7)], None),
+    ("MaxPool2D", dict(kernel_size=3, stride=2, padding=1), [_fl(*_X)],
+     None),
+    ("MaxPool3D", dict(kernel_size=2, stride=1), [_fl(1, 2, 3, 4, 3)], None),
+    ("AvgPool1D", dict(kernel_size=3, stride=2, padding=1), [_fl(2, 3, 7)],
+     None),
+    ("AvgPool2D", dict(kernel_size=3, stride=2, padding=1), [_fl(*_X)],
+     None),
+    ("AvgPool3D", dict(kernel_size=2, stride=2, padding=1),
+     [_fl(1, 2, 3, 4, 3)], None),
+    ("AdaptiveAvgPool1D", dict(output_size=3), [_fl(2, 3, 7)], None),
+    ("AdaptiveAvgPool2D", dict(output_size=3), [_fl(*_X)], None),
+    ("AdaptiveMaxPool1D", dict(output_size=3), [_fl(2, 3, 7)], None),
+    ("AdaptiveMaxPool2D", dict(output_size=(3, 2)), [_fl(*_X)], None),
+    ("LayerNorm", dict(normalized_shape=4), [_fl(*_X)], None),
+    ("BatchNorm", dict(num_channels=6, act="relu"), [_fl(*_X)], None),
+    ("BatchNorm1D", dict(num_features=6), [_fl(5, 6)], None),
+    ("BatchNorm2D", dict(num_features=6, momentum=0.8), [_fl(*_X)], None),
+    ("BatchNorm3D", dict(num_features=3), [_fl(2, 3, 2, 3, 2)], None),
+    ("SyncBatchNorm", dict(num_features=6), [_fl(*_X)], None),
+    ("GroupNorm", dict(num_groups=2, num_channels=6), [_fl(*_X)], None),
+    ("InstanceNorm1D", dict(num_features=3), [_fl(2, 3, 7)], None),
+    ("InstanceNorm2D", dict(num_features=6), [_fl(*_X)], None),
+    ("InstanceNorm3D", dict(num_features=3), [_fl(2, 3, 2, 3, 2)], None),
+    ("LocalResponseNorm", dict(size=5, alpha=0.01), [_fl(*_X)], None),
+    ("SpectralNorm", dict(weight_shape=(6, 5, 4), dim=1, power_iters=3),
+     [_fl(6, 5, 4)], None),
+    ("CrossEntropyLoss", dict(ignore_index=2), [_fl(4, 5), _ints(5, 4)],
+     None),
+    ("NLLLoss", dict(reduction="none"), [_fl(4, 5), _ints(5, 4)], None),
+    ("KLDivLoss", dict(reduction="sum"), [_fl(4, 5), _PROB], None),
+    ("BCELoss", {}, [_PROB, _Y01], None),
+    ("BCEWithLogitsLoss", {}, [_fl(4, 5), _Y01], None),
+    ("MSELoss", dict(reduction="none"), [_fl(4, 5), _PROB], None),
+    ("L1Loss", {}, [_fl(4, 5), _PROB], None),
+    ("SmoothL1Loss", dict(delta=2.0), [_fl(4, 5, scale=3.0), _PROB], None),
+    ("MarginRankingLoss", dict(margin=0.5), [_fl(4), _fl(4), _PM1], None),
+    ("CosineEmbeddingLoss", dict(margin=0.1), [_fl(4, 3), _fl(4, 3), _PM1],
+     None),
+    ("HingeEmbeddingLoss", dict(margin=0.5), [_fl(4, 5), _Y01], None),
+    ("TripletMarginLoss", dict(p=1.0), [_fl(4, 6), _fl(4, 6), _fl(4, 6)],
+     None),
+    ("CTCLoss", {}, [_LOGP, _const(np.array([[1, 2], [3, 0]])),
+                     _const(np.array([6, 5])), _const(np.array([2, 1]))],
+     lambda m, x, lab, n, k: m(x, lab, n, k, norm_by_times=True)),
+    ("SimpleRNNCell", dict(input_size=5, hidden_size=4),
+     [_fl(3, 5), _fl(3, 4)], lambda m, x, h: _flatten(m(x, h))),
+    ("LSTMCell", dict(input_size=5, hidden_size=4),
+     [_fl(3, 5), _fl(3, 4), _fl(3, 4)],
+     lambda m, x, h, c: _flatten(m(x, (h, c)))),
+    ("GRUCell", dict(input_size=5, hidden_size=4), [_fl(3, 5), _fl(3, 4)],
+     lambda m, x, h: _flatten(m(x, h))),
+    ("SimpleRNN", dict(input_size=5, hidden_size=4, num_layers=2,
+                       direction="bidirect"), [_fl(3, 6, 5), _LENS],
+     _rnn_call),
+    ("LSTM", dict(input_size=5, hidden_size=4, num_layers=2,
+                  direction="bidirect"), [_fl(3, 6, 5), _LENS], _rnn_call),
+    ("GRU", dict(input_size=5, hidden_size=4, num_layers=2),
+     [_fl(3, 6, 5), _LENS], _rnn_call),
+]
+# classes made of cells: built from two ``LSTMCell(5, 4)``s
+CELL_RUNNERS = ("RNN", "BiRNN")
+
+
+def _layer(name, kw, device):
+    """``nn.<name>(**kw)`` on ``device`` (parameters drawn from a fixed
+    seed on the CPU; the card's copy loads them)."""
+    import inspect
+
+    import torch
+
+    from paddle_tpu_torch import nn
+
+    if name in CELL_RUNNERS:
+        cells = [nn.LSTMCell(5, 4, device=device) for _ in range(2)]
+        return nn.RNN(cells[0], is_reverse=True) if name == "RNN" else \
+            nn.BiRNN(*cells)
+    cls = getattr(nn, name)
+    params = inspect.signature(cls.__init__).parameters
+    if "device" in params:
+        kw = dict(kw, device=device)
+    if "generator" in params:
+        kw = dict(kw, generator=torch.Generator(device).manual_seed(0))
+    return cls(**kw)
+
+
+def _layer_run(layer, call, arrays, device, grads_g):
+    """Forward and backward of ``layer`` on ``device``: (outputs, input
+    gradients, parameter gradients), as CPU float32 tensors."""
+    import torch
+
+    ins = [torch.from_numpy(a).to(device).requires_grad_(
+        a.dtype == np.float32) for a in arrays]
+    out = call(layer, *ins) if call else layer(*ins)
+    outs = _flatten(out)
+    layer.zero_grad(set_to_none=True)
+    floats = [o for o in outs if o.is_floating_point()]
+    if grads_g is None:
+        rng = np.random.RandomState(1)
+        grads_g = [np.asarray(rng.randn(*o.shape), np.float32)
+                   for o in floats]
+    total = sum((o * torch.from_numpy(g).to(device)).sum()
+                for o, g in zip(floats, grads_g))
+    if total.requires_grad:
+        total.backward()
+    cpu = lambda t: None if t is None else t.detach().float().cpu()
+    return ([cpu(o) for o in outs], [cpu(t.grad) for t in ins],
+            {n: cpu(p.grad) for n, p in layer.named_parameters()}, grads_g)
+
+
+def layer_card_check(gpu, device="cuda"):
+    """Phase 23(c): every layer class at a small size, forward and
+    backward, on the card against the same layer (same weights and
+    buffers) on the CPU, float32, within ``LAYER_F32_TOL``; each run
+    twice on the card, and the layers whose outputs or gradients change
+    bits from the first run to the second are listed. None of them may
+    be on (a)'s or (b)'s path. Returns that list. (``device="cpu"``
+    runs the checks with the CPU in the card's place.)"""
+    import torch
+
+    from paddle_tpu_torch import nn
+
+    t0 = time.perf_counter()
+    cases = LAYER_CASES + [(n, {}, [_fl(3, 6, 5), _LENS], _rnn_call)
+                           for n in CELL_RUNNERS]
+    worst, moving = 0.0, []
+    for name, kw, inputs, call in cases:
+        rng = np.random.RandomState(0)
+        arrays = [make(rng) for make in inputs]
+        cpu_layer = _layer(name, kw, "cpu")
+        card = _layer(name, kw, device)
+        card.load_state_dict(cpu_layer.state_dict())
+        if name.startswith(("Dropout", "AlphaDropout")):
+            cpu_layer.eval()
+            card.eval()
+        want = _layer_run(cpu_layer, call, arrays, "cpu", None)
+        runs = [_layer_run(card, call, arrays, device, want[3])
+                for _ in range(2)]
+        got = runs[0]
+        pairs = list(zip(got[0], want[0])) + list(zip(got[1], want[1]))
+        pairs += [(got[2][n], want[2][n]) for n in want[2]]
+        for g, w in pairs:
+            check((g is None) == (w is None), f"layers (c) {name}: a "
+                  "gradient on one device only")
+            if w is None:
+                continue
+            scale = float(w.abs().max()) or 1.0
+            err = float((g - w).abs().max()) / scale
+            worst = max(worst, err)
+            check(err <= LAYER_F32_TOL, f"layers (c) {name}: card vs CPU "
+                  f"{err:.3g} of the largest |value|, limit {LAYER_F32_TOL}")
+        flat = lambda r: [t for t in r[0] + r[1] + list(r[2].values())
+                          if t is not None]
+        if not all(torch.equal(a, b) for a, b in zip(flat(runs[0]),
+                                                        flat(runs[1]))):
+            moving.append(name)
+    names = {c[0] for c in cases}
+    classes = {n for n in nn.layers.__all__ if n[0].isupper() and n not in (
+        "MultiHeadAttention", "Transformer", "TransformerDecoder",
+        "TransformerDecoderLayer", "TransformerEncoder",
+        "TransformerEncoderLayer", "RNNCellBase")}
+    check(classes <= names, f"layers (c): no case for "
+          f"{sorted(classes - names)}")
+    log(f"layers (c): {len(cases)} layer classes on the card = on the CPU "
+        f"within {worst:.3g} of the largest |value| (limit {LAYER_F32_TOL}),"
+        f" forward and backward, float32; bits that changed between two "
+        f"runs on the card: {moving or 'none'}; took "
+        f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+    check(not set(moving) & SENT_PATH_LAYERS, f"layers (c): layers of the "
+          f"sentiment path are not repeatable: "
+          f"{sorted(set(moving) & SENT_PATH_LAYERS)}")
+    return moving
+
+
+def layers_phase(gpu):
+    """Phase 23: (a) the stacked LSTM and (b) the text-CNN train at the
+    JAX package's default widths, graphed = op by op bitwise; (c) every
+    layer class on the card against the CPU, and run twice."""
+    t0 = time.perf_counter()
+    times = {kind: sentiment_compare(kind, gpu) for kind in ("lstm", "conv")}
+    moving = layer_card_check(gpu)
+    log(f"layers: phase took {time.perf_counter() - t0:.1f} s [{gpu}]")
+    return times, moving
+
+
 def main():
     try:
         import torch
@@ -5311,6 +5809,7 @@ def main():
         import paddle_tpu_torch.utils.envspec  # noqa: F401
         import paddle_tpu_torch.nn.initializer  # noqa: F401
         import paddle_tpu_torch.obs.report  # noqa: F401
+        import paddle_tpu_torch.models.nlp.sentiment  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -5324,7 +5823,10 @@ def main():
            "paddle_tpu_torch.obs.timeseries", "paddle_tpu_torch.obs.anomaly",
            "paddle_tpu_torch.obs.reqtrace", "paddle_tpu_torch.obs.fleet",
            "paddle_tpu_torch.obs.report", "paddle_tpu_torch.nn.initializer",
-           "paddle_tpu_torch.nn.param_attr", "paddle_tpu_torch.optim.optimizer"}
+           "paddle_tpu_torch.nn.param_attr", "paddle_tpu_torch.optim.optimizer",
+           "paddle_tpu_torch.models.nlp.sentiment",
+           "paddle_tpu_torch.nn.layers.rnn", "paddle_tpu_torch.nn.layers.loss",
+           "paddle_tpu_torch.ops.reduction"}
           <= set(sys.modules), "a module of the fleet path was not imported")
     # float32 products in full float32: no TF32 anywhere on this path
     torch.backends.cudnn.allow_tf32 = False
@@ -5349,7 +5851,7 @@ def main():
 
 
 def phases(gpu, journals):
-    """Phases 1-22 in order, the journals of 13, 19 and 22 under
+    """Phases 1-23 in order, the journals of 13, 19 and 22 under
     ``journals``; prints the ``kernels`` and ``ok`` lines."""
     import torch
 
@@ -5423,6 +5925,8 @@ def phases(gpu, journals):
     f16_errs, f16_t, f16_launches = amp_phase(gpu)
     torch.cuda.empty_cache()
     rare_phase(gpu, journals)
+    torch.cuda.empty_cache()
+    layers_phase(gpu)
     check(not any(m.split(".")[0] in ("jax", "paddle_tpu", "ml_dtypes")
                   for m in sys.modules),
           "the JAX side was imported by a phase")

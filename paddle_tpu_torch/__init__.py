@@ -8,7 +8,7 @@ under ``csrc/``, built with ``nvcc`` at first use.
 
 What is ported so far is the serving path, the GPT, BERT and ResNet-50
 training steps, decoding, checkpointed and guarded training, the static
-graph and inference:
+graph, inference and the layer library:
 
 - ``serving``: paged KV cache, continuous-batching scheduler and
   ``ServeEngine`` with the one-layer ``TinyLM``;
@@ -57,10 +57,17 @@ graph and inference:
   (one CUDA graph per feed signature) and analysis API, as
   ``bench.py:bench_int8_predictor`` runs them; ``bench.py:bench_serve``'s
   legs are ``tools/torch_serve_bench.py``'s ``bench_serve_leg``;
+- ``nn``'s layer library: every class of the JAX package's
+  ``nn/layers`` (the recurrent stacks and cells, the activations, conv,
+  pooling, norm and loss layers) and every name of ``nn.functional``
+  but ``sequence_mask``, with ``models.nlp``'s ``ConvSentiment`` and
+  ``StackedLSTMSentiment`` (the book's chapter 6 nets) trained through
+  ``TrainStep``'s graph;
 - ``convert``: weights of the JAX ``TinyLM``, ``GPT``,
-  ``BertForPretraining``, ``Transformer``, ``WMTTransformer`` and
-  ``ResNet`` into this package's, and a JAX optimizer's state dict under
-  this package's parameter names.
+  ``BertForPretraining``, ``Transformer``, ``WMTTransformer``,
+  ``ResNet``, the sentiment nets, the recurrent stacks and any layer
+  into this package's, and a JAX optimizer's state dict under this
+  package's parameter names.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.

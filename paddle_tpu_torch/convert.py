@@ -12,7 +12,9 @@ import torch
 __all__ = ["tinylm_params_from_jax", "gpt_params_from_jax",
            "bert_params_from_jax", "transformer_params_from_jax",
            "wmt_params_from_jax", "resnet_params_from_jax",
-           "lenet_params_from_jax", "scope_from_jax",
+           "lenet_params_from_jax", "rnn_params_from_jax",
+           "sentiment_params_from_jax", "layer_params_from_jax",
+           "scope_from_jax",
            "optimizer_state_from_jax", "optimizer_state_dict_from_jax",
            "scaler_state_from_jax"]
 
@@ -288,6 +290,105 @@ def lenet_params_from_jax(state):
             "fc.2.weight": (120, 84), "fc.2.bias": (84,),
             "fc.4.weight": (84, classes), "fc.4.bias": (classes,)}
     return _checked(arrs, set(), want, f"{classes} classes")
+
+
+def _rnn_cells(arrs, prefix):
+    """Name -> shape of the recurrent cells under ``prefix``: a stack
+    (``<prefix>0.``, ``<prefix>1.``, ...), a ``BiRNN``
+    (``<prefix>cell_fw.``/``cell_bw.``), an ``RNN`` (``<prefix>cell.``)
+    or one cell. The gate count (1 SimpleRNN, 3 GRU, 4 LSTM) and hidden
+    width come from the first cell's ``weight_hh``. Returns ``(shapes,
+    gates, hidden)``."""
+    if f"{prefix}0.weight_ih" in arrs:
+        cells = [f"{prefix}{i}." for i in range(_numbered(arrs, prefix))]
+    elif f"{prefix}cell_fw.weight_ih" in arrs:
+        cells = [f"{prefix}cell_fw.", f"{prefix}cell_bw."]
+    elif f"{prefix}cell.weight_ih" in arrs:
+        cells = [f"{prefix}cell."]
+    else:
+        cells = [prefix]
+    hh = arrs.get(f"{cells[0]}weight_hh", np.zeros(0))
+    if hh.ndim != 2 or not hh.shape[1] or hh.shape[0] % hh.shape[1] or \
+            hh.shape[0] // hh.shape[1] not in (1, 3, 4):
+        raise ValueError(f"{cells[0]}weight_hh has shape {hh.shape}, not "
+                         f"(gates * hidden, hidden) for 1, 3 or 4 gates")
+    H = hh.shape[1]
+    G = hh.shape[0] // H
+    want = {}
+    for c in cells:
+        ih = arrs.get(f"{c}weight_ih", np.zeros(0))
+        if ih.ndim != 2:
+            raise ValueError(f"expected a 2-D array {c}weight_ih")
+        want.update({f"{c}weight_ih": (G * H, ih.shape[1]),
+                     f"{c}weight_hh": (G * H, H),
+                     f"{c}bias_ih": (G * H,), f"{c}bias_hh": (G * H,)})
+    return want, G, H
+
+
+_GATES = {1: "SimpleRNN", 3: "GRU", 4: "LSTM"}
+
+
+def rnn_params_from_jax(state):
+    """The ``state_dict`` of a JAX ``SimpleRNN``/``LSTM``/``GRU`` stack
+    (uni- or bidirectional; ``0.weight_ih`` ...), a ``BiRNN``, an ``RNN``
+    or one cell — names to numpy arrays — as a state dict for the port's
+    counterpart: float32 CPU tensors under the same names (bfloat16
+    arrays stay bfloat16). Raises ``ValueError`` on a missing or extra
+    name or a shape that does not fit the first cell's gates and
+    width."""
+    bf16 = {k for k, v in state.items() if _is_bfloat16(v)}
+    arrs = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    want, G, H = _rnn_cells(arrs, "")
+    return _checked(arrs, bf16, want, f"{_GATES[G]} cells of width {H}")
+
+
+def sentiment_params_from_jax(state):
+    """The JAX ``ConvSentiment``'s or ``StackedLSTMSentiment``'s
+    ``state_dict`` (an ``lstm.0.weight_ih`` names the second) as a state
+    dict for the port's model of the same class: float32 CPU tensors
+    under the same names. Vocabulary, widths, conv widths, depth and
+    classes are read from the arrays. Raises ``ValueError`` on a missing
+    or extra name or a shape that does not fit."""
+    arrs = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    if arrs.get("embed.weight", np.zeros(0)).ndim != 2:
+        raise ValueError("expected a (vocab, embed) array embed.weight")
+    V, E = arrs["embed.weight"].shape
+    want = {"embed.weight": (V, E)}
+    if "lstm.0.weight_ih" in arrs:
+        cells, G, feat = _rnn_cells(arrs, "lstm.")
+        if G != 4:
+            raise ValueError(f"lstm.* holds {_GATES[G]} cells, not LSTM")
+        want.update(cells)
+        dims = f"vocab {V}, embed {E}, LSTM width {feat}"
+    else:
+        n = _numbered(arrs, "convs.")
+        if not n or arrs["convs.0.weight"].ndim != 3:
+            raise ValueError("expected (filters, embed, width) arrays "
+                             "convs.<i>.weight")
+        F = arrs["convs.0.weight"].shape[0]
+        for i in range(n):
+            w = arrs.get(f"convs.{i}.weight", np.zeros((0, 0, 0)))
+            want[f"convs.{i}.weight"] = (F, E, w.shape[-1])
+            want[f"convs.{i}.bias"] = (F,)
+        feat = F * n
+        dims = f"vocab {V}, embed {E}, {n} convs of {F} filters"
+    C = arrs.get("fc.bias", np.zeros(0)).shape[0]
+    want.update({"fc.weight": (feat, C), "fc.bias": (C,)})
+    return _checked(arrs, set(), want, dims)
+
+
+def layer_params_from_jax(state, module):
+    """A JAX layer's ``state_dict`` as a state dict for ``module``, the
+    port's layer of the same class: every name of ``module.state_dict()``
+    at its shape, buffers included (a ``SpectralNorm``'s ``weight_u``
+    and ``weight_v``, a BatchNorm's ``_mean`` and ``_variance``), and a
+    ``PReLU``'s ``weight``. float32 CPU tensors (bfloat16 arrays stay
+    bfloat16). Raises ``ValueError`` on a missing or extra name or
+    another shape."""
+    bf16 = {k for k, v in state.items() if _is_bfloat16(v)}
+    arrs = {k: np.asarray(v, np.float32) for k, v in state.items()}
+    want = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    return _checked(arrs, bf16, want, type(module).__name__)
 
 
 def scope_from_jax(arrays, program, scope=None):

@@ -1,20 +1,12 @@
-"""paddle_tpu_torch.nn: the layers, functional ops, initializers and
-``ParamAttr`` of the ported training and decoding paths, under the JAX
-package's names."""
-from . import functional, initializer
+"""paddle_tpu_torch.nn: the layers (every class of the JAX package's
+``nn/layers``), functional ops, initializers and ``ParamAttr``, under the
+JAX package's names."""
 from torch.nn import Sequential
 
-from .layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
-                     Embedding, LayerNorm, Linear, MaxPool2D,
-                     MultiHeadAttention, ReLU, Transformer,
-                     TransformerDecoder, TransformerDecoderLayer,
-                     TransformerEncoder, TransformerEncoderLayer)
+from . import functional, initializer
+from .layers import *  # noqa: F401,F403
+from .layers import __all__ as _layers
 from .param_attr import ParamAttr, WeightNormParamAttr
 
 __all__ = ["functional", "initializer", "ParamAttr", "WeightNormParamAttr",
-           "Sequential", "ReLU",
-           "Linear", "Dropout",
-           "Embedding", "LayerNorm", "Conv2D", "BatchNorm2D", "MaxPool2D",
-           "AdaptiveAvgPool2D", "MultiHeadAttention",
-           "TransformerEncoderLayer", "TransformerEncoder",
-           "TransformerDecoderLayer", "TransformerDecoder", "Transformer"]
+           "Sequential", *_layers]

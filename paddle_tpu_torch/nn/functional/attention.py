@@ -1,5 +1,7 @@
 """Attention: ``sdpa_bhld``, scaled-dot-product attention in the
-``(B, H, L, D)`` layout.
+``(B, H, L, D)`` layout, and ``scaled_dot_product_attention``, Paddle's
+``(B, L, H, D)`` wrapper over it (``attention.py:75-86``), which keeps
+its flash routing.
 
 The counterpart of ``paddle_tpu/nn/functional/attention.py``. Its
 ``_flash_ok`` gate stays with the same conditions: no mask, no dropout,
@@ -21,9 +23,10 @@ import torch
 
 from ...ops._base import register
 from ...ops.kernels.flash_attention import flash_attention
+from ...ops.manipulation import transpose
 from ...ops.random_ops import dropout
 
-__all__ = ["sdpa_bhld", "flash_ok"]
+__all__ = ["sdpa_bhld", "scaled_dot_product_attention", "flash_ok"]
 
 NEG_INF = -1e30
 
@@ -71,3 +74,15 @@ def sdpa_bhld(query, key, value, attn_mask=None, scale=None,
                                float(scale))
     return _dense(query, key, value, attn_mask, float(scale),
                   bool(is_causal), p, generator)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None):
+    """Attention over ``(B, L, H, D)`` tensors: ``sdpa_bhld`` of the
+    ``(B, H, L, D)`` transposes, transposed back."""
+    q, k, v = (transpose(t, [0, 2, 1, 3]) for t in (query, key, value))
+    out = sdpa_bhld(q, k, v, attn_mask=attn_mask, is_causal=is_causal,
+                    dropout_p=dropout_p, training=training,
+                    generator=generator)
+    return transpose(out, [0, 2, 1, 3])

@@ -1,4 +1,6 @@
-"""Common functional ops: ``linear`` and ``embedding``.
+"""Common functional ops: ``linear``, ``embedding``, ``one_hot``,
+``cosine_similarity``, ``pairwise_distance``, ``label_smooth`` and
+``bilinear``.
 
 The counterparts of ``paddle_tpu/nn/functional/common.py``'s. ``linear``
 keeps Paddle's layout: the weight is ``(in_features, out_features)`` and
@@ -13,7 +15,8 @@ import torch.nn.functional as F
 
 from ...ops._base import register
 
-__all__ = ["linear", "embedding"]
+__all__ = ["linear", "embedding", "one_hot", "cosine_similarity",
+           "pairwise_distance", "label_smooth", "bilinear"]
 
 
 def linear(x, weight, bias=None):
@@ -77,3 +80,75 @@ def embedding(x, weight, padding_idx=None):
     if padding_idx is None:
         return out
     return out * (x != padding_idx)[..., None].to(out.dtype)
+
+
+@register("one_hot", inputs=("x",))
+def _one_hot(x, *, num_classes):
+    return F.one_hot(x.long(), num_classes).to(torch.float32)
+
+
+def one_hot(x, num_classes):
+    """float32 one-hot rows of the integer ``x``: ``x.shape +
+    (num_classes,)``."""
+    return _one_hot(x, num_classes=int(num_classes))
+
+
+@register("cosine_similarity", inputs=("x1", "x2"))
+def _cosine_similarity(x1, x2, *, axis, eps):
+    dot = (x1 * x2).sum(dim=axis)
+    n1 = torch.sqrt((x1 * x1).sum(dim=axis))
+    n2 = torch.sqrt((x2 * x2).sum(dim=axis))
+    return dot / torch.clamp_min(n1 * n2, eps)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    """``x1 . x2 / max(|x1| |x2|, eps)`` along ``axis``."""
+    return _cosine_similarity(x1, x2, axis=int(axis), eps=float(eps))
+
+
+@register("pairwise_distance", inputs=("x", "y"))
+def _pairwise_distance(x, y, *, p, epsilon, keepdim):
+    d = x - y + epsilon
+    return (torch.abs(d) ** p).sum(dim=-1, keepdim=keepdim) ** (1.0 / p)
+
+
+def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False):
+    """The ``p``-norm of ``x - y + epsilon`` along the last axis."""
+    return _pairwise_distance(x, y, p=float(p), epsilon=float(epsilon),
+                              keepdim=bool(keepdim))
+
+
+@register("label_smooth", inputs=("label",))
+def _label_smooth(label, *, epsilon):
+    return label * (1.0 - epsilon) + epsilon / label.shape[-1]
+
+
+@register("label_smooth_prior", inputs=("label", "prior"))
+def _label_smooth_prior(label, prior, *, epsilon):
+    return label * (1.0 - epsilon) + epsilon * prior
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1):
+    """``(1 - epsilon) label + epsilon / K`` (or ``+ epsilon *
+    prior_dist``)."""
+    if prior_dist is not None:
+        return _label_smooth_prior(label, prior_dist, epsilon=float(epsilon))
+    return _label_smooth(label, epsilon=float(epsilon))
+
+
+@register("bilinear", inputs=("x1", "x2", "weight", "bias"))
+def _bilinear(x1, x2, weight, bias):
+    return torch.einsum("bi,oij,bj->bo", x1, weight, x2) + bias
+
+
+@register("bilinear_nobias", inputs=("x1", "x2", "weight"))
+def _bilinear_nobias(x1, x2, weight):
+    return torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+
+
+def bilinear(x1, x2, weight, bias=None):
+    """``y[b, o] = x1[b] @ weight[o] @ x2[b] + bias[o]``, ``weight (out,
+    in1, in2)``."""
+    if bias is None:
+        return _bilinear_nobias(x1, x2, weight)
+    return _bilinear(x1, x2, weight, bias)

@@ -1,13 +1,18 @@
-"""Common layers: ``Linear``, ``Dropout`` and ``Embedding``, and
-``create_parameter``.
+"""Common layers — ``Linear``, ``Dropout``, ``Embedding``, ``Identity``,
+``Flatten``, ``Dropout2D``/``3D``, ``AlphaDropout``, ``Pad1D``/``2D``/
+``3D``, ``ZeroPad2D``, ``Upsample*``, ``CosineSimilarity``,
+``PairwiseDistance``, ``Bilinear``, ``Unfold``, ``PixelShuffle``,
+``ChannelShuffle`` — and ``create_parameter``.
 
 The counterparts of ``paddle_tpu/nn/layers/common.py``'s, as
 ``torch.nn.Module``s with the same parameter names (``weight``,
 ``bias``) and Paddle's ``Linear`` layout: the weight is ``(in, out)``
-and ``y = x @ W + b``. Each layer makes its parameters with
-``create_parameter`` on ``device`` (``cuda`` unless the caller asks for
-``"cpu"``), drawing random ones from ``generator`` (default: the
-device's).
+and ``y = x @ W + b``. ``Bilinear``'s weight is ``(out, in1, in2)`` and
+its bias ``(1, out)``. The ``Upsample`` layers pass no ``align_mode``
+(0: half-pixel centres), as the JAX ones do. Each layer makes its
+parameters with ``create_parameter`` on ``device`` (``cuda`` unless the
+caller asks for ``"cpu"``), drawing random ones from ``generator``
+(default: the device's).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from torch import nn
 
 from ..._device import resolve_device
 from ...ops._base import RECORDER
+from ...ops.manipulation import flatten, pad
 from ...utils import unique_name
 from .. import functional as F
 from ..initializer import (Constant, Normal, XavierUniform,
@@ -23,7 +29,11 @@ from ..initializer import (Constant, Normal, XavierUniform,
 from ..param_attr import ParamAttr
 
 __all__ = ["Linear", "Dropout", "Embedding", "create_parameter",
-           "copy_parameter_attrs"]
+           "copy_parameter_attrs", "Identity", "Flatten", "Dropout2D",
+           "Dropout3D", "AlphaDropout", "Pad1D", "Pad2D", "Pad3D",
+           "ZeroPad2D", "Upsample", "UpsamplingNearest2D",
+           "UpsamplingBilinear2D", "CosineSimilarity", "PairwiseDistance",
+           "Bilinear", "Unfold", "PixelShuffle", "ChannelShuffle"]
 
 # what create_parameter sets on a parameter beside requires_grad
 _ATTRS = ("optimize_attr", "regularizer", "need_clip")
@@ -166,3 +176,175 @@ class Embedding(nn.Module):
 
     def forward(self, x):
         return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+
+
+class Identity(nn.Module):
+    def forward(self, x):
+        return x
+
+
+class Flatten(nn.Module):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        return flatten(x, self.start_axis, self.stop_axis)
+
+
+class Dropout2D(nn.Module):
+    """Whole feature maps dropped (``functional.dropout2d``)."""
+
+    def __init__(self, p=0.5, data_format="NCHW"):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(nn.Module):
+    """Whole volumes dropped (``functional.dropout3d``)."""
+
+    def __init__(self, p=0.5, data_format="NCDHW"):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(nn.Module):
+    def __init__(self, p=0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, p=self.p, training=self.training)
+
+
+class _PadNd(nn.Module):
+    nsp = 2
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format=None):
+        super().__init__()
+        self.padding, self.mode, self.value = padding, mode, value
+        self.data_format = data_format or "NC" + "DHW"[-self.nsp:]
+
+    def forward(self, x):
+        return pad(x, self.padding, mode=self.mode, value=self.value,
+                   data_format=self.data_format)
+
+
+class Pad1D(_PadNd):
+    nsp = 1
+
+
+class Pad2D(_PadNd):
+    nsp = 2
+
+
+class Pad3D(_PadNd):
+    nsp = 3
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW"):
+        super().__init__(padding, mode="constant", value=0.0,
+                         data_format=data_format)
+
+
+class Upsample(nn.Module):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW"):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, size=self.size,
+                             scale_factor=self.scale_factor, mode=self.mode,
+                             align_corners=self.align_corners,
+                             data_format=self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW"):
+        super().__init__(size=size, scale_factor=scale_factor,
+                         mode="nearest", data_format=data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW"):
+        super().__init__(size=size, scale_factor=scale_factor,
+                         mode="bilinear", align_corners=True,
+                         data_format=data_format)
+
+
+class CosineSimilarity(nn.Module):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class PairwiseDistance(nn.Module):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False):
+        super().__init__()
+        self.p, self.epsilon, self.keepdim = p, epsilon, keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, p=self.p, epsilon=self.epsilon,
+                                   keepdim=self.keepdim)
+
+
+class Bilinear(nn.Module):
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, device=None,
+                 generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.weight = create_parameter(
+            (out_features, in1_features, in2_features), weight_attr,
+            device=device, generator=generator, owner=self)
+        self.bias = create_parameter((1, out_features), bias_attr,
+                                     is_bias=True, device=device,
+                                     generator=generator, owner=self)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class Unfold(nn.Module):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1):
+        super().__init__()
+        self.kernel_sizes, self.strides = kernel_sizes, strides
+        self.paddings, self.dilations = paddings, dilations
+
+    def forward(self, x):
+        return F.unfold(x, self.kernel_sizes, self.strides, self.paddings,
+                        self.dilations)
+
+
+class PixelShuffle(nn.Module):
+    def __init__(self, upscale_factor, data_format="NCHW"):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor)
+
+
+class ChannelShuffle(nn.Module):
+    def __init__(self, groups, data_format="NCHW"):
+        super().__init__()
+        self.groups = groups
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups)

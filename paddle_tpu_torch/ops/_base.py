@@ -10,8 +10,9 @@ records as one ``Operator`` each carry this decorator instead:
     def _conv2d(x, weight, *, stride, padding, dilation, groups): ...
 
 ``inputs`` names the tensor arguments (a Program's input variables, in
-this order; ``None`` for an absent optional one); every other argument
-is an attribute of the op. ``OP_REGISTRY[name]`` is the plain function,
+this order; ``None`` for an absent optional one; a ``*xs`` argument
+stands for its tensors, as ``concat``'s does); every other argument is
+an attribute of the op. ``OP_REGISTRY[name]`` is the plain function,
 which a Program's ``Operator`` holds and its replay calls as
 ``fn(*inputs, **attrs)``. The decorated function runs the plain one,
 unless a static Program is being recorded (``static_.enable_static``)
@@ -48,6 +49,8 @@ def register(name, inputs):
     def deco(fn):
         OP_REGISTRY[name] = fn
         sig = inspect.signature(fn)
+        star = {n for n, p in sig.parameters.items()
+                if p.kind is p.VAR_POSITIONAL}
 
         @functools.wraps(fn)
         def op(*args, **kwargs):
@@ -55,7 +58,12 @@ def register(name, inputs):
             if rec is not None and rec.sees(args, kwargs):
                 bound = sig.bind(*args, **kwargs)
                 bound.apply_defaults()
-                ins = [bound.arguments[n] for n in inputs]
+                ins = []
+                for n in inputs:
+                    if n in star:
+                        ins.extend(bound.arguments.get(n, ()))
+                    else:
+                        ins.append(bound.arguments[n])
                 attrs = {k: v for k, v in bound.arguments.items()
                          if k not in inputs}
                 return rec.record_op(name, fn, ins, attrs)

@@ -1,4 +1,6 @@
-"""Normalization ops: ``layer_norm`` and ``batch_norm``.
+"""Normalization ops: ``layer_norm``, ``batch_norm``, ``group_norm``,
+``instance_norm``, ``normalize``, ``local_response_norm`` and
+``spectral_norm``.
 
 The counterparts of ``layer_norm`` and ``batch_norm`` in
 ``paddle_tpu/ops/norm_ops.py``. ``layer_norm`` keeps the JAX package's
@@ -16,6 +18,16 @@ plain ``jnp``, ``norm_ops.py:18-61``). Training normalises with float32
 statistics of the batch and updates the running statistics in place
 with Paddle's semantics; eval normalises with the running statistics in
 x's type (``_bn_infer``). See ``batch_norm``.
+
+``group_norm`` and ``instance_norm`` take float32 statistics (mean,
+then the mean of the squared deviations) and return x's type
+(``norm_ops.py:112-167``); ``instance_norm`` reads no running
+statistics, as the JAX package reads none. ``normalize`` divides by the
+p-norm, at least ``epsilon``; ``local_response_norm`` sums the squares
+of ``size`` neighbouring channels and takes Paddle's ``alpha`` as it is
+(torch's divides it by ``size``); ``spectral_norm`` divides a weight by
+its largest singular value after ``power_iters`` power iterations from
+all-ones ``u``, ``v`` (``norm_ops.py:187-241``).
 """
 from __future__ import annotations
 
@@ -24,7 +36,9 @@ import torch
 from ._base import register
 from .kernels.layernorm import fused_layer_norm
 
-__all__ = ["layer_norm", "fused_ln_ok", "batch_norm"]
+__all__ = ["layer_norm", "fused_ln_ok", "batch_norm", "group_norm",
+           "instance_norm", "normalize", "local_response_norm",
+           "spectral_norm"]
 
 
 def fused_ln_ok(shape, begin_norm_axis, weight, bias):
@@ -40,13 +54,17 @@ def fused_ln_ok(shape, begin_norm_axis, weight, bias):
     return D % 128 == 0 and N % 8 == 0
 
 
-def _dense(x, weight, bias, epsilon, begin):
-    axes = tuple(range(begin, x.dim()))
-    xf = x.float()
+def _standardize(xf, axes, epsilon):
+    """``(xf - mean) * rsqrt(var + epsilon)`` over ``axes``, the variance
+    the mean of the squared deviations."""
     mean = xf.mean(dim=axes, keepdim=True)
     xc = xf - mean
     var = (xc * xc).mean(dim=axes, keepdim=True)
-    out = xc * torch.rsqrt(var + epsilon)
+    return xc * torch.rsqrt(var + epsilon)
+
+
+def _dense(x, weight, bias, epsilon, begin):
+    out = _standardize(x.float(), tuple(range(begin, x.dim())), epsilon)
     shape = [1] * begin + list(x.shape[begin:])
     if weight is not None:
         out = out * weight.float().reshape(shape)
@@ -181,3 +199,118 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False,
             take = _in_type(1 - momentum, buf.dtype)
             buf.copy_(buf * keep + stat.to(buf.dtype) * take)
     return out
+
+
+def _affine(out, weight, bias, axis):
+    shape = [1] * out.dim()
+    shape[axis] = -1
+    return out * weight.float().reshape(shape) + bias.float().reshape(shape)
+
+
+@register("group_norm", inputs=("x", "weight", "bias"))
+def _group_norm(x, weight, bias, *, num_groups, epsilon, channel_axis):
+    n, c = x.shape[0], x.shape[channel_axis]
+    if channel_axis == 1:
+        xg = x.reshape(n, num_groups, c // num_groups, *x.shape[2:])
+        axes = tuple(range(2, xg.dim()))
+    else:
+        xg = x.reshape(*x.shape[:-1], num_groups, c // num_groups)
+        axes = tuple(range(1, xg.dim() - 2)) + (xg.dim() - 1,)
+    out = _standardize(xg.float(), axes, epsilon).reshape(x.shape)
+    return _affine(out, weight, bias, channel_axis).to(x.dtype)
+
+
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
+               data_format="NCHW"):
+    """GroupNorm: the channels in ``num_groups`` groups, each group of
+    each sample normalised; then ``weight`` (default ones) and ``bias``
+    (zeros) per channel."""
+    axis = 1 if data_format.startswith("NC") else x.dim() - 1
+    c = x.shape[axis]
+    if weight is None:
+        weight = torch.ones(c, dtype=x.dtype, device=x.device)
+    if bias is None:
+        bias = torch.zeros(c, dtype=x.dtype, device=x.device)
+    return _group_norm(x, weight, bias, num_groups=int(num_groups),
+                       epsilon=float(epsilon), channel_axis=axis)
+
+
+@register("instance_norm", inputs=("x", "weight", "bias"))
+def _instance_norm(x, weight, bias, *, epsilon):
+    out = _standardize(x.float(), tuple(range(2, x.dim())), epsilon)
+    return _affine(out, weight, bias, 1).to(x.dtype)
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW"):
+    """InstanceNorm of an NC... ``x``: each channel of each sample
+    normalised over its spatial axes, then ``weight`` (ones) and
+    ``bias`` (zeros). The running statistics and ``momentum`` are taken
+    and not read, as in the JAX package."""
+    c = x.shape[1]
+    if weight is None:
+        weight = torch.ones(c, dtype=x.dtype, device=x.device)
+    if bias is None:
+        bias = torch.zeros(c, dtype=x.dtype, device=x.device)
+    return _instance_norm(x, weight, bias, epsilon=float(eps))
+
+
+@register("p_normalize", inputs=("x",))
+def _p_normalize(x, *, p, axis, epsilon):
+    n = (torch.abs(x) ** p).sum(dim=axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp_min(n, epsilon)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12):
+    """``x`` divided by its ``p``-norm along ``axis`` (at least
+    ``epsilon``)."""
+    return _p_normalize(x, p=float(p), axis=int(axis),
+                        epsilon=float(epsilon))
+
+
+@register("local_response_norm", inputs=("x",))
+def _lrn(x, *, size, alpha, beta, k):
+    sq = x * x
+    half = size // 2
+    pad = torch.nn.functional.pad(sq, (0, 0, 0, 0, half, size - half - 1))
+    acc = pad[:, 0:x.shape[1]]
+    for i in range(1, size):
+        acc = acc + pad[:, i:i + x.shape[1]]
+    return x / torch.pow(k + alpha * acc, beta)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW"):
+    """Cross-channel LRN of an NCHW ``x``: ``x / (k + alpha * s) **
+    beta``, ``s`` the sum of the squares of ``size`` channels around
+    each (``alpha`` not divided by ``size``)."""
+    return _lrn(x, size=int(size), alpha=float(alpha), beta=float(beta),
+                k=float(k))
+
+
+def power_sigma(mat, u, v, power_iters, eps):
+    """``u @ mat @ v`` after ``power_iters`` power iterations from ``u``
+    and ``v``: the largest singular value of the 2-D ``mat``."""
+    for _ in range(power_iters):
+        v = mat.t() @ u
+        v = v / (torch.linalg.vector_norm(v) + eps)
+        u = mat @ v
+        u = u / (torch.linalg.vector_norm(u) + eps)
+    return u @ mat @ v
+
+
+@register("spectral_norm_op", inputs=("weight",))
+def _spectral_norm(weight, *, dim, power_iters, eps):
+    mat = weight.movedim(dim, 0).reshape(weight.shape[dim], -1)
+    u = torch.ones(mat.shape[0], dtype=torch.float32, device=mat.device)
+    v = torch.ones(mat.shape[1], dtype=torch.float32, device=mat.device)
+    return weight / power_sigma(mat, u, v, power_iters, eps)
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12):
+    """``weight`` over its largest singular value (``weight`` seen as a
+    matrix of ``weight.shape[dim]`` rows), estimated by power iteration
+    from all-ones vectors."""
+    return _spectral_norm(weight, dim=int(dim), power_iters=int(power_iters),
+                          eps=float(eps))

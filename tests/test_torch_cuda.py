@@ -12,7 +12,12 @@ kernel's float16 variant, the flash backward with dO at a loss scale
 launches, an O1 step under ``auto_cast`` and recompute in a graphed
 step; and the rest of Paddle's optimizers (Ftrl, DecayedAdagrad,
 LarsMomentum, DGCMomentum, Dpsgd) in the graphed step, equal to the op
-by op step bitwise, Dpsgd drawing new noise at each replay.
+by op step bitwise, Dpsgd drawing new noise at each replay; and the
+layer library: a small stacked-LSTM sentiment net's graphed step equal
+to the op-by-op one bitwise with ragged lengths, and the backwards the
+port computes without atomics (``interpolate``, the adaptive pools,
+``ctc_loss``, ``pad``'s reflect and replicate modes) run twice to the
+same bits.
 
 Every test here needs a Hopper card and skips without one (the
 decision is made inside the ``hopper`` fixture). The file imports
@@ -40,7 +45,8 @@ import torch
 from chip_smoke import FP16_TOL, flash_close, fp16_close
 from paddle_tpu_torch import amp, core, optim
 from paddle_tpu_torch.framework import TrainStep
-from paddle_tpu_torch.models.nlp import gpt
+from paddle_tpu_torch.models.nlp import StackedLSTMSentiment, gpt
+from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import layernorm as ln
@@ -1250,3 +1256,89 @@ def test_dpsgd_draws_fresh_noise_at_each_replay(hopper):
     assert step.captures == 1 and not torch.equal(d3, d4)
     for d in (d3, d4):
         assert abs(float(d.mean())) < 0.05 and abs(float(d.std()) - 1) < 0.05
+
+
+def _lstm_twins(hopper, steps=4):
+    """A small ``StackedLSTMSentiment`` (vocab 120, widths 32, 2 layers,
+    dropout 0.2) trained ``steps`` times with Adam(1e-2) on ragged
+    lengths, through ``TrainStep`` (a graph from its second call) and
+    through ``_eager_step``, from one init and dropout seed: (losses,
+    parameters) of each."""
+    rng = np.random.RandomState(0)
+    n = rng.randint(4, 17, 16)
+    ids = rng.randint(2, 120, (16, 16))
+    ids[np.arange(16)[None] >= n[:, None]] = 0
+    batch = [torch.from_numpy(a).to(hopper)
+             for a in (ids, rng.randint(0, 2, 16), n)]
+    out = []
+    for graphed in (True, False):
+        m = StackedLSTMSentiment(120, 32, 32, num_layers=2, dropout=0.2,
+                                 device=hopper, generator=torch.Generator(
+                                     hopper).manual_seed(0))
+        core.seed(1)
+        step = TrainStep(m, optim.Adam(1e-2, parameters=m.named_parameters()),
+                         lambda mm, i, y, k: F.cross_entropy(mm(i, k), y))
+        fn = step if graphed else step._eager_step
+        losses = torch.stack([fn(*batch) for _ in range(steps)])
+        out.append((losses, dict(m.named_parameters()), step.captures))
+    return out
+
+
+def test_graphed_lstm_step_is_the_eager_step_bitwise(hopper):
+    """The LSTM's time loop captured into the step's graph replays the
+    op-by-op step's bits with ragged lengths: the mask is taken on the
+    device, so no step reads the host."""
+    (gl, gp, gcap), (el, ep, ecap) = _lstm_twins(hopper)
+    assert gcap == 1 and ecap == 0
+    assert torch.equal(gl, el) and torch.isfinite(gl).all()
+    for name, p in gp.items():
+        assert torch.equal(p, ep[name]), name
+
+
+def _twice(hopper, fn, *arrays):
+    """Gradients of ``sum(fn(*inputs) * g)`` for the float inputs, run
+    twice on the card."""
+    runs = []
+    for _ in range(2):
+        ins = [torch.from_numpy(a).to(hopper).requires_grad_(
+            a.dtype == np.float32) for a in arrays]
+        out = fn(*ins)
+        g = torch.from_numpy(np.random.RandomState(1).randn(
+            *out.shape).astype(np.float32)).to(hopper)
+        (out * g).sum().backward()
+        runs.append([t.grad.clone() for t in ins if t.grad is not None])
+    return runs
+
+
+@pytest.mark.parametrize("op", ["interpolate", "adaptive_avg_pool2d",
+                                "adaptive_max_pool2d", "ctc_loss",
+                                "pad-reflect", "pad-replicate"])
+def test_layer_backwards_run_twice_to_the_same_bits(hopper, op):
+    """The port computes these without atomics (``F.interpolate``'s,
+    the adaptive pools', ``F.ctc_loss``'s and ``F.pad``'s reflection and
+    replication CUDA backwards add with them): per-axis weight matmuls,
+    reshape-means and maxima or window slices, a log-space recursion
+    whose emissions are a one-hot matmul, slices joined axis by axis."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(8, 16, 24, 20).astype(np.float32)
+    if op == "interpolate":
+        runs = _twice(hopper, lambda t: F.interpolate(
+            t, size=(61, 47), mode="bicubic"), x)
+    elif op == "adaptive_avg_pool2d":
+        runs = _twice(hopper, lambda t: F.adaptive_avg_pool2d(t, (5, 7)), x)
+    elif op == "adaptive_max_pool2d":
+        runs = _twice(hopper, lambda t: F.adaptive_max_pool2d(t, (5, 7)), x)
+    elif op.startswith("pad"):
+        runs = _twice(hopper, lambda t: F.pad(t, [3, 4, 2, 5],
+                                              mode=op.split("-")[1]), x)
+    else:
+        T, B, C, S = 50, 16, 30, 12
+        logp = np.log(rng.dirichlet(np.ones(C), (T, B))).astype(np.float32)
+        lab = rng.randint(1, C, (B, S))
+        lens = (rng.randint(30, T + 1, B), rng.randint(4, S + 1, B))
+        runs = _twice(hopper, lambda t: F.ctc_loss(
+            t, torch.from_numpy(lab).to(hopper),
+            *[torch.from_numpy(a).to(hopper) for a in lens],
+            reduction="none"), logp)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -258,6 +258,13 @@ for tool in ("run", "fleet", "request", "slo", "usage"):
     spec.loader.exec_module(mod)
     if tool in ("run", "slo"):     # host-only: every module they read
         assert mod.main(["--self-test"]) == 0
+from paddle_tpu_torch.models.nlp import StackedLSTMSentiment
+from paddle_tpu_torch.nn.layers import (activation, common, conv, loss,
+                                        norm, pooling, rnn)
+from paddle_tpu_torch.ops import reduction
+sent = StackedLSTMSentiment(50, 8, 8, num_layers=2, device="cpu")
+logits = sent(torch.ones(2, 5, dtype=torch.int64), torch.tensor([5, 2]))
+assert logits.shape == (2, 2) and bool(torch.isfinite(logits).all())
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad

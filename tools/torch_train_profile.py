@@ -87,7 +87,7 @@ RESNET_GROUPS = (("optimizer", ("optimizer.step",)),
                  ("loss", ("cross_entropy", "LogSoftmax", "log_softmax",
                            "Gather", "NllLoss")),
                  ("batch_norm", ("port::batch_norm", "_BatchNormTrain")),
-                 ("conv", ("port::conv2d", "_Conv2d")),
+                 ("conv", ("port::conv2d", "_Conv")),
                  ("pooling", ("port::max_pool2d", "MaxPool2D",
                               "port::adaptive_avg_pool2d", "MeanBackward")),
                  ("relu", ("port::relu", "ReluBackward")))
