@@ -3,8 +3,9 @@
 ResNet-50), its serving fleet, the step as one CUDA graph, its decoding,
 its checkpointed and guarded training, its static graph, the serve bench,
 the int8 Predictor, float16 mixed precision with recompute, the rest of
-Paddle's optimizers, initializers and run reports, and its layer library
-with the book's sentiment nets once on one NVIDIA H100.
+Paddle's optimizers, initializers and run reports, its layer library
+with the book's sentiment nets, and the tensor API with the book's
+word2vec and recommender nets once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -305,6 +306,35 @@ any failed check:
              forward and backward, run twice: the classes whose bits
              move are printed, and none of (a)'s or (b)'s may be among
              them.
+24. tensor — the Paddle tensor API (``tensor_phase``): first the JAX
+             package's rules torch's ops do not keep (``scatter``'s
+             repeated index, descending ``argsort``, ``topk``, ``median``,
+             ``mode`` and ``kthvalue`` under ties, ``svd``'s V, a
+             rank-deficient ``lstsq``, ``empty``); (a) the book's
+             ``NGramLM(2074)`` (embed 32, hidden 256, 4 context words),
+             ``SkipGram(2074)`` (embed 64, 1 true + 4 negatives),
+             ``TwoTowerRecommender(944, 1683)`` (embed 32, hidden 200)
+             and ``DeepFM`` over the six MovieLens fields (embed 16,
+             hidden 400 x 3) at batch 256 from RandomState(0), each 4
+             Adam steps through ``TrainStep`` graphed = op by op bitwise,
+             the first loss within ``REC_REF_TOL`` of a float64 CPU
+             forward, no launch of the port's kernels, 5 calls timed and
+             a replay profiled; (b) DeepFM and the 3-layer stacked LSTM
+             (phase 23's widths and batch, no ``sequence_length``: one
+             ``rnn_scan`` op a layer) as static Programs through the
+             ``Executor``, graphed = op by op bitwise, the DeepFM program
+             within ``STATIC_REC_TOL`` of (a)'s run from the same
+             weights, the LSTM's replay beside phase 23's; (c) every
+             exported tensor-API name at a small size on the card
+             against the CPU (``LAYER_F32_TOL``), forward and backward,
+             run twice (repeated indices for the scatters and the
+             gathers' backwards): the names whose bits move and the
+             names that read back to the host are printed, and none of
+             (a)'s or (b)'s may move; (d) ``cond`` on a value on the card
+             inside ``TrainStep``: never captured (``uncaptured`` names
+             it), each loss the branch its flag picks, a captured
+             ``run_fused`` over it raising ``RuntimeError``; ``scan``
+             captured and replayed = op by op bitwise.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -318,6 +348,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -5776,6 +5807,963 @@ def layers_phase(gpu):
     return times, moving
 
 
+# -- phase 24: the tensor API, the book's word2vec and recommender nets -------
+
+REC_BATCH = 256          # the smoke's batch for the four nets
+W2V_VOCAB = 2074         # paddle_tpu/dataset/imikolov.py:7, the synthetic dict
+# user ids, genders, ages, jobs, movie ids, categories: the synthetic
+# MovieLens (paddle_tpu/dataset/movielens.py:10-11) and the recommenders'
+# defaults
+ML_FIELDS = (944, 2, 7, 21, 1683, 19)
+# Adam's rates of tests/book/test_nlp_models.py's _fit
+REC_LR = {"ngram": 1e-2, "skipgram": 1e-2, "two_tower": 5e-3,
+          "deepfm": 5e-3}
+REC_STEPS = 4
+REC_TIMED = 5
+# the first step's loss against a float64 CPU forward of the same weights
+# and batch (rec_reference_loss), relative: float32 sums of at most 2074
+# terms (the N-gram model's log-softmax)
+REC_REF_TOL = 1e-5
+# the static DeepFM against (a)'s TrainStep run from the same weights and
+# batch, relative: one program of the same ops, its Adam update written
+# as the static optimizer writes it
+STATIC_REC_TOL = 1e-6
+# PERF.md §5: the TrainStep LSTM replay at phase 23's shapes (PR 19; NVIDIA
+# H100 80GB HBM3, 700 W), printed beside the static program's
+PR19_LSTM_MS = 25.78
+# the tensor-API names (a) and (b) run: none may change its bits between
+# two runs on the card
+REC_PATH_NAMES = {"sum", "reshape", "squeeze", "unsqueeze", "matmul",
+                  "concat", "stack", "max", "multiply", "subtract", "add",
+                  "pow", "tanh", "mean"}
+
+
+def rec_net(kind, device="cuda"):
+    """Phase 24's ``kind`` net at the JAX package's default widths on
+    ``device``, weights from seed 0."""
+    import torch
+
+    from paddle_tpu_torch.models.nlp import NGramLM, SkipGram
+    from paddle_tpu_torch.models.rec import DeepFM, TwoTowerRecommender
+
+    kw = dict(device=device,
+              generator=torch.Generator(device).manual_seed(0))
+    if kind == "ngram":
+        return NGramLM(W2V_VOCAB, embed_dim=32, hidden=256, context_size=4,
+                       **kw)
+    if kind == "skipgram":
+        return SkipGram(W2V_VOCAB, embed_dim=64, **kw)
+    if kind == "two_tower":
+        return TwoTowerRecommender(ML_FIELDS[0], ML_FIELDS[4], *ML_FIELDS[1:4],
+                                   ML_FIELDS[5], embed_dim=32, hidden=200,
+                                   **kw)
+    return DeepFM(list(ML_FIELDS), embed_dim=16, hidden=(400, 400, 400), **kw)
+
+
+def rec_batch(kind, device):
+    """``RandomState(0)``'s batch of ``REC_BATCH`` for ``kind``: 4 context
+    words and the next (N-gram); a center and 1 true + 4 negative
+    candidates with their 0/1 labels (skip-gram); the six MovieLens fields
+    and a rating in 1-5 (two-tower) or its ``>= 4`` as a 0/1 label
+    (DeepFM). Tensors on ``device``."""
+    import torch
+
+    rng = np.random.RandomState(0)
+    B = REC_BATCH
+    if kind == "ngram":
+        ids = rng.randint(0, W2V_VOCAB, (B, 5))
+        arrays = [ids[:, :4], ids[:, 4]]
+    elif kind == "skipgram":
+        label = np.zeros((B, 5), np.float32)
+        label[:, 0] = 1.0
+        arrays = [rng.randint(0, W2V_VOCAB, B),
+                  rng.randint(0, W2V_VOCAB, (B, 5)), label]
+    else:
+        fields = [rng.randint(0, v, B) for v in ML_FIELDS]
+        rating = rng.randint(1, 6, B).astype(np.float32)
+        arrays = fields + [rating if kind == "two_tower" else
+                           (rating >= 4).astype(np.float32)]
+    return [torch.from_numpy(np.ascontiguousarray(
+        a if a.dtype == np.float32 else a.astype(np.int64))).to(device)
+        for a in arrays]
+
+
+def rec_loss(kind):
+    """``loss_fn(model, *batch)`` of ``kind``: cross-entropy over the
+    vocabulary, negative-sampling BCE, the rating's squared error, BCE
+    on the label."""
+    from paddle_tpu_torch.models.nlp import skipgram_loss
+    from paddle_tpu_torch.models.rec import rating_loss
+    from paddle_tpu_torch.nn import functional as F
+
+    if kind == "ngram":
+        return lambda m, ctx, nxt: F.cross_entropy(m(ctx), nxt)
+    if kind == "skipgram":
+        return skipgram_loss
+    if kind == "two_tower":
+        return rating_loss
+    return lambda m, *b: F.binary_cross_entropy_with_logits(m(*b[:-1]),
+                                                            b[-1])
+
+
+def rec_reference_loss(kind, state, batch):
+    """The first step's loss, recomputed in float64 on the CPU with plain
+    torch ops from the net's weights ``state`` and the batch."""
+    import torch
+    import torch.nn.functional as F
+
+    sd = {k: v.detach().double().cpu() for k, v in state.items()}
+    b = [t.cpu() for t in batch]
+
+    def fc(h, name):
+        return h @ sd[f"{name}.weight"] + sd[f"{name}.bias"]
+
+    if kind == "ngram":
+        e = sd["embed.weight"][b[0]].reshape(len(b[0]), -1)
+        return float(F.cross_entropy(fc(torch.relu(fc(e, "fc1")), "fc2"),
+                                     b[1]))
+    if kind == "skipgram":
+        c = sd["center.weight"][b[0]]
+        t = sd["context.weight"][b[1]]
+        return float(F.binary_cross_entropy_with_logits(
+            (t @ c[..., None]).squeeze(-1), b[2].double()))
+    if kind == "two_tower":
+        uid, g, a, j, iid, cat, r = b
+        u = torch.tanh(fc(torch.cat([
+            sd["u_id.weight"][uid], sd["u_gender.weight"][g],
+            sd["u_age.weight"][a], sd["u_job.weight"][j]], -1), "u_fc"))
+        i = torch.tanh(fc(torch.cat([sd["i_id.weight"][iid],
+                                     sd["i_cat.weight"][cat]], -1), "i_fc"))
+        sim = (u * i).sum(-1) / torch.clamp_min(
+            (u * u).sum(-1).sqrt() * (i * i).sum(-1).sqrt(), 1e-8)
+        return float(F.mse_loss(5.0 * sim, r.double()))
+    *ids, y = b
+    V = torch.stack([sd[f"embeds.{k}.weight"][x] for k, x in enumerate(ids)],
+                    1)
+    first = torch.cat([sd[f"linears.{k}.weight"][x]
+                       for k, x in enumerate(ids)], -1).sum(-1)
+    fm = 0.5 * (V.sum(1) ** 2 - (V * V).sum(1)).sum(-1)
+    h, k = V.reshape(len(y), -1), 0
+    while f"mlp.{k}.weight" in sd:
+        h, k = torch.relu(fc(h, f"mlp.{k}")), k + 1
+    deep = fc(h, "out").squeeze(-1)
+    return float(F.binary_cross_entropy_with_logits(first + fm + deep,
+                                                     y.double()))
+
+
+def rec_compare(kind, gpu):
+    """Phase 24(a): ``REC_STEPS`` steps of ``kind`` through ``TrainStep``
+    under Adam — the first op by op, the second captured, then replays —
+    against as many op-by-op steps from the same weights: losses,
+    parameters and Adam's moments the same bits; losses finite, the first
+    within ``REC_REF_TOL`` of ``rec_reference_loss``; no launch of the
+    port's kernels. Then ``REC_TIMED`` more calls of each, timed, and one
+    profiled replay. Returns ``(median replay ms, median op-by-op ms,
+    graphed losses, initial state, final snapshot)``."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import optim
+    from paddle_tpu_torch.ops import kernels
+
+    model = rec_net(kind)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = rec_batch(kind, "cuda")
+    loss_fn = rec_loss(kind)
+
+    def adam(m):
+        return optim.Adam(REC_LR[kind], parameters=m.named_parameters())
+
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"rec {kind}: {type(model).__name__}, {n_params / 1e6:.3f}M "
+        f"parameters; batch {REC_BATCH}; Adam({REC_LR[kind]})")
+    out, zero = {}, dict.fromkeys(kernels.KERNELS, 0)
+    for eager in (False, True):
+        what = "op by op" if eager else "graphed"
+        step, losses, walls, launches = graph_run(
+            model, None, init, loss_fn, [batch] * REC_STEPS, eager,
+            make_opt=adam)
+        state = snapshot(model, step.optimizer)
+        fn = step._eager_step if eager else step
+        more = []
+        for _ in range(REC_TIMED):
+            t0 = time.perf_counter()
+            fn(*batch)
+            torch.cuda.synchronize()
+            more.append((time.perf_counter() - t0) * 1e3)
+        wall, busy, seen = profiled(lambda: fn(*batch))
+        med = sorted(more)[len(more) // 2]
+        out[what] = dict(losses=losses, state=state, ms=med)
+        log(f"rec {kind} {what}: losses {losses}; step wall ms "
+            + " ".join(f"{w:.3f}" for w in walls) + "; then "
+            + " ".join(f"{w:.3f}" for w in more) + f" (median {med:.4f} ms "
+            f"= {REC_BATCH / med * 1e3:.0f} samples/s); one profiled step: "
+            f"wall {wall:.3f} ms, device busy {busy:.4f} ms = "
+            f"{busy / wall * 100:.1f}% of it, {busy / med * 100:.1f}% of "
+            f"the median step [{gpu}]")
+        check(launches == zero and seen == zero and
+              kernels.launches() == zero,
+              f"rec {kind} {what}: the port's kernels launched {launches} "
+              f"(the profiler saw {seen}); this path runs none")
+        check(eager or step.captures == 1,
+              f"rec {kind}: {step.captures} captures, want 1")
+        del step
+    g, e = out["graphed"], out["op by op"]
+    bad = same_bits(g["state"], e["state"])
+    check(g["losses"] == e["losses"] and not bad,
+          f"rec {kind}: graphed losses {g['losses']} vs op by op "
+          f"{e['losses']}; {len(bad)} tensors differ, e.g. {bad[:4]}")
+    first = g["losses"][0]
+    ref = rec_reference_loss(kind, init, batch)
+    check(all(math.isfinite(v) for v in g["losses"]) and
+          abs(first - ref) <= REC_REF_TOL * max(1.0, abs(ref)),
+          f"rec {kind}: losses {g['losses']}: not finite, or the first not "
+          f"within {REC_REF_TOL} of the float64 reference {ref}")
+    log(f"rec {kind}: {REC_STEPS} graphed steps = {REC_STEPS} op-by-op "
+        f"steps bitwise (losses, {len(g['state'][0])} parameters, Adam's "
+        f"moments); first loss {first} vs float64 reference {ref} "
+        f"({abs(first - ref):.3g}); replay {g['ms']:.4f} ms vs op by op "
+        f"{e['ms']:.4f} ms a step [{gpu}]")
+    return g["ms"], e["ms"], g["losses"], init, g["state"]
+
+
+def static_net_program(kind):
+    """Phase 24(b)'s program on the card, in a Scope and a name generator
+    of its own: ``DeepFM`` (batch and Adam as (a)'s) or
+    ``StackedLSTMSentiment`` (phase 23's widths and batch, no
+    ``sequence_length``, Adam(1e-2)). Returns ``(main, startup, loss,
+    model, scope)``."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import optim
+    from paddle_tpu_torch.models.nlp import StackedLSTMSentiment
+    from paddle_tpu_torch.models.rec import DeepFM
+    from paddle_tpu_torch.utils import unique_name
+
+    scope = pt.static.Scope()
+    pt.seed(0)
+    with unique_name.guard(), pt.static.scope_guard(scope):
+        pt.enable_static()
+        try:
+            main, startup = pt.static.Program(), pt.static.Program()
+            with pt.program_guard(main, startup):
+                if kind == "deepfm":
+                    ids = [pt.static.data(f"f{k}", [REC_BATCH], "int64")
+                           for k in range(len(ML_FIELDS))]
+                    y = pt.static.data("y", [REC_BATCH], "float32")
+                    model = DeepFM(list(ML_FIELDS), embed_dim=16,
+                                   hidden=(400, 400, 400))
+                    loss = F.binary_cross_entropy_with_logits(model(*ids), y)
+                    lr = REC_LR["deepfm"]
+                else:
+                    ids = pt.static.data("ids", [SENT_BATCH, SENT_LEN],
+                                         "int64")
+                    y = pt.static.data("y", [SENT_BATCH], "int64")
+                    model = StackedLSTMSentiment(SENT_VOCAB,
+                                                 **SENT_NETS["lstm"])
+                    loss = F.cross_entropy(model(ids), y)
+                    lr = SENT_LR
+                optim.Adam(lr, parameters=model.parameters()).minimize(loss)
+        finally:
+            pt.disable_static()
+    return main, startup, loss, model, scope
+
+
+def static_net_compare(kind, gpu, step_run=None):
+    """Phase 24(b): ``REC_STEPS`` graphed ``Executor.run`` calls of
+    ``kind``'s program (the first op by op, the second the capture)
+    against the program op by op (``use_cuda_graph=False``) from the same
+    state and dropout seed, bitwise in the losses and every persistable;
+    one capture; no launch of the port's kernels. The DeepFM program
+    starts from (a)'s weights (``step_run``: its losses, initial state
+    and final snapshot) and is held to that run within
+    ``STATIC_REC_TOL``. Then ``REC_TIMED`` timed runs of each and one
+    profiled replay. Returns ``(replay ms, op-by-op ms)``."""
+    import math
+
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.ops import kernels
+
+    main, startup, loss, model, scope = static_net_program(kind)
+    exe = pt.static.Executor()
+    exe.run(startup, scope=scope)
+    names = {n: v.name for n, v in model.named_parameters()}
+    if kind == "deepfm":
+        batch = rec_batch("deepfm", "cuda")
+        feed = {f"f{k}": t for k, t in enumerate(batch[:-1])}
+        feed["y"] = batch[-1]
+        with torch.no_grad():
+            for n, var in names.items():
+                scope.find_var(var).copy_(step_run[1][n])
+    else:
+        ids, y, _ = sentiment_batch("cuda")
+        feed = {"ids": ids, "y": y}
+    state0 = scope_state(main, scope)
+    types = [op.type for op in main.global_block.ops]
+
+    def run(e):
+        return float(e.run(main, feed=feed, fetch_list=[loss],
+                           scope=scope)[0])
+
+    out, zero = {}, dict.fromkeys(kernels.KERNELS, 0)
+    for what, e in (("graphed", exe),
+                    ("op by op", pt.static.Executor(use_cuda_graph=False))):
+        restore_scope(scope, state0)
+        core.seed(1)
+        kernels.reset_launches()
+        losses = [run(e) for _ in range(REC_STEPS)]
+        state = scope_state(main, scope)
+        more = []
+        for _ in range(REC_TIMED):
+            t0 = time.perf_counter()
+            run(e)
+            more.append((time.perf_counter() - t0) * 1e3)
+        wall, busy, seen = profiled(lambda: run(e))
+        med = sorted(more)[len(more) // 2]
+        out[what] = (losses, state, med)
+        log(f"static {kind} {what}: losses {losses}; run ms "
+            + " ".join(f"{w:.3f}" for w in more) + f" (median {med:.4f}); "
+            f"one profiled run: wall {wall:.3f} ms, device busy "
+            f"{busy:.4f} ms = {busy / med * 100:.1f}% of the median [{gpu}]")
+        check(kernels.launches() == zero and seen == zero,
+              f"static {kind} {what}: the port's kernels launched "
+              f"{kernels.launches()}; this program runs none")
+    check(exe.captures == 1, f"static {kind}: {exe.captures} captures for "
+          f"one cache key")
+    (gl, gs, gms), (ol, os_, oms) = out["graphed"], out["op by op"]
+    bad = [n for n in gs if not torch_equal(gs[n], os_[n])]
+    check(all(math.isfinite(v) for v in gl) and gl == ol and not bad,
+          f"static {kind}: graphed {gl} != op by op {ol} (or not finite), "
+          f"or {len(bad)} persistables differ, e.g. {bad[:4]}")
+    if kind == "deepfm":
+        losses, _, final = step_run
+        worst = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(gl, losses))
+        params = final[0]
+        worst_p = max(float((gs[var] - params[n]).abs().max())
+                      / max(1.0, float(params[n].abs().max()))
+                      for n, var in names.items())
+        check(worst <= STATIC_REC_TOL and worst_p <= STATIC_REC_TOL,
+              f"static deepfm: losses {gl} vs the TrainStep run's {losses} "
+              f"({worst:.3g}), parameters {worst_p:.3g} apart, limit "
+              f"{STATIC_REC_TOL}")
+        for op in ("reduce_sum", "pow", "stack", "subtract", "multiply",
+                   "reshape", "squeeze"):
+            check(op in types and op + "@grad" in types,
+                  f"static deepfm: no {op} (or its @grad) in the program")
+        log(f"static deepfm: the program's {REC_STEPS} steps = (a)'s "
+            f"TrainStep steps within {worst:.3g} (losses) and {worst_p:.3g} "
+            f"(parameters), limit {STATIC_REC_TOL} [{gpu}]")
+    else:
+        check(types.count("rnn_scan") == SENT_NETS["lstm"]["num_layers"],
+              f"static lstm: {types.count('rnn_scan')} rnn_scan ops")
+        log(f"static lstm: {types.count('rnn_scan')} rnn_scan ops; replay "
+            f"{gms:.4f} ms vs phase 23's TrainStep LSTM {PR19_LSTM_MS} ms "
+            f"(PR 19) [{gpu}]")
+    log(f"static {kind}: {REC_STEPS} graphed runs = op by op bitwise "
+        f"({len(gs)} persistables); one capture; replay {gms:.4f} ms vs op "
+        f"by op {oms:.4f} ms [{gpu}]")
+    return gms, oms
+
+
+# phase 24(c): (name, call(pt, kw, *xs), inputs, flags); kw holds the
+# makers' device; flags: "grad" (differentiate the float inputs), "random"
+# (held to itself under one seed, not to the CPU)
+def _pos(*shape):
+    return lambda r: r.uniform(0.5, 2.0, shape).astype(np.float32)
+
+
+def _unit(*shape):
+    return lambda r: r.uniform(-0.9, 0.9, shape).astype(np.float32)
+
+
+def _spd(n):
+    def make(r):
+        a = r.randn(n, n)
+        return (a @ a.T + n * np.eye(n)).astype(np.float32)
+    return make
+
+
+def _bools(*shape):
+    return lambda r: r.rand(*shape) > 0.5
+
+
+def _svd_inv(t):
+    u, s, v = t
+    return u @ (s[:, None] * v.transpose(0, 1)), s
+
+
+def _eig_inv(m, a, w, v):
+    # whether A v = v diag(w) (each side's rounding is noise of its own),
+    # and the sum and product of the eigenvalues
+    return ((a.to(v.dtype) @ v - v * w).abs().max() < 1e-4, w.sum(),
+            w.prod())
+
+
+TENSOR_X = _fl(3, 4)
+TENSOR_CASES = [
+    *[(n, (lambda n: lambda m, d: getattr(m, n)([2, 3], **d))(n), [], "")
+      for n in ("zeros", "ones", "empty")],
+    ("full", lambda m, d: m.full([2, 3], 1.5, **d), [], ""),
+    ("fill_constant", lambda m, d: m.fill_constant([2], "int64", 3, **d), [],
+     ""),
+    *[(n, (lambda n: lambda m, d, x: getattr(m, n)(x))(n), [TENSOR_X], "")
+      for n in ("zeros_like", "ones_like", "empty_like")],
+    ("full_like", lambda m, d, x: m.full_like(x, 2.5), [TENSOR_X], ""),
+    ("arange", lambda m, d: m.arange(0.5, 3.0, 0.5, **d), [], ""),
+    ("linspace", lambda m, d: m.linspace(-1.0, 2.0, 7, **d), [], ""),
+    ("logspace", lambda m, d: m.logspace(0.0, 2.0, 5, **d), [], ""),
+    ("eye", lambda m, d: m.eye(3, 4, **d), [], ""),
+    ("tril", lambda m, d, x: m.tril(x, 1), [TENSOR_X], "grad"),
+    ("triu", lambda m, d, x: m.triu(x, -1), [TENSOR_X], "grad"),
+    ("meshgrid", lambda m, d, x, y: m.meshgrid(x, y), [_fl(3), _fl(4)],
+     "grad"),
+    ("diagflat", lambda m, d, x: m.diagflat(x, 1), [_fl(3)], "grad"),
+    ("assign", lambda m, d, x: m.assign(x), [TENSOR_X], "grad"),
+    ("clone", lambda m, d, x: m.clone(x), [TENSOR_X], "grad"),
+    ("rand", lambda m, d: m.rand([64], **d), [], "random"),
+    ("randn", lambda m, d: m.randn([64], **d), [], "random"),
+    ("standard_normal", lambda m, d: m.standard_normal([64], **d), [],
+     "random"),
+    ("uniform", lambda m, d: m.uniform([64], min=-2.0, max=4.0, **d), [],
+     "random"),
+    ("normal", lambda m, d: m.normal(1.0, 2.0, [64], **d), [], "random"),
+    ("randint", lambda m, d: m.randint(3, 9, [64], **d), [], "random"),
+    ("randperm", lambda m, d: m.randperm(64, **d), [], "random"),
+    ("bernoulli", lambda m, d, p: m.bernoulli(p.abs()), [_unit(64)],
+     "random"),
+    ("multinomial", lambda m, d, p: m.multinomial(p.abs() + 0.1, 2),
+     [_fl(8, 5)], "random"),
+    *[(n, (lambda n: lambda m, d, x, y: getattr(m, n)(x, y))(n),
+       [TENSOR_X, _pos(3, 4)], "grad") for n in (
+        "add", "subtract", "multiply", "divide", "remainder", "mod",
+        "maximum", "minimum", "atan2", "logaddexp")],
+    ("floor_divide", lambda m, d, x, y: m.floor_divide(x, y),
+     [_ints(9, 4), _const(np.array([2, -2, 3, -3]))], ""),
+    ("pow", lambda m, d, x, y: m.pow(x, y), [_pos(3, 4), _fl(3, 4)], "grad"),
+    ("matmul", lambda m, d, x, y: m.matmul(x, y), [TENSOR_X, _fl(4, 2)],
+     "grad"),
+    ("mm", lambda m, d, x, y: m.mm(x, y), [TENSOR_X, _fl(4, 2)], "grad"),
+    ("bmm", lambda m, d, x, y: m.bmm(x, y), [_fl(2, 3, 4), _fl(2, 4, 2)],
+     "grad"),
+    ("dot", lambda m, d, x, y: m.dot(x, y), [TENSOR_X, TENSOR_X], "grad"),
+    ("outer", lambda m, d, x, y: m.outer(x, y), [_fl(3), _fl(4)], "grad"),
+    ("inner", lambda m, d, x, y: m.inner(x, y), [TENSOR_X, _fl(2, 4)],
+     "grad"),
+    ("mul", lambda m, d, x, y: m.mul(x, y), [_fl(2, 3, 4), _fl(12, 5)],
+     "grad"),
+    ("scale", lambda m, d, x: m.scale(x, 2.0, 1.0), [TENSOR_X], "grad"),
+    ("clip", lambda m, d, x: m.clip(x, -0.5, 0.5), [TENSOR_X], "grad"),
+    ("add_n", lambda m, d, x, y: m.add_n([x, y, x]), [TENSOR_X, TENSOR_X],
+     "grad"),
+    ("cumsum", lambda m, d, x: m.cumsum(x, axis=1), [TENSOR_X], "grad"),
+    ("cumprod", lambda m, d, x: m.cumprod(x, dim=1), [TENSOR_X], "grad"),
+    ("lerp", lambda m, d, x, y: m.lerp(x, y, 0.3), [TENSOR_X, TENSOR_X],
+     "grad"),
+    ("einsum", lambda m, d, x, y: m.einsum("ij,kj->ik", x, y),
+     [TENSOR_X, _fl(2, 4)], "grad"),
+    ("kron", lambda m, d, x, y: m.kron(x, y), [_fl(2, 2), _fl(2, 3)],
+     "grad"),
+    ("trace", lambda m, d, x: m.trace(x, 1), [TENSOR_X], "grad"),
+    ("diag", lambda m, d, x: m.diag(x), [TENSOR_X], "grad"),
+    ("diagonal", lambda m, d, x: m.diagonal(x, 1), [TENSOR_X], "grad"),
+    ("nan_to_num", lambda m, d, x: m.nan_to_num(x / (x > 0.5), 0.5, 9.0,
+                                                -9.0), [TENSOR_X], ""),
+    ("stanh", lambda m, d, x: m.stanh(x), [TENSOR_X], "grad"),
+    ("increment", lambda m, d, x: m.increment(x, 2.0), [TENSOR_X], "grad"),
+    *[(n, (lambda n: lambda m, d, x: getattr(m, n)(x))(n), [TENSOR_X],
+       "grad") for n in (
+        "exp", "expm1", "sin", "cos", "tan", "atan", "sinh", "cosh", "asinh",
+        "erf", "tanh", "abs", "neg", "floor", "ceil", "round", "trunc",
+        "sign", "square")],
+    *[(n, (lambda n: lambda m, d, x: getattr(m, n)(x))(n), [_pos(3, 4)],
+       "grad") for n in (
+        "log", "log2", "log10", "log1p", "sqrt", "rsqrt", "digamma", "lgamma",
+        "reciprocal")],
+    *[(n, (lambda n: lambda m, d, x: getattr(m, n)(x))(n), [_unit(3, 4)],
+       "grad") for n in ("asin", "acos", "atanh", "erfinv")],
+    ("acosh", lambda m, d, x: m.acosh(x + 2.0), [_pos(3, 4)], "grad"),
+    *[(n, (lambda n: lambda m, d, x: getattr(m, n)(x / (x > 0.3)))(n),
+       [TENSOR_X], "") for n in ("isnan", "isinf", "isfinite")],
+    *[(n, (lambda n: lambda m, d, x: getattr(m, n)(x, axis=1))(n),
+       [TENSOR_X], "grad") for n in (
+        "sum", "mean", "max", "min", "amax", "amin", "prod", "logsumexp",
+        "std", "var", "median", "nansum", "nanmean")],
+    ("quantile", lambda m, d, x: m.quantile(x, [0.25, 0.9], axis=0),
+     [TENSOR_X], "grad"),
+    *[(n, (lambda n: lambda m, d, x: getattr(m, n)(x > 0, axis=1))(n),
+       [TENSOR_X], "") for n in ("all", "any", "count_nonzero")],
+    *[(n, (lambda n: lambda m, d, x: getattr(m, n)(x, axis=1))(n),
+       [TENSOR_X], "") for n in ("argmax", "argmin")],
+    ("kthvalue", lambda m, d, x: m.kthvalue(x, 2, axis=1), [TENSOR_X],
+     "grad"),
+    ("mode_op", lambda m, d, x: m.mode_op(x.round(), axis=1), [_fl(3, 9)],
+     "grad"),
+    ("reshape", lambda m, d, x: m.reshape(x, [2, -1]), [TENSOR_X], "grad"),
+    ("transpose", lambda m, d, x: m.transpose(x, [1, 0]), [TENSOR_X],
+     "grad"),
+    ("t", lambda m, d, x: m.t(x), [TENSOR_X], "grad"),
+    ("flatten", lambda m, d, x: m.flatten(x), [_fl(2, 3, 4)], "grad"),
+    ("squeeze", lambda m, d, x: m.squeeze(x, 1), [_fl(3, 1, 4)], "grad"),
+    ("unsqueeze", lambda m, d, x: m.unsqueeze(x, [0, 2]), [TENSOR_X],
+     "grad"),
+    ("concat", lambda m, d, x, y: m.concat([x, y], 1), [TENSOR_X, TENSOR_X],
+     "grad"),
+    ("stack", lambda m, d, x, y: m.stack([x, y], 1), [TENSOR_X, TENSOR_X],
+     "grad"),
+    ("split", lambda m, d, x: m.split(x, [1, -1], 1), [TENSOR_X], "grad"),
+    ("chunk", lambda m, d, x: m.chunk(x, 2, 1), [TENSOR_X], "grad"),
+    ("unbind", lambda m, d, x: m.unbind(x, 1), [TENSOR_X], "grad"),
+    ("slice", lambda m, d, x: m.slice(x, [1], [1], [3]), [TENSOR_X], "grad"),
+    ("strided_slice", lambda m, d, x: m.strided_slice(x, [1], [3], [0],
+                                                      [-2]),
+     [TENSOR_X], "grad"),
+    # repeated indices: the gathers' backwards add them up
+    ("gather", lambda m, d, x, k: m.gather(x, k, axis=1),
+     [_fl(3, 5), _const(np.array([2, 0, 2, 2, 1]))], "grad"),
+    ("gather_nd", lambda m, d, x, k: m.gather_nd(x, k),
+     [_fl(3, 5), _const(np.array([[1, 2], [0, 0], [1, 2]]))], "grad"),
+    ("take_along_axis", lambda m, d, x, k: m.take_along_axis(x, k, 1),
+     [_fl(3, 5), _const(np.array([[0, 0, 0], [4, 4, 1], [2, 3, 2]]))],
+     "grad"),
+    ("index_select", lambda m, d, x, k: m.index_select(x, k, axis=0),
+     [_fl(3, 5), _const(np.array([2, 2, 0, 2]))], "grad"),
+    ("index_sample", lambda m, d, x, k: m.index_sample(x, k),
+     [_fl(3, 5), _const(np.array([[3, 3], [0, 0], [2, 2]]))], "grad"),
+    # repeated indices: the last write wins, or the updates add up
+    ("scatter", lambda m, d, x, k, u: m.scatter(x, k, u),
+     [TENSOR_X, _const(np.array([2, 0, 2, 2])), _fl(4, 4)], "grad"),
+    ("scatter_nd", lambda m, d, k, u: m.scatter_nd(k, u, [3, 4]),
+     [_const(np.array([[1], [2], [1]])), _fl(3, 4)], "grad"),
+    ("scatter_nd_add", lambda m, d, x, k, u: m.scatter_nd_add(x, k, u),
+     [TENSOR_X, _const(np.array([[1, 2], [0, 0], [1, 2], [1, 2]])),
+      _fl(4)], "grad"),
+    ("put_along_axis", lambda m, d, x, k, v: (
+        m.put_along_axis(x, k, v, 1), m.put_along_axis(x, k, v, 1, "add"),
+        m.put_along_axis(x, k, v, 1, "multiply")),
+     [TENSOR_X, _const(np.array([[0, 0], [3, 3], [2, 2]])), _fl(3, 2)],
+     "grad"),
+    ("tile", lambda m, d, x: m.tile(x, [2, 3]), [TENSOR_X], "grad"),
+    ("expand", lambda m, d, x: m.expand(x, [2, -1, 4]), [_fl(3, 1)], "grad"),
+    ("broadcast_to", lambda m, d, x: m.broadcast_to(x, [3, 4]), [_fl(1, 4)],
+     "grad"),
+    ("expand_as", lambda m, d, x, y: m.expand_as(x, y), [_fl(3, 1), TENSOR_X],
+     "grad"),
+    ("repeat_interleave", lambda m, d, x: m.repeat_interleave(x, 2, 1),
+     [TENSOR_X], "grad"),
+    ("flip", lambda m, d, x: m.flip(x, [0, 1]), [TENSOR_X], "grad"),
+    ("roll", lambda m, d, x: m.roll(x, 5), [TENSOR_X], "grad"),
+    ("pad", lambda m, d, x: m.pad(x, [1, 2, 0, 1], mode="replicate"),
+     [_fl(2, 3, 4)], "grad"),
+    ("where", lambda m, d, x, y: m.where(x > 0, x, y), [TENSOR_X, TENSOR_X],
+     "grad"),
+    ("topk", lambda m, d, x: m.topk(x.round(), 2, axis=1), [_fl(3, 9)],
+     "grad"),
+    ("sort", lambda m, d, x: m.sort(x, 1, descending=True), [TENSOR_X],
+     "grad"),
+    ("argsort", lambda m, d, x: m.argsort(x.round(), 1, descending=True),
+     [_fl(3, 9)], ""),
+    ("one_hot", lambda m, d, k: m.one_hot(k, 5), [_ints(5, 2, 3)], ""),
+    ("cast", lambda m, d, x: m.cast(x * 4.0, "int32"), [TENSOR_X], ""),
+    ("nonzero", lambda m, d, x: m.nonzero(x > 0), [TENSOR_X], ""),
+    ("masked_select", lambda m, d, x: m.masked_select(x, x > 0),
+     [TENSOR_X], "grad"),
+    ("unique", lambda m, d, k: m.unique(k, True, True, True),
+     [_ints(5, 3, 4)], ""),
+    ("masked_fill", lambda m, d, x: m.masked_fill(x, x > 0, -1.5),
+     [TENSOR_X], "grad"),
+    ("bincount", lambda m, d, k, w: (m.bincount(k), m.bincount(k, w)),
+     [_const(np.array([0, 3, 3, 1, 3, 3])), _fl(6)], ""),
+    ("moveaxis", lambda m, d, x: m.moveaxis(x, 0, -1), [_fl(2, 3, 4)],
+     "grad"),
+    ("swapaxes", lambda m, d, x: m.swapaxes(x, 0, 2), [_fl(2, 3, 4)],
+     "grad"),
+    ("rot90", lambda m, d, x: m.rot90(x, 1, [0, 1]), [TENSOR_X], "grad"),
+    ("shard_index", lambda m, d, k: m.shard_index(k, 20, 4, 1),
+     [_ints(20, 3, 4)], ""),
+    ("as_real", lambda m, d, x: m.as_real(m.as_complex(x)), [_fl(3, 2)],
+     "grad"),
+    ("as_complex", lambda m, d, x: m.as_real(m.as_complex(x) * 2.0),
+     [_fl(3, 2)], "grad"),
+    *[(n, (lambda n: lambda m, d, x, y: getattr(m, n)(x, y))(n),
+       [TENSOR_X, TENSOR_X], "") for n in (
+        "equal", "not_equal", "less_than", "less_equal", "greater_than",
+        "greater_equal", "isclose", "allclose", "equal_all")],
+    *[(n, (lambda n: lambda m, d, x, y: getattr(m, n)(x > 0, y > 0))(n),
+       [TENSOR_X, TENSOR_X], "") for n in (
+        "logical_and", "logical_or", "logical_xor")],
+    ("logical_not", lambda m, d, x: m.logical_not(x > 0), [TENSOR_X], ""),
+    *[(n, (lambda n: lambda m, d, x, y: getattr(m, n)(x, y))(n),
+       [_ints(8, 3, 4), _ints(8, 3, 4)], "") for n in (
+        "bitwise_and", "bitwise_or", "bitwise_xor")],
+    ("bitwise_not", lambda m, d, k: m.bitwise_not(k), [_ints(8, 3, 4)], ""),
+    ("is_empty", lambda m, d, x: m.is_empty(x), [TENSOR_X], ""),
+    ("is_tensor", lambda m, d, x: m.full([], float(m.is_tensor(x)), **d),
+     [TENSOR_X], ""),
+    ("norm", lambda m, d, x: (m.norm(x), m.norm(x, p=1, axis=1),
+                              m.norm(x, p=3, axis=[0, 1])), [TENSOR_X],
+     "grad"),
+    ("dist", lambda m, d, x, y: m.dist(x, y, 2.0), [TENSOR_X, TENSOR_X],
+     "grad"),
+    ("cholesky", lambda m, d, x: m.cholesky(x), [_spd(4)], "grad"),
+    ("inverse", lambda m, d, x: m.inverse(x), [_spd(4)], "grad"),
+    ("matrix_power", lambda m, d, x: m.matrix_power(x, 3), [_fl(4, 4)],
+     "grad"),
+    ("pinv", lambda m, d, x: m.pinv(x), [TENSOR_X], "grad"),
+    ("svd", lambda m, d, x: _svd_inv(m.svd(x)), [TENSOR_X], "grad"),
+    ("qr", lambda m, d, x: (lambda q, r: (q @ r, r.abs()))(*m.qr(x)),
+     [_fl(4, 3)], "grad"),
+    ("eig", lambda m, d, x: _eig_inv(m, x, *m.eig(x)), [_fl(4, 4)], ""),
+    ("eigvals", lambda m, d, x: (m.eigvals(x).sum(), m.eigvals(x).prod()),
+     [_fl(4, 4)], ""),
+    ("eigh", lambda m, d, x: (lambda w, v: (
+        w, v @ (w[:, None] * v.transpose(0, 1))))(*m.eigh(x)), [_spd(4)],
+     "grad"),
+    ("eigvalsh", lambda m, d, x: m.eigvalsh(x), [_spd(4)], "grad"),
+    ("matrix_rank", lambda m, d, x: m.matrix_rank(x), [TENSOR_X], ""),
+    ("det", lambda m, d, x: m.det(x), [_fl(4, 4)], "grad"),
+    ("slogdet", lambda m, d, x: m.slogdet(x), [_fl(4, 4)], "grad"),
+    ("cross", lambda m, d, x, y: m.cross(x, y), [_fl(2, 3), _fl(2, 3)],
+     "grad"),
+    ("triangular_solve", lambda m, d, x, y: m.triangular_solve(
+        m.triu(x) + 4.0 * m.eye(4, **d), y), [_fl(4, 4), _fl(4, 2)], "grad"),
+    ("cholesky_solve", lambda m, d, b, a: m.cholesky_solve(b, m.cholesky(a)),
+     [_fl(4, 2), _spd(4)], "grad"),
+    ("solve", lambda m, d, x, y: m.solve(x, y), [_spd(4), _fl(4, 2)],
+     "grad"),
+    ("lstsq", lambda m, d, x, y: m.lstsq(x, y), [_fl(5, 3), _fl(5, 2)], ""),
+    ("histogram", lambda m, d, x: m.histogram(x, bins=5), [_fl(40)], ""),
+    ("mv", lambda m, d, x, v: m.mv(x, v), [TENSOR_X, _fl(4)], "grad"),
+    ("multi_dot", lambda m, d, x, y, z: m.multi_dot([x, y, z]),
+     [_fl(2, 3), TENSOR_X, _fl(4, 2)], "grad"),
+    ("cov", lambda m, d, x: m.cov(x), [TENSOR_X], "grad"),
+    ("corrcoef", lambda m, d, x: m.corrcoef(x), [TENSOR_X], "grad"),
+    ("cond", lambda m, d, x: m.cond(x.sum() < 0, lambda: x * 2.0,
+                                    lambda: x.exp()), [TENSOR_X], "grad"),
+    ("while_loop", lambda m, d, x: m.while_loop(
+        lambda n, s: n < 3, lambda n, s: [n + 1, s * 2.0 + 1.0],
+        [m.zeros([], "int64", **d), x]), [TENSOR_X], "grad"),
+    ("case", lambda m, d, x: m.case([(x.sum() > 100.0, lambda: x * 0.0),
+                                     (x.max() < 100.0, lambda: x * 3.0)],
+                                    default=lambda: x), [TENSOR_X], "grad"),
+    ("switch_case", lambda m, d, k, x: m.switch_case(
+        k, [lambda: x + 1.0, lambda: x * x]), [_const(np.array(1)),
+                                                 TENSOR_X], "grad"),
+    ("scan", lambda m, d, x: m.scan(lambda c, r: (c * 0.5 + r, c * r), x[0],
+                                    x), [TENSOR_X], "grad"),
+]
+
+
+def _tensor_run(call, arrays, flags, device, grads_g, seed=None,
+                watch=None):
+    """A case's outputs and input gradients on ``device``, as CPU tensors;
+    ``watch()`` is a context around the call and its backward only (the
+    copies of the inputs and results stay out of it). The output
+    cotangents ``grads_g`` are drawn from ``RandomState(1)`` when None."""
+    import contextlib
+
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import random as trandom
+
+    if seed is not None:
+        trandom.seed(seed)
+    ins = [torch.from_numpy(np.array(a)).to(device).requires_grad_(
+        "grad" in flags and a.dtype == np.float32) for a in arrays]
+    gs = None if grads_g is None else [torch.from_numpy(g).to(device)
+                                       for g in grads_g]
+    with (watch or contextlib.nullcontext)():
+        outs = _flatten(call(pt, {"device": device}, *ins))
+        floats = [o for o in outs if o.is_floating_point() and
+                  o.requires_grad]
+        if gs is None:
+            rng = np.random.RandomState(1)
+            grads_g = [np.asarray(rng.randn(*o.shape), np.float32)
+                       for o in floats]
+            gs = [torch.from_numpy(g) for g in grads_g]
+        if floats:
+            sum((o * g).sum() for o, g in zip(floats, gs)).backward()
+    cpu = lambda t: None if t is None else t.detach().cpu()
+    return ([cpu(o) for o in outs],
+            [cpu(t.grad) for t in ins if t.requires_grad], grads_g)
+
+
+@contextlib.contextmanager
+def sync_watch(device):
+    """Warnings of every read back to the host inside (the card's sync
+    debug mode); yields the list they go to."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        if device == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield seen
+        finally:
+            if device == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+
+
+def tensor_card_check(gpu, device="cuda"):
+    """Phase 24(c): every exported tensor-API name at a small size,
+    forward and (where differentiable) backward, on the card against the
+    port on the CPU: floats within ``LAYER_F32_TOL`` of the largest
+    |value|, integers, booleans and indices exactly; a random maker is
+    held to itself under one seed (its shape and type to the CPU's).
+    Each case runs twice on the card; the names whose bits move between
+    the runs are listed, and none may be among the names phase 24(a)
+    and (b) run (``REC_PATH_NAMES``). The names that read back to the
+    host (a sync, seen by ``torch.cuda.set_sync_debug_mode``) are
+    named. Returns ``(names that moved, names that synced)``.
+    (``device="cpu"`` runs the checks with the CPU in the card's
+    place.)"""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    with sync_watch(device):     # the debug mode's own first-use warnings
+        torch.zeros(1, device=device).add_(1)
+    worst, moving, syncing = 0.0, [], []
+    for name, call, inputs, flags in TENSOR_CASES:
+        rng = np.random.RandomState(0)
+        arrays = [make(rng) for make in inputs]
+        seed = 5 if "random" in flags else None
+        want = _tensor_run(call, arrays, flags, "cpu", None, seed)
+        runs, seen = [], []
+
+        @contextlib.contextmanager
+        def watch():
+            with sync_watch(device) as got:
+                yield
+            seen.extend(got)
+
+        for _ in range(2):
+            runs.append(_tensor_run(call, arrays, flags, device, want[2],
+                                    seed, watch))
+        if any("synchroniz" in str(w.message) for w in seen):
+            syncing.append(name)
+        got = runs[0]
+        pairs = list(zip(got[0], want[0])) + list(zip(got[1], want[1]))
+        check(len(got[0]) == len(want[0]) and len(got[1]) == len(want[1]),
+              f"tensor (c) {name}: another count of outputs or gradients")
+        for g, w in pairs:
+            check((g is None) == (w is None) and (
+                w is None or (g.shape == w.shape and g.dtype == w.dtype)),
+                f"tensor (c) {name}: {None if g is None else tuple(g.shape)}"
+                f" vs the CPU's {None if w is None else tuple(w.shape)}")
+            if w is None or "random" in flags:
+                continue
+            if w.is_complex():
+                g, w = torch.view_as_real(g), torch.view_as_real(w)
+            if not w.is_floating_point():
+                check(torch.equal(g, w), f"tensor (c) {name}: card "
+                      f"{g.tolist()} != CPU {w.tolist()}")
+                continue
+            scale = float(w.abs().max()) if w.numel() else 1.0
+            err = float((g - w).abs().max()) / (scale or 1.0) \
+                if w.numel() else 0.0
+            worst = max(worst, err)
+            check(err <= LAYER_F32_TOL, f"tensor (c) {name}: card vs CPU "
+                  f"{err:.3g} of the largest |value|, limit {LAYER_F32_TOL}")
+        flat = lambda r: [t for t in r[0] + r[1] if t is not None]
+        if not all(torch.equal(a, b) for a, b in zip(flat(runs[0]),
+                                                        flat(runs[1]))):
+            moving.append(name)
+    names = {c[0] for c in TENSOR_CASES}
+    check(set(pt.ops.__all__) <= names,
+          f"tensor (c): no case for {sorted(set(pt.ops.__all__) - names)}")
+    log(f"tensor (c): {len(TENSOR_CASES)} tensor-API names on the card = on "
+        f"the CPU within {worst:.3g} of the largest |value| (limit "
+        f"{LAYER_F32_TOL}), forward and backward; bits that changed between "
+        f"two runs on the card: {moving or 'none'}; names that read back to "
+        f"the host: {syncing or 'none'}; took {time.perf_counter() - t0:.1f}"
+        f" s [{gpu}]")
+    check(not set(moving) & REC_PATH_NAMES, f"tensor (c): names of phase "
+          f"24's nets are not repeatable: {sorted(set(moving) & REC_PATH_NAMES)}")
+    return moving, syncing
+
+
+def tensor_trap_check(device="cuda"):
+    """The JAX package's rules the port keeps where torch's differ, on
+    ``device``, with the inputs they were checked on in the JAX package:
+    ``scatter`` with a repeated index (the last write wins, and only it
+    takes a gradient), descending ``argsort`` (the ascending stable sort
+    reversed), ``topk`` under ties (the lower index first), ``median`` of
+    an even count, ``mode`` and ``kthvalue`` under ties, ``svd``'s ``V``
+    and a rank-deficient ``lstsq``."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    def t(a, **kw):
+        return torch.tensor(a, device=device, **kw)
+
+    u = t([5.0, 7.0, 9.0], requires_grad=True)
+    out = pt.scatter(t([0.0] * 4), t([1, 1, 2]), u)
+    (out * t([1.0, 2.0, 3.0, 4.0])).sum().backward()
+    check(out.tolist() == [0.0, 7.0, 9.0, 0.0] and
+          u.grad.tolist() == [0.0, 2.0, 3.0],
+          f"tensor traps: scatter gave {out.tolist()}, its updates' "
+          f"gradient {u.grad.tolist()}; want [0, 7, 9, 0] and [0, 2, 3]")
+    x = t([3.0, 1.0, 3.0, 2.0, 3.0])
+    got = pt.argsort(x, descending=True).tolist()
+    check(got == [4, 2, 0, 3, 1], f"tensor traps: descending argsort {got},"
+          " want [4, 2, 0, 3, 1]")
+    got = pt.sort(x, descending=True).tolist()
+    check(got == [3.0, 3.0, 3.0, 2.0, 1.0], f"tensor traps: sort {got}")
+    got = (pt.topk(x, 2)[1].tolist(),
+           pt.topk(t([1.0, 0.0, 1.0, 0.0]), 2, largest=False)[1].tolist())
+    check(got == ([0, 2], [1, 3]), f"tensor traps: topk indices {got}, "
+          f"want [0, 2] and [1, 3]")
+    got = float(pt.median(t([4.0, 1.0, 3.0, 2.0])))
+    check(got == 2.5, f"tensor traps: median {got}, want 2.5")
+    v, k = pt.mode_op(t([2.0, 1.0, 1.0, 2.0, 3.0]))
+    check((float(v), int(k)) == (2.0, 0), f"tensor traps: mode "
+          f"({float(v)}, {int(k)}), want (2.0, 0)")
+    v, k = pt.kthvalue(t([1.0, 0.0, 1.0, 0.0]), 3)
+    check((float(v), int(k)) == (1.0, 0), f"tensor traps: kthvalue "
+          f"({float(v)}, {int(k)}), want (1.0, 0)")
+    a = torch.from_numpy(np.random.RandomState(0).randn(2, 3).astype(
+        np.float32)).to(device)
+    _, _, vv = pt.svd(a)
+    check(tuple(vv.shape) == (3, 2), f"tensor traps: svd's v {vv.shape}")
+    rng = np.random.RandomState(0)
+    a = torch.from_numpy((rng.randn(5, 2) @ rng.randn(2, 3)).astype(
+        np.float32)).to(device)
+    y = torch.from_numpy(rng.randn(5, 2).astype(np.float32)).to(device)
+    sol, _, rank, s = pt.lstsq(a, y)
+    check(int(rank) == 2 and s.numel() == 3 and
+          float((a @ sol - y).abs().max()) < 3.0,
+          f"tensor traps: lstsq of a rank-2 system: rank {int(rank)}")
+    empty = pt.empty([3], device=device)
+    check(not empty.any(), f"tensor traps: empty {empty.tolist()}")
+
+
+def _cond_loss(m, x, y, s):
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import control_flow
+
+    out = m(x)
+    return control_flow.cond(s.sum() > 0, lambda: F.mse_loss(out, y),
+                             lambda: F.mse_loss(out * 2.0, y))
+
+
+def _scan_loss(m, x, y):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn import functional as F
+
+    _, hs = pt.scan(lambda h, r: (F.tanh(m(h) + r), h), x[0] * 0.0, x)
+    return F.mse_loss(hs, y)
+
+
+def control_flow_check(gpu, device="cuda", steps=4):
+    """Phase 24(d): a ``Linear`` whose loss branches with ``cond`` on a
+    value on the card (the flag of each batch, alternating in sign) and
+    one run through ``scan``, each ``steps`` SGD steps through
+    ``TrainStep`` against as many op-by-op steps, bitwise. The ``cond``
+    key is never captured (``uncaptured`` names ``cond``), each step's
+    loss is the branch its flag picks (recomputed from the weights before
+    the step), and ``run_fused`` over it, whose capture reaches the read,
+    raises ``RuntimeError``; the ``scan`` key is captured once and
+    replays. (``device="cpu"`` runs the checks without graphs.)"""
+    import torch
+
+    from paddle_tpu_torch import nn, optim
+    from paddle_tpu_torch.framework import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+
+    rng = np.random.RandomState(3)
+    cond_batches = [[torch.from_numpy(a).to(device) for a in (
+        rng.randn(16, 8).astype(np.float32),
+        rng.randn(16, 4).astype(np.float32),
+        np.array([1.0 if k % 2 == 0 else -1.0], np.float32))]
+        for k in range(steps)]
+    scan_batches = [[torch.from_numpy(a).to(device) for a in (
+        rng.randn(6, 16, 8).astype(np.float32),
+        rng.randn(6, 16, 8).astype(np.float32))]] * steps
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out = {}
+    for kind, loss_fn, width, batches in (
+            ("cond", _cond_loss, 4, cond_batches),
+            ("scan", _scan_loss, 8, scan_batches)):
+        model = nn.Linear(8, width, device=device,
+                          generator=torch.Generator(device).manual_seed(0))
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        for eager in (False, True):
+            model.load_state_dict(init)
+            step = TrainStep(model, optim.SGD(
+                0.1, parameters=model.named_parameters()), loss_fn)
+            fn = step._eager_step if eager else step
+            losses, before = [], []
+            for b in batches:
+                before.append({k: v.clone() for k, v in
+                               model.state_dict().items()})
+                losses.append(float(fn(*b)))
+                sync()
+            out[kind, eager] = (losses, before, {
+                k: v.clone() for k, v in model.state_dict().items()}, step)
+        (gl, gb, gs, gstep), (el, _, es, _) = out[kind, False], \
+            out[kind, True]
+        bad = [n for n in gs if not torch_equal(gs[n], es[n])]
+        check(gl == el and not bad, f"control flow {kind}: TrainStep losses "
+              f"{gl} vs op by op {el}; {len(bad)} tensors differ")
+        uncaptured = list(gstep.uncaptured.values())
+        if kind == "cond":
+            for k, ((x, y, s), w) in enumerate(zip(cond_batches, gb)):
+                model.load_state_dict(w)
+                with torch.no_grad():
+                    o = model(x)
+                    want = float(F.mse_loss(o if float(s) > 0 else o * 2.0,
+                                            y))
+                check(gl[k] == want, f"control flow cond: step {k}'s loss "
+                      f"{gl[k]}, the branch its flag ({float(s)}) picks "
+                      f"gives {want}")
+            if device == "cuda":
+                check(uncaptured == [["cond"]] and gstep.captures == 0,
+                      f"control flow cond: uncaptured {uncaptured}, "
+                      f"{gstep.captures} captures; want [['cond']] and 0")
+                try:
+                    for _ in range(2):
+                        gstep.run_fused(cond_batches[:2])
+                    raised = None
+                except RuntimeError as e:
+                    raised = str(e)
+                check(raised is not None and "cond" in raised,
+                      f"control flow cond: a captured run_fused over the "
+                      f"read raised {raised!r}")
+        elif device == "cuda":
+            check(uncaptured == [] and gstep.captures == 1,
+                  f"control flow scan: uncaptured {uncaptured}, "
+                  f"{gstep.captures} captures; want none and 1")
+        log(f"control flow {kind}: {steps} TrainStep steps = op by op "
+            f"bitwise, losses {gl}; uncaptured {uncaptured}, "
+            f"{gstep.captures} captures [{gpu}]")
+    return out
+
+
+def tensor_phase(gpu):
+    """Phase 24: (a) the book's N-gram, skip-gram, two-tower and DeepFM
+    nets train at the JAX package's widths through ``TrainStep``, graphed
+    = op by op bitwise; (b) the static DeepFM and stacked-LSTM programs,
+    graphed = op by op; (c) every tensor-API name on the card against the
+    CPU, run twice; (d) ``cond`` and ``scan`` in a training step."""
+    t0 = time.perf_counter()
+    tensor_trap_check()
+    times = {kind: rec_compare(kind, gpu) for kind in REC_LR}
+    static = {"deepfm": static_net_compare("deepfm", gpu, times["deepfm"][2:]),
+              "lstm": static_net_compare("lstm", gpu)}
+    moving, syncing = tensor_card_check(gpu)
+    control_flow_check(gpu)
+    log(f"tensor: phase took {time.perf_counter() - t0:.1f} s [{gpu}]")
+    return times, static, moving, syncing
+
+
 def main():
     try:
         import torch
@@ -5810,6 +6798,7 @@ def main():
         import paddle_tpu_torch.nn.initializer  # noqa: F401
         import paddle_tpu_torch.obs.report  # noqa: F401
         import paddle_tpu_torch.models.nlp.sentiment  # noqa: F401
+        import paddle_tpu_torch.models.rec  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -5826,7 +6815,10 @@ def main():
            "paddle_tpu_torch.nn.param_attr", "paddle_tpu_torch.optim.optimizer",
            "paddle_tpu_torch.models.nlp.sentiment",
            "paddle_tpu_torch.nn.layers.rnn", "paddle_tpu_torch.nn.layers.loss",
-           "paddle_tpu_torch.ops.reduction"}
+           "paddle_tpu_torch.ops.reduction",
+           "paddle_tpu_torch.ops.control_flow", "paddle_tpu_torch.ops.linalg",
+           "paddle_tpu_torch.models.nlp.word2vec",
+           "paddle_tpu_torch.models.rec.recommender"}
           <= set(sys.modules), "a module of the fleet path was not imported")
     # float32 products in full float32: no TF32 anywhere on this path
     torch.backends.cudnn.allow_tf32 = False
@@ -5851,7 +6843,7 @@ def main():
 
 
 def phases(gpu, journals):
-    """Phases 1-23 in order, the journals of 13, 19 and 22 under
+    """Phases 1-24 in order, the journals of 13, 19 and 22 under
     ``journals``; prints the ``kernels`` and ``ok`` lines."""
     import torch
 
@@ -5927,6 +6919,8 @@ def phases(gpu, journals):
     rare_phase(gpu, journals)
     torch.cuda.empty_cache()
     layers_phase(gpu)
+    torch.cuda.empty_cache()
+    tensor_phase(gpu)
     check(not any(m.split(".")[0] in ("jax", "paddle_tpu", "ml_dtypes")
                   for m in sys.modules),
           "the JAX side was imported by a phase")

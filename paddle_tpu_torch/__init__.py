@@ -63,6 +63,14 @@ graph, inference and the layer library:
   but ``sequence_mask``, with ``models.nlp``'s ``ConvSentiment`` and
   ``StackedLSTMSentiment`` (the book's chapter 6 nets) trained through
   ``TrainStep``'s graph;
+- the Paddle tensor API (``ops``: creation, math, reductions,
+  manipulation, comparison, linear algebra, control flow), every name
+  the JAX package exports at its top level from its op modules, also
+  here at the top (``pt.sum``, ``pt.topk``, ``pt.scatter``);
+  ``paddle_tpu_torch.dist`` is the tensor-parallel layers' package and
+  calls as the tensor API's ``dist``; ``models.nlp.word2vec`` and
+  ``models.rec`` (the book's chapters 4 and 5), and the recurrent run
+  of a static Program as one ``rnn_scan`` op;
 - ``convert``: weights of the JAX ``TinyLM``, ``GPT``,
   ``BertForPretraining``, ``Transformer``, ``WMTTransformer``,
   ``ResNet``, the sentiment nets, the recurrent stacks and any layer
@@ -73,10 +81,12 @@ Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.
 """
 from ._device import resolve_device, resolve_dtype
+from .ops import __all__ as _TENSOR_API
 
 __all__ = ["resolve_device", "resolve_dtype", "static", "framework",
            "enable_static",
-           "disable_static", "in_static_mode", "program_guard", "seed"]
+           "disable_static", "in_static_mode", "program_guard", "seed",
+           *_TENSOR_API]
 
 # the static-graph surface under the names paddle scripts use
 # (``bench.py:bench_lenet_exec``), imported at first use
@@ -95,4 +105,9 @@ def __getattr__(name):
     if name in _LAZY:
         return getattr(importlib.import_module("." + _LAZY[name], __name__),
                        name)
+    if name == "dist":
+        # the subpackage, which also calls as the tensor API's ``dist``
+        return importlib.import_module(".dist", __name__)
+    if name in _TENSOR_API:
+        return getattr(importlib.import_module(".ops", __name__), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

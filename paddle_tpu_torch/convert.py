@@ -378,11 +378,14 @@ def sentiment_params_from_jax(state):
 
 
 def layer_params_from_jax(state, module):
-    """A JAX layer's ``state_dict`` as a state dict for ``module``, the
-    port's layer of the same class: every name of ``module.state_dict()``
-    at its shape, buffers included (a ``SpectralNorm``'s ``weight_u``
-    and ``weight_v``, a BatchNorm's ``_mean`` and ``_variance``), and a
-    ``PReLU``'s ``weight``. float32 CPU tensors (bfloat16 arrays stay
+    """A JAX layer's or model's ``state_dict`` as a state dict for
+    ``module``, the port's of the same class: every name of
+    ``module.state_dict()`` at its shape, buffers included (a
+    ``SpectralNorm``'s ``weight_u`` and ``weight_v``, a BatchNorm's
+    ``_mean`` and ``_variance``), and a ``PReLU``'s ``weight``. The book's
+    word2vec and recommender nets (``models.nlp.NGramLM``/``SkipGram``,
+    ``models.rec.TwoTowerRecommender``/``DeepFM``, whose ``LayerList``s
+    are ``ModuleList``s of the same names) load through it too. float32 CPU tensors (bfloat16 arrays stay
     bfloat16). Raises ``ValueError`` on a missing or extra name or
     another shape."""
     bf16 = {k for k, v in state.items() if _is_bfloat16(v)}

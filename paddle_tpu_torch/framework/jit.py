@@ -39,6 +39,16 @@ step replays the casts it captured):
    ``float32(optimizer.get_lr())`` into the optimizer's learning-rate
    tensor, and replays.
 
+A step that reads a predicate on the card (``ops.control_flow``'s
+``cond``, ``while_loop``, ``case``, ``switch_case`` with a CUDA tensor)
+cannot be captured: a graph would replay the branch of its capture. Its
+first call marks its key, ``uncaptured[key]`` names the ops that read
+(the run journal records it once, an ``uncaptured`` event), and every
+call of that key runs the step op by op on the card; the branch is
+chosen on the host before anything could be captured. ``run_fused``
+captures all the same, and its capture raises ``RuntimeError`` at the
+read, as ``ProgramCache``'s and the static ``Executor``'s do.
+
 Storage that moves (``model.bfloat16()``, a new optimizer state) makes a
 new key, so a new warm step and capture; graphs of storage that moved
 are dropped. Each dropout draws from the device's generator
@@ -73,7 +83,7 @@ import torch
 
 from ..amp.autocast import amp_key
 from ..core.random import default_generator
-from ..ops import kernels
+from ..ops import control_flow, kernels
 from ..ops.kernels import _route
 from ..utils.nan_guard import NanInfError, nonfinite_summary
 
@@ -160,6 +170,8 @@ class TrainStep:
         self._graphs = {}     # key -> _Graph, or None once warmed
         self._stream = None
         self.captures = 0
+        # key -> the ops whose predicate read on the card kept it uncaptured
+        self.uncaptured = {}
 
     def _device(self):
         return next(self.model.parameters()).device
@@ -266,9 +278,18 @@ class TrainStep:
 
     def _graphed(self, batch, K):
         key = self._key(batch, K)
+        if key in self.uncaptured:
+            return self._run(batch, K)
         if key not in self._graphs:
-            out = self._warm(batch, K)
+            control_flow.DEVICE_READS[0] = reads = []
+            try:
+                out = self._warm(batch, K)
+            finally:
+                control_flow.DEVICE_READS[0] = None
             key = self._key(batch, K)     # the optimizer state exists now
+            if reads and K is None:
+                self._mark_uncaptured(key, reads)
+                return out
             # graphs of storage that has moved can never replay again
             self._graphs = {k: g for k, g in self._graphs.items()
                             if k[-1] == key[-1]}
@@ -278,6 +299,15 @@ class TrainStep:
         if entry is None:
             entry = self._graphs[key] = self._capture(batch, K)
         return self._replay(entry, batch)
+
+    def _mark_uncaptured(self, key, reads):
+        from ..obs import journal
+
+        ops = sorted(set(reads))
+        self.uncaptured[key] = ops
+        if journal.ACTIVE is not None:
+            journal.ACTIVE.event("uncaptured", source="train_step", ops=ops,
+                                 signature=[list(s) for s, _ in key[1]])
 
     # -- the entry points ---------------------------------------------------
 

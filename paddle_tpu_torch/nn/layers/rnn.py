@@ -24,9 +24,16 @@ direction by direction, so a state dict names ``0.weight_ih`` as the JAX
 package's ``LayerList`` does. Each cell's four parameters are drawn from
 U(-1/sqrt(hidden), 1/sqrt(hidden)) unless their attrs say otherwise.
 
-A run inside a static Program raises ``NotImplementedError``: the JAX
-package records it as one ``rnn_scan`` op, which waits for the scan of
-``control_flow`` (ROADMAP Queue 1 item 11b).
+A run inside a static Program records one ``rnn_scan`` op, as the JAX
+package's does (``rnn.py:97-100``): its inputs are the inputs, the flat
+initial states (zeros, the Program's constants, unless given) and the
+cell's parameters; its attributes ``time_major``, ``is_reverse`` and
+``n_state``; its function (``_RnnScan``) the same time loop over the
+cell called with those parameters (``torch.func.functional_call``), so
+the Executor's replay runs it once a step and its ``@grad`` op takes the
+loop's autograd graph. A static run with a ``sequence_length`` raises
+``NotImplementedError``: the JAX package's fails there, with a
+``TypeError`` while it infers the op's shapes (``rnn.py:86``).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import math
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..._device import resolve_device
 from ...ops._base import RECORDER
@@ -64,14 +72,37 @@ def rnn(cell, inputs, initial_states=None, sequence_length=None,
     last valid step. ``initial_states`` default to
     ``cell.get_initial_states`` (zeros)."""
     rec = RECORDER[0]
+    batch_dim = 1 if time_major else 0
     if rec is not None and rec.sees((inputs, sequence_length), {}):
-        raise NotImplementedError(
-            "a recurrent run in a static Program is not ported: the JAX "
-            "package records it as one rnn_scan op over lax.scan, which "
-            "comes with control_flow's scan (ROADMAP Queue 1 item 11b)")
+        if sequence_length is not None:
+            raise NotImplementedError(
+                "a recurrent run with a sequence_length in a static "
+                "Program: the JAX package's rnn raises TypeError there "
+                "while it infers the rnn_scan op's shapes (nn/layers/"
+                "rnn.py:86)")
+        if initial_states is None:   # zeros on the host: constants
+            initial_states = cell.get_initial_states(
+                torch.empty(inputs.shape[batch_dim], device="cpu"))
+        flat = _leaves(initial_states)
+        names, params = zip(*cell.named_parameters())
+        out = rec.record_op(
+            "rnn_scan", _RnnScan(cell, names, isinstance(
+                initial_states, (tuple, list))),
+            [inputs, *flat, *params],
+            dict(time_major=bool(time_major), is_reverse=bool(is_reverse),
+                 n_state=len(flat)))
+        return out[0], _like(initial_states, list(out[1:]))
     if initial_states is None:
-        initial_states = cell.get_initial_states(
-            inputs, batch_dim_idx=1 if time_major else 0)
+        initial_states = cell.get_initial_states(inputs,
+                                                 batch_dim_idx=batch_dim)
+    return _time_loop(cell, inputs, initial_states, sequence_length,
+                      time_major, is_reverse)
+
+
+def _time_loop(step, inputs, initial_states, sequence_length, time_major,
+               is_reverse):
+    """``step(x_t, states) -> (out, states)`` over the time axis:
+    ``(outputs, final states)``, masked by ``sequence_length``."""
     xs = inputs if time_major else inputs.transpose(0, 1)
     T = xs.shape[0]
     carry = _leaves(initial_states)
@@ -83,7 +114,7 @@ def rnn(cell, inputs, initial_states=None, sequence_length=None,
     zero = xs.new_zeros(())
     outs = [None] * T
     for t in (range(T - 1, -1, -1) if is_reverse else range(T)):
-        out, new = cell(xs[t], _like(initial_states, carry))
+        out, new = step(xs[t], _like(initial_states, carry))
         new = _leaves(new)
         if keep is not None:
             k = keep[t].reshape((-1,) + (1,) * (out.dim() - 1))
@@ -93,6 +124,36 @@ def rnn(cell, inputs, initial_states=None, sequence_length=None,
     ys = torch.stack(outs)
     return (ys if time_major else ys.transpose(0, 1),
             _like(initial_states, carry))
+
+
+class _RnnScan:
+    """The function of a static Program's ``rnn_scan`` op: the time loop
+    of ``cell``, called with the parameter tensors the op reads in place
+    of its own (``names``), over the inputs and the ``n_state`` flat
+    initial states; returns ``(outputs, *final states)``."""
+
+    def __init__(self, cell, names, tuple_state):
+        self.cell, self.names, self.tuple_state = cell, names, tuple_state
+
+    def __call__(self, x, *flat, time_major, is_reverse, n_state):
+        params = dict(zip(self.names, flat[n_state:]))
+        states = flat[:n_state]
+        init = tuple(states) if self.tuple_state else states[0]
+
+        def step(xt, st):
+            return functional_call(self.cell, params, (xt, st))
+
+        # the cell's own ops are this op's body: none records itself
+        rec, RECORDER[0] = RECORDER[0], None
+        try:
+            ys, final = _time_loop(step, x, init, None, time_major,
+                                   is_reverse)
+        finally:
+            RECORDER[0] = rec
+        return (ys, *_leaves(final))
+
+    def __repr__(self):
+        return f"_RnnScan({type(self.cell).__name__})"
 
 
 def birnn(cell_fw, cell_bw, inputs, initial_states=None,

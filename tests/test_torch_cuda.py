@@ -17,7 +17,10 @@ layer library: a small stacked-LSTM sentiment net's graphed step equal
 to the op-by-op one bitwise with ragged lengths, and the backwards the
 port computes without atomics (``interpolate``, the adaptive pools,
 ``ctc_loss``, ``pad``'s reflect and replicate modes) run twice to the
-same bits.
+same bits; and the tensor API: ``scatter``'s repeated index (the last
+write, repeatable), ``topk``'s and ``argsort``'s tie order, a step that
+reads a predicate on the card (never captured; a capture that reaches
+the read raises) and ``scan`` in a captured step.
 
 Every test here needs a Hopper card and skips without one (the
 decision is made inside the ``hopper`` fixture). The file imports
@@ -42,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu_torch as pt
 from chip_smoke import FP16_TOL, flash_close, fp16_close
 from paddle_tpu_torch import amp, core, optim
 from paddle_tpu_torch.framework import TrainStep
@@ -1342,3 +1346,128 @@ def test_layer_backwards_run_twice_to_the_same_bits(hopper, op):
             reduction="none"), logp)
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# -- the tensor API -------------------------------------------------------------
+
+def test_scatter_repeated_index_is_the_last_write_and_repeatable(hopper):
+    """Trap 1 on the card: a repeated index of ``scatter(overwrite=True)``
+    takes its last update, whatever order ``index_put_`` writes in, the
+    same bits on every run, and only that update takes a gradient."""
+    rng = np.random.RandomState(0)
+    idx = torch.from_numpy(rng.randint(0, 64, 4096)).to(hopper)
+    upd = torch.from_numpy(rng.randn(4096, 32).astype(np.float32))
+    runs = []
+    for _ in range(3):
+        u = upd.to(hopper).requires_grad_()
+        out = pt.scatter(torch.zeros(64, 32, device=hopper), idx, u)
+        out.sum().backward()
+        runs.append((out.detach(), u.grad))
+    last = {int(k): i for i, k in enumerate(idx.tolist())}
+    want = torch.zeros(64, 32)
+    for k, i in last.items():
+        want[k] = upd[i]
+    assert torch.equal(runs[0][0].cpu(), want)
+    keep = torch.zeros(4096, dtype=torch.bool)
+    keep[list(last.values())] = True
+    assert torch.equal(runs[0][1].cpu(), keep[:, None].float().expand(
+        4096, 32))
+    for out, grad in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(grad, runs[0][1])
+
+
+def test_topk_and_argsort_keep_the_tie_order_on_the_card(hopper):
+    """Trap 3 on the card: ``topk`` puts the lower index first among
+    ties (``lax.top_k``), largest and smallest, over a row long enough
+    for the card's multi-block sort; descending ``argsort`` is the
+    ascending stable order reversed (trap 2)."""
+    x = torch.tensor([3.0, 1.0, 3.0, 2.0, 3.0], device=hopper)
+    assert pt.topk(x, 2)[1].tolist() == [0, 2]
+    assert pt.topk(torch.tensor([1.0, 0.0, 1.0, 0.0], device=hopper), 2,
+                   largest=False)[1].tolist() == [1, 3]
+    assert pt.argsort(x, descending=True).tolist() == [4, 2, 0, 3, 1]
+    rng = np.random.RandomState(0)
+    big = torch.from_numpy(rng.randint(0, 4, (8, 5000)).astype(
+        np.float32)).to(hopper)
+    idx = pt.topk(big, 3000, axis=1)[1].cpu().numpy()
+    a = big.cpu().numpy()
+    want = np.argsort(-a, axis=1, kind="stable")[:, :3000]
+    np.testing.assert_array_equal(idx, want)
+
+
+def test_a_step_that_reads_a_predicate_on_the_card_is_never_captured(
+        hopper):
+    """A ``TrainStep`` whose loss branches with ``cond`` on a CUDA value:
+    its key is marked (``uncaptured`` names ``cond``), nothing is
+    captured, and every call runs op by op with the branch its predicate
+    picks, equal to the op-by-op steps bitwise."""
+    from paddle_tpu_torch import nn
+
+    def loss_fn(m, x, y, s):
+        out = m(x)
+        return pt.cond(s.sum() > 0, lambda: F.mse_loss(out, y),
+                       lambda: F.mse_loss(out * 2.0, y))
+
+    rng = np.random.RandomState(0)
+    batches = [[torch.from_numpy(a).to(hopper) for a in (
+        rng.randn(16, 8).astype(np.float32),
+        rng.randn(16, 4).astype(np.float32),
+        np.array([(-1.0) ** k], np.float32))] for k in range(4)]
+    runs = []
+    for eager in (False, True):
+        model = nn.Linear(8, 4, device=hopper,
+                          generator=torch.Generator(hopper).manual_seed(0))
+        step = TrainStep(model, optim.SGD(
+            0.1, parameters=model.named_parameters()), loss_fn)
+        fn = step._eager_step if eager else step
+        runs.append(([float(fn(*b)) for b in batches],
+                     [p.detach().clone() for p in model.parameters()], step))
+    (gl, gp, gstep), (el, ep, _) = runs
+    assert list(gstep.uncaptured.values()) == [["cond"]]
+    assert gstep.captures == 0
+    assert gl == el and all(torch.equal(a, b) for a, b in zip(gp, ep))
+
+
+def test_a_capture_that_reads_a_predicate_raises(hopper):
+    """A CUDA graph capture cannot read a value on the card: ``cond`` in
+    a ``ProgramCache`` program raises ``RuntimeError`` naming it at the
+    capture, after its op-by-op warm-up picked the branch on the host."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.framework import ProgramCache
+
+    model = nn.Linear(4, 4, device=hopper)
+    cache = ProgramCache()
+    x = torch.randn(2, 4, device=hopper)
+
+    def fn(x, gen):
+        return (pt.cond(x.sum() > 0, lambda: model(x), lambda: x),)
+
+    with pytest.raises(RuntimeError, match="cond reads its predicate"):
+        cache(model, ("x",), fn, [x])
+
+
+def test_scan_step_is_captured_and_replays_op_by_op_bits(hopper):
+    """``scan`` reads nothing back: a ``TrainStep`` through it is captured
+    once and its replays equal the op-by-op steps bitwise."""
+    from paddle_tpu_torch import nn
+
+    def loss_fn(m, x, y):
+        _, hs = pt.scan(lambda h, r: (torch.tanh(m(h) + r), h), x[0] * 0.0,
+                        x)
+        return F.mse_loss(hs, y)
+
+    rng = np.random.RandomState(0)
+    batch = [torch.from_numpy(rng.randn(6, 16, 8).astype(np.float32)).to(
+        hopper) for _ in range(2)]
+    runs = []
+    for eager in (False, True):
+        model = nn.Linear(8, 8, device=hopper,
+                          generator=torch.Generator(hopper).manual_seed(0))
+        step = TrainStep(model, optim.SGD(
+            0.1, parameters=model.named_parameters()), loss_fn)
+        fn = step._eager_step if eager else step
+        runs.append(([float(fn(*batch)) for _ in range(4)],
+                     [p.detach().clone() for p in model.parameters()], step))
+    (gl, gp, gstep), (el, ep, _) = runs
+    assert gstep.captures == 1 and not gstep.uncaptured
+    assert gl == el and all(torch.equal(a, b) for a, b in zip(gp, ep))

@@ -265,6 +265,16 @@ from paddle_tpu_torch.ops import reduction
 sent = StackedLSTMSentiment(50, 8, 8, num_layers=2, device="cpu")
 logits = sent(torch.ones(2, 5, dtype=torch.int64), torch.tensor([5, 2]))
 assert logits.shape == (2, 2) and bool(torch.isfinite(logits).all())
+import paddle_tpu_torch as pt_api
+from paddle_tpu_torch.models.rec import DeepFM
+from paddle_tpu_torch.models.nlp import NGramLM
+from paddle_tpu_torch.ops import control_flow, linalg
+fm = DeepFM([5, 7], embed_dim=4, hidden=(8,), device="cpu")
+assert fm(torch.tensor([1, 2]), torch.tensor([3, 6])).shape == (2,)
+assert NGramLM(11, 4, 8, device="cpu")(torch.ones(2, 4, dtype=torch.int64))\
+    .shape == (2, 11)
+assert pt_api.topk(torch.tensor([3.0, 1.0, 3.0]), 2)[1].tolist() == [0, 2]
+assert float(pt_api.dist(torch.ones(3), torch.zeros(3))) ** 2 > 2.99
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad

@@ -210,6 +210,10 @@ def test_max_over_padded_steps_splits_ties_like_the_reference():
 
 
 def test_static_program_run_raises_naming_the_queue_item():
+    """A static recurrent run is ported (ROADMAP Queue 1 item 11b): one
+    ``rnn_scan`` op a layer; with a ``sequence_length`` it raises, naming
+    the JAX package's own ``TypeError`` there
+    (``test_torch_static_tensor.py`` trains the recorded program)."""
     import paddle_tpu_torch as ptt
 
     ptt.enable_static()
@@ -217,10 +221,14 @@ def test_static_program_run_raises_naming_the_queue_item():
         main = sprog.Program()
         with sprog.program_guard(main, sprog.Program()):
             x = sprog.data("x", [B, T, IN], "float32")
-            with pytest.raises(NotImplementedError, match="item 11b"):
-                trnn.LSTM(IN, H, device="cpu")(x)
+            n = sprog.data("n", [B], "int64")
+            with pytest.raises(NotImplementedError, match="TypeError"):
+                trnn.LSTM(IN, H, device="cpu")(x, sequence_length=n)
+            trnn.LSTM(IN, H, num_layers=2, device="cpu")(x)
     finally:
         ptt.disable_static()
+    types = [op.type for op in main.global_block.ops]
+    assert types.count("rnn_scan") == 2 and "linear" not in types
 
 
 def test_rnn_params_from_jax_checks_shapes():

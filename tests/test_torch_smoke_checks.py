@@ -532,3 +532,87 @@ def test_rule_value_check_rejects_lars_without_its_decay_term(monkeypatch):
                         faults._lars_without_decay(LarsMomentum._update))
     with pytest.raises(cs.CheckFailed, match="plain formula"):
         cs.rule_value_check("lars_momentum", device="cpu")
+
+
+# -- phase 24: the tensor API ---------------------------------------------------
+
+def _scatter_keeps_the_first(real):
+    """``_scatter`` (``real``) whose repeated index keeps its FIRST
+    write."""
+    def scatter(x, lin, vals, how):
+        if how != "set":
+            return real(x, lin, vals, how)
+        lin, vals = lin.reshape(-1), vals.to(x.dtype).reshape(-1)
+        keep = torch.tensor([not bool((lin[:i] == lin[i]).any())
+                             for i in range(lin.numel())])
+        return real(x, lin[keep], vals[keep], how)
+
+    return scatter
+
+
+def _stale_read():
+    """``control_flow._read`` that reads its first predicate and then keeps
+    that value: the branch a stale capture would replay."""
+    from paddle_tpu_torch.ops import control_flow
+
+    real, first = control_flow._read, []
+
+    def read(v, op):
+        if not first:
+            first.append(real(v, op))
+        return first[0]
+
+    return read
+
+
+@pytest.mark.parametrize("fault", ["scatter_first", "argsort_torch",
+                                   "cond_stale"])
+def test_phase_24_checks_reject_planted_faults(monkeypatch, fault):
+    """Phase 24's checks on the CPU pass as they are, and each fails with
+    its fault planted: a ``scatter`` whose repeated index keeps the first
+    write, a descending ``argsort`` that is torch's stable descending
+    sort (not the ascending one reversed), and a ``cond`` that keeps the
+    branch of its first read."""
+    from paddle_tpu_torch.ops import control_flow, manipulation
+
+    cs.tensor_trap_check("cpu")
+    cs.control_flow_check("cpu", device="cpu")
+    if fault == "scatter_first":
+        monkeypatch.setattr(manipulation, "_scatter",
+                            _scatter_keeps_the_first(manipulation._scatter))
+        with pytest.raises(cs.CheckFailed, match="scatter"):
+            cs.tensor_trap_check("cpu")
+    elif fault == "argsort_torch":
+        monkeypatch.setitem(
+            manipulation._argsort.__wrapped__.__globals__, "torch",
+            _TorchStableDescending())
+        with pytest.raises(cs.CheckFailed, match="argsort"):
+            cs.tensor_trap_check("cpu")
+    else:
+        monkeypatch.setattr(control_flow, "_read", _stale_read())
+        with pytest.raises(cs.CheckFailed, match="branch its flag"):
+            cs.control_flow_check("cpu", device="cpu")
+
+
+class _TorchStableDescending:
+    """``torch`` for ``manipulation``'s sorts with ``torch.sort`` taking a
+    descending flag: the planted ``argsort`` sorts descending, stably, and
+    ``flip`` leaves its result as it is."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def sort(x, dim=-1, stable=True, descending=False):
+        return torch.sort(x, dim=dim, stable=True, descending=True)
+
+    @staticmethod
+    def flip(x, dims):
+        return x
+
+
+def test_phase_24_tensor_check_runs_on_the_cpu():
+    """Phase 24(c) dry-run with the CPU in the card's place: every name of
+    the tensor API has a case, and none moves its bits or syncs here."""
+    moving, syncing = cs.tensor_card_check("cpu", device="cpu")
+    assert moving == [] and syncing == []
