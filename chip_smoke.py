@@ -3482,8 +3482,8 @@ def lenet_eager(model_vars, init, x, y, steps):
         opt.clear_grad()
         losses.append(float(loss.detach()))
     params = dict(zip(names, model.parameters()))
-    vel = {n: opt._accumulators[f"param_{i}"]["velocity"]
-           for i, n in enumerate(names)}
+    vel = {n: opt._accumulators[key]["velocity"]
+           for n, (key, _) in zip(names, opt._named_params)}
     return losses, params, vel
 
 
@@ -6764,6 +6764,270 @@ def tensor_phase(gpu):
     return times, static, moving, syncing
 
 
+# -- phase 25: the Paddle user surface ----------------------------------------
+
+SURFACE_CONFIG = "bench_gpt"     # tools/paddle_gpt_script.py's CONFIGS
+SURFACE_STEPS = 4
+SURFACE_TIMED = 5
+SURFACE_SMALL_BATCH = 4          # to_static's second signature
+
+
+def surface_script():
+    """``tools/paddle_gpt_script.py`` of this checkout, as a module: the
+    Paddle script written once for both packages."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "paddle_gpt_script.py")
+    spec = importlib.util.spec_from_file_location("paddle_gpt_script", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def surface_launches(cfg, steps=1, forward_only=False):
+    """The script's launches: two LayerNorms a block and ``ln_f``, flash
+    attention once a block, one cross-entropy; each forward and backward
+    (``forward_only``: the forwards, no loss)."""
+    ln, fl = (2 * cfg["layers"] + 1) * steps, cfg["layers"] * steps
+    ce = 0 if forward_only else steps
+    bwd = 0 if forward_only else 1
+    return {"paged_decode_attention": 0, "layer_norm_fwd": ln,
+            "layer_norm_bwd": ln * bwd, "softmax_ce_fwd": ce,
+            "softmax_ce_bwd": ce, "flash_attention_fwd": fl,
+            "flash_attention_bwd_dq": fl * bwd,
+            "flash_attention_bwd_dkv": fl * bwd}
+
+
+def surface_train(S, pt, model, init, cfg, data, gpu):
+    """(a): ``S.train`` (``pt.TrainStep`` through its graph) against
+    ``_eager_step`` from the same weights, bitwise; the launches of the
+    graphed steps; the first loss against the plain versions'."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops import kernels
+
+    runs = {}
+    for eager in (False, True):
+        model.set_state_dict(init)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if eager:
+            opt = pt.optim.AdamW(learning_rate=cfg["lr"],
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+            step = pt.TrainStep(model, opt,
+                                lambda m, x, y: S.loss_fn(pt, m, x, y))
+            losses = [float(step._eager_step(pt.to_tensor(x),
+                                             pt.to_tensor(y)))
+                      for x, y in data]
+        else:
+            losses, step = S.train(pt, model, data, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = kernels.launches()
+        x, y = (pt.to_tensor(a) for a in data[0])
+        fn = step._eager_step if eager else step
+        walls = []
+        for _ in range(SURFACE_TIMED):
+            t0 = time.perf_counter()
+            fn(x, y)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        # the state after the timed steps too: both runs take the same
+        runs[eager] = dict(losses=losses, launches=launches,
+                           state=snapshot(model, step.optimizer),
+                           wall=sorted(walls)[len(walls) // 2],
+                           captures=step.captures)
+        log(f"surface train {'eager' if eager else 'graphed'}: losses "
+            f"{losses} ({wall:.0f} ms for {len(data)} steps); then "
+            + " ".join(f"{w:.2f}" for w in walls) + f" ms a step "
+            f"(median {runs[eager]['wall']:.2f}); launches {launches} "
+            f"[{gpu}]")
+        del step
+    g, e = runs[False], runs[True]
+    want = surface_launches(cfg, len(data))
+    check(g["launches"] == want,
+          f"surface train: graphed launches {g['launches']}, want {want}")
+    check(e["launches"] == want,
+          f"surface train: op-by-op launches {e['launches']}, want {want}")
+    check(g["captures"] == 1, f"surface train: {g['captures']} captures")
+    check(all(math.isfinite(v) for v in g["losses"]),
+          "surface train: non-finite loss")
+    check(g["losses"] == e["losses"], f"surface train: graphed losses "
+          f"{g['losses']} != op by op {e['losses']}")
+    bad = same_bits(g["state"], e["state"])
+    check(not bad, f"surface train: graphed and op by op differ in "
+          f"{len(bad)} tensors, e.g. {bad[:4]}")
+    model.set_state_dict(init)
+    with torch.no_grad():
+        x, y = (pt.to_tensor(a) for a in data[0])
+        first = float(S.loss_fn(pt, model, x, y))
+        with kernels.plain_versions():
+            plain = float(S.loss_fn(pt, model, x, y))
+    check(abs(first - math.log(cfg["vocab"])) < LOSS_NEAR_LN_V,
+          f"surface train: first loss {first} is not near ln V")
+    check(abs(g["losses"][0] - plain) <= BF16_TRAIN_LOSS_TOL,
+          f"surface train: first loss {g['losses'][0]} vs the plain "
+          f"versions' {plain}")
+    log(f"surface train: graphed = op by op bitwise over {len(data)} steps "
+        f"and {SURFACE_TIMED} timed ones (losses, parameters, masters, "
+        f"moments; a first step of {first} recomputed, {plain} through the "
+        f"plain versions, |diff| {abs(g['losses'][0] - plain):.2e} of "
+        f"{BF16_TRAIN_LOSS_TOL}); {len(want)} kernel counts each "
+        f"{surface_launches(cfg)} a step; step wall graphed "
+        f"{g['wall']:.2f} ms vs op by op {e['wall']:.2f} ms [{gpu}]")
+    return g["wall"], e["wall"]
+
+
+def surface_save_load(S, pt, model, cfg, root, gpu):
+    """(b): ``pt.save(model.state_dict())``, ``pt.load`` into a fresh
+    model by ``set_state_dict``: equal bits, its storage unmoved."""
+    import torch
+
+    fresh = S.make_model(pt, cfg)
+    ptrs = [p.data_ptr() for p in fresh.parameters()]
+    path = os.path.join(root, "surface.pdparams")
+    t0 = time.perf_counter()
+    res = S.save_and_load(pt, model, path, fresh)
+    wall = time.perf_counter() - t0
+    check(res == ([], []), f"surface save/load: missing, unexpected {res}")
+    check([p.data_ptr() for p in fresh.parameters()] == ptrs,
+          "surface save/load: the parameters' storage moved")
+    theirs = fresh.state_dict()
+    bad = [n for n, t in model.state_dict().items()
+           if not torch_equal(t, theirs[n]) or t.dtype != theirs[n].dtype]
+    check(not bad, f"surface save/load: {len(bad)} tensors differ: "
+          f"{bad[:4]}")
+    log(f"surface save/load: {len(theirs)} tensors, "
+        f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, saved and loaded in "
+        f"{wall:.2f} s; equal bits, storage unmoved [{gpu}]")
+    del fresh
+    torch.cuda.empty_cache()
+
+
+def surface_static(S, pt, model, cfg, data, gpu):
+    """(c): ``pt.to_static(model)`` in eval mode at two batch sizes: one
+    capture a signature, the replay's logits the eager forward's bits,
+    25 LayerNorm and 12 flash forwards a call. Returns the replay and
+    eager walls (ms) at the full batch."""
+    import torch
+
+    from paddle_tpu_torch.ops import kernels
+
+    out = {}
+    for B in (cfg["batch"], SURFACE_SMALL_BATCH):
+        ids = data[0][0][:B]
+        t = pt.to_tensor(ids)
+        with torch.no_grad():
+            model.eval()
+            eager = model(t)
+        if B == cfg["batch"]:
+            fn, first = S.static_forward(pt, model, ids)
+        else:
+            first = fn(ids)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        again = fn(t)
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        want = surface_launches(cfg, forward_only=True)
+        check(launches == want, f"surface to_static B={B}: launches "
+              f"{launches}, want {want}")
+        check(torch_equal(first, eager) and torch_equal(again, eager),
+              f"surface to_static B={B}: the replay differs from the "
+              f"eager forward")
+        walls = {}
+        for kind, call in (("replay", lambda: fn(t)),
+                           ("eager", lambda: model(t))):
+            ms = []
+            with torch.no_grad():
+                for _ in range(SURFACE_TIMED):
+                    t0 = time.perf_counter()
+                    call()
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            walls[kind] = sorted(ms)[len(ms) // 2]
+        out[B] = walls
+        log(f"surface to_static B={B}: {len(fn._cache)} signature(s) "
+            f"captured; replay = eager bitwise ({tuple(eager.shape)} "
+            f"{eager.dtype}); launches a call {launches}; wall replay "
+            f"{walls['replay']:.2f} ms vs eager {walls['eager']:.2f} ms "
+            f"[{gpu}]")
+    check(len(fn._cache) == 2, f"surface to_static: {len(fn._cache)} "
+          "captures for 2 signatures")
+    check(model._static_forward is fn, "surface to_static: the layer's "
+          "_static_forward is not the static function")
+    model.train()
+    return out
+
+
+def surface_places(pt):
+    """(d): a Layer made with no device lands on the current place."""
+    try:
+        pt.set_device("cpu")
+        host = pt.nn.Linear(4, 4)
+        check(pt.get_device() == "cpu:0" and
+              host.weight.device.type == "cpu" and
+              pt.zeros([2]).device.type == "cpu",
+              "surface places: set_device('cpu') did not put a Layer on "
+              "the host")
+    finally:
+        pt.set_device("gpu")
+    card = pt.nn.Linear(4, 4)
+    check(pt.get_device() == "gpu:0" and card.weight.device.type == "cuda",
+          "surface places: set_device('gpu') did not bring a Layer back "
+          "to the card")
+    log("surface places: set_device('cpu') made a Layer on the host, "
+        "set_device('gpu') the next on the card")
+
+
+def surface_phase(gpu):
+    """Phase 25: the Paddle script of ``tools/paddle_gpt_script.py`` at
+    bench_gpt's widths, through the user surface only: (a) 4 AdamW steps
+    through ``pt.TrainStep``, graphed = op by op bitwise, 25/25/1/1/12/12/
+    12 launches a step; (b) ``pt.save``/``pt.load``/``set_state_dict``;
+    (c) ``pt.to_static`` at two batch sizes; (d) ``set_device``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    S = surface_script()
+    cfg = S.CONFIGS[SURFACE_CONFIG]
+    pt.set_device("gpu")
+    with pt.utils.unique_name.guard():
+        model = S.make_model(pt, cfg)
+    check(all(isinstance(p, pt.Parameter) and p.device.type == "cuda"
+              and p.dtype == torch.bfloat16 for p in model.parameters()),
+          "surface: the script's parameters are not bfloat16 on the card")
+    n = sum(p.numel() for p in model.parameters())
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    data = S.batches(cfg, SURFACE_STEPS)
+    log(f"surface: the Paddle script at {SURFACE_CONFIG}'s widths, "
+        f"{n / 1e6:.1f}M parameters ({cfg['layers']} x {cfg['hidden']}, "
+        f"{cfg['heads']} heads, vocab {cfg['vocab']}), bfloat16, batch "
+        f"{cfg['batch']} x {cfg['seq']}")
+    walls = surface_train(S, pt, model, init, cfg, data, gpu)
+    root = tempfile.mkdtemp(prefix="chip_smoke_surface_")
+    try:
+        surface_save_load(S, pt, model, cfg, root, gpu)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    static = surface_static(S, pt, model, cfg, data, gpu)
+    surface_places(pt)
+    del model, init
+    torch.cuda.empty_cache()
+    log(f"surface: phase took {time.perf_counter() - t0:.1f} s [{gpu}]")
+    return walls, static
+
+
 def main():
     try:
         import torch
@@ -6799,6 +7063,8 @@ def main():
         import paddle_tpu_torch.obs.report  # noqa: F401
         import paddle_tpu_torch.models.nlp.sentiment  # noqa: F401
         import paddle_tpu_torch.models.rec  # noqa: F401
+        import paddle_tpu_torch.modules_compat  # noqa: F401
+        import paddle_tpu_torch.tensor.math  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -6818,7 +7084,10 @@ def main():
            "paddle_tpu_torch.ops.reduction",
            "paddle_tpu_torch.ops.control_flow", "paddle_tpu_torch.ops.linalg",
            "paddle_tpu_torch.models.nlp.word2vec",
-           "paddle_tpu_torch.models.rec.recommender"}
+           "paddle_tpu_torch.models.rec.recommender",
+           "paddle_tpu_torch.nn.layer", "paddle_tpu_torch.core.device",
+           "paddle_tpu_torch.core.dtype", "paddle_tpu_torch.core.tensor",
+           "paddle_tpu_torch.core.autograd", "paddle_tpu_torch.modules_compat"}
           <= set(sys.modules), "a module of the fleet path was not imported")
     # float32 products in full float32: no TF32 anywhere on this path
     torch.backends.cudnn.allow_tf32 = False
@@ -6843,7 +7112,7 @@ def main():
 
 
 def phases(gpu, journals):
-    """Phases 1-24 in order, the journals of 13, 19 and 22 under
+    """Phases 1-25 in order, the journals of 13, 19 and 22 under
     ``journals``; prints the ``kernels`` and ``ok`` lines."""
     import torch
 
@@ -6921,6 +7190,8 @@ def phases(gpu, journals):
     layers_phase(gpu)
     torch.cuda.empty_cache()
     tensor_phase(gpu)
+    torch.cuda.empty_cache()
+    surface_phase(gpu)
     check(not any(m.split(".")[0] in ("jax", "paddle_tpu", "ml_dtypes")
                   for m in sys.modules),
           "the JAX side was imported by a phase")

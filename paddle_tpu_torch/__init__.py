@@ -77,37 +77,117 @@ graph, inference and the layer library:
   into this package's, and a JAX optimizer's state dict under this
   package's parameter names.
 
-Entry points run on the CUDA card unless the caller passes
-``device="cpu"``; without a card they raise instead of falling back.
+- the Paddle user surface (``paddle_tpu/__init__.py:62-83, 126-218``):
+  ``nn.Layer`` and its containers, which every layer and model of the
+  package subclasses; ``to_tensor``, ``Tensor``, ``Parameter``,
+  ``grad`` and the grad modes; the dtype names and the default dtype;
+  the places and ``set_device``; ``to_static``/``jit`` (a Layer's
+  forward or a function as one CUDA graph a signature); ``TrainStep``,
+  ``save``/``load``, ``recompute`` and the rest of the top level; and
+  the 2.x module spellings (``paddle_tpu_torch.tensor``, ``.optimizer``,
+  ``.static``, ``.device``, ``.distributed``, ``.regularizer``;
+  ``modules_compat``). Subpackages are imported at first use.
+
+Entry points run on the current place: the CUDA card, unless the caller
+passes ``device="cpu"`` or chose the host with ``set_device("cpu")``;
+without a card they raise instead of falling back.
+
+Not here yet (ROADMAP Queue 1): ``Model``, ``DataLoader``, ``batch``,
+``reader``, ``summary``, ``flops``, ``metrics``, ``distribution``,
+``slim``, ``hapi``, ``dataset``, ``vision``, ``fluid``, ``io``,
+``metric``, ``imperative``, ``compat``, ``version``, ``sysconfig`` and
+``check_import_scipy`` (item 10); ``fleet`` (item 6); ``runtime`` and
+``set_compilation_cache`` (item 8).
 """
+from __future__ import annotations
+
+from . import modules_compat as _modules_compat
+from . import ops
 from ._device import resolve_device, resolve_dtype
+from .core import (Parameter, Tensor, enable_grad, grad, is_grad_enabled,
+                   no_grad, to_tensor)
+from .core.device import (CPUPlace, CUDAPlace, Place, TPUPlace, device_count,
+                          get_device, is_compiled_with_tpu, set_device)
+from .core.dtype import (bfloat16, bool_, complex64, complex128, float16,
+                         float32, float64, get_default_dtype, int8, int16,
+                         int32, int64, set_default_dtype, uint8)
 from .ops import __all__ as _TENSOR_API
 
-__all__ = ["resolve_device", "resolve_dtype", "static", "framework",
-           "enable_static",
-           "disable_static", "in_static_mode", "program_guard", "seed",
-           *_TENSOR_API]
+# the subpackages, imported at first use
+_SUBPACKAGES = ("nn", "optim", "amp", "inference", "serving", "quant",
+                "static_", "framework", "resilience", "obs", "analysis",
+                "convert", "models", "utils", "core", "dist")
 
-# the static-graph surface under the names paddle scripts use
-# (``bench.py:bench_lenet_exec``), imported at first use
-_LAZY = {"enable_static": "static_", "disable_static": "static_",
-         "in_static_mode": "static_", "program_guard": "static_",
-         "seed": "core"}
+# names bound lazily: name -> (module, attribute; None: the module)
+_LAZY = {
+    "enable_static": ("static_", "enable_static"),
+    "disable_static": ("static_", "disable_static"),
+    "in_static_mode": ("static_", "in_static_mode"),
+    "program_guard": ("static_", "program_guard"),
+    "global_scope": ("static_", "global_scope"),
+    "seed": ("core", "seed"),
+    "TrainStep": ("framework.jit", "TrainStep"),
+    "to_static": ("framework.jit", "to_static"),
+    "jit": ("framework.jit", "jit"),
+    "save": ("framework.io", "save"),
+    "load": ("framework.io", "load"),
+    "recompute": ("framework.recompute", "recompute"),
+    "Recompute": ("framework.recompute", "Recompute"),
+    "ParamAttr": ("nn.param_attr", "ParamAttr"),
+    "unique_name": ("utils.unique_name", None),
+}
+
+__all__ = [
+    "resolve_device", "resolve_dtype", "Tensor", "Parameter", "to_tensor",
+    "no_grad", "enable_grad", "is_grad_enabled", "grad", "float16",
+    "bfloat16", "float32", "float64", "int8", "int16", "int32", "int64",
+    "uint8", "bool_", "bool", "complex64", "complex128",
+    "set_default_dtype", "get_default_dtype", "set_device", "get_device",
+    "device_count", "is_compiled_with_tpu", "TPUPlace", "CPUPlace",
+    "CUDAPlace", "Place", "in_dynamic_mode", "div", "elementwise_equal",
+    "elementwise_sum", "create_tensor", "static", "ops",
+    *[n for n in _SUBPACKAGES if n not in ("core", "utils", "convert",
+                                           "models", "analysis")],
+    *_LAZY, *_modules_compat.ALIASES, *_TENSOR_API]
+
+
+def in_dynamic_mode():
+    """Whether the process runs eagerly (not in static mode)."""
+    from .static_ import in_static_mode
+
+    return not in_static_mode()
+
+
+# 1.x tensor-API aliases (ref: python/paddle/tensor/math.py)
+div = ops.divide
+elementwise_equal = ops.equal
+elementwise_sum = ops.add_n
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    """ref: ``tensor/creation.py`` ``create_tensor``: a zero tensor of
+    shape ``[1]`` and ``dtype`` on the current place."""
+    return ops.zeros([1], dtype=dtype)
 
 
 def __getattr__(name):
     import importlib
 
-    if name in ("static", "framework"):
-        # ``pt.framework.io.save_inference_model`` as bench.py spells it
-        return importlib.import_module(
-            ".static_" if name == "static" else ".framework", __name__)
+    if name in _modules_compat.ALIASES:
+        return _modules_compat.resolve(__name__, name)
+    if name in _SUBPACKAGES:
+        # ``dist`` is the package, which also calls as the tensor API's
+        # ``dist``
+        return importlib.import_module("." + name, __name__)
     if name in _LAZY:
-        return getattr(importlib.import_module("." + _LAZY[name], __name__),
-                       name)
-    if name == "dist":
-        # the subpackage, which also calls as the tensor API's ``dist``
-        return importlib.import_module(".dist", __name__)
+        mod, attr = _LAZY[name]
+        m = importlib.import_module("." + mod, __name__)
+        return m if attr is None else getattr(m, attr)
     if name in _TENSOR_API:
-        return getattr(importlib.import_module(".ops", __name__), name)
+        return getattr(ops, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+_modules_compat.install(__name__)
+
+bool = bool_  # paddle.bool

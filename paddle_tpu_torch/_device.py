@@ -1,26 +1,55 @@
 """Device resolution for the package's entry points.
 
-Every entry point (``PagedKVCache``, ``TinyLM``) runs on the CUDA card
-unless its caller passes ``device="cpu"``. Without a CUDA device, a
-request for anything but the CPU raises: the package never falls back
-to the CPU on its own, so a run that meant to use the card cannot
-quietly measure the host instead.
+Every entry point (``PagedKVCache``, ``TinyLM``) runs on the current
+place: the CUDA card, unless its caller passes ``device="cpu"`` or
+chose the CPU with ``core.device.set_device("cpu")``. Without a CUDA
+device, a request for anything but the CPU raises: the package never
+falls back to the CPU on its own, so a run that meant to use the card
+cannot quietly measure the host instead. Besides torch's names, a
+device may be spelt as Paddle spells it: ``"gpu"``, ``"gpu:1"``,
+``"tpu"`` (the accelerator, as scripts written for the JAX package pick
+it) or a ``core.device.Place``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "resolve_dtype", "as_ids"]
+__all__ = ["resolve_device", "resolve_dtype", "as_ids", "torch_device"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
+# the current place (``core.device.set_device``): a torch device, or None
+# for the card
+CURRENT = [None]
+
+# Paddle's names for the accelerator
+_ACCELERATORS = ("gpu", "cuda", "tpu", "xpu")
+
+
+def torch_device(device):
+    """A device as torch names it: a ``Place`` (``.torch_device``), a
+    torch device, or a string in torch's or Paddle's spelling
+    (``"gpu:0"`` and ``"tpu"`` are ``cuda``)."""
+    if hasattr(device, "torch_device"):
+        return device.torch_device
+    if isinstance(device, str):
+        name, sep, idx = device.partition(":")
+        if name in _ACCELERATORS:
+            return torch.device("cuda", int(idx)) if sep else \
+                torch.device("cuda")
+    return torch.device(device)
+
+
 def resolve_device(device=None):
-    """``None`` -> ``cuda``; ``"cpu"`` only when asked for. Raises
+    """``None`` -> the current place (the card unless
+    ``set_device("cpu")``); ``"cpu"`` only when asked for. Raises
     ``RuntimeError`` for a CUDA device when none is present."""
-    dev = torch.device("cuda" if device is None else device)
+    if device is None:
+        device = CURRENT[0]
+    dev = torch.device("cuda") if device is None else torch_device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

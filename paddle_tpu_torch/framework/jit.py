@@ -73,10 +73,24 @@ caches (``_xla_gen_cache``, ``_xla_decode_cache``).
 two of the calls above; ``TrainStep``, ``ProgramCache`` and the static
 ``Executor`` (``static_/executor.py``) each run them.
 
+``to_static(layer)`` (also ``jit``) is the reference's
+``StaticFunction`` (``:693-759``) on ``ProgramCache``: a Layer's forward,
+or a plain function, as one CUDA graph a signature of its inputs'
+shapes and types, run under ``no_grad`` with the parameters read in
+place; numpy arguments become tensors, and the outputs come back in the
+pytree shape the function returned (tensors in tuples, lists and dicts).
+In training mode dropout draws new numbers on each call, from the
+device generator registered with the graph. On the CPU it runs op by
+op. A plain function that closes over a parameter sees the parameter's
+in-place updates here, where the JAX trace bakes its value in as a
+constant (ROADMAP Queue 3, "not port faults").
+
 Not ported: the gradient-exchange paths (``accumulate_steps``) and the
 AOT executable cache.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -87,7 +101,8 @@ from ..ops import control_flow, kernels
 from ..ops.kernels import _route
 from ..utils.nan_guard import NanInfError, nonfinite_summary
 
-__all__ = ["TrainStep", "ProgramCache", "warm", "capture"]
+__all__ = ["TrainStep", "ProgramCache", "warm", "capture",
+           "StaticFunction", "to_static", "jit", "no_jit"]
 
 
 def warm(stream, fn):
@@ -428,7 +443,8 @@ class ProgramCache:
     On a CUDA device the key is ``signature``, whether
     ``kernels.plain_versions()`` is active, ``module.training``, the
     ``amp.auto_cast`` state (``amp_key``) and the storage of the module's
-    parameters (``data_ptr``). The first call of
+    parameters (``data_ptr``); ``module`` None (a function that holds no
+    module) keys on the rest. The first call of
     a key runs ``fn`` op by op on a side stream (it loads the kernel
     libraries and warms cuBLAS), captures it on that stream, and replays
     the capture; every later call copies ``inputs`` into the graph's
@@ -451,9 +467,10 @@ class ProgramCache:
 
     def __call__(self, module, signature, fn, inputs, seed=None):
         dev = inputs[0].device
-        storage = tuple(p.data_ptr() for p in module.parameters())
-        key = (signature, _route.forced(), module.training, amp_key(),
-               storage)
+        storage = () if module is None else \
+            tuple(p.data_ptr() for p in module.parameters())
+        training = None if module is None else module.training
+        key = (signature, _route.forced(), training, amp_key(), storage)
         if key not in self._programs:
             # graphs of storage that has moved can never replay again
             self._programs = {k: g for k, g in self._programs.items()
@@ -494,3 +511,101 @@ class ProgramCache:
         program.graph.replay()
         kernels.add_launches(program.launches)
         return tuple(o.clone() for o in program.outputs)
+
+
+# -- to_static ---------------------------------------------------------------
+
+
+def _flatten(out, leaves):
+    """``out``'s tensors appended to ``leaves``; its structure, with the
+    tensors' places in ``leaves`` and anything else as it is."""
+    if isinstance(out, torch.Tensor):
+        leaves.append(out)
+        return ("t", len(leaves) - 1)
+    if isinstance(out, (tuple, list)):
+        return (type(out), [_flatten(o, leaves) for o in out])
+    if isinstance(out, dict):
+        return (dict, [(k, _flatten(v, leaves)) for k, v in out.items()])
+    return ("c", out)
+
+
+def _unflatten(tree, leaves):
+    kind, body = tree
+    if kind == "t":
+        return leaves[body]
+    if kind == "c":
+        return body
+    if kind is dict:
+        return {k: _unflatten(v, leaves) for k, v in body}
+    items = [_unflatten(t, leaves) for t in body]
+    return items if kind is list else kind(items)
+
+
+class StaticFunction:
+    """``fn`` (or ``fn(model, *inputs)`` with a ``model``) as one CUDA
+    graph a signature (``ProgramCache``); see the module's doc."""
+
+    def __init__(self, fn, model=None):
+        self._fn = fn
+        self.__wrapped__ = fn
+        self._model = model
+        self._cache = ProgramCache()
+        self._trees = {}
+
+    def _device(self):
+        if self._model is not None:
+            for p in self._model.parameters():
+                return p.device
+        from .._device import resolve_device
+
+        return resolve_device(None)
+
+    def __call__(self, *args):
+        dev = self._device()
+        xs = []
+        for a in args:
+            if not isinstance(a, torch.Tensor):
+                a = np.asarray(a)
+                a = torch.from_numpy(np.require(
+                    a.astype(np.float32) if a.dtype == np.float64 else a,
+                    requirements="C"))
+            xs.append(a.to(dev))
+        sig = tuple((tuple(x.shape), x.dtype) for x in xs)
+        tkey = (sig, None if self._model is None else self._model.training)
+
+        def run(*inputs):
+            inputs = inputs[:-1]      # ProgramCache passes its generator
+            out = self._fn(*inputs) if self._model is None \
+                else self._fn(self._model, *inputs)
+            leaves = []
+            self._trees[tkey] = _flatten(out, leaves)
+            return tuple(leaves)
+
+        leaves = self._cache(self._model, sig, run, xs)
+        return _unflatten(self._trees[tkey], list(leaves))
+
+
+def to_static(layer_or_fn=None, input_spec=None, **kwargs):
+    """``paddle.jit.to_static``: a Layer (its forward; the result is also
+    ``layer._static_forward``) or a function as a ``StaticFunction``;
+    with no argument, the decorator."""
+    from ..nn.layer import Layer
+
+    def wrap(obj):
+        if isinstance(obj, Layer):
+            sf = StaticFunction(lambda m, *xs: m(*xs), model=obj)
+            obj._static_forward = sf
+            return sf
+        return StaticFunction(obj)
+
+    if layer_or_fn is None:
+        return wrap
+    return wrap(layer_or_fn)
+
+
+def jit(fn=None, **kwargs):
+    """``@paddle_tpu_torch.jit``: ``to_static`` as a decorator."""
+    return to_static(fn, **kwargs)
+
+
+no_jit = contextlib.nullcontext

@@ -28,8 +28,8 @@ parameters' type.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
+from ...nn.layer import Layer
 from ..._device import resolve_device
 from ...nn import functional as F
 from ...nn.initializer import Normal
@@ -71,7 +71,7 @@ def bert_tiny(**kw):
     return BertConfig(**kw)
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
@@ -95,7 +95,7 @@ class BertEmbeddings(nn.Module):
         return self.drop(self.norm(x))
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     """Encoder trunk: embeddings -> N Transformer encoder layers (post-norm,
     GELU) -> the pooled first token."""
 
@@ -125,7 +125,7 @@ class BertModel(nn.Module):
         return x, F.tanh(self.pooler(x[:, 0]))
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(Layer):
     """``model(ids, token_type_ids, attention_mask) -> (mlm_logits (B, L,
     vocab), nsp_logits (B, 2))``: the MLM head (transform, GELU,
     LayerNorm, the tied decoder plus ``mlm_bias``) and the NSP head over
@@ -144,7 +144,7 @@ class BertForPretraining(nn.Module):
                                 generator=generator)
         self.transform_norm = LayerNorm(cfg.hidden, device=device)
         self.mlm_bias = create_parameter((cfg.vocab_size,), is_bias=True,
-                                         device=device)
+                                         device=device, owner=self)
         self.nsp = Linear(cfg.hidden, 2, device=device, generator=generator)
 
     def forward(self, ids, token_type_ids=None, attention_mask=None):

@@ -58,8 +58,8 @@ import functools
 import math
 
 import torch
-from torch import nn
 
+from ...nn.layer import Layer, LayerList
 from ..._device import as_ids, resolve_device, resolve_dtype
 from ...core.random import default_generator
 from ...dist.tp_layers import (ColumnParallelLinear, RowParallelLinear,
@@ -104,7 +104,7 @@ def gpt_small(**kw):
     return GPTConfig(vocab_size=50304, hidden=768, layers=12, heads=12, **kw)
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, cfg, device, generator=None):
         super().__init__()
         self.cfg = cfg
@@ -153,7 +153,7 @@ class GPTAttention(nn.Module):
         return self.drop(self.proj(att))
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     def __init__(self, cfg, device, generator=None):
         super().__init__()
         self.cfg = cfg
@@ -181,7 +181,7 @@ class GPTBlock(nn.Module):
         return x if cache is None else (x, cache)
 
 
-class GPT(nn.Module):
+class GPT(Layer):
     """``GPT(cfg)(ids (B, L)) -> logits (B, L, vocab)`` in ``cfg.dtype``.
 
     Built on ``device`` (``cuda`` unless the caller passes ``"cpu"``);
@@ -200,8 +200,8 @@ class GPT(nn.Module):
                              weight_attr=Normal(0.0, std), device=device,
                              generator=generator)
         self.drop = Dropout(cfg.dropout)
-        self.blocks = nn.ModuleList([GPTBlock(cfg, device, generator)
-                                     for _ in range(cfg.layers)])
+        self.blocks = LayerList([GPTBlock(cfg, device, generator)
+                                 for _ in range(cfg.layers)])
         self.ln_f = LayerNorm(cfg.hidden, device=device)
         if cfg.dtype != "float32":
             self.to(resolve_dtype(cfg.dtype))

@@ -8,8 +8,7 @@ over ties, as the reference's does: the zeros the LSTM writes at padded
 steps tie on every unit whose valid outputs are all negative."""
 from __future__ import annotations
 
-from torch import nn
-
+from ...nn.layer import Layer, LayerList
 from ..._device import resolve_device
 from ... import ops
 from ...nn import functional as F
@@ -20,7 +19,7 @@ from ...nn.layers.rnn import LSTM
 __all__ = ["ConvSentiment", "StackedLSTMSentiment"]
 
 
-class ConvSentiment(nn.Module):
+class ConvSentiment(Layer):
     """Text-CNN: parallel conv widths -> tanh -> max-pool over time -> FC.
     ``ids`` (B, L) -> (B, num_classes) logits."""
 
@@ -30,7 +29,7 @@ class ConvSentiment(nn.Module):
         super().__init__()
         kw = dict(device=resolve_device(device), generator=generator)
         self.embed = Embedding(vocab_size, embed_dim, **kw)
-        self.convs = nn.ModuleList([
+        self.convs = LayerList([
             Conv1D(embed_dim, num_filters, w, padding=w // 2, **kw)
             for w in widths])
         self.drop = Dropout(dropout)
@@ -42,7 +41,7 @@ class ConvSentiment(nn.Module):
         return self.fc(self.drop(ops.concat(feats, axis=-1)))
 
 
-class StackedLSTMSentiment(nn.Module):
+class StackedLSTMSentiment(Layer):
     """A ``num_layers``-deep LSTM over the embedded ids, its outputs
     max-pooled over time -> FC. ``seq_len`` (B,), on the ids' device,
     masks each row's padded steps."""

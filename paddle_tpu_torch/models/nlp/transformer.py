@@ -29,8 +29,8 @@ import functools
 
 import numpy as np
 import torch
-from torch import nn
 
+from ...nn.layer import Layer
 from ..._device import as_ids, resolve_device
 from ...framework.jit import ProgramCache
 from ...inference.decoder import beam_search, beam_search_xla, tile_beam
@@ -52,7 +52,7 @@ def position_encoding(max_len, d_model):
     return table
 
 
-class WMTTransformer(nn.Module):
+class WMTTransformer(Layer):
     """Encoder-decoder translation model with a tied target softmax,
     built on ``device`` (``cuda`` unless the caller passes ``"cpu"``),
     weights drawn from ``generator`` (default: the device's)."""

@@ -6,8 +6,7 @@ with negative sampling (``SkipGram``, ``skipgram_loss``), under the JAX
 models' parameter names."""
 from __future__ import annotations
 
-from torch import nn
-
+from ...nn.layer import Layer
 from ..._device import resolve_device
 from ... import ops
 from ...nn import functional as F
@@ -16,7 +15,7 @@ from ...nn.layers.common import Embedding, Linear
 __all__ = ["NGramLM", "SkipGram", "skipgram_loss"]
 
 
-class NGramLM(nn.Module):
+class NGramLM(Layer):
     """Embeds ``context_size`` words and predicts the next one: ``words``
     (B, context_size) -> (B, vocab) logits."""
 
@@ -35,7 +34,7 @@ class NGramLM(nn.Module):
         return self.fc2(F.relu(self.fc1(e)))
 
 
-class SkipGram(nn.Module):
+class SkipGram(Layer):
     """Center and context embedding towers; a candidate's logit is the
     dot product: (B,) center ids x (B, K) candidate ids -> (B, K)."""
 

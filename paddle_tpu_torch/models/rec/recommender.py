@@ -5,12 +5,11 @@
 similarity as the rating, ``rating_loss``) and the DeepFM ranker
 (first-order weights, the factorisation machine's pairwise term and a
 deep MLP over one embedding a field). A ``LayerList`` of the JAX model
-is an ``nn.ModuleList`` here, so a state dict names ``embeds.0.weight``
+is an ``nn.LayerList`` here, so a state dict names ``embeds.0.weight``
 as the JAX one does."""
 from __future__ import annotations
 
-from torch import nn
-
+from ...nn.layer import Layer, LayerList
 from ..._device import resolve_device
 from ... import ops
 from ...nn import functional as F
@@ -19,7 +18,7 @@ from ...nn.layers.common import Embedding, Linear
 __all__ = ["TwoTowerRecommender", "DeepFM", "rating_loss"]
 
 
-class TwoTowerRecommender(nn.Module):
+class TwoTowerRecommender(Layer):
     """Dual-tower matching model; score = 5 * cos_sim(user, item)."""
 
     def __init__(self, n_users, n_items, n_genders=2, n_ages=7, n_jobs=21,
@@ -51,7 +50,7 @@ class TwoTowerRecommender(nn.Module):
         return 5.0 * F.cosine_similarity(u, i, axis=-1)
 
 
-class DeepFM(nn.Module):
+class DeepFM(Layer):
     """FM second-order interactions + deep MLP over shared embeddings.
     ``fields``: the vocabulary size of each field, one sparse feature a
     field; one (B,) id tensor a field -> (B,) logits."""
@@ -60,13 +59,12 @@ class DeepFM(nn.Module):
                  device=None, generator=None):
         super().__init__()
         kw = dict(device=resolve_device(device), generator=generator)
-        self.embeds = nn.ModuleList([Embedding(v, embed_dim, **kw)
-                                     for v in fields])
-        self.linears = nn.ModuleList([Embedding(v, 1, **kw)
-                                      for v in fields])
+        self.embeds = LayerList([Embedding(v, embed_dim, **kw)
+                                 for v in fields])
+        self.linears = LayerList([Embedding(v, 1, **kw) for v in fields])
         dims = [len(fields) * embed_dim] + list(hidden)
-        self.mlp = nn.ModuleList([Linear(dims[i], dims[i + 1], **kw)
-                                  for i in range(len(hidden))])
+        self.mlp = LayerList([Linear(dims[i], dims[i + 1], **kw)
+                              for i in range(len(hidden))])
         self.out = Linear(dims[-1], 1, **kw)
 
     def forward(self, *field_ids):

@@ -20,8 +20,7 @@ cross-entropy takes the dense path in both (1000 is not a multiple of
 """
 from __future__ import annotations
 
-from torch import nn
-
+from ...nn.layer import Layer, Sequential
 from ... import ops
 from ..._device import resolve_device
 from ...nn import functional as F
@@ -32,7 +31,7 @@ __all__ = ["ResNet", "resnet18", "resnet34", "resnet50", "resnet101",
            "resnet152", "BasicBlock", "BottleneckBlock", "ConvBN"]
 
 
-class ConvBN(nn.Module):
+class ConvBN(Layer):
     def __init__(self, cin, cout, k, stride=1, groups=1, act=True,
                  device=None, generator=None):
         super().__init__()
@@ -47,7 +46,7 @@ class ConvBN(nn.Module):
         return F.relu(x) if self.act else x
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, cin, cout, stride=1, downsample=None, device=None,
@@ -64,7 +63,7 @@ class BasicBlock(nn.Module):
         return F.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, cin, cout, stride=1, downsample=None, device=None,
@@ -82,7 +81,7 @@ class BottleneckBlock(nn.Module):
         return F.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     """``ResNet(block, depths)`` on ``device`` (``cuda`` unless the caller
     asks for ``"cpu"``), random weights from ``generator`` (default: the
     device's)."""
@@ -95,7 +94,7 @@ class ResNet(nn.Module):
         self.stem = ConvBN(in_channels, width, 7, stride=2, **kw)
         self.pool = MaxPool2D(3, stride=2, padding=1)
         self.inplanes = width
-        self.layers = nn.Sequential(*[
+        self.layers = Sequential(*[
             self._make_layer(block, width * (2 ** i), n,
                              stride=1 if i == 0 else 2, **kw)
             for i, n in enumerate(depths)])
@@ -112,7 +111,7 @@ class ResNet(nn.Module):
         self.inplanes = planes * block.expansion
         for _ in range(1, n):
             blocks.append(block(self.inplanes, planes, **kw))
-        return nn.Sequential(*blocks)
+        return Sequential(*blocks)
 
     def forward(self, x):
         x = self.pool(self.stem(x))

@@ -7,8 +7,7 @@ made with (Paddle's defaults). Only ``PReLU`` holds a parameter:
 ``data_format`` and applies a per-channel weight along axis 1."""
 from __future__ import annotations
 
-from torch import nn
-
+from ..layer import Layer
 from ..._device import resolve_device
 from .. import functional as F
 from ..initializer import Constant
@@ -29,7 +28,10 @@ def _layer(cls_name, fname, *params):
     the constructor in this order."""
 
     def __init__(self, *args, **kwargs):
-        nn.Module.__init__(self)
+        # the JAX package names its parameterless activations after the
+        # function (``activation.py:17-26``: ``relu_0``), the rest after
+        # the class (``leaky_re_l_u_0``)
+        Layer.__init__(self, name_scope=None if params else fname)
         kwargs.pop("name", None)
         values = dict(params)
         values.update(zip([n for n, _ in params], args))
@@ -46,7 +48,7 @@ def _layer(cls_name, fname, *params):
     def extra_repr(self):
         return ", ".join(f"{k}={v}" for k, v in self._params.items())
 
-    return type(cls_name, (nn.Module,), {
+    return type(cls_name, (Layer,), {
         "__init__": __init__, "forward": forward, "extra_repr": extra_repr,
         "__doc__": f"``functional.{fname}`` as a layer.",
         "__module__": __name__})
@@ -82,7 +84,7 @@ Maxout = _layer("Maxout", "maxout", ("groups", None), ("axis", 1))
 GLU = _layer("GLU", "glu", ("axis", -1))
 
 
-class PReLU(nn.Module):
+class PReLU(Layer):
     def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
                  data_format="NCHW", device=None, generator=None):
         super().__init__()

@@ -5,27 +5,29 @@
 ``ChannelShuffle`` — and ``create_parameter``.
 
 The counterparts of ``paddle_tpu/nn/layers/common.py``'s, as
-``torch.nn.Module``s with the same parameter names (``weight``,
-``bias``) and Paddle's ``Linear`` layout: the weight is ``(in, out)``
+``nn.Layer``s (``torch.nn.Module``s) with the same parameter names
+(``weight``, ``bias``) and Paddle's ``Linear`` layout: the weight is ``(in, out)``
 and ``y = x @ W + b``. ``Bilinear``'s weight is ``(out, in1, in2)`` and
 its bias ``(1, out)``. The ``Upsample`` layers pass no ``align_mode``
 (0: half-pixel centres), as the JAX ones do. Each layer makes its
-parameters with ``create_parameter`` on ``device`` (``cuda`` unless the
-caller asks for ``"cpu"``), drawing random ones from ``generator``
-(default: the device's).
+parameters with ``create_parameter`` on ``device`` (the current place,
+``core.device``, unless the caller passes one), drawing random ones
+from ``generator`` (default: the device's).
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..._device import resolve_device
+from ...core import dtype as _dtype
+from ...core.tensor import Parameter
 from ...ops._base import RECORDER
 from ...ops.manipulation import flatten, pad
 from ...utils import unique_name
 from .. import functional as F
 from ..initializer import (Constant, Normal, XavierUniform,
                            global_initializer)
+from ..layer import Layer, _camel_to_snake
 from ..param_attr import ParamAttr
 
 __all__ = ["Linear", "Dropout", "Embedding", "create_parameter",
@@ -39,15 +41,11 @@ __all__ = ["Linear", "Dropout", "Embedding", "create_parameter",
 _ATTRS = ("optimize_attr", "regularizer", "need_clip")
 
 
-def _camel_to_snake(name):
-    return "".join(("_" + c.lower()) if c.isupper() and i else c.lower()
-                   for i, c in enumerate(name))
-
-
 def _full_name(owner):
     """The layer's name in the JAX package's scheme (``Layer.__init__``,
-    ``paddle_tpu/nn/layer.py:38-42``): its class in snake case, numbered,
-    given at its first static parameter."""
+    ``paddle_tpu/nn/layer.py:38-42``): its class in snake case, numbered;
+    a ``Layer`` has it from its making, any other module gets it at its
+    first parameter."""
     if owner is None:
         return "param"
     if not hasattr(owner, "_full_name"):
@@ -58,23 +56,26 @@ def _full_name(owner):
 
 def create_parameter(shape, attr=None, is_bias=False,
                      default_initializer=None, device=None, generator=None,
-                     owner=None):
-    """A float32 ``nn.Parameter`` of ``shape`` made as ``attr``
+                     owner=None, dtype=None):
+    """A ``core.Parameter`` of ``shape`` made as ``attr``
     (anything ``ParamAttr._to_attr`` takes) says, or ``None`` for
     ``attr=False``. The initializer is the attr's, else
     ``default_initializer``, else the global one
     (``initializer.set_global_initializer``), else ``Constant(0)`` for a
     bias and ``XavierUniform`` otherwise
-    (``paddle_tpu/nn/layer.py:75-88``). The
-    parameter carries ``optimize_attr = {"learning_rate": ...}``,
-    ``regularizer`` and ``need_clip``, and ``requires_grad`` is the
-    attr's ``trainable``.
+    (``paddle_tpu/nn/layer.py:75-88``). Its type is ``dtype``, else the
+    ``owner`` layer's, else the default dtype
+    (``core.dtype.set_default_dtype``); it lies on ``device`` (default:
+    the current place). The parameter is named ``attr.name`` or
+    ``<owner's name>_w_<n>`` / ``_b_<n>`` as in the JAX package
+    (``owner``: the layer making it), carries ``optimize_attr =
+    {"learning_rate": ...}``, ``regularizer`` and ``need_clip``, and
+    ``requires_grad`` is the attr's ``trainable``.
 
     In static mode (``static_.enable_static``) it is a persistable
-    parameter Variable of the default main program instead, named
-    ``attr.name`` or ``<owner's name>_w_<n>`` / ``_b_<n>`` as in the JAX
-    package (``owner``: the layer making it), and its value, made now on
-    ``device``, goes into ``static_.global_scope()``
+    parameter Variable of the default main program instead, of the same
+    name, and its value, made now on ``device``, goes into
+    ``static_.global_scope()``
     (``paddle_tpu/nn/layer.py:89-104``): the startup program has nothing
     left to do."""
     attr = ParamAttr._to_attr(attr)
@@ -83,14 +84,17 @@ def create_parameter(shape, attr=None, is_bias=False,
     init = (attr.initializer or default_initializer
             or global_initializer(is_bias)
             or (Constant(0.0) if is_bias else XavierUniform()))
-    value = init(shape, torch.float32, resolve_device(device), generator)
+    if dtype is None:
+        dtype = getattr(owner, "_dtype", None)
+    dt = _dtype.convert_dtype(dtype)
+    value = init(shape, dt, resolve_device(device), generator)
+    name = attr.name or unique_name.generate(
+        _full_name(owner) + ("_b" if is_bias else "_w"))
     if RECORDER[0] is not None:
         from ...static_.program import default_main_program, global_scope
 
-        name = attr.name or unique_name.generate(
-            _full_name(owner) + ("_b" if is_bias else "_w"))
         v = default_main_program().global_block.create_var(
-            name=name, shape=shape, dtype=torch.float32, persistable=True,
+            name=name, shape=shape, dtype=dt, persistable=True,
             stop_gradient=not attr.trainable)
         v.is_parameter = True
         v.trainable = bool(attr.trainable)
@@ -99,7 +103,7 @@ def create_parameter(shape, attr=None, is_bias=False,
         v.need_clip = attr.need_clip
         global_scope().set(name, value)
         return v
-    p = nn.Parameter(value, requires_grad=bool(attr.trainable))
+    p = Parameter(value, name=name, trainable=bool(attr.trainable))
     p.optimize_attr = {"learning_rate": attr.learning_rate}
     p.regularizer = attr.regularizer
     p.need_clip = attr.need_clip
@@ -117,7 +121,7 @@ def copy_parameter_attrs(src, dst):
                 setattr(p, a, getattr(theirs[name], a))
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, device=None, generator=None):
         super().__init__()
@@ -137,7 +141,7 @@ class Linear(nn.Module):
         return f"in={self.weight.shape[0]}, out={self.weight.shape[1]}"
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """Dropout with the reference's ``axis`` (a mask broadcast along the
     other axes) and ``mode`` (``upscale_in_train`` or
     ``downscale_in_infer``); see ``ops.random_ops.dropout``."""
@@ -154,7 +158,7 @@ class Dropout(nn.Module):
         return f"p={self.p}, axis={self.axis}, mode={self.mode}"
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Rows of ``weight (num_embeddings, embedding_dim)``, N(0, 1) unless
     ``weight_attr`` says otherwise. With ``padding_idx`` (negative counts
     from the end) that row starts at 0 and every lookup of it gives 0
@@ -178,12 +182,12 @@ class Embedding(nn.Module):
         return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
 
-class Identity(nn.Module):
+class Identity(Layer):
     def forward(self, x):
         return x
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     def __init__(self, start_axis=1, stop_axis=-1):
         super().__init__()
         self.start_axis, self.stop_axis = start_axis, stop_axis
@@ -192,7 +196,7 @@ class Flatten(nn.Module):
         return flatten(x, self.start_axis, self.stop_axis)
 
 
-class Dropout2D(nn.Module):
+class Dropout2D(Layer):
     """Whole feature maps dropped (``functional.dropout2d``)."""
 
     def __init__(self, p=0.5, data_format="NCHW"):
@@ -204,7 +208,7 @@ class Dropout2D(nn.Module):
                            data_format=self.data_format)
 
 
-class Dropout3D(nn.Module):
+class Dropout3D(Layer):
     """Whole volumes dropped (``functional.dropout3d``)."""
 
     def __init__(self, p=0.5, data_format="NCDHW"):
@@ -216,7 +220,7 @@ class Dropout3D(nn.Module):
                            data_format=self.data_format)
 
 
-class AlphaDropout(nn.Module):
+class AlphaDropout(Layer):
     def __init__(self, p=0.5):
         super().__init__()
         self.p = p
@@ -225,7 +229,7 @@ class AlphaDropout(nn.Module):
         return F.alpha_dropout(x, p=self.p, training=self.training)
 
 
-class _PadNd(nn.Module):
+class _PadNd(Layer):
     nsp = 2
 
     def __init__(self, padding, mode="constant", value=0.0,
@@ -257,7 +261,7 @@ class ZeroPad2D(Pad2D):
                          data_format=data_format)
 
 
-class Upsample(nn.Module):
+class Upsample(Layer):
     def __init__(self, size=None, scale_factor=None, mode="nearest",
                  align_corners=False, align_mode=0, data_format="NCHW"):
         super().__init__()
@@ -285,7 +289,7 @@ class UpsamplingBilinear2D(Upsample):
                          data_format=data_format)
 
 
-class CosineSimilarity(nn.Module):
+class CosineSimilarity(Layer):
     def __init__(self, axis=1, eps=1e-8):
         super().__init__()
         self.axis, self.eps = axis, eps
@@ -294,7 +298,7 @@ class CosineSimilarity(nn.Module):
         return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
 
 
-class PairwiseDistance(nn.Module):
+class PairwiseDistance(Layer):
     def __init__(self, p=2.0, epsilon=1e-6, keepdim=False):
         super().__init__()
         self.p, self.epsilon, self.keepdim = p, epsilon, keepdim
@@ -304,7 +308,7 @@ class PairwiseDistance(nn.Module):
                                    keepdim=self.keepdim)
 
 
-class Bilinear(nn.Module):
+class Bilinear(Layer):
     def __init__(self, in1_features, in2_features, out_features,
                  weight_attr=None, bias_attr=None, device=None,
                  generator=None):
@@ -321,7 +325,7 @@ class Bilinear(nn.Module):
         return F.bilinear(x1, x2, self.weight, self.bias)
 
 
-class Unfold(nn.Module):
+class Unfold(Layer):
     def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1):
         super().__init__()
         self.kernel_sizes, self.strides = kernel_sizes, strides
@@ -332,7 +336,7 @@ class Unfold(nn.Module):
                         self.dilations)
 
 
-class PixelShuffle(nn.Module):
+class PixelShuffle(Layer):
     def __init__(self, upscale_factor, data_format="NCHW"):
         super().__init__()
         self.upscale_factor = upscale_factor
@@ -341,7 +345,7 @@ class PixelShuffle(nn.Module):
         return F.pixel_shuffle(x, self.upscale_factor)
 
 
-class ChannelShuffle(nn.Module):
+class ChannelShuffle(Layer):
     def __init__(self, groups, data_format="NCHW"):
         super().__init__()
         self.groups = groups

@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import math
 
-from torch import nn
 
+from ..layer import Layer
 from ..._device import resolve_device
 from .. import functional as F
 from ..initializer import Normal
@@ -30,7 +30,7 @@ def _ntuple(v, n):
     return (int(v),) * n
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     nsp = 2
     transposed = False
 

@@ -3,8 +3,7 @@
 parameter) and forwards through the ``functional`` loss of its name."""
 from __future__ import annotations
 
-from torch import nn
-
+from ..layer import Layer
 from .. import functional as F
 
 __all__ = [
@@ -15,7 +14,7 @@ __all__ = [
 ]
 
 
-class _Loss(nn.Module):
+class _Loss(Layer):
     """Keeps its constructor's keyword options as ``self.opts``."""
 
     def __init__(self, **opts):

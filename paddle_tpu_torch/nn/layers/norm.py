@@ -25,8 +25,8 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
+from ..layer import Layer
 from ..._device import resolve_device
 from ...core.random import default_generator
 from ...ops._base import register
@@ -41,7 +41,7 @@ __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
            "SpectralNorm"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None, device=None, generator=None):
         super().__init__()
@@ -66,7 +66,7 @@ class LayerNorm(nn.Module):
         return f"{self._normalized_shape}, epsilon={self._epsilon}"
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, device=None, generator=None):
@@ -78,10 +78,10 @@ class _BatchNormBase(nn.Module):
         device = resolve_device(device)
         self.weight = create_parameter(
             (num_features,), weight_attr, default_initializer=Constant(1.0),
-            device=device, generator=generator)
+            device=device, generator=generator, owner=self)
         self.bias = create_parameter((num_features,), bias_attr,
                                      is_bias=True, device=device,
-                                     generator=generator)
+                                     generator=generator, owner=self)
         self.register_buffer("_mean", torch.zeros(num_features,
                                                   device=device))
         self.register_buffer("_variance", torch.ones(num_features,
@@ -182,7 +182,7 @@ class SyncBatchNorm(_BatchNormBase):
         return out
 
 
-class GroupNorm(nn.Module):
+class GroupNorm(Layer):
     def __init__(self, num_groups, num_channels, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  device=None, generator=None):
@@ -202,7 +202,7 @@ class GroupNorm(nn.Module):
                             self._epsilon, self._data_format)
 
 
-class _InstanceNormBase(nn.Module):
+class _InstanceNormBase(Layer):
     """``weight_attr=False``: neither ``weight`` nor ``bias``, as in the
     JAX layer."""
 
@@ -240,7 +240,7 @@ class InstanceNorm3D(_InstanceNormBase):
     pass
 
 
-class LocalResponseNorm(nn.Module):
+class LocalResponseNorm(Layer):
     def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
                  data_format="NCHW"):
         super().__init__()
@@ -257,7 +257,7 @@ def _spectral_norm(weight, u, v, *, dim, power_iters, eps):
     return weight / power_sigma(mat, u, v, power_iters, eps)
 
 
-class SpectralNorm(nn.Module):
+class SpectralNorm(Layer):
     """A weight over its largest singular value, by ``power_iters`` power
     iterations from the buffers ``weight_u`` (``weight_shape[dim]``
     values) and ``weight_v`` (the rest), N(0, 1) draws from

@@ -8,8 +8,7 @@ padding out of each window's count (``exclusive``'s default) and
 read, as in the JAX package."""
 from __future__ import annotations
 
-from torch import nn
-
+from ..layer import Layer
 from .. import functional as F
 
 __all__ = ["MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D",
@@ -17,7 +16,7 @@ __all__ = ["MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D",
            "AdaptiveAvgPool2D", "AdaptiveMaxPool1D", "AdaptiveMaxPool2D"]
 
 
-class _PoolNd(nn.Module):
+class _PoolNd(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  return_mask=False, exclusive=True, divisor_override=None,
                  data_format=None):
@@ -63,7 +62,7 @@ class AvgPool3D(_PoolNd):
         return F.avg_pool3d(x, *self._window())
 
 
-class _Adaptive(nn.Module):
+class _Adaptive(Layer):
     def __init__(self, output_size, return_mask=False, data_format=None):
         super().__init__()
         self.output_size = output_size

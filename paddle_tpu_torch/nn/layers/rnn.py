@@ -19,7 +19,7 @@ semantics:
   H)`` per state component;
 - a stack's dropout applies between layers only.
 
-The stacks are ``nn.ModuleList``s of their cells, layer by layer and
+The stacks are ``nn.LayerList``s of their cells, layer by layer and
 direction by direction, so a state dict names ``0.weight_ih`` as the JAX
 package's ``LayerList`` does. Each cell's four parameters are drawn from
 U(-1/sqrt(hidden), 1/sqrt(hidden)) unless their attrs say otherwise.
@@ -40,9 +40,9 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 from torch.func import functional_call
 
+from ..layer import Layer, LayerList
 from ..._device import resolve_device
 from ...ops._base import RECORDER
 from ...ops.manipulation import concat, split, stack
@@ -170,7 +170,7 @@ def birnn(cell_fw, cell_bw, inputs, initial_states=None,
     return concat([out_fw, out_bw], axis=-1), (st_fw, st_bw)
 
 
-class RNNCellBase(nn.Module):
+class RNNCellBase(Layer):
     def get_initial_states(self, batch_ref, shape=None, dtype=None,
                            init_value=0.0, batch_dim_idx=0):
         """``init_value``-filled states for ``batch_ref``'s batch (its axis
@@ -302,7 +302,7 @@ class GRUCell(RNNCellBase):
         return new_h, new_h
 
 
-class RNN(nn.Module):
+class RNN(Layer):
     """``cell`` run over a sequence (``rnn``)."""
 
     def __init__(self, cell, is_reverse=False, time_major=False):
@@ -315,7 +315,7 @@ class RNN(nn.Module):
                    time_major=self.time_major, is_reverse=self.is_reverse)
 
 
-class BiRNN(nn.Module):
+class BiRNN(Layer):
     """``cell_fw`` forward and ``cell_bw`` reversed (``birnn``)."""
 
     def __init__(self, cell_fw, cell_bw, time_major=False):
@@ -328,7 +328,7 @@ class BiRNN(nn.Module):
                      sequence_length, time_major=self.time_major)
 
 
-class _RNNBase(nn.ModuleList):
+class _RNNBase(LayerList):
     """A stack of ``num_layers`` (bidirectional: two a layer) cells."""
 
     CELL = None

@@ -33,8 +33,8 @@ import collections
 import copy
 
 import torch
-from torch import nn
 
+from ..layer import Layer, LayerList
 from ..._device import resolve_device, resolve_dtype
 from .. import functional as F
 from .common import Dropout, Linear, copy_parameter_attrs
@@ -51,7 +51,7 @@ def _dtype(dtype):
     return dtype if isinstance(dtype, torch.dtype) else resolve_dtype(dtype)
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """``(B, L, E)`` in, ``(B, L, E)`` out: ``q/k/v_proj``, heads of
     ``E / num_heads``, ``sdpa_bhld`` with ``attn_mask`` (additive, or
     boolean keep) and attention dropout ``dropout`` in training, then
@@ -191,7 +191,7 @@ def static_kv_attention(q, k_new, v_new, cache, attn_mask=None,
     return out, MultiHeadAttention.StaticKVCache(k_upd, v_upd, idx + L)
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Self-attention and a feed-forward block, each with a residual and
     a LayerNorm: after the residual (post-norm, the default) or before
     the block (``normalize_before``)."""
@@ -250,10 +250,10 @@ def _copies(layer, num_layers):
     copies = [copy.deepcopy(layer) for _ in range(num_layers - 1)]
     for c in copies:
         copy_parameter_attrs(layer, c)
-    return nn.ModuleList([layer] + copies)
+    return LayerList([layer] + copies)
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` layers: ``encoder_layer`` and deep copies of it
     (the same weights and parameter attributes), then ``norm`` if
     given. With ``cache`` (one per layer) it also returns the grown
@@ -282,7 +282,7 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self-attention, cross-attention over ``memory`` and a feed-forward
     block, each with a residual and a LayerNorm (post-norm unless
     ``normalize_before``). ``cache`` is ``(self-attention cache,
@@ -362,7 +362,7 @@ class TransformerDecoderLayer(nn.Module):
         return incremental, static
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """``num_layers`` decoder layers: ``decoder_layer`` and deep copies of
     it, then ``norm`` if given. With ``cache`` (one pair per layer) it
     also returns the advanced caches."""
@@ -412,7 +412,7 @@ class TransformerDecoder(nn.Module):
         return out
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """An encoder (``num_encoder_layers``) and a decoder
     (``num_decoder_layers``), or the ``custom_encoder`` /
     ``custom_decoder`` given; with ``normalize_before``, each stack ends

@@ -17,11 +17,23 @@
   merged Chrome trace;
 - ``report``: the metrics registry rendered as a table or JSON.
 
-The JAX package's SPMD views and XLA cost analyses are not ported yet.
+The package binds the metrics, trace, journal and exporter names as the
+JAX package's ``obs`` does. The JAX package's SPMD views, op sampling
+and XLA cost analyses are not ported yet (ROADMAP Queue 1, item 7).
 """
 from . import (anomaly, export, fleet, journal, lockdep, metrics, mfu,
                report, reqtrace, slo, timeseries, trace, usage)
+from .export import MetricsExporter
+from .journal import RunJournal, end_run, start_run
+from .metrics import (REGISTRY, Counter, Gauge, Histogram, Registry, counter,
+                      gauge, histogram, reset, snapshot)
+from .trace import (clear_trace, disable_tracing, enable_tracing,
+                    export_chrome_trace, span, trace_events, tracing_enabled)
 
 __all__ = ["anomaly", "export", "fleet", "journal", "lockdep", "metrics",
            "mfu", "report", "reqtrace", "slo", "timeseries", "trace",
-           "usage"]
+           "usage", "counter", "gauge", "histogram", "snapshot", "reset",
+           "Counter", "Gauge", "Histogram", "Registry", "REGISTRY", "span",
+           "enable_tracing", "disable_tracing", "tracing_enabled",
+           "clear_trace", "trace_events", "export_chrome_trace",
+           "RunJournal", "start_run", "end_run", "MetricsExporter"]

@@ -5,7 +5,13 @@ the Paddle tensor API: every name ``paddle_tpu/__init__.py:84-125``
 imports from the JAX package's op modules, from ``creation``, ``math``,
 ``reduction`` (``mode`` also as ``mode_op``), ``manipulation``,
 ``compare``, ``activation`` (``tanh``), ``linalg`` and
-``control_flow``. ``paddle_tpu_torch`` exports the same names."""
+``control_flow``. ``paddle_tpu_torch`` exports the same names.
+
+The flat ``ops.*`` names of the JAX package that the port's op modules
+define are bound here too, outside ``__all__`` (the tensor API): the
+activations, convolutions and pools, dropouts, norms, ``mode``, the
+unary ``angle``/``conj``/``deg2rad``/``frac``/``rad2deg``, the
+registry's ``register``, and ``Tensor``/``to_tensor``."""
 from .compare import (allclose, bitwise_and, bitwise_not, bitwise_or,
                       bitwise_xor, equal, equal_all, greater_equal,
                       greater_than, is_empty, is_tensor, isclose, less_equal,
@@ -94,3 +100,26 @@ __all__ = [
     # control flow
     "cond", "while_loop", "case", "switch_case", "scan",
 ]
+
+# the JAX package's flat ``ops.*`` names this package's modules define
+from ._base import register  # noqa: E402,F401
+from .activation import (celu, elu, gelu, glu, gumbel_softmax,  # noqa: E402,F401
+                         hardshrink, hardsigmoid, hardswish, hardtanh,
+                         leaky_relu, log_sigmoid, log_softmax, logsigmoid,
+                         maxout, mish, prelu, relu, relu6, selu, sigmoid,
+                         silu, softmax, softplus, softshrink, softsign,
+                         swish, tanhshrink, thresholded_relu)
+from .conv import (adaptive_avg_pool1d, adaptive_avg_pool2d,  # noqa: E402,F401
+                   adaptive_max_pool1d, adaptive_max_pool2d, affine_grid,
+                   avg_pool1d, avg_pool2d, avg_pool3d, conv1d,
+                   conv1d_transpose, conv2d, conv2d_transpose, conv3d,
+                   conv3d_transpose, grid_sample, interpolate, max_pool1d,
+                   max_pool2d, max_pool3d, pixel_shuffle, unfold, upsample)
+from .math import angle, conj, deg2rad, frac, rad2deg  # noqa: E402,F401
+from .norm_ops import (batch_norm, group_norm, instance_norm,  # noqa: E402,F401
+                       layer_norm, local_response_norm, normalize,
+                       spectral_norm)
+from .random_ops import (alpha_dropout, channel_shuffle,  # noqa: E402,F401
+                         dropout, dropout2d, dropout3d)
+from .reduction import mode  # noqa: E402,F401
+from ..core.tensor import Tensor, to_tensor  # noqa: E402,F401

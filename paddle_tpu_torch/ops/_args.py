@@ -18,17 +18,18 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..core import dtype as _dtype
 from .misc import torch_dtype
 
 __all__ = ["dims", "norm_axis", "tensor", "operands", "deterministic",
            "dtype_of", "astype"]
 
-def dtype_of(d, default=torch.float32):
+def dtype_of(d):
     """A Paddle dtype (a name, a torch or numpy dtype, ``None``: the
-    default, float32 as the JAX package's ``convert_dtype(None)``) as a
-    torch dtype."""
+    default, ``core.dtype.set_default_dtype``'s, as the JAX package's
+    ``convert_dtype(None)``) as a torch dtype."""
     if d is None:
-        return default
+        return _dtype.convert_dtype(None)
     if not isinstance(d, (str, torch.dtype)):
         d = np.dtype(d).name
     return torch_dtype(d)

@@ -19,7 +19,11 @@ The JAX package's forms are kept:
 - ``norm`` with a number ``p`` is ``sum(|x|^p)^(1/p)`` (``max``/``min``
   of ``|x|`` at ``±inf``, a count at 0);
 - ``histogram`` with ``min == max == 0`` takes the data's range; its
-  counts are integers.
+  counts are integers;
+- an integer or bool matrix is float32 in the decompositions, the
+  solves, ``det``/``slogdet``, ``cov`` and ``corrcoef`` (``_float``), as
+  jnp promotes it; ``mv`` and ``multi_dot`` of bools give a bool, as
+  ``matmul`` does.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ import torch
 
 from ._args import tensor
 from ._base import register
+from .math import _matmul
+from .reduction import _float
 
 __all__ = ["norm", "dist", "cholesky", "inverse", "matrix_power", "pinv",
            "svd", "qr", "eig", "eigh", "eigvals", "eigvalsh", "matrix_rank",
@@ -80,7 +86,7 @@ def dist(x, y, p=2.0, name=None):
 
 @register("cholesky", inputs=("x",))
 def _cholesky(x, *, upper=False):
-    lo = torch.linalg.cholesky(x)
+    lo = torch.linalg.cholesky(_float(x))
     return lo.transpose(-1, -2) if upper else lo
 
 
@@ -92,7 +98,7 @@ def cholesky(x, upper=False, name=None):
 
 @register("inverse", inputs=("x",))
 def _inverse(x):
-    return torch.linalg.inv(x)
+    return torch.linalg.inv(_float(x))
 
 
 def inverse(x, name=None):
@@ -112,7 +118,7 @@ def matrix_power(x, n, name=None):
 
 @register("pinv", inputs=("x",))
 def _pinv(x, *, rcond=1e-15):
-    return torch.linalg.pinv(x, rtol=rcond)
+    return torch.linalg.pinv(_float(x), rtol=rcond)
 
 
 def pinv(x, rcond=1e-15, hermitian=False, name=None):
@@ -123,39 +129,41 @@ def pinv(x, rcond=1e-15, hermitian=False, name=None):
 
 def svd(x, full_matrices=False, name=None):
     """``(U, S, V)`` with ``x = U diag(S) Vᵀ``."""
-    u, s, vh = torch.linalg.svd(x, full_matrices=bool(full_matrices))
+    u, s, vh = torch.linalg.svd(_float(x),
+                                full_matrices=bool(full_matrices))
     return u, s, vh.transpose(-1, -2)
 
 
 def qr(x, mode="reduced", name=None):
     """``(Q, R)``, ``reduced`` or ``complete``."""
-    return tuple(torch.linalg.qr(x, mode=mode))
+    return tuple(torch.linalg.qr(_float(x), mode=mode))
 
 
 def eig(x, name=None):
     """The eigenvalues and eigenvectors of a square ``x``, complex."""
-    return tuple(torch.linalg.eig(x))
+    return tuple(torch.linalg.eig(_float(x)))
 
 
 def eigh(x, UPLO="L", name=None):
     """The eigenvalues (ascending) and eigenvectors of a symmetric
     ``x``, from its ``UPLO`` triangle."""
-    return tuple(torch.linalg.eigh(x, UPLO=UPLO))
+    return tuple(torch.linalg.eigh(_float(x), UPLO=UPLO))
 
 
 def eigvals(x, name=None):
     """The eigenvalues of a square ``x``, complex."""
-    return torch.linalg.eigvals(x)
+    return torch.linalg.eigvals(_float(x))
 
 
 def eigvalsh(x, UPLO="L", name=None):
     """The eigenvalues of a symmetric ``x``, ascending."""
-    return torch.linalg.eigvalsh(x, UPLO=UPLO)
+    return torch.linalg.eigvalsh(_float(x), UPLO=UPLO)
 
 
 def matrix_rank(x, tol=None, hermitian=False, name=None):
     """The number of singular values above ``tol`` (default: the largest
     times ``eps * max(m, n)``)."""
+    x = _float(x)
     if tol is None:
         return torch.linalg.matrix_rank(x)
     return torch.linalg.matrix_rank(x, atol=float(tol), rtol=0.0)
@@ -163,7 +171,7 @@ def matrix_rank(x, tol=None, hermitian=False, name=None):
 
 @register("det", inputs=("x",))
 def _det(x):
-    return torch.linalg.det(x)
+    return torch.linalg.det(_float(x))
 
 
 def det(x, name=None):
@@ -173,7 +181,7 @@ def det(x, name=None):
 
 @register("slogdet", inputs=("x",))
 def _slogdet(x):
-    sign, logdet = torch.linalg.slogdet(x)
+    sign, logdet = torch.linalg.slogdet(_float(x))
     return sign, logdet
 
 
@@ -235,6 +243,7 @@ def solve(x, y, name=None):
 
 def _lstsq(a, b, rcond):
     """``jnp.linalg.lstsq``: ``(x, residuals, rank, s)``."""
+    a, b = _float(a), _float(b)
     one_d = b.dim() == 1
     if one_d:
         b = b[:, None]
@@ -278,7 +287,7 @@ def histogram(input, bins=100, min=0, max=0, name=None):
 
 @register("mv", inputs=("x", "vec"))
 def _mv(x, vec):
-    return torch.matmul(x, vec)
+    return _matmul(x, vec)
 
 
 def mv(x, vec, name=None):
@@ -288,6 +297,11 @@ def mv(x, vec, name=None):
 
 @register("multi_dot_2", inputs=("xs",))
 def _multi_dot(*xs):
+    if all(x.dtype == torch.bool for x in xs):
+        out = xs[0]
+        for x in xs[1:]:
+            out = _matmul(out, x)
+        return out
     return torch.linalg.multi_dot(xs)
 
 
@@ -299,6 +313,7 @@ def multi_dot(x, name=None):
 
 @register("cov", inputs=("x",))
 def _cov(x, *, rowvar=True, ddof=1):
+    x = _float(x)
     return torch.cov(x if rowvar or x.dim() < 2 else x.transpose(0, 1),
                      correction=ddof)
 
@@ -311,6 +326,7 @@ def cov(x, rowvar=True, ddof=True, fweights=None, aweights=None, name=None):
 
 @register("corrcoef", inputs=("x",))
 def _corrcoef(x, *, rowvar=True):
+    x = _float(x)
     return torch.corrcoef(x if rowvar or x.dim() < 2
                           else x.transpose(0, 1))
 

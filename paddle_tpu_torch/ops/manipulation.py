@@ -787,8 +787,11 @@ def unique(x, return_index=False, return_inverse=False, return_counts=False,
 
 def bincount(x, weights=None, minlength=0, name=None):
     """The count of each value of the non-negative ints ``x`` (or the sum
-    of their ``weights``), ``max(x.max() + 1, minlength)`` long."""
+    of their ``weights``), ``max(x.max() + 1, minlength)`` long; a
+    bool ``x`` counts as 0 and 1."""
     x = x.reshape(-1)
+    if x.dtype == torch.bool:
+        x = x.to(torch.int64)
     n = max(int(x.max()) + 1 if x.numel() else 0, int(minlength))
     if weights is None:
         return torch.bincount(x, minlength=n)

@@ -21,7 +21,12 @@ tensor truncates it), as the JAX package's ``_binop`` converts it
   gradient splits as ``jnp.clip``'s does;
 - ``lerp`` is ``x + w (y - x)`` (``torch.lerp`` switches formulas at
   ``w = 0.5``);
-- ``outer`` flattens its operands and ``dot`` sums the last axis.
+- ``outer`` flattens its operands and ``dot`` sums the last axis;
+- a bool operand is an int in ``floor_divide``, ``remainder`` and
+  ``pow``, an int or bool a float32 in ``logaddexp``, and ``abs``,
+  ``floor``, ``ceil`` and ``trunc`` give a bool back as it is; two bool
+  operands of ``matmul`` and ``inner`` give a bool, true where any
+  product is.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 
 from ._args import astype, operands, tensor
 from ._base import register
+from .reduction import _float
 
 __all__ = ["add", "subtract", "multiply", "divide", "floor_divide",
            "remainder", "mod", "pow", "maximum", "minimum", "atan2",
@@ -41,6 +47,29 @@ __all__ = ["add", "subtract", "multiply", "divide", "floor_divide",
            "asin", "acos", "atan", "sinh", "cosh", "asinh", "acosh", "atanh",
            "erf", "erfinv", "sign", "reciprocal", "square", "digamma",
            "lgamma", "frac", "angle", "conj", "deg2rad", "rad2deg"]
+
+
+def _int(x):
+    """A bool ``x`` as int64, as jnp promotes a bool in integer
+    arithmetic (its int32: the port's integers are int64)."""
+    return x.to(torch.int64) if x.dtype == torch.bool else x
+
+
+def _ints(fn):
+    return lambda x, y: fn(_int(x), _int(y))
+
+
+def _floats(fn):
+    return lambda x, y: fn(_float(x), _float(y))
+
+
+def _matmul(x, y):
+    """``torch.matmul``, with jnp's rule for two bool operands: a bool
+    product, true where any term is (counted in float32, exact to
+    2^24 terms, since cuBLAS has no integer GEMM)."""
+    if x.dtype == torch.bool and y.dtype == torch.bool:
+        return torch.matmul(x.to(torch.float32), y.to(torch.float32)) > 0
+    return torch.matmul(x, y)
 
 
 def _remainder(x, y):
@@ -71,13 +100,13 @@ add = _binary("add", torch.add)
 subtract = _binary("subtract", torch.subtract)
 multiply = _binary("multiply", torch.multiply)
 divide = _binary("divide", torch.true_divide)
-floor_divide = _binary("floor_divide", _floor_divide)
-remainder = mod = _binary("remainder", _remainder)
-pow = _binary("pow", torch.pow)
+floor_divide = _binary("floor_divide", _ints(_floor_divide))
+remainder = mod = _binary("remainder", _ints(_remainder))
+pow = _binary("pow", _ints(torch.pow))
 maximum = _binary("maximum", torch.maximum)
 minimum = _binary("minimum", torch.minimum)
 atan2 = _binary("atan2", torch.atan2)
-logaddexp = _binary("logaddexp", torch.logaddexp)
+logaddexp = _binary("logaddexp", _floats(torch.logaddexp))
 
 
 @register("matmul", inputs=("x", "y"))
@@ -87,7 +116,7 @@ def matmul(x, y, transpose_x=False, transpose_y=False):
         x = x.transpose(-1, -2)
     if transpose_y and y.dim() >= 2:
         y = y.transpose(-1, -2)
-    return torch.matmul(x, y)
+    return _matmul(x, y)
 
 
 def mm(x, y, name=None):
@@ -128,6 +157,8 @@ def _outer(x, y):
 
 @register("inner", inputs=("x", "y"))
 def _inner(x, y):
+    if x.dtype == torch.bool and y.dtype == torch.bool:
+        return torch.inner(x.to(torch.float32), y.to(torch.float32)) > 0
     return torch.inner(x, y)
 
 
@@ -323,14 +354,21 @@ def _frac(x):
     return x - torch.trunc(x)
 
 
+def _same_bool(fn):
+    """``fn``, with a bool ``x`` given back as it is (jnp's ``abs``,
+    ``floor``, ``ceil`` and ``trunc`` of a bool)."""
+    return lambda x: x.clone() if x.dtype == torch.bool else fn(x)
+
+
 # the unary table (``math.py:133-178``), under its registry names;
 # ``tanh`` is ``ops.activation``'s
 _UNARY = {
     "exp": torch.exp, "expm1": torch.expm1, "log": torch.log,
     "log2": torch.log2, "log10": torch.log10, "log1p": torch.log1p,
-    "sqrt": torch.sqrt, "rsqrt": torch.rsqrt, "abs": torch.abs,
-    "neg": torch.neg, "floor": torch.floor, "ceil": torch.ceil,
-    "round": torch.round, "trunc": torch.trunc, "sin": torch.sin,
+    "sqrt": torch.sqrt, "rsqrt": torch.rsqrt, "abs": _same_bool(torch.abs),
+    "neg": torch.neg, "floor": _same_bool(torch.floor),
+    "ceil": _same_bool(torch.ceil), "round": torch.round,
+    "trunc": _same_bool(torch.trunc), "sin": torch.sin,
     "cos": torch.cos, "tan": torch.tan, "asin": torch.asin,
     "acos": torch.acos, "atan": torch.atan, "sinh": torch.sinh,
     "cosh": torch.cosh, "asinh": torch.asinh, "acosh": torch.acosh,

@@ -22,8 +22,11 @@ the op is written out in the JAX form:
 - ``kthvalue``'s index under ties is the k-th of a stable sort
   (``reduction.py:136-144``), where ``torch.kthvalue`` gives any.
 
-Indices come out ``int64`` (Paddle's type); the JAX package, without
-x64, gives ``int32``.
+Integer and bool inputs promote as jnp promotes them: ``mean``,
+``nanmean``, ``std`` and ``var`` compute in float32 (``_float``), and
+``argmax``/``argmin`` take a bool as 0 and 1. Indices come out
+``int64`` (Paddle's type); the JAX package, without x64, gives
+``int32``.
 """
 from __future__ import annotations
 
@@ -76,10 +79,17 @@ def _bool(x):
     return x if x.dtype == torch.bool else x != 0
 
 
+def _float(x):
+    """An integer or bool ``x`` as float32, as jnp promotes it in a
+    mean, a variance or a decomposition; a float ``x`` as it is."""
+    return x if x.is_floating_point() or x.is_complex() \
+        else x.to(torch.float32)
+
+
 sum = _reduction("reduce_sum",
                  lambda x, d, k: torch.sum(x, dim=d, keepdim=k))
 mean = _reduction("reduce_mean",
-                  lambda x, d, k: torch.mean(x, dim=d, keepdim=k))
+                  lambda x, d, k: torch.mean(_float(x), dim=d, keepdim=k))
 max = amax = _reduction("reduce_max",
                         lambda x, d, k: torch.amax(x, dim=d, keepdim=k))
 min = amin = _reduction("reduce_min",
@@ -95,13 +105,15 @@ count_nonzero = _reduction(
     "count_nonzero", lambda x, d, k: torch.sum(x != 0, dim=d, keepdim=k))
 nansum = _reduction("nansum",
                     lambda x, d, k: torch.nansum(x, dim=d, keepdim=k))
-nanmean = _reduction("nanmean",
-                     lambda x, d, k: torch.nanmean(x, dim=d, keepdim=k))
+nanmean = _reduction(
+    "nanmean", lambda x, d, k: torch.nanmean(_float(x), dim=d, keepdim=k))
 
 
 def _arg(name, fn):
     @register(name, inputs=("x",))
     def _op(x, *, axis=None, keepdim=False):
+        if x.dtype == torch.bool:   # torch refuses bool; jnp counts it 0/1
+            x = x.to(torch.uint8)
         if axis is None:   # over the flattened x, never kept
             return fn(x.reshape(-1), 0)
         return fn(x, int(axis), keepdim)
@@ -123,13 +135,13 @@ argmin = _arg("argmin", lambda x, d, k=False: torch.argmin(x, d, keepdim=k))
 
 @register("std", inputs=("x",))
 def _std(x, *, axis=None, unbiased=True, keepdim=False):
-    return torch.std(x, dim=dims(axis, x), correction=int(bool(unbiased)),
+    return torch.std(_float(x), dim=dims(axis, x), correction=int(bool(unbiased)),
                      keepdim=keepdim)
 
 
 @register("var", inputs=("x",))
 def _var(x, *, axis=None, unbiased=True, keepdim=False):
-    return torch.var(x, dim=dims(axis, x), correction=int(bool(unbiased)),
+    return torch.var(_float(x), dim=dims(axis, x), correction=int(bool(unbiased)),
                      keepdim=keepdim)
 
 
@@ -145,10 +157,6 @@ def var(x, axis=None, unbiased=True, keepdim=False, name=None):
     ``unbiased``."""
     return _var(tensor(x), axis=norm_axis(axis), unbiased=bool(unbiased),
                 keepdim=bool(keepdim))
-
-
-def _float(x):
-    return x if x.is_floating_point() else x.to(torch.float32)
 
 
 @register("median", inputs=("x",))

@@ -123,12 +123,16 @@ __all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adadelta",
 
 
 def _named(parameters):
+    """``[(name, parameter)]``: ``(name, parameter)`` pairs as they are;
+    a parameter alone under its ``name`` (``core.Parameter``, as the JAX
+    package keys its state, ``paddle_tpu/optim/optimizer.py:166-174``),
+    else ``param_<i>``."""
     out = []
     for i, item in enumerate(parameters):
         if isinstance(item, tuple):
             out.append(item)
         else:
-            out.append((f"param_{i}", item))
+            out.append((getattr(item, "name", None) or f"param_{i}", item))
     return out
 
 

@@ -31,8 +31,8 @@ import pickle
 
 import numpy as np
 import torch
-from torch import nn
 
+from ..nn.layer import Layer
 from ..nn import functional as F
 from ..nn.layers.common import Linear
 from ..nn.layers.conv import Conv2D
@@ -118,7 +118,7 @@ def dequantize(q, scale, dtype=torch.float32):
 # ---------------------------------------------------------------------------
 
 
-class _Int8Weight(nn.Module):
+class _Int8Weight(Layer):
     """The int8 weight of ``layer`` with per-channel scales on
     ``channel_axis``, as buffers on the layer's device."""
 
@@ -238,7 +238,7 @@ class PostTrainingQuantization:
         return self.model
 
 
-class QATLinear(nn.Module):
+class QATLinear(Layer):
     """Fake-quant wrapper owning the original Linear (the same Parameter
     objects, so an optimizer built after wrapping trains the float32
     weights; gradients go straight through the fake-quant)."""
@@ -257,7 +257,7 @@ class QATLinear(nn.Module):
         return F.linear(x, w, self.inner.bias)
 
 
-class QATConv2D(nn.Module):
+class QATConv2D(Layer):
     def __init__(self, conv, bits=8, quantize_inputs=True):
         super().__init__()
         self.inner = conv

@@ -48,8 +48,9 @@ import weakref
 
 import numpy as np
 import torch
-from torch import nn
 
+from ..nn.layer import Layer
+from ..core.tensor import Parameter
 from .._device import resolve_device
 from ..obs import journal as _journal
 from ..obs import lockdep as _lockdep
@@ -124,7 +125,7 @@ def _len_bucket(n, floor):
     return b
 
 
-class TinyLM(nn.Module):
+class TinyLM(Layer):
     """A deterministic one-layer attention LM — the built-in serving
     model. Tied embeddings, one causal attention layer with residual,
     weights drawn from a seeded numpy RNG in the JAX ``TinyLM``'s order
@@ -158,9 +159,9 @@ class TinyLM(nn.Module):
             # float32 draws divided in float64 (numpy's promotion), then
             # rounded to float32 — as the JAX model's jnp.asarray does
             a = rng.randn(*shape).astype(np.float32) / np.sqrt(shape[0])
-            return nn.Parameter(
+            return Parameter(
                 torch.from_numpy(a).to(self.device, torch.float32),
-                requires_grad=False)
+                trainable=False)
 
         self.embedding = w(self.vocab_size, E)
         self.wq, self.wk, self.wv, self.wo = w(E, E), w(E, E), w(E, E), \

@@ -7,6 +7,12 @@ the torch calls on a Program's Variables record into the default
 Program (``program.ProgramRecorder``) instead of running;
 ``Executor.run`` replays the recorded program on the card, one CUDA
 graph per cache key.
+
+``ProgramTracer`` is the JAX package's name for the recorder
+(``ProgramRecorder``), and ``create_parameter`` makes a parameter
+Variable of the default main program. The JAX package's ``static.nn``
+builders come from ``fluid.layers``, which is not ported (ROADMAP
+Queue 1, item 10).
 """
 from ..ops import _base
 from .backward import append_backward, gradients  # noqa: F401
@@ -24,7 +30,26 @@ __all__ = ["Variable", "Operator", "Block", "Program", "program_guard",
            "append_backward", "gradients", "CacheKey", "Executor",
            "build_optimize_ops", "CompiledProgram", "BuildStrategy",
            "ExecutionStrategy", "enable_static", "disable_static",
-           "in_static_mode"]
+           "in_static_mode", "ProgramTracer", "create_parameter"]
+
+ProgramTracer = ProgramRecorder
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    """``paddle.static.create_parameter``: a parameter of ``shape`` and
+    ``dtype``, named ``name`` (else by ``attr``, else generated), as
+    ``nn.create_parameter`` makes it; a bias starts at zero. In static
+    mode a persistable Variable of the default main program, its value
+    in the global scope."""
+    from ..nn.layers.common import create_parameter as _create
+    from ..nn.param_attr import ParamAttr
+
+    attr = ParamAttr._to_attr(attr)
+    if name is not None and attr is not False:
+        attr.name = name
+    return _create(shape, attr, is_bias=is_bias,
+                   default_initializer=default_initializer, dtype=dtype)
 
 
 def enable_static():

@@ -275,6 +275,25 @@ assert NGramLM(11, 4, 8, device="cpu")(torch.ones(2, 4, dtype=torch.int64))\
     .shape == (2, 11)
 assert pt_api.topk(torch.tensor([3.0, 1.0, 3.0]), 2)[1].tolist() == [0, 2]
 assert float(pt_api.dist(torch.ones(3), torch.zeros(3))) ** 2 > 2.99
+import paddle_tpu_torch.tensor.math
+from paddle_tpu_torch import modules_compat
+from paddle_tpu_torch.core import autograd, device, dtype, tensor
+from paddle_tpu_torch.nn import layer
+pt_api.set_device("cpu")
+spec = importlib.util.spec_from_file_location(
+    "paddle_gpt_script", os.path.join(sys.argv[1], "tools",
+                                      "paddle_gpt_script.py"))
+script = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(script)
+cfg = dict(script.CONFIGS["tiny"], layers=1, seq=4, batch=1)
+net = script.make_model(pt_api, cfg)
+ids, labels = script.batches(cfg, 1)[0]
+assert float(script.loss_fn(pt_api, net, pt_api.to_tensor(ids),
+                            pt_api.to_tensor(labels))) > 0
+assert pt_api.to_static(net)(ids).shape == (1, 4, 256)
+for name in ("optimizer", "static", "device", "distributed", "regularizer",
+             "TrainStep", "save", "jit", "nn", "amp", "serving"):
+    getattr(pt_api, name)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad

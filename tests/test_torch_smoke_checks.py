@@ -37,7 +37,11 @@ passes the kernels' launch counts through. And the rare optimizers'
 phase (22): ``rule_value_check`` passes each honest rule on the CPU
 (seen: 3.3e-6 of the update at most, limit ``RULE_TOL`` 1e-4) and fails
 LarsMomentum planted without its decay term, the fault
-``tools/torch_planted_faults.py --rare`` plants on the card.
+``tools/torch_planted_faults.py --rare`` plants on the card. And the
+user surface's phase (25): its configuration is bench_gpt's model and
+it expects bench_gpt's launches, and the Paddle script reaches the
+LayerNorm, flash-attention and cross-entropy wrappers as often as it
+expects the card to launch them.
 """
 import pathlib
 import re
@@ -616,3 +620,65 @@ def test_phase_24_tensor_check_runs_on_the_cpu():
     the tensor API has a case, and none moves its bits or syncs here."""
     moving, syncing = cs.tensor_card_check("cpu", device="cpu")
     assert moving == [] and syncing == []
+
+
+# -- phase 25: the Paddle script of tools/paddle_gpt_script.py ---------------
+
+
+def test_phase_25_expects_bench_gpts_launches_at_bench_gpts_widths():
+    """The script's configuration is bench_gpt's model, and phase 25
+    expects a step to launch what phase 10's bench_gpt step launches
+    (25/25/1/1/12/12/12), a forward 25 LayerNorm and 12 flash forwards."""
+    from paddle_tpu_torch.models.nlp import gpt
+
+    S = cs.surface_script()
+    cfg, ref = S.CONFIGS[cs.SURFACE_CONFIG], gpt.gpt_small()
+    assert (cfg["vocab"], cfg["hidden"], cfg["layers"], cfg["heads"],
+            cfg["max_len"], cfg["seq"]) == (ref.vocab_size, ref.hidden,
+                                             ref.layers, ref.heads,
+                                             ref.max_seq, ref.max_seq)
+    assert cfg["batch"] == cs.TRAIN_CONFIGS["bench_gpt"]["batch"]
+    assert cfg["dtype"] == "bfloat16"
+    assert cs.surface_launches(cfg, 4) == \
+        cs.train_launches("bench_gpt", ref, 4)
+    fwd = cs.surface_launches(cfg, forward_only=True)
+    assert {k: v for k, v in fwd.items() if v} == {
+        "layer_norm_fwd": 25, "flash_attention_fwd": 12}
+
+
+def test_phase_25_script_reaches_every_kernel_wrapper(monkeypatch):
+    """At a width that passes the kernels' gates (L 128, head 64, vocab a
+    multiple of 128), one step of the script on the CPU goes through the
+    LayerNorm, flash-attention and cross-entropy wrappers as often as
+    ``surface_launches`` says the card launches them."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn.functional import attention, loss
+    from paddle_tpu_torch.ops import norm_ops
+
+    calls = {"layer_norm_fwd": 0, "flash_attention_fwd": 0,
+             "softmax_ce_fwd": 0}
+
+    def counted(mod, attr, name):
+        real = getattr(mod, attr)
+
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+
+        monkeypatch.setattr(mod, attr, wrapper)
+
+    counted(norm_ops, "fused_layer_norm", "layer_norm_fwd")
+    counted(attention, "flash_attention", "flash_attention_fwd")
+    counted(loss, "softmax_cross_entropy", "softmax_ce_fwd")
+    S = cs.surface_script()
+    cfg = S.CONFIGS["tiny"]
+    place = pt._device.CURRENT[0]
+    pt.set_device("cpu")
+    try:
+        model = S.make_model(pt, cfg)
+        losses, _ = S.train(pt, model, S.batches(cfg, 1), cfg)
+    finally:
+        pt._device.CURRENT[0] = place
+    want = cs.surface_launches(cfg)
+    assert calls == {k: want[k] for k in calls}, calls
+    assert np.isfinite(losses[0]) and abs(losses[0] - np.log(256)) < 0.5

@@ -148,6 +148,47 @@ LINALG = [
 ]
 
 
+# integer and bool matrices promote as jnp promotes them (ROADMAP Queue
+# 3, fault 1): float32 decompositions and statistics, bool products
+INTS23 = c([[1, 2, 3], [4, 6, 5]], np.int64)
+BOOLS = c([[True, False, True], [False, True, True]])
+
+
+def _promoted(name, call, inputs, tol="linalg", label=None):
+    return Case(name, call, inputs, tol=tol, label=label, types=True)
+
+
+PROMOTION = [
+    *[_promoted(n, call, [x], label=f"{n}_{kind}")
+      for kind, x in (("int", INTS23), ("bool", BOOLS))
+      for n, call in (
+          ("pinv", lambda m, d, x: m.pinv(x)),
+          # values only where the vectors' signs are free
+          ("svd", lambda m, d, x: m.svd(x)[1]),
+          ("qr", lambda m, d, x: m.abs(m.qr(x)[1])),
+          ("matrix_rank", lambda m, d, x: m.matrix_rank(x)))],
+    # torch's cov takes integers, not bools
+    _promoted("cov", lambda m, d, x: m.cov(x), [BOOLS], label="cov_bool"),
+    _promoted("corrcoef", lambda m, d, x: m.corrcoef(x), [BOOLS],
+              label="corrcoef_bool"),
+    _promoted("lstsq", lambda m, d, x, y: m.lstsq(x, y)[0],
+              [c([[1, 2], [3, 4], [5, 7]], np.int64),
+               c([1, 2, 4], np.int64)], label="lstsq_int"),
+    _promoted("lstsq", lambda m, d, x, y: m.lstsq(x, y)[0],
+              [c([[True, False], [True, True], [False, True]]),
+               c([True, False, True])], label="lstsq_bool"),
+    _promoted("det", lambda m, d, x: m.det(x),
+              [c([[1, 2], [3, 4]], np.int64)], label="det_int"),
+    _promoted("mv", lambda m, d, x, v: m.mv(x, v),
+              [BOOLS, c([False, True, False])], tol="exact",
+              label="mv_bool"),
+    _promoted("multi_dot", lambda m, d, x, y, z: m.multi_dot([x, y, z]),
+              [BOOLS, c(np.array([[True, False], [False, False],
+                                  [False, True]])), BOOLS],
+              tol="exact", label="multi_dot_bool"),
+]
+
+
 def _pred(m, x):
     return m.less_than(m.sum(x), m.full([], 0.0, **(
         {"device": "cpu"} if m is pt else {})))
@@ -182,7 +223,7 @@ CONTROL = [
          label="scan_reverse"),
 ]
 
-CASES = LINALG + CONTROL
+CASES = LINALG + CONTROL + PROMOTION
 
 
 @pytest.mark.parametrize("case", CASES, ids=ids(CASES))

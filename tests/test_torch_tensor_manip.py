@@ -145,6 +145,11 @@ DATA_SHAPED = [
     _m("bincount", lambda m, d, x, w: m.bincount(x, w),
        [c([0, 3, 3, 1, 3]), f(5)], tol="f32", grad=False,
        label="bincount_weights"),
+    # a bool counts as 0 and 1, as jnp promotes it (ROADMAP Queue 3,
+    # fault 1)
+    Case("bincount", lambda m, d, x: m.bincount(x),
+         [c([True, False, True, True])], tol="exact",
+         label="bincount_bool", types=True),
 ]
 
 CASES = SHAPE + GATHER + SORTING + DATA_SHAPED

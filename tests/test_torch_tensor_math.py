@@ -146,7 +146,37 @@ MATH = [
       for n in ("isnan", "isinf", "isfinite")],
 ]
 
-CASES = CREATION + MATH
+# bool and integer operands promote as jnp promotes them (ROADMAP Queue 3,
+# fault 1): bool as an int in integer arithmetic, as itself in abs and
+# the roundings and in a product of bools
+BOOLS = c([[True, False, True], [False, True, True]])
+TRUES = c(np.ones((2, 3), bool))
+
+
+def _promoted(name, call, inputs, tol="exact", label=None):
+    return Case(name, call, inputs, tol=tol, label=label or f"{name}_bool",
+                types=True)
+
+
+PROMOTION = [
+    *[_promoted(n, lambda m, d, x, y, n=n: getattr(m, n)(x, y),
+                [BOOLS, TRUES]) for n in ("floor_divide", "remainder",
+                                          "mod")],
+    _promoted("pow", lambda m, d, x, y: m.pow(x, y), [BOOLS, BOOLS]),
+    _promoted("logaddexp", lambda m, d, x, y: m.logaddexp(x, y),
+              [c([[1, 2], [3, 4]], np.int64), c([[0, 5], [-1, 2]],
+                                                 np.int64)],
+              tol="special", label="logaddexp_int"),
+    _promoted("logaddexp", lambda m, d, x, y: m.logaddexp(x, y),
+              [BOOLS, TRUES], tol="special"),
+    *[_promoted(n, lambda m, d, x, n=n: getattr(m, n)(x), [BOOLS])
+      for n in ("abs", "floor", "ceil", "trunc")],
+    _promoted("inner", lambda m, d, x, y: m.inner(x, y), [BOOLS, BOOLS]),
+    _promoted("matmul", lambda m, d, x, y: m.matmul(x, y, transpose_y=True),
+              [BOOLS, BOOLS]),
+]
+
+CASES = CREATION + MATH + PROMOTION
 
 
 @pytest.mark.parametrize("case", CASES, ids=ids(CASES))

@@ -127,7 +127,30 @@ COMPARE = [
          label="is_empty_not"),
 ]
 
-CASES = REDUCTION + COMPARE
+# integer and bool inputs promote as jnp promotes them (ROADMAP Queue 3,
+# fault 1): float32 means and variances, bool arg-extremes
+INTS22 = c([[1, 2], [3, 4]], np.int64)
+BOOLS = c([[True, False, True], [False, True, True]])
+
+
+def _promoted(name, call, x, tol="f32", label=None):
+    return Case(name, call, [x], tol=tol, label=label, types=True)
+
+
+PROMOTION = [
+    *[_promoted(n, lambda m, d, x, n=n: getattr(m, n)(x), INTS22,
+                label=f"{n}_int") for n in ("mean", "std", "var",
+                                            "nanmean")],
+    *[_promoted(n, lambda m, d, x, n=n: getattr(m, n)(x, axis=1), BOOLS,
+                label=f"{n}_bool") for n in ("mean", "std", "var",
+                                             "nanmean")],
+    _promoted("argmax", lambda m, d, x: m.argmax(x, axis=1), BOOLS,
+              tol="exact", label="argmax_bool"),
+    _promoted("argmin", lambda m, d, x: m.argmin(x), BOOLS, tol="exact",
+              label="argmin_bool"),
+]
+
+CASES = REDUCTION + COMPARE + PROMOTION
 
 
 @pytest.mark.parametrize("case", CASES, ids=ids(CASES))

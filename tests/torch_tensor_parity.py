@@ -21,7 +21,10 @@ compared value by value, nested tuples flattened:
 
 With ``grad``, the gradients of every float input of ``sum(out * g)``
 are held to the JAX tape's at the same tolerance (``f32`` for an
-``exact`` case: its gradient sums).
+``exact`` case: its gradient sums). With ``types``, each output's type
+is held to the JAX package's too: float32 where it gives float32, bool
+where bool, an integer where an integer (int64 for its int32: the
+port's integers and indices are int64).
 """
 import numpy as np
 import torch
@@ -40,9 +43,10 @@ class Case:
     ``jax=False``)."""
 
     def __init__(self, name, call, inputs=(), tol="f32", grad=False,
-                 check=None, label=None, jax=True):
+                 check=None, label=None, jax=True, types=False):
         self.name, self.call, self.inputs = name, call, tuple(inputs)
         self.tol, self.grad, self.check, self.jax = tol, grad, check, jax
+        self.types = types
         self.id = label or name
 
     def __repr__(self):
@@ -165,6 +169,14 @@ def close(got, want, tol, what):
                                err_msg=what)
 
 
+def same_type(got, want, what):
+    """``got``'s type is the JAX package's ``want``'s, an int64 standing
+    for its int32."""
+    g, w = np.asarray(got).dtype, np.asarray(want).dtype
+    assert g == w or (w == np.int32 and g == np.int64), \
+        f"{what}: type {g} vs the reference's {w}"
+
+
 def arrays_of(case):
     rng = np.random.RandomState(0)
     return [mk(rng) for mk in case.inputs]
@@ -181,6 +193,9 @@ def check_case(case):
         assert len(got) == len(want), (len(got), len(want))
         for k, (g, w) in enumerate(zip(got, want)):
             close(g, w, case.tol, f"{case.id} output {k}")
+    if case.types:
+        for k, (g, w) in enumerate(zip(got, want)):
+            same_type(g, w, f"{case.id} output {k}")
     if case.grad and case.jax:
         # a gradient sums the cotangents a broadcast or repeat spread:
         # float32 sums in another order, even where the values are exact
