@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving path, its training steps (GPT, BERT,
-ResNet-50), its serving fleet, the step as one CUDA graph, its decoding,
-its checkpointed and guarded training, its static graph, the serve bench,
-the int8 Predictor, float16 mixed precision with recompute, the rest of
-Paddle's optimizers, initializers and run reports, its layer library
-with the book's sentiment nets, and the tensor API with the book's
-word2vec and recommender nets once on one NVIDIA H100.
+ResNet-50, VGG-16, MobileNet V1/V2), its serving fleet, the step as one
+CUDA graph, its decoding, its checkpointed and guarded training, its
+static graph, the serve bench, the int8 Predictor, float16 mixed
+precision with recompute, the rest of Paddle's optimizers, initializers
+and run reports, its layer library with the book's sentiment nets, the
+tensor API with the book's word2vec and recommender nets, the Paddle
+user surface and the rest of the op library once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -335,6 +336,25 @@ any failed check:
              it), each loss the branch its flag picks, a captured
              ``run_fused`` over it raising ``RuntimeError``; ``scan``
              captured and replayed = op by op bitwise.
+25. surface — ``tools/paddle_gpt_script.py`` at bench_gpt's widths
+             through the Paddle user surface (``surface_phase``).
+26. vision — (a) ``vgg16()``, ``MobileNetV1()`` and ``MobileNetV2()``
+             at full width as bench_resnet50 trains ResNet-50 (224 x 224,
+             1000 classes, their default dropout, batch 128 from
+             RandomState(0), ``bfloat16()``, Momentum(0.1, 0.9) with
+             masters; ``vision_phase``): the first forward against a
+             float32 ``torch.nn.functional`` reference (logits, loss near
+             ln 1000 with dropout off, each conv against a float32 conv
+             of its input), two op-by-op steps the same bits, 4 graphed
+             steps = 4 op-by-op steps bitwise (buffers, velocities,
+             masters), no launch of the port's kernels, replay and
+             op-by-op walls, imgs/s, peak memory, a profiled step's busy
+             share and device time by group; (b) channels-last
+             ``conv2d`` at ResNet-50's and MobileNetV2's shapes against
+             the NCHW call, ``deformable_conv`` at a 64-channel 56 x 56
+             map against the CPU, and every name of the op library's rest on
+             the card against the CPU, each run twice (bits that move
+             printed).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -413,7 +433,19 @@ TRAIN_CONFIGS = {
     # bench.py:158-185: Momentum(0.1, 0.9) instead of AdamW, no clip
     "bench_resnet50": dict(model="resnet50", dropout=0.0, bfloat16=True,
                            batch=128, multi_precision=True),
+    # phase 26: bench_resnet50's recipe for the other ImageNet models, each
+    # at its default dropout (VGG 0.5, MobileNetV2 0.2, MobileNetV1 none)
+    "bench_vgg16": dict(model="vgg16", dropout=0.5, bfloat16=True,
+                        batch=128, multi_precision=True),
+    "bench_mobilenet_v1": dict(model="mobilenet_v1", dropout=0.0,
+                               bfloat16=True, batch=128,
+                               multi_precision=True),
+    "bench_mobilenet_v2": dict(model="mobilenet_v2", dropout=0.2,
+                               bfloat16=True, batch=128,
+                               multi_precision=True),
 }
+# the image classifiers: bench_resnet50's optimizer, batch and loss
+IMAGE_MODELS = ("resnet50", "vgg16", "mobilenet_v1", "mobilenet_v2")
 BERT_SEQ = 128          # bench.py:bench_bert's L
 # bfloat16 MLM logits of the kernels against the plain versions (12 layers
 # of bfloat16 activations), as a share of the largest |logit|: two
@@ -1091,20 +1123,29 @@ def train_launches(config, cfg, steps):
             "flash_attention_bwd_dq": fl, "flash_attention_bwd_dkv": fl}
 
 
+def image_model(name, device="cuda", generator=None, **kw):
+    """The image classifier ``name`` of ``IMAGE_MODELS`` at its defaults
+    (``kw`` overrides them: ``scale``, ``num_classes``, ``dropout``)."""
+    from paddle_tpu_torch.models import vision
+
+    make = {"resnet50": vision.resnet50, "vgg16": vision.vgg16,
+            "mobilenet_v1": vision.MobileNetV1,
+            "mobilenet_v2": vision.MobileNetV2}[name]
+    return make(device=device, generator=generator, **kw)
+
+
 def train_model(config, seed=0):
     """``TRAIN_CONFIGS[config]``'s model on the card, weights from
-    ``seed``: ``gpt_small``, ``BertForPretraining(bert_base())`` or
-    ``resnet50()``."""
+    ``seed``: ``gpt_small``, ``BertForPretraining(bert_base())`` or an
+    image model (``image_model``)."""
     import torch
 
     from paddle_tpu_torch.models.nlp import bert, gpt
 
     c = TRAIN_CONFIGS[config]
     g = torch.Generator(device="cuda").manual_seed(seed)
-    if c["model"] == "resnet50":
-        from paddle_tpu_torch.models.vision import resnet50
-
-        model = resnet50(generator=g)
+    if c["model"] in IMAGE_MODELS:
+        model = image_model(c["model"], generator=g)
     elif c["model"] == "bert_base":
         model = bert.BertForPretraining(bert.bert_base(dropout=c["dropout"]),
                                         generator=g)
@@ -1115,11 +1156,11 @@ def train_model(config, seed=0):
 
 def train_optimizer(model, config):
     """AdamW(1e-4, decay 0.01, global-norm clip 1.0) over ``model``, with
-    ``TRAIN_CONFIGS[config]``'s multi_precision; for resnet50
+    ``TRAIN_CONFIGS[config]``'s multi_precision; for the image models
     bench_resnet50's ``Momentum(0.1, 0.9, multi_precision=True)``."""
     from paddle_tpu_torch import optim
 
-    if TRAIN_CONFIGS[config]["model"] == "resnet50":
+    if TRAIN_CONFIGS[config]["model"] in IMAGE_MODELS:
         return optim.Momentum(0.1, 0.9, parameters=model.named_parameters(),
                               multi_precision=True)
     return optim.AdamW(
@@ -1134,16 +1175,16 @@ def train_batch(model, config):
     shifted; its first loss near ln V. BERT as ``bench.py:143-148``
     builds it: batch x 128 ids, token types 0, ``attention_mask`` ones,
     MLM labels at 15% (-100 elsewhere), NSP labels; its first loss near
-    ln V + ln 2 (MLM plus NSP). ResNet-50 as ``bench.py:172-174`` builds
-    it: batch x 3 x 224 x 224 float32 images, then int32 labels of 1000
-    classes; its first loss near ln 1000."""
+    ln V + ln 2 (MLM plus NSP). The image models as ``bench.py:172-174``
+    builds ResNet-50's: batch x 3 x 224 x 224 float32 images, then int32
+    labels of 1000 classes; the first loss near ln 1000."""
     import math
 
     from paddle_tpu_torch.models.nlp import bert, gpt
 
     c = TRAIN_CONFIGS[config]
     rng = np.random.RandomState(0)
-    if c["model"] == "resnet50":
+    if c["model"] in IMAGE_MODELS:
         x = rng.randn(c["batch"], 3, RESNET_IMAGE, RESNET_IMAGE).astype(
             np.float32)
         y = rng.randint(0, RESNET_CLASSES, (c["batch"],)).astype("int32")
@@ -1476,8 +1517,6 @@ def graph_run(model, config, init, loss_fn, batches, eager, make_opt=None,
     dropout generator reseeded, through the graphed ``TrainStep`` or its
     ``_eager_step``; ``each(i, step)`` after each. Returns ``(step,
     losses, walls ms, launches)``."""
-    import torch
-
     from paddle_tpu_torch import core
     from paddle_tpu_torch.framework import TrainStep
     from paddle_tpu_torch.ops import kernels
@@ -1488,12 +1527,12 @@ def graph_run(model, config, init, loss_fn, batches, eager, make_opt=None,
     step = TrainStep(model, opt, loss_fn, scaler=scaler)
     fn = step._eager_step if eager else step
     losses, walls = [], []
-    torch.cuda.synchronize()
+    sync()
     kernels.reset_launches()
     for i, b in enumerate(batches):
         t0 = time.perf_counter()
         losses.append(float(fn(*b)))
-        torch.cuda.synchronize()
+        sync()
         walls.append((time.perf_counter() - t0) * 1e3)
         if each is not None:
             each(i, step)
@@ -2702,24 +2741,36 @@ def resnet_reference_forward(state, x):
 
 
 def resnet_value_check(model, init, batch):
+    """``image_value_check`` of ResNet-50 against
+    ``resnet_reference_forward``."""
+    return image_value_check("train-resnet", model, init, batch,
+                             resnet_reference_forward)
+
+
+def image_value_check(label, model, init, batch, reference, first=None):
     """The first step's forward, in bfloat16 through the port, against
-    ``resnet_reference_forward`` of the same weights in float32: logits
-    within RESNET_LOGIT_TOL of the reference's largest |logit|, losses
-    within RESNET_LOSS_TOL. At random weights BatchNorm and the global
-    pool leave the logits little sensitive to what a conv does (weights
-    read transposed moved them by 0.27 of the largest |logit|, against
-    0.13 for bfloat16's roundings), so each of the 53 convs' outputs is
-    also held, during that forward, to ``torch.nn.functional.conv2d`` in
-    float32 of its own bfloat16 input and weight, with the stride and
-    padding its module declares: within RESNET_CONV_TOL of the largest
-    |value| (one bfloat16 rounding of each output). A conv that pads or
-    reads its weight wrongly fails that. Returns (logit error share,
-    loss difference, the worst conv's error share)."""
+    ``reference`` (the float32 forward of the same weights, written with
+    ``torch.nn.functional``): logits within RESNET_LOGIT_TOL of the
+    reference's largest |logit|, losses within RESNET_LOSS_TOL, and the
+    loss within RESNET_LOSS_NEAR of ``first`` when given (ln 1000: logits
+    near uniform at init); dropout off for both (the reference draws no
+    masks; VGG's two dropouts at 0.5 lift its first training loss to
+    9.04 from 7.41 without them, on the card). At random weights
+    BatchNorm and the global pool leave the logits little sensitive to
+    what a conv does (ResNet-50's weights read transposed moved them by
+    0.27 of the largest |logit|, against 0.13 for bfloat16's roundings),
+    so each conv's output is also held, during that forward, to
+    ``torch.nn.functional.conv2d`` in float32 of its own bfloat16 input,
+    weight and bias, with the stride, padding, dilation and groups its
+    module declares: within RESNET_CONV_TOL of the largest |value| (one
+    bfloat16 rounding of each output). A conv that pads or reads its
+    weight wrongly fails that. Returns (logit error share, loss
+    difference, the worst conv's error share)."""
     import torch
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.nn import functional as F
-    from paddle_tpu_torch.nn.layers import Conv2D
+    from paddle_tpu_torch.nn.layers import Conv2D, Dropout
 
     dev = next(model.parameters()).device
     x, y = (torch.from_numpy(a).to(dev) for a in batch)
@@ -2730,40 +2781,51 @@ def resnet_value_check(model, init, batch):
                                         deterministic=True,
                                         allow_tf32=False):
             ref = TF.conv2d(inputs[0].float(), module.weight.float(),
-                            stride=module._stride, padding=module._padding)
+                            None if module.bias is None else
+                            module.bias.float(), stride=module._stride,
+                            padding=module._padding,
+                            dilation=module._dilation,
+                            groups=module._groups)
         convs.append(((out.float() - ref).abs().max()
                       / ref.abs().max()).item())
 
     model.load_state_dict(init)
     hooks = [m.register_forward_hook(held) for m in model.modules()
              if isinstance(m, Conv2D)]
+    drops = [(m, m.p) for m in model.modules() if isinstance(m, Dropout)]
+    for m, _ in drops:
+        m.p = 0.0
     try:
         with torch.no_grad():
             got = model(x.to(torch.bfloat16)).float()
     finally:
         for h in hooks:
             h.remove()
+        for m, p in drops:
+            m.p = p
     with torch.no_grad():
         loss = F.cross_entropy(got, y).item()
-        ref = resnet_reference_forward(
-            {k: v.float() for k, v in init.items()}, x)
+        ref = reference({k: v.float() for k, v in init.items()}, x)
         ref_loss = torch.nn.functional.cross_entropy(ref, y.long()).item()
     model.load_state_dict(init)     # the forward moved the statistics
     err = ((got - ref).abs().max() / ref.abs().max()).item()
-    log(f"train-resnet: first forward, bf16 logits vs a float32 forward of "
+    log(f"{label}: first forward, bf16 logits vs a float32 forward of "
         f"the same weights: max |diff| {err:.3e} of the largest |logit| "
         f"{ref.abs().max().item():.3f} (tol {RESNET_LOGIT_TOL}); loss "
         f"{loss:.5f} vs {ref_loss:.5f} (tol {RESNET_LOSS_TOL}); each of "
         f"{len(convs)} convs vs a float32 conv of its input: worst "
         f"{max(convs):.3e} of its largest |value| (tol {RESNET_CONV_TOL})")
-    check(bool(torch.isfinite(got).all()), "train-resnet: non-finite logits")
-    check(max(convs) <= RESNET_CONV_TOL, f"train-resnet: conv "
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
+    check(max(convs) <= RESNET_CONV_TOL, f"{label}: conv "
           f"{convs.index(max(convs))} differs from a float32 conv of its "
           f"input by {max(convs):.3e} of its largest |value|")
-    check(err <= RESNET_LOGIT_TOL, "train-resnet: the bf16 logits differ "
+    check(err <= RESNET_LOGIT_TOL, f"{label}: the bf16 logits differ "
           "from the float32 reference's")
-    check(abs(loss - ref_loss) <= RESNET_LOSS_TOL, "train-resnet: the loss "
+    check(abs(loss - ref_loss) <= RESNET_LOSS_TOL, f"{label}: the loss "
           "differs from the float32 reference's")
+    check(first is None or abs(loss - first) < RESNET_LOSS_NEAR,
+          f"{label}: the first loss {loss} (dropout off) is not within "
+          f"{RESNET_LOSS_NEAR} of {first}")
     return err, abs(loss - ref_loss), max(convs)
 
 
@@ -2805,17 +2867,18 @@ def stem_bn_check(model, init, x):
     return worst
 
 
-def resnet_eager_once(model, init, loss_fn, batch):
-    """One op-by-op step from ``init`` with a new optimizer: (loss, the
-    gradients, snapshot, wall ms)."""
-    import torch
-
+def image_eager_once(model, init, loss_fn, batch, config):
+    """One op-by-op step of ``config`` from ``init`` with a new optimizer
+    and the dropout generator reseeded: (loss, the gradients, snapshot,
+    wall ms)."""
+    from paddle_tpu_torch import core
     from paddle_tpu_torch.framework import TrainStep
 
     model.load_state_dict(init)
-    opt = train_optimizer(model, "bench_resnet50")
+    core.seed(1)
+    opt = train_optimizer(model, config)
     step = TrainStep(model, opt, loss_fn)
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     loss = float(step._eager_step(*batch))
     wall = (time.perf_counter() - t0) * 1e3
@@ -2823,95 +2886,295 @@ def resnet_eager_once(model, init, loss_fn, batch):
     return loss, grads, snapshot(model, opt), wall
 
 
-def train_resnet_phase(gpu, steps=4, timed=5):
-    """Phase 16: bench_resnet50 (``bench.py:158-185``): ``resnet50()``
-    cast with ``bfloat16()``, batch 128 x 3 x 224 x 224 from
-    RandomState(0), Momentum(0.1, 0.9, multi_precision), nothing cut.
-    The first forward against a float32 reference; two op-by-op steps
-    from one state the same bits (loss, every gradient, every BatchNorm
-    buffer, velocities and masters), the stem BatchNorm's statistics
-    after step 1 against Paddle's update; ``steps`` graphed steps against
-    ``steps`` op-by-op ones bitwise, buffers included; no launch of the
-    port's kernels (their counts and the profiler); the first loss finite
-    and near ln 1000. Logs the replay's wall and imgs/s (median of
-    ``timed`` after the capture), the op-by-op step, peak memory and the
-    device-busy share of a profiled replay."""
+# an op-by-op step's device time by group (device_ms_by_op): the first
+# group whose names appear on the stack of the op that launched a kernel
+# (the profiler ranges port::<op> that step_ranges puts around
+# nn.functional's ops, the optimizer's update, autograd's nodes) takes it
+STEP_GROUPS = (("optimizer", ("optimizer.step",)),
+               ("loss", ("port::cross_entropy", "LogSoftmax", "NllLoss")),
+               ("batch_norm", ("port::batch_norm", "_BatchNormTrain")),
+               ("depthwise_conv", ("port::depthwise_conv2d",)),
+               ("conv", ("port::conv2d", "_Conv")),
+               ("linear", ("port::linear", "MmBackward", "AddmmBackward")),
+               ("pooling", ("port::max_pool2d", "port::adaptive_avg_pool2d",
+                            "MaxPool2D", "MeanBackward")),
+               ("activation", ("port::relu", "port::relu6", "ReluBackward",
+                               "Hardtanh", "ClampBackward")),
+               ("dropout", ("port::dropout",)))
+STEP_RANGES = ("cross_entropy", "batch_norm", "conv2d", "linear",
+               "max_pool2d", "adaptive_avg_pool2d", "relu", "relu6",
+               "dropout")
+
+
+def is_step_range(name):
+    """Whether ``name`` is a profiler range of ``step_ranges`` (it shows
+    on the device's timeline too, and its time is its kernels')."""
+    return name == "optimizer.step" or name.startswith("port::")
+
+
+@contextlib.contextmanager
+def step_ranges(optimizer):
+    """While the block runs, each call of ``nn.functional``'s
+    ``STEP_RANGES`` (a conv of more than one group as
+    ``depthwise_conv2d``) runs inside a profiler range ``port::<op>``,
+    and ``optimizer``'s update inside ``optimizer.step``."""
+    from torch.profiler import record_function
+
+    from paddle_tpu_torch.nn import functional as PF
+
+    real = {n: getattr(PF, n) for n in STEP_RANGES}
+
+    def ranged(n, fn):
+        def wrapped(*a, **k):
+            name = n
+            if n == "conv2d" and int(k.get("groups", 1)) > 1:
+                name = "depthwise_conv2d"
+            with record_function(f"port::{name}"):
+                return fn(*a, **k)
+        return wrapped
+
+    apply = optimizer._apply
+
+    def ranged_apply(*a, **k):
+        with record_function("optimizer.step"):
+            return apply(*a, **k)
+
+    for n, fn in real.items():
+        setattr(PF, n, ranged(n, fn))
+    optimizer._apply = ranged_apply
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(PF, n, fn)
+        del optimizer._apply
+
+
+def _step_group(event, kernel):
+    """The group of one kernel of CPU op ``event`` (``STEP_GROUPS``): a
+    conv's kernels split into forward, dgrad and wgrad, and PyTorch's own
+    depthwise kernels (named so) into the depthwise group; BatchNorm's
+    into its reductions and its elementwise passes."""
+    names, e = [], event
+    while e is not None:
+        names.append(e.name)
+        e = e.cpu_parent
+    names = " ".join(names)
+    if any(k in kernel for k in ("Memcpy", "memcpy", "Memset")):
+        return "copy"
+    group = next((g for g, keys in STEP_GROUPS
+                  if any(k in names for k in keys)), "other")
+    if group in ("conv", "depthwise_conv"):
+        if "depthwise" in kernel:
+            group = "depthwise_conv"
+        part = ("dgrad" if "dgrad" in kernel or "backward" in kernel.lower()
+                else "wgrad" if "wgrad" in kernel or "grad_weight" in kernel
+                else "backward" if "Backward" in names else "forward")
+        return f"{group}_{part}"
+    if group == "batch_norm":
+        low = kernel.lower()
+        return ("batch_norm_reductions" if "reduce" in low or "welford" in low
+                else "batch_norm_elementwise")
+    return group
+
+
+def device_ms_by_op(prof):
+    """Of a profile taken under ``step_ranges``: device ms by group
+    (``STEP_GROUPS``), each kernel put with the op that launched it, or
+    ``None`` when the profiler linked no kernel to an op; and device ms
+    by (group, kernel name)."""
+    out, names = {}, {}
+    for e in prof.events():
+        for k in getattr(e, "kernels", ()):
+            g = _step_group(e, k.name)
+            out[g] = out.get(g, 0.0) + k.duration / 1e3
+            key = (g, k.name[:60])
+            names[key] = names.get(key, 0.0) + k.duration / 1e3
+    return out or None, names
+
+
+def step_breakdown(step, batch):
+    """``device_ms_by_op`` of one op-by-op step of the ``TrainStep``
+    ``step`` (its groups), with the three longest kernels of each of the
+    three longest groups logged."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with step_ranges(step.optimizer), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)     # see profiled
+        step._eager_step(*batch)
+        sync()
+        time.sleep(0.2)
+    out, names = device_ms_by_op(prof)
+    for g in sorted(out or {}, key=lambda g: -out[g])[:3]:
+        top = sorted(((ms, n) for (gg, n), ms in names.items() if gg == g),
+                     reverse=True)[:3]
+        log(f"  {g}: " + "; ".join(f"{n} {ms:.2f} ms" for ms, n in top))
+    return out
+
+
+def sync():
+    """Wait for the card, where there is one (a phase's checks also run
+    on the CPU, in the tests)."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def image_train_check(label, config, model, init, loss_fn, batch, first,
+                      gpu, reference, steps=4, timed=5, after_first=None):
+    """The checks phases 16 and 26 make of an image model's training
+    step, ``config``'s optimizer from the weights ``init``: the first
+    forward against ``reference`` and its loss near ``first``
+    (``image_value_check``), two op-by-op
+    steps from one state (``eager_repeat_check``), graphed against op by
+    op (``graph_compare_check``). Returns the latter's numbers."""
+    image_value_check(label, model, init, batch, reference, first)
+    eager_repeat_check(label, config, model, init, loss_fn, batch, gpu,
+                       after_first)
+    return graph_compare_check(label, config, model, init, loss_fn, batch,
+                               gpu, steps, timed)
+
+
+def eager_repeat_check(label, config, model, init, loss_fn, batch, gpu,
+                       after_first=None):
+    """Two op-by-op steps of ``config`` from ``init`` give the same bits
+    (loss, every gradient, every BatchNorm buffer, velocities and
+    masters; ``after_first(model, init, images)`` runs after the first),
+    and the first loss is finite."""
     import math
 
+    from paddle_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    runs = [image_eager_once(model, init, loss_fn, batch, config)]
+    if after_first is not None:
+        after_first(model, init, batch[0])
+    runs.append(image_eager_once(model, init, loss_fn, batch, config))
+    (l1, g1, s1, w1), (l2, g2, s2, w2) = runs
+    bad = [n for n in g1 if not torch_equal(g1[n], g2[n])]
+    bad += same_bits(s1, s2)
+    log(f"{label}: two op-by-op steps from one state: losses {l1} and "
+        f"{l2}; {len(bad)} of {len(g1)} gradients, {len(s1[0])} parameters "
+        f"and buffers and {sum(len(v) for v in s1[1].values())} optimizer "
+        f"values differ; walls {w1:.1f} and {w2:.1f} ms [{gpu}]")
+    check(l1 == l2 and not bad, f"{label}: two op-by-op steps from one "
+          f"state differ in the loss or {bad[:4]}")
+    check(math.isfinite(l1), f"{label}: first loss {l1}")
+
+
+def graph_compare_check(label, config, model, init, loss_fn, batch, gpu,
+                        steps=4, timed=5):
+    """``steps`` graphed steps of ``config`` from ``init`` against
+    ``steps`` op-by-op ones (``graph_run``, the dropout generator
+    reseeded for each): the same losses and bits in every parameter,
+    BatchNorm buffer, velocity and master; no launch of the port's
+    kernels (their counts, and on the card the profiler). On the card it
+    also logs each run's step walls, ``timed`` more steps (median,
+    imgs/s), peak memory, a profiled step's device-busy share and, for
+    the op-by-op run, the device time by group (``step_breakdown``).
+    Returns the numbers it logged by run. (On the CPU, as in the tests,
+    ``TrainStep`` has no graph: both runs go op by op.)"""
     import torch
 
     from paddle_tpu_torch.ops import kernels
 
-    t_phase = time.perf_counter()
-    config = "bench_resnet50"
-    model = train_model(config)
-    init = {k: v.clone() for k, v in model.state_dict().items()}
-    loss_fn, batch, first = train_batch(model, config)
+    card = next(model.parameters()).device.type == "cuda"
     B = batch[0].shape[0]
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"train-resnet: resnet50 {n_params / 1e6:.2f}M parameters, "
-        f"{len(list(model.buffers()))} BatchNorm buffers, bfloat16, batch "
-        f"{tuple(batch[0].shape)}, Momentum(0.1, 0.9, multi_precision)")
-    resnet_value_check(model, init, batch)
-    kernels.reset_launches()
-    runs = [resnet_eager_once(model, init, loss_fn, batch)]
-    stem_bn_check(model, init, batch[0])
-    runs.append(resnet_eager_once(model, init, loss_fn, batch))
-    (l1, g1, s1, w1), (l2, g2, s2, w2) = runs
-    bad = [n for n in g1 if not torch_equal(g1[n], g2[n])]
-    bad += same_bits(s1, s2)
-    log(f"train-resnet: two op-by-op steps from one state: losses {l1} and "
-        f"{l2}; {len(bad)} of {len(g1)} gradients, {len(s1[0])} parameters "
-        f"and buffers and {sum(len(v) for v in s1[1].values())} optimizer "
-        f"values differ; walls {w1:.1f} and {w2:.1f} ms [{gpu}]")
-    check(l1 == l2 and not bad, f"train-resnet: two op-by-op steps from one "
-          f"state differ in the loss or {bad[:4]}")
-    check(math.isfinite(l1) and abs(l1 - first) < RESNET_LOSS_NEAR,
-          f"train-resnet: first loss {l1} is not within {RESNET_LOSS_NEAR} "
-          f"of ln 1000 = {first:.4f}")
-    del runs, g1, g2, s1, s2
-    out = {}
+    out, zero = {}, dict.fromkeys(kernels.KERNELS, 0)
     for eager in (False, True):
         kind = "op by op" if eager else "graphed"
-        torch.cuda.reset_peak_memory_stats()
+        if card:
+            torch.cuda.reset_peak_memory_stats()
         step, losses, walls, launches = graph_run(
             model, config, init, loss_fn, [batch] * steps, eager)
-        state = snapshot(model, step.optimizer)
-        fn = step._eager_step if eager else step
-        more = []
-        for _ in range(timed):
-            t0 = time.perf_counter()
-            fn(*batch)
-            torch.cuda.synchronize()
-            more.append((time.perf_counter() - t0) * 1e3)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        wall, busy, seen = profiled(lambda: fn(*batch))
-        counted = kernels.launches()
-        med = sorted(more)[len(more) // 2]
-        out[kind] = dict(losses=losses, state=state)
-        log(f"train-resnet {kind}: losses {losses}; step wall ms "
-            + " ".join(f"{w:.1f}" for w in walls) + "; then "
-            + " ".join(f"{w:.1f}" for w in more) + f" (median {med:.2f} ms "
-            f"= {B / med * 1e3:.0f} imgs/s); peak memory {peak:.2f} GiB; "
-            f"one profiled step: wall {wall:.2f} ms, device busy "
-            f"{busy:.2f} ms = {busy / wall * 100:.1f}% [{gpu}]")
-        zero = dict.fromkeys(kernels.KERNELS, 0)
-        check(launches == zero and counted == zero and seen == zero,
-              f"train-resnet {kind}: the port's kernels launched "
-              f"{launches}, {counted} (profiled step; the profiler saw "
-              f"{seen}); ResNet-50 runs none")
+        out[kind] = dict(losses=losses, state=snapshot(model,
+                                                       step.optimizer))
+        check(launches == zero, f"{label} {kind}: the port's kernels "
+              f"launched {launches}; an image model runs none")
+        if card:
+            fn = step._eager_step if eager else step
+            more = []
+            for _ in range(timed):
+                t0 = time.perf_counter()
+                fn(*batch)
+                torch.cuda.synchronize()
+                more.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            wall, busy, seen = profiled(lambda: fn(*batch))
+            counted = kernels.launches()
+            med = sorted(more)[len(more) // 2]
+            out[kind].update(walls=walls, more=more, median=med,
+                             imgs_per_s=B / med * 1e3, peak_gib=peak,
+                             prof_wall=wall, busy=busy)
+            log(f"{label} {kind}: losses {losses}; step wall ms "
+                + " ".join(f"{w:.1f}" for w in walls) + "; then "
+                + " ".join(f"{w:.1f}" for w in more) + f" (median "
+                f"{med:.2f} ms = {B / med * 1e3:.0f} imgs/s); peak memory "
+                f"{peak:.2f} GiB; one profiled step: wall {wall:.2f} ms, "
+                f"device busy {busy:.2f} ms = {busy / wall * 100:.1f}% "
+                f"[{gpu}]")
+            check(counted == zero and seen == zero, f"{label} {kind}: the "
+                  f"port's kernels launched {counted} in the profiled "
+                  f"step (the profiler saw {seen}); an image model runs "
+                  f"none")
+            if eager:
+                groups = step_breakdown(step, batch)
+                out[kind]["groups"] = groups
+                log(f"{label} op by op, device ms by group: " + (
+                    "the profiler linked no kernel to an op" if not groups
+                    else ", ".join(f"{g} {ms:.2f}" for g, ms in sorted(
+                        groups.items(), key=lambda kv: -kv[1])))
+                    + f" [{gpu}]")
         del step
     g, e = out["graphed"], out["op by op"]
     bad = same_bits(g["state"], e["state"])
-    check(g["losses"] == e["losses"] and not bad, f"train-resnet: "
+    check(g["losses"] == e["losses"] and not bad, f"{label}: "
           f"graphed losses {g['losses']} vs op by op {e['losses']}; "
           f"{len(bad)} tensors differ, e.g. {bad[:4]}")
-    log(f"train-resnet: {steps} graphed steps = {steps} op-by-op steps "
+    log(f"{label}: {steps} graphed steps = {steps} op-by-op steps "
         f"bitwise (losses, {len(g['state'][0])} parameters and buffers, "
-        f"every velocity and master); no launch of the port's kernels; "
-        f"phase took {time.perf_counter() - t_phase:.1f} s")
-    del model, init, out, g, e
+        f"every velocity and master); no launch of the port's kernels")
+    for v in out.values():
+        del v["state"]
+    return out
+
+
+def image_phase(label, config, gpu, reference, after_first=None):
+    """``image_train_check`` of ``TRAIN_CONFIGS[config]`` (an image model
+    from seed 0, ``bfloat16()``, its batch from RandomState(0)) on the
+    card; logs the model's size and the phase's time."""
+    import torch
+
+    t_phase = time.perf_counter()
+    model = train_model(config)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    loss_fn, batch, first = train_batch(model, config)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{label}: {TRAIN_CONFIGS[config]['model']} {n_params / 1e6:.2f}M "
+        f"parameters, {len(list(model.buffers()))} BatchNorm buffers, "
+        f"bfloat16, batch {tuple(batch[0].shape)}, dropout "
+        f"{TRAIN_CONFIGS[config]['dropout']}, Momentum(0.1, 0.9, "
+        f"multi_precision)")
+    out = image_train_check(label, config, model, init, loss_fn, batch,
+                            first, gpu, reference, after_first=after_first)
+    log(f"{label}: phase took {time.perf_counter() - t_phase:.1f} s")
+    del model, init
     torch.cuda.empty_cache()
+    return out
+
+
+def train_resnet_phase(gpu):
+    """Phase 16: bench_resnet50 (``bench.py:158-185``): ``resnet50()``
+    cast with ``bfloat16()``, batch 128 x 3 x 224 x 224 from
+    RandomState(0), Momentum(0.1, 0.9, multi_precision), nothing cut,
+    through ``image_train_check`` against ``resnet_reference_forward``,
+    the stem BatchNorm's statistics after step 1 against Paddle's update
+    (``stem_bn_check``)."""
+    return image_phase("train-resnet", "bench_resnet50", gpu,
+                       resnet_reference_forward, after_first=stem_bn_check)
 
 
 # -- phase 17: checkpoints and guarded training (bench_gpt) ------------------
@@ -7028,6 +7291,479 @@ def surface_phase(gpu):
     return walls, static
 
 
+# -- phase 26: VGG-16 and MobileNet V1/V2 as bench_resnet50 trains them ------
+
+VISION_CONFIGS = ("bench_vgg16", "bench_mobilenet_v1", "bench_mobilenet_v2")
+# MobileNetV1's depthwise strides, block by block, and MobileNetV2's
+# (expansion, width, blocks, first stride) stages
+# (paddle_tpu/models/vision/mobilenet.py:60-64, 87-89)
+V1_STRIDES = (1, 2, 1, 2, 1, 2, 1, 1, 1, 1, 1, 2, 1)
+V2_STAGES = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+             (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1))
+# phase 26(b): channels-last conv2d at ResNet-50's and MobileNetV2's
+# shapes (batch 128, bfloat16): label, x (N, C, H, W), weight (O, C /
+# groups, k, k), stride, padding, groups. Held to the NCHW call on the
+# same data within RESNET_CONV_TOL of the largest |value| (output, dx,
+# dw): each side rounds its float32 sums to bfloat16 once
+CHANNELS_LAST_SHAPES = (
+    ("resnet50 stem 7x7/2", (128, 3, 224, 224), (64, 3, 7, 7), 2, 3, 1),
+    ("resnet50 3x3", (128, 64, 56, 56), (64, 64, 3, 3), 1, 1, 1),
+    ("resnet50 1x1/2 downsample", (128, 256, 56, 56), (512, 256, 1, 1), 2,
+     0, 1),
+    ("mobilenet_v2 stem 3x3/2", (128, 3, 224, 224), (32, 3, 3, 3), 2, 1, 1),
+    ("mobilenet_v2 depthwise 3x3/2", (128, 96, 112, 112), (96, 1, 3, 3), 2,
+     1, 96),
+    ("mobilenet_v2 1x1", (128, 32, 112, 112), (16, 32, 1, 1), 1, 0, 1))
+# deformable_conv (v1 and v2) on the card against the CPU, float32, at a
+# 64-channel 56 x 56 map (batch 4, 64 filters of 3 x 3, padding 1),
+# within LAYER_F32_TOL of the largest |value|
+DEFORM_SHAPE = dict(B=4, C=64, H=56, W=56, O=64)
+
+
+def vgg_reference_forward(state, x, depth=16):
+    """VGG's training forward (BatchNorm on the batch's statistics,
+    dropout off) in float32 over the float32 ``state``, written with
+    ``torch.nn.functional`` and none of the port's ops, cuDNN without
+    TF32."""
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.models.vision.vgg import _CFGS
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        h, i = x, 0
+        for v in _CFGS[depth]:
+            if v == "M":
+                h, i = TF.max_pool2d(h, 2, 2), i + 1
+                continue
+            h = TF.conv2d(h, state[f"features.{i}.weight"],
+                          state[f"features.{i}.bias"], padding=1)
+            bn = f"features.{i + 1}"
+            h = TF.batch_norm(h, None, None, state[f"{bn}.weight"],
+                              state[f"{bn}.bias"], training=True, eps=1e-5)
+            h, i = TF.relu(h), i + 3
+        h = TF.adaptive_avg_pool2d(h, 7).flatten(1)
+        for j in (0, 3):
+            h = TF.relu(h @ state[f"classifier.{j}.weight"]
+                        + state[f"classifier.{j}.bias"])
+        return h @ state["classifier.6.weight"] + state["classifier.6.bias"]
+
+
+def mobilenet_reference_forward(state, x):
+    """MobileNet V1's or V2's (``head`` present) training forward in
+    float32 over the float32 ``state``, dropout off, written with
+    ``torch.nn.functional``, cuDNN without TF32: each conv with the
+    stride and groups of the reference's layout (``V1_STRIDES``,
+    ``V2_STAGES``)."""
+    import torch
+    import torch.nn.functional as TF
+
+    acts = {"relu": TF.relu, "relu6": TF.relu6, None: lambda t: t}
+
+    def cba(h, p, stride=1, depthwise=False, act="relu6"):
+        w = state[f"{p}.conv.weight"]
+        h = TF.conv2d(h, w, stride=stride, padding=(w.shape[-1] - 1) // 2,
+                      groups=h.shape[1] if depthwise else 1)
+        h = TF.batch_norm(h, None, None, state[f"{p}.bn.weight"],
+                          state[f"{p}.bn.bias"], training=True, eps=1e-5)
+        return acts[act](h)
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        if "head.conv.weight" not in state:
+            h = cba(x, "stem", 2, act="relu")
+            for j, st in enumerate(V1_STRIDES):
+                h = cba(h, f"blocks.{j}.dw", st, True, "relu")
+                h = cba(h, f"blocks.{j}.pw", act="relu")
+        else:
+            h, j = cba(x, "stem", 2), 0
+            for t, _, n, st in V2_STAGES:
+                for i in range(n):
+                    p, inp, k = f"blocks.{j}.block", h, 0
+                    if t != 1:
+                        h, k = cba(h, f"{p}.0"), 1
+                    stride = st if i == 0 else 1
+                    h = cba(h, f"{p}.{k}", stride, True)
+                    h = cba(h, f"{p}.{k + 1}", act=None)
+                    if stride == 1 and inp.shape[1] == h.shape[1]:
+                        h = inp + h
+                    j += 1
+            h = cba(h, "head")
+        return h.mean(dim=(2, 3)) @ state["fc.weight"] + state["fc.bias"]
+
+
+def _share(got, want):
+    """|got - want|'s largest entry over want's largest |value|."""
+    scale = float(want.abs().max()) or 1.0
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def channels_last_check(gpu, device="cuda", shapes=CHANNELS_LAST_SHAPES):
+    """Phase 26(b): ``ops.conv2d`` on NHWC data with an HWIO weight
+    (``data_format="NHWC"``) against the NCHW call on the same bfloat16
+    data, forward and backward (dx, dw, for one cotangent), each within
+    RESNET_CONV_TOL of the largest |value|; the channels-last call run
+    twice, and the shapes whose bits move between the two are listed.
+    Returns ``(worst share, shapes whose bits moved, shapes whose
+    channels-last bits equal the NCHW call's)``."""
+    import torch
+
+    from paddle_tpu_torch import ops
+
+    g = torch.Generator(device=device).manual_seed(26)
+    worst, moving, equal = 0.0, [], []
+    for label, xs, ws, stride, pad, groups in shapes:
+        x = torch.randn(xs, generator=g, device=device).to(torch.bfloat16)
+        w = (torch.randn(ws, generator=g, device=device) * (2.0 / (
+            ws[1] * ws[2] * ws[3])) ** 0.5).to(torch.bfloat16)
+        dy = []
+
+        def run(last):
+            xi = (x.permute(0, 2, 3, 1).contiguous() if last else
+                  x.clone()).requires_grad_()
+            wi = (w.permute(2, 3, 1, 0).contiguous() if last else
+                  w.clone()).requires_grad_()
+            out = ops.conv2d(xi, wi, stride=stride, padding=pad,
+                             groups=groups,
+                             data_format="NHWC" if last else "NCHW")
+            if not dy:
+                dy.append(torch.randn(out.shape, generator=g,
+                                      device=device).to(out.dtype))
+            cot = dy[0].permute(0, 2, 3, 1) if last else dy[0]
+            dx, dw = torch.autograd.grad(out, (xi, wi), cot)
+            if last:
+                out, dx = out.permute(0, 3, 1, 2), dx.permute(0, 3, 1, 2)
+                dw = dw.permute(3, 2, 0, 1)
+            return [out.detach(), dx, dw]
+
+        want = run(False)
+        got, again = run(True), run(True)
+        errs = [_share(a, b) for a, b in zip(got, want)]
+        worst = max(worst, *errs)
+        check(all(torch.equal(a, b) for a, b in zip(got, want))
+              or max(errs) <= RESNET_CONV_TOL,
+              f"vision (b) channels-last conv2d {label}: out/dx/dw differ "
+              f"from the NCHW call by {[f'{e:.3e}' for e in errs]} of the "
+              f"largest |value| (tol {RESNET_CONV_TOL})")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            moving.append(label)
+        if all(torch.equal(a, b) for a, b in zip(got, want)):
+            equal.append(label)
+        del x, w, dy, want, got, again
+    log(f"vision (b): channels-last conv2d (NHWC x, HWIO weight) = the NCHW "
+        f"call within {worst:.3e} of the largest |value| (tol "
+        f"{RESNET_CONV_TOL}), output, dx and dw, at {len(shapes)} shapes "
+        f"of ResNet-50 and MobileNetV2, bfloat16; the same bits as NCHW: "
+        f"{equal or 'none'}; bits that moved between two runs: "
+        f"{moving or 'none'} [{gpu}]")
+    return worst, moving, equal
+
+
+def deformable_check(gpu, device="cuda", shape=None):
+    """Phase 26(b): ``deformable_conv`` v1 and v2 at ``DEFORM_SHAPE``
+    (offsets of a few pixels, some taps off the map), float32, on the
+    card against the CPU: the output and the gradients of x, offset,
+    mask, weight and bias within LAYER_F32_TOL of the largest |value|;
+    run twice on the card, the versions whose bits move listed (the
+    backward's scatter into x adds with ``index_put_`` in deterministic
+    mode). Returns ``(worst share, versions whose bits moved)``."""
+    import torch
+
+    from paddle_tpu_torch import ops
+
+    sh = dict(DEFORM_SHAPE, **(shape or {}))
+    B, C, H, W, O = (sh[k] for k in "BCHWO")
+    rng = np.random.RandomState(26)
+    arrays = [rng.randn(B, C, H, W), rng.randn(B, 18, H, W) * 2.0,
+              1.0 / (1.0 + np.exp(-rng.randn(B, 9, H, W))),
+              rng.randn(O, C, 3, 3) * (2.0 / (C * 9)) ** 0.5,
+              rng.randn(O) * 0.1, rng.randn(B, O, H, W)]
+    arrays = [a.astype(np.float32) for a in arrays]
+    worst, moving = 0.0, []
+    for v2 in (False, True):
+        def run(dev):
+            x, off, mask, w, b, dy = (torch.from_numpy(a).to(dev)
+                                      for a in arrays)
+            ins = [t.requires_grad_() for t in (x, off, mask, w, b)]
+            out = ops.deformable_conv(x, off, mask if v2 else None, O, 3,
+                                      padding=1, weight=w, bias=b)
+            used = ins if v2 else [x, off, w, b]
+            return [t.detach().cpu() for t in
+                    [out, *torch.autograd.grad(out, used, dy)]]
+
+        want = run("cpu")
+        got, again = run(device), run(device)
+        errs = [_share(a, b) for a, b in zip(got, want)]
+        worst = max(worst, *errs)
+        label = "v2" if v2 else "v1"
+        check(max(errs) <= LAYER_F32_TOL, f"vision (b) deformable_conv "
+              f"{label}: the card's output and gradients differ from the "
+              f"CPU's by {[f'{e:.3e}' for e in errs]} (tol {LAYER_F32_TOL})")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            moving.append(label)
+    log(f"vision (b): deformable_conv v1 and v2 at ({B}, {C}, {H}, {W}) -> "
+        f"{O} float32 on the card = on the CPU within {worst:.3e} of the "
+        f"largest |value| (tol {LAYER_F32_TOL}), output and every "
+        f"gradient; bits that moved between two runs: {moving or 'none'} "
+        f"[{gpu}]")
+    return worst, moving
+
+
+_IMG = _fl(2, 4, 6, 6)
+_IMG5 = _fl(2, 3, 5, 6, 7)
+_POS = lambda *shape: lambda r: (r.rand(*shape) + 0.5).astype(np.float32)
+_TREE = _const(np.array([[[0, 1], [0, 2], [1, 3], [1, 4]]] * 2))
+# the op library's rest in paddle_tpu_torch.ops (the channels-last convs
+# aside); each has a case in OPS_REST_CASES
+NEW_OP_NAMES = (
+    "pool2d", "adaptive_pool3d", "image_resize", "resize_bilinear",
+    "resize_nearest", "resize_trilinear", "pixel_unshuffle",
+    "space_to_depth", "shuffle_channel", "im2sequence", "grid_sampler",
+    "deformable_conv", "l2_normalize", "data_norm", "lrn",
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "floor_mod", "sums", "reshape_", "reverse", "top_k",
+    "transpose_", "range_", "uniform_random", "gaussian", "gaussian_random",
+    "cos_sim", "dice_loss", "huber_loss", "rank_loss", "margin_rank_loss",
+    "bpr_loss", "center_loss", "teacher_student_sigmoid_loss", "mean_iou",
+    "multiplex", "crop_tensor", "unstack", "bilinear_tensor_product",
+    "add_position_encoding", "temporal_shift", "affine_channel",
+    "gather_tree", "sampling_id", "ctc_greedy_decoder", "fsp_matrix",
+    "clip_by_norm", "brelu", "soft_relu", "unique_with_counts", "hash",
+    "similarity_focus", "polygon_box_transform", "tree_conv")
+# phase 26(b): (name, call(m, d, *inputs), inputs, flags) as TENSOR_CASES;
+# "bits": the card's outputs must equal the CPU's bit for bit (ops that
+# only move, select or clip values; their gradients may sum overlapping
+# windows in another order: within LAYER_F32_TOL)
+OPS_REST_CASES = [
+    ("conv2d", lambda m, d, x, w: m.ops.conv2d(
+        x, w, padding=1, data_format="NHWC"),
+     [_fl(2, 6, 6, 4), _fl(3, 3, 4, 5)], "grad"),
+    ("conv1d", lambda m, d, x, w: m.ops.conv1d(
+        x, w, stride=2, data_format="NLC"), [_fl(2, 9, 4), _fl(3, 4, 5)],
+     "grad"),
+    ("conv3d", lambda m, d, x, w: m.ops.conv3d(
+        x, w, bias=None, data_format="NDHWC"),
+     [_fl(2, 4, 4, 4, 3), _fl(2, 2, 2, 3, 4)], "grad"),
+    ("pool2d", lambda m, d, x: m.ops.pool2d(x, 2, "max", 2), [_IMG],
+     "grad bits"),
+    ("pool2d", lambda m, d, x: m.ops.pool2d(x, 3, "avg", 1, 1), [_IMG],
+     "grad"),
+    ("pool2d", lambda m, d, x: m.ops.pool2d(x, 2, "avg",
+                                            global_pooling=True), [_IMG],
+     "grad"),
+    ("adaptive_pool3d", lambda m, d, x: m.ops.adaptive_pool3d(
+        x, (2, 3, 4)), [_IMG5], "grad bits"),
+    ("adaptive_pool3d", lambda m, d, x: m.ops.adaptive_pool3d(
+        x, 3, "avg"), [_IMG5], "grad"),
+    *[("image_resize", lambda m, d, x, k=k: m.ops.image_resize(
+        x, (8, 9), resample=k), [_fl(2, 3, 5, 7)], "grad")
+      for k in ("BILINEAR", "NEAREST", "BICUBIC")],
+    ("image_resize", lambda m, d, x: m.ops.image_resize(
+        x, (4, 5, 6), resample="TRILINEAR", align_corners=False),
+     [_IMG5], "grad"),
+    ("resize_bilinear", lambda m, d, x: m.ops.resize_bilinear(
+        x, (9, 4), align_corners=False, align_mode=0), [_fl(2, 3, 5, 7)],
+     "grad"),
+    ("resize_nearest", lambda m, d, x: m.ops.resize_nearest(x, scale=2),
+     [_fl(2, 3, 5, 7)], "grad bits"),
+    ("resize_trilinear", lambda m, d, x: m.ops.resize_trilinear(
+        x, (7, 4, 9)), [_IMG5], "grad"),
+    ("pixel_unshuffle", lambda m, d, x: m.ops.pixel_unshuffle(x, 2),
+     [_IMG], "grad bits"),
+    ("space_to_depth", lambda m, d, x: m.ops.space_to_depth(x, 3), [_IMG],
+     "grad bits"),
+    ("shuffle_channel", lambda m, d, x: m.ops.shuffle_channel(x, 2),
+     [_IMG], "grad bits"),
+    ("im2sequence", lambda m, d, x: m.ops.im2sequence(x, 3, 2, 1), [_IMG],
+     "grad bits"),
+    ("grid_sampler", lambda m, d, x, g: m.ops.grid_sampler(x, g),
+     [_IMG, lambda r: (r.rand(2, 3, 5, 2) * 2.2 - 1.1).astype(np.float32)],
+     "grad"),
+    ("deformable_conv", lambda m, d, x, o, k, w: m.ops.deformable_conv(
+        x, o, k, 3, 3, padding=1, weight=w),
+     [_IMG, _fl(2, 18, 6, 6), _POS(2, 9, 6, 6), _fl(3, 4, 3, 3)], "grad"),
+    ("deformable_conv", lambda m, d, x, o, w: m.ops.deformable_conv(
+        x, o, None, 4, 3, stride=2, groups=2, deformable_groups=2,
+        weight=w), [_IMG, _fl(2, 36, 2, 2), _fl(4, 2, 3, 3)], "grad"),
+    ("l2_normalize", lambda m, d, x: m.ops.l2_normalize(x, 1),
+     [_fl(4, 5)], "grad"),
+    ("data_norm", lambda m, d, x: m.ops.data_norm(x), [_fl(6, 5, 3)],
+     "grad"),
+    ("data_norm", lambda m, d, x, n, s, q: m.ops.data_norm(
+        x, act="relu", stats=(n, s, q)),
+     [_fl(6, 5), _const(np.full(5, 8.0, np.float32)), _fl(5),
+      _POS(5)], "grad"),
+    ("lrn", lambda m, d, x: m.ops.lrn(x, 3), [_fl(*_X)], "grad"),
+    *[(n, lambda m, d, x, y, n=n: getattr(m.ops, n)(x, y),
+       [_fl(4, 5), _POS(4, 5)], "grad")
+      for n in ("elementwise_add", "elementwise_sub", "elementwise_mul",
+                "elementwise_div")],
+    ("floor_mod", lambda m, d, x, y: m.ops.floor_mod(x, y),
+     [_ints(9, 4, 5), _const(np.array([2, 3, 4, 5, 7]))], ""),
+    ("sums", lambda m, d, x, y: m.ops.sums([x, y]), [_fl(4, 5), _fl(4, 5)],
+     "grad"),
+    ("reshape_", lambda m, d, x: m.ops.reshape_(x, [5, 4]), [_fl(4, 5)],
+     "grad bits"),
+    ("reverse", lambda m, d, x: m.ops.reverse(x, 0), [_fl(4, 5)],
+     "grad bits"),
+    ("top_k", lambda m, d, x: m.ops.top_k(x, 2), [_fl(4, 5)], "grad bits"),
+    ("transpose_", lambda m, d, x: m.ops.transpose_(x, 0, 2), [_fl(*_X)],
+     "grad bits"),
+    ("range_", lambda m, d: m.ops.range_(1, 11, 3, **d), [], ""),
+    ("uniform_random", lambda m, d: m.ops.uniform_random([3, 4], **d), [],
+     "random"),
+    ("gaussian", lambda m, d: m.ops.gaussian(1.0, 2.0, [3, 4], **d), [],
+     "random"),
+    ("gaussian_random", lambda m, d: m.ops.gaussian_random(
+        shape=[5], **d), [], "random"),
+    ("cos_sim", lambda m, d, x, y: m.ops.cos_sim(x, y),
+     [_fl(4, 5), _fl(4, 5)], "grad"),
+    ("dice_loss", lambda m, d, x, y: m.ops.dice_loss(x, y),
+     [_PROB, _ints(6, 4, 1)], "grad"),
+    ("huber_loss", lambda m, d, x, y: m.ops.huber_loss(x, y, 0.7),
+     [_fl(4, 5), _fl(4, 5)], "grad"),
+    ("rank_loss", lambda m, d, y, a, b: m.ops.rank_loss(y, a, b),
+     [_Y01, _fl(4, 5), _fl(4, 5)], "grad"),
+    ("margin_rank_loss", lambda m, d, y, a, b: m.ops.margin_rank_loss(
+        y, a, b, 0.3), [_PM1, _fl(4), _fl(4)], "grad"),
+    ("bpr_loss", lambda m, d, x, y: m.ops.bpr_loss(x, y),
+     [_fl(4, 5), _ints(5, 4, 1)], "grad"),
+    ("center_loss", lambda m, d, x, y, c: m.ops.center_loss(
+        x, y, 3, 0.5, centers=c), [_fl(6, 4), _ints(3, 6, 1), _fl(3, 4)],
+     "grad"),
+    ("teacher_student_sigmoid_loss",
+     lambda m, d, x, y: m.ops.teacher_student_sigmoid_loss(
+         x, y, 2.0, -2.0), [_fl(4, 5, scale=3.0), _Y01], "grad"),
+    ("mean_iou", lambda m, d, p, y: m.ops.mean_iou(p, y, 4),
+     [_ints(4, 2, 9), _ints(4, 2, 9)], ""),
+    ("multiplex", lambda m, d, a, b, c, i: m.ops.multiplex([a, b, c], i),
+     [_fl(4, 5), _fl(4, 5), _fl(4, 5), _ints(3, 4, 1)], "grad bits"),
+    ("crop_tensor", lambda m, d, x: m.ops.crop_tensor(
+        x, [2, -1, 3], [1, 2, 3]), [_fl(4, 6, 5)], "grad bits"),
+    ("unstack", lambda m, d, x: m.ops.unstack(x, 1), [_fl(3, 4, 2)],
+     "grad bits"),
+    ("bilinear_tensor_product",
+     lambda m, d, x, y, w, b: m.ops.bilinear_tensor_product(
+         x, y, 2, weight=w, bias=b, act="tanh"),
+     [_fl(4, 3), _fl(4, 5), _fl(2, 3, 5), _fl(2)], "grad"),
+    ("add_position_encoding",
+     lambda m, d, x: m.ops.add_position_encoding(x, 0.5, 2.0),
+     [_fl(2, 6, 7)], "grad"),
+    ("temporal_shift", lambda m, d, x: m.ops.temporal_shift(x, 2),
+     [_fl(4, 8, 3, 3)], "grad bits"),
+    ("affine_channel", lambda m, d, x, s, b: m.ops.affine_channel(
+        x, s, b, act="relu"), [_IMG, _fl(4), _fl(4)], "grad"),
+    ("gather_tree", lambda m, d, i, p: m.ops.gather_tree(i, p),
+     [_ints(10, 5, 2, 3), _ints(3, 5, 2, 3)], ""),
+    ("sampling_id", lambda m, d, p: m.ops.sampling_id(p), [_POS(6, 5)],
+     "random"),
+    ("ctc_greedy_decoder", lambda m, d, x, n: m.ops.ctc_greedy_decoder(
+        x, 0, n), [_fl(3, 7, 4), _const(np.array([7, 4, 6]))], ""),
+    ("fsp_matrix", lambda m, d, x, y: m.ops.fsp_matrix(x, y),
+     [_fl(2, 3, 4, 4), _fl(2, 5, 4, 4)], "grad"),
+    ("clip_by_norm", lambda m, d, x: m.ops.clip_by_norm(x, 1.0),
+     [_fl(4, 5)], "grad"),
+    ("brelu", lambda m, d, x: m.ops.brelu(x, -1.0, 2.0),
+     [_fl(4, 5, scale=3.0)], "grad bits"),
+    ("soft_relu", lambda m, d, x: m.ops.soft_relu(x, 2.0),
+     [_fl(4, 5, scale=3.0)], "grad"),
+    ("unique_with_counts", lambda m, d, x: m.ops.unique_with_counts(x),
+     [_ints(5, 12)], ""),
+    ("hash", lambda m, d, x: m.ops.hash(x, 97, 3), [_ints(1000, 4, 3)], ""),
+    ("similarity_focus", lambda m, d, x: m.ops.similarity_focus(
+        x, 1, [0, 2]), [_fl(2, 3, 4, 5)], "bits"),
+    ("polygon_box_transform",
+     lambda m, d, x: m.ops.polygon_box_transform(x), [_fl(2, 4, 3, 5)],
+     "grad bits"),
+    ("tree_conv", lambda m, d, x, e, w: m.ops.tree_conv(
+        x, e, 2, 2, max_depth=3, weight=w),
+     [_fl(2, 5, 3), _TREE, _fl(3, 3, 2, 2)], "grad"),
+]
+
+
+def ops_rest_card_check(gpu, device="cuda"):
+    """Phase 26(b): every name of the op library's rest
+    (``NEW_OP_NAMES``, and the channels-last convs) at a small size,
+    forward and (where differentiable) backward, on the card against the
+    port on the CPU (``_tensor_run``): floats within LAYER_F32_TOL of the
+    largest |value|, or, where a case says ``bits``, its outputs bit for
+    bit; integers exactly; a random maker held to its shape and type.
+    Each case runs twice on the card; the names whose bits move are
+    listed. Returns them.
+    (``device="cpu"`` runs the checks with the CPU in the card's
+    place.)"""
+    import torch
+
+    t0 = time.perf_counter()
+    worst, moving = 0.0, []
+    for name, call, inputs, flags in OPS_REST_CASES:
+        rng = np.random.RandomState(0)
+        arrays = [make(rng) for make in inputs]
+        seed = 5 if "random" in flags else None
+        want = _tensor_run(call, arrays, flags, "cpu", None, seed)
+        runs = [_tensor_run(call, arrays, flags, device, want[2], seed)
+                for _ in range(2)]
+        got = runs[0]
+        check(len(got[0]) == len(want[0]) and len(got[1]) == len(want[1]),
+              f"vision (b) {name}: another count of outputs or gradients")
+        outs = len(got[0])
+        for k, (g, w) in enumerate(list(zip(got[0], want[0]))
+                                   + list(zip(got[1], want[1]))):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"vision (b) {name}: {tuple(g.shape)} {g.dtype} vs the "
+                  f"CPU's {tuple(w.shape)} {w.dtype}")
+            if "random" in flags:
+                continue
+            if not w.is_floating_point() or ("bits" in flags and k < outs):
+                check(torch.equal(g, w), f"vision (b) {name}: the card's "
+                      f"result is not the CPU's bit for bit")
+                continue
+            err = _share(g, w) if w.numel() else 0.0
+            worst = max(worst, err)
+            check(err <= LAYER_F32_TOL, f"vision (b) {name}: card vs CPU "
+                  f"{err:.3g} of the largest |value|, limit {LAYER_F32_TOL}")
+        flat = lambda r: r[0] + r[1]
+        if not all(torch.equal(a, b) for a, b in zip(flat(runs[0]),
+                                                        flat(runs[1]))):
+            moving.append(name)
+    names = {c[0] for c in OPS_REST_CASES}
+    check(set(NEW_OP_NAMES) <= names,
+          f"vision (b): no case for {sorted(set(NEW_OP_NAMES) - names)}")
+    log(f"vision (b): {len(OPS_REST_CASES)} cases of {len(NEW_OP_NAMES)} new "
+        f"op names and the channels-last convs on the card = on the CPU "
+        f"within {worst:.3g} of the largest |value| (limit "
+        f"{LAYER_F32_TOL}; the movement and clipping ops bit for bit), "
+        f"forward and backward; bits that changed between two runs on the "
+        f"card: {moving or 'none'}; took {time.perf_counter() - t0:.1f} s "
+        f"[{gpu}]")
+    return moving
+
+
+def vision_phase(gpu):
+    """Phase 26: (a) ``vgg16()``, ``MobileNetV1()`` and ``MobileNetV2()``
+    at full width, each as bench_resnet50 trains ResNet-50 (224 x 224,
+    1000 classes, its default dropout, batch 128 from RandomState(0),
+    ``bfloat16()``, Momentum(0.1, 0.9, multi_precision), the float32
+    cross-entropy) through ``image_train_check`` against its float32
+    reference forward; (b) the op library's rest on the card:
+    ``channels_last_check``, ``deformable_check``,
+    ``ops_rest_card_check``."""
+    t0 = time.perf_counter()
+    refs = {"vgg16": vgg_reference_forward,
+            "mobilenet_v1": mobilenet_reference_forward,
+            "mobilenet_v2": mobilenet_reference_forward}
+    out = {}
+    for config in VISION_CONFIGS:
+        name = TRAIN_CONFIGS[config]["model"]
+        out[name] = image_phase(f"vision {name}", config, gpu, refs[name])
+    channels_last_check(gpu)
+    deformable_check(gpu)
+    ops_rest_card_check(gpu)
+    log(f"vision: phase took {time.perf_counter() - t0:.1f} s [{gpu}]")
+    return out
+
+
 def main():
     try:
         import torch
@@ -7112,7 +7848,7 @@ def main():
 
 
 def phases(gpu, journals):
-    """Phases 1-25 in order, the journals of 13, 19 and 22 under
+    """Phases 1-26 in order, the journals of 13, 19 and 22 under
     ``journals``; prints the ``kernels`` and ``ok`` lines."""
     import torch
 
@@ -7192,6 +7928,8 @@ def phases(gpu, journals):
     tensor_phase(gpu)
     torch.cuda.empty_cache()
     surface_phase(gpu)
+    torch.cuda.empty_cache()
+    vision_phase(gpu)
     check(not any(m.split(".")[0] in ("jax", "paddle_tpu", "ml_dtypes")
                   for m in sys.modules),
           "the JAX side was imported by a phase")

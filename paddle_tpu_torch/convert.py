@@ -12,6 +12,7 @@ import torch
 __all__ = ["tinylm_params_from_jax", "gpt_params_from_jax",
            "bert_params_from_jax", "transformer_params_from_jax",
            "wmt_params_from_jax", "resnet_params_from_jax",
+           "vgg_params_from_jax", "mobilenet_params_from_jax",
            "lenet_params_from_jax", "rnn_params_from_jax",
            "sentiment_params_from_jax", "layer_params_from_jax",
            "scope_from_jax",
@@ -274,6 +275,134 @@ def resnet_params_from_jax(state):
     return _checked(arrs, bf16, want, f"width {width}, "
                     f"{'bottleneck' if bottleneck else 'basic'} blocks "
                     f"{depths}, {classes} classes")
+
+
+def _arrays(state):
+    """(float32 numpy arrays by name, the names that were bfloat16)."""
+    bf16 = {k for k, v in state.items() if _is_bfloat16(v)}
+    return {k: np.asarray(v, np.float32) for k, v in state.items()}, bf16
+
+
+def _vgg_shapes(depth, batch_norm, cin, classes):
+    """Name -> shape of ``VGG(depth, classes, batch_norm, cin)``'s state:
+    ``features.<i>`` numbers the convs, BatchNorms, ReLUs and pools in
+    order, ``classifier.<0, 3, 6>`` the three ``Linear``s."""
+    from .models.vision.vgg import _CFGS
+
+    want, i = {}, 0
+    for v in _CFGS[depth]:
+        if v == "M":
+            i += 1
+            continue
+        want[f"features.{i}.weight"] = (v, cin, 3, 3)
+        want[f"features.{i}.bias"] = (v,)
+        i += 1
+        if batch_norm:
+            for n in ("weight", "bias", "_mean", "_variance"):
+                want[f"features.{i}.{n}"] = (v,)
+            i += 1
+        i += 1                       # the ReLU
+        cin = v
+    for j, (a, b) in zip((0, 3, 6), ((512 * 49, 4096), (4096, 4096),
+                                     (4096, classes))):
+        want[f"classifier.{j}.weight"], want[f"classifier.{j}.bias"] = \
+            (a, b), (b,)
+    return want
+
+
+def vgg_params_from_jax(state):
+    """The JAX ``VGG``'s ``state_dict`` (parameters and the BatchNorms'
+    ``_mean``/``_variance``, names to numpy arrays or anything
+    ``np.asarray`` takes) as a state dict for the port's ``VGG`` (CPU
+    tensors under the same names), as ``resnet_params_from_jax`` does it:
+    a bfloat16 array stays bfloat16, every other becomes float32. The
+    depth (11, 13, 16 or 19) and whether it has BatchNorms are read from
+    the names, the input channels from the first conv and the classes
+    from the last ``Linear``. Raises ``ValueError`` when the names are
+    no VGG's or a shape does not fit the others."""
+    arrs, bf16 = _arrays(state)
+    first = arrs.get("features.0.weight", np.zeros(0))
+    last = arrs.get("classifier.6.weight", np.zeros(0))
+    if first.ndim != 4 or last.ndim != 2:
+        raise ValueError("expected a 4-D features.0.weight and a 2-D "
+                         "classifier.6.weight")
+    for depth in (11, 13, 16, 19):
+        for bn in (True, False):
+            want = _vgg_shapes(depth, bn, first.shape[1], last.shape[1])
+            if set(want) == set(arrs):
+                return _checked(arrs, bf16, want, f"vgg{depth}"
+                                f"{' with BatchNorm' if bn else ''}, "
+                                f"{last.shape[1]} classes")
+    raise ValueError(f"no VGG's names: {sorted(arrs)[:8]} ...")
+
+
+def _rows(arrs, name):
+    """The first dimension of ``arrs[name]``: a conv's output channels."""
+    a = arrs.get(name, np.zeros(0))
+    if a.ndim < 1 or a.shape[0] == 0:
+        raise ValueError(f"expected an array {name}")
+    return a.shape[0]
+
+
+# MobileNetV2's expansion factor a block, in order (mobilenet.py:87-96)
+_V2_EXPANSIONS = (1,) + (6,) * 16
+
+
+def _mobilenet_shapes(arrs):
+    """Name -> shape of the ``MobileNetV1`` or ``MobileNetV2`` (``head``
+    present) whose widths ``arrs`` holds (any ``scale``): the stem's
+    and each block's output width read from its last conv, the rest
+    following from the reference's layout."""
+    depthwise = lambda p, c: _conv_bn(p, 1, c, 3)     # noqa: E731
+    cin = _rows(arrs, "stem.conv.weight")
+    want = _conv_bn("stem", arrs["stem.conv.weight"].shape[1], cin, 3)
+    v2 = "head.conv.weight" in arrs
+    n = _numbered(arrs, "blocks.")
+    if n != (17 if v2 else 13):
+        raise ValueError(f"{n} blocks: MobileNetV{2 if v2 else 1} has "
+                         f"{17 if v2 else 13}")
+    for j in range(n):
+        p = f"blocks.{j}"
+        if not v2:
+            cout = _rows(arrs, f"{p}.pw.conv.weight")
+            want.update(depthwise(f"{p}.dw", cin))
+            want.update(_conv_bn(f"{p}.pw", cin, cout, 1))
+        else:
+            t = _V2_EXPANSIONS[j]
+            hidden, convs = int(round(cin * t)), []
+            if t != 1:
+                convs.append((cin, hidden, 1))
+            cout = _rows(arrs, f"{p}.block.{len(convs) + 1}.conv.weight")
+            want.update(depthwise(f"{p}.block.{len(convs)}", hidden))
+            convs += [None, (hidden, cout, 1)]
+            for i, c in enumerate(convs):
+                if c is not None:
+                    want.update(_conv_bn(f"{p}.block.{i}", *c))
+        cin = cout
+    if v2:
+        head = _rows(arrs, "head.conv.weight")
+        want.update(_conv_bn("head", cin, head, 1))
+        cin = head
+    classes = arrs.get("fc.weight", np.zeros((0, 0)))
+    if classes.ndim != 2:
+        raise ValueError("expected a 2-D fc.weight")
+    want["fc.weight"] = (cin, classes.shape[1])
+    want["fc.bias"] = (classes.shape[1],)
+    return want, f"MobileNetV{2 if v2 else 1}, {classes.shape[1]} classes"
+
+
+def mobilenet_params_from_jax(state):
+    """The JAX ``MobileNetV1``'s or ``MobileNetV2``'s ``state_dict``
+    (parameters and BatchNorm buffers) as a state dict for the port's
+    model of the same name, as ``resnet_params_from_jax`` does it (a
+    bfloat16 array stays bfloat16). The version (``head`` present: V2),
+    the widths (whatever ``scale`` made them), the input channels and
+    the classes are read from the arrays. Raises ``ValueError`` on a
+    missing or extra name, a block count that is not the reference's or
+    a shape that does not fit the others."""
+    arrs, bf16 = _arrays(state)
+    want, dims = _mobilenet_shapes(arrs)
+    return _checked(arrs, bf16, want, dims)
 
 
 def lenet_params_from_jax(state):

@@ -7,11 +7,17 @@ imports from the JAX package's op modules, from ``creation``, ``math``,
 ``compare``, ``activation`` (``tanh``), ``linalg`` and
 ``control_flow``. ``paddle_tpu_torch`` exports the same names.
 
-The flat ``ops.*`` names of the JAX package that the port's op modules
-define are bound here too, outside ``__all__`` (the tensor API): the
-activations, convolutions and pools, dropouts, norms, ``mode``, the
-unary ``angle``/``conj``/``deg2rad``/``frac``/``rad2deg``, the
-registry's ``register``, and ``Tensor``/``to_tensor``."""
+The flat ``ops.*`` names of the JAX package are bound here too, outside
+``__all__`` (the tensor API): the activations, convolutions, pools and
+resizes, dropouts, norms, ``misc``'s fluid ops, fluid's aliases
+(``elementwise_add`` ... ``transpose_``; ``creation``'s ``range_``,
+``uniform_random``, ``gaussian`` and ``gaussian_random`` too), ``mode``,
+the unary ``angle``/``conj``/``deg2rad``/``frac``/``rad2deg``, the
+registry's ``register``, and ``Tensor``/``to_tensor``. Every public name
+of ``paddle_tpu.ops`` resolves here but those of its ``sequence``,
+``labeling``, ``detection`` and ``rcnn`` modules (ROADMAP Queue 1) and
+its registry's internals (``OP_REGISTRY``, ``apply``,
+``monkey_patch_tensor``)."""
 from .compare import (allclose, bitwise_and, bitwise_not, bitwise_or,
                       bitwise_xor, equal, equal_all, greater_equal,
                       greater_than, is_empty, is_tensor, isclose, less_equal,
@@ -110,15 +116,32 @@ from .activation import (celu, elu, gelu, glu, gumbel_softmax,  # noqa: E402,F40
                          silu, softmax, softplus, softshrink, softsign,
                          swish, tanhshrink, thresholded_relu)
 from .conv import (adaptive_avg_pool1d, adaptive_avg_pool2d,  # noqa: E402,F401
-                   adaptive_max_pool1d, adaptive_max_pool2d, affine_grid,
-                   avg_pool1d, avg_pool2d, avg_pool3d, conv1d,
-                   conv1d_transpose, conv2d, conv2d_transpose, conv3d,
-                   conv3d_transpose, grid_sample, interpolate, max_pool1d,
-                   max_pool2d, max_pool3d, pixel_shuffle, unfold, upsample)
-from .math import angle, conj, deg2rad, frac, rad2deg  # noqa: E402,F401
-from .norm_ops import (batch_norm, group_norm, instance_norm,  # noqa: E402,F401
-                       layer_norm, local_response_norm, normalize,
-                       spectral_norm)
+                   adaptive_max_pool1d, adaptive_max_pool2d,
+                   adaptive_pool3d, affine_grid, avg_pool1d, avg_pool2d,
+                   avg_pool3d, conv1d, conv1d_transpose, conv2d,
+                   conv2d_transpose, conv3d, conv3d_transpose,
+                   deformable_conv, grid_sample, grid_sampler, im2sequence,
+                   image_resize, interpolate, max_pool1d, max_pool2d,
+                   max_pool3d, pixel_shuffle, pixel_unshuffle, pool2d,
+                   resize_bilinear, resize_nearest, resize_trilinear,
+                   shuffle_channel, space_to_depth, unfold, upsample)
+from .creation import (gaussian, gaussian_random, range_,  # noqa: E402,F401
+                       uniform_random)
+from .manipulation import reshape_, reverse, top_k, transpose_  # noqa: E402,F401
+from .math import (angle, conj, deg2rad, elementwise_add,  # noqa: E402,F401
+                   elementwise_div, elementwise_mul, elementwise_sub,
+                   floor_mod, frac, rad2deg, sums)
+from .misc import (add_position_encoding, affine_channel,  # noqa: E402,F401
+                   bilinear_tensor_product, bpr_loss, brelu, center_loss,
+                   clip_by_norm, cos_sim, crop_tensor, ctc_greedy_decoder,
+                   dice_loss, fsp_matrix, gather_tree, hash, huber_loss,
+                   margin_rank_loss, mean_iou, multiplex,
+                   polygon_box_transform, rank_loss, sampling_id,
+                   similarity_focus, soft_relu, teacher_student_sigmoid_loss,
+                   temporal_shift, tree_conv, unique_with_counts, unstack)
+from .norm_ops import (batch_norm, data_norm, group_norm,  # noqa: E402,F401
+                       instance_norm, l2_normalize, layer_norm,
+                       local_response_norm, lrn, normalize, spectral_norm)
 from .random_ops import (alpha_dropout, channel_shuffle,  # noqa: E402,F401
                          dropout, dropout2d, dropout3d)
 from .reduction import mode  # noqa: E402,F401

@@ -19,10 +19,20 @@ import torch
 
 from .._device import resolve_device
 from ..core import dtype as _dtype
-from .misc import torch_dtype
 
 __all__ = ["dims", "norm_axis", "tensor", "operands", "deterministic",
-           "dtype_of", "astype"]
+           "dtype_of", "astype", "torch_dtype"]
+
+
+def torch_dtype(name):
+    """A dtype's name (``"float32"``) or a torch dtype -> the torch dtype."""
+    if isinstance(name, torch.dtype):
+        return name
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
 
 def dtype_of(d):
     """A Paddle dtype (a name, a torch or numpy dtype, ``None``: the

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..core.random import default_generator
 from ._base import register
-from .misc import torch_dtype
+from ._args import torch_dtype
 
 __all__ = ["gelu", "relu", "relu6", "sigmoid", "tanh", "softmax",
            "log_softmax", "log_sigmoid", "logsigmoid", "softplus",

@@ -1,16 +1,26 @@
 """Convolution, pooling and resizing: ``conv1d``/``conv2d``/``conv3d``,
 their transposes, ``max_pool1d``/``2d``/``3d``, ``avg_pool1d``/``2d``/
-``3d``, ``adaptive_{avg,max}_pool{1d,2d}``, ``interpolate``,
-``pixel_shuffle``, ``unfold``, ``affine_grid`` and ``grid_sample``.
+``3d``, fluid's ``pool2d``, ``adaptive_{avg,max}_pool{1d,2d}``,
+``adaptive_pool3d``, ``interpolate`` and fluid's resizes
+(``image_resize``, ``resize_bilinear``/``nearest``/``trilinear``),
+``pixel_shuffle``/``pixel_unshuffle``, ``space_to_depth``,
+``shuffle_channel``, ``unfold``, ``im2sequence``, ``affine_grid``,
+``grid_sample`` (also ``grid_sampler``) and ``deformable_conv`` (v1 and
+v2).
 
 The counterparts of ``paddle_tpu/ops/conv.py``'s, which compute every
 one of these outside any Pallas kernel (``lax.conv_general_dilated``,
 ``lax.reduce_window``, reshape-means, weight matmuls, gathers): so here
 they are PyTorch's own operators, with no kernel of this package under
-them. Layouts are the JAX package's default ones: ``x`` NC..., a conv's
-weight ``(out, in / groups, *k)`` and a transposed conv's ``(in, out /
-groups, *k)`` (Paddle's conventions); the channels-last forms it also
-takes are not ported, but for ``max_pool2d``'s ``data_format``.
+them. Layouts are the JAX package's: ``x`` NC... and a conv's weight
+``(out, in / groups, *k)``, or with ``data_format`` NLC/NHWC/NDHWC ``x``
+channels-last and the weight ``(*k, in / groups, out)`` (HIO, HWIO,
+DHWIO: ``conv.py:50-128``), the bias on the last axis; a transposed
+conv's weight is ``(in, out / groups, *k)`` in either layout (Paddle's
+conventions). A channels-last conv runs as the NC... one on views:
+``x.movedim(-1, 1)`` is an NC... tensor with channels-last strides,
+which cuDNN takes as it is, the weight is permuted to OIHW, and the
+output is moved back, so nothing is copied around the call.
 
 Every convolution runs in the input's type with float32 accumulation,
 forward and backward through cuDNN with ``benchmark=False``,
@@ -32,20 +42,31 @@ sum by the window's size, or with Paddle's ``exclusive`` (``avg_pool1d``/
 ``3d``; ``count_include_pad=False`` for ``avg_pool2d``) by the count of
 elements inside the input. ``max_pool2d`` takes the JAX signature:
 ``ceil_mode`` and ``return_mask`` are taken there and not read, and
-``data_format="NHWC"`` transposes around the NCHW pool.
+``data_format="NHWC"`` transposes around the NCHW pool. ``avg_pool2d``,
+``pool2d`` and ``adaptive_avg_pool2d`` take a ``data_format`` and pool
+as NCHW whatever it says, and ``pool2d`` takes ``ceil_mode`` and does
+not read it, as the JAX package's do (``conv.py:250-270, 351-353``).
 
 The adaptive pools take the JAX package's windows (rows ``floor(i H /
 oh)`` to ``ceil((i + 1) H / oh)``), as a reshape-mean or ``amax`` where
 the input divides evenly, else a mean or ``amax`` per window (a max's
-gradient splits over ties, as ``jnp.max``'s). ``interpolate`` is one
-matmul per spatial axis by an ``(n_out, n_in)`` weight matrix made on
-the host in float32 as the JAX package makes it (``conv.py:459-514``):
-``nearest``, the linear modes and ``bicubic`` (Keys, a = -0.75); its
-``"area"`` mode is linear, as in the JAX package. Neither uses
+gradient splits over ties, as ``jnp.max``'s); ``adaptive_pool3d`` takes
+its own windows (``(i d) // od`` to ``ceil((i + 1) d / od)``, at least
+one wide: ``conv.py:869-887``), always per window. ``interpolate`` is
+one matmul per spatial axis by an ``(n_out, n_in)`` weight matrix made
+on the host in float32 as the JAX package makes it
+(``conv.py:459-514``): ``nearest``, the linear modes and ``bicubic``
+(Keys, a = -0.75); its ``"area"`` mode is linear, as in the JAX package.
+The fluid resizes are fronts over it with fluid's defaults
+(``align_corners=True``, ``align_mode=1``). Neither uses
 ``F.interpolate``'s or the adaptive pools' CUDA backwards, which add
 with atomics. ``grid_sample`` gathers its four taps as the JAX package
 does (its backward, a scatter-add, adds with atomics on the card);
-``affine_grid`` is its ``einsum``.
+``affine_grid`` is its ``einsum``. ``deformable_conv`` samples each
+kernel tap bilinearly at its learned offset as the JAX package does
+(``conv.py:900-967``), through ``manipulation._Take``, whose backward
+adds into the input with ``index_put_`` in deterministic mode, then
+contracts the taps with the weight in one matmul a group.
 """
 from __future__ import annotations
 
@@ -57,16 +78,20 @@ import torch
 import torch.nn.functional as F
 
 from ._base import register
-from .manipulation import reshape, squeeze, transpose, unsqueeze
+from .manipulation import _Take, reshape, squeeze, transpose, unsqueeze
 from .math import add
+from .random_ops import _shuffle_channel
 
 __all__ = ["conv1d", "conv2d", "conv3d", "conv1d_transpose",
            "conv2d_transpose", "conv3d_transpose", "max_pool1d",
            "max_pool2d", "max_pool3d", "avg_pool1d", "avg_pool2d",
-           "avg_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
-           "adaptive_max_pool1d", "adaptive_max_pool2d", "interpolate",
-           "upsample", "pixel_shuffle", "unfold", "affine_grid",
-           "grid_sample"]
+           "avg_pool3d", "pool2d", "adaptive_avg_pool1d",
+           "adaptive_avg_pool2d", "adaptive_max_pool1d",
+           "adaptive_max_pool2d", "adaptive_pool3d", "interpolate",
+           "upsample", "image_resize", "resize_bilinear", "resize_nearest",
+           "resize_trilinear", "pixel_shuffle", "pixel_unshuffle",
+           "space_to_depth", "shuffle_channel", "unfold", "im2sequence",
+           "affine_grid", "grid_sample", "grid_sampler", "deformable_conv"]
 
 
 def _pair(v, n):
@@ -150,16 +175,33 @@ class _Conv(torch.autograd.Function):
         return dx, dw, None, None, None, None, None
 
 
+# each NC... layout's channels-last twin (the JAX package takes the one or
+# the other: conv.py:54, 83, 109)
+_LAST = {"NCL": "NLC", "NCHW": "NHWC", "NCDHW": "NDHWC"}
+
+
+def oihw(weight):
+    """A channels-last conv's weight (``*k, in / groups, out``: HIO, HWIO,
+    DHWIO) as the NC... conv's ``(out, in / groups, *k)``, a view."""
+    nsp = weight.dim() - 2
+    return weight.permute(nsp + 1, nsp, *range(nsp))
+
+
 def _conv(x, weight, stride, padding, dilation, groups, data_format, nc):
     """The convolution without its bias, as the JAX package's ops
     ``conv1d``/``conv2d``/``conv3d``: ``padding`` normalised by
     ``_conv_padding``; an uneven (or negative) padding is applied to
     ``x`` first (zeros), an even one by the convolution. ``data_format``
-    is taken as the JAX op takes it, so a bundle the JAX package saved
-    loads here; only ``nc`` (NCL, NCHW, NCDHW) is ported."""
+    ``nc`` (NCL, NCHW, NCDHW) or its channels-last twin, whose ``x`` and
+    weight (``oihw``) reach the NC... conv as views and whose output
+    comes back channels-last."""
+    if data_format == _LAST[nc]:
+        out = _conv(x.movedim(-1, 1), oihw(weight), stride, padding,
+                    dilation, groups, nc, nc)
+        return out.movedim(1, -1)
     if data_format != nc:
-        raise NotImplementedError(
-            f"conv data_format={data_format!r}: only {nc} is ported")
+        raise ValueError(f"conv data_format={data_format!r}: {nc} or "
+                         f"{_LAST[nc]}")
     pads = _pads(padding, x.shape[2:], weight.shape[2:], stride, dilation)
     if all(lo == hi >= 0 for lo, hi in pads):
         even = tuple(lo for lo, _ in pads)
@@ -202,14 +244,20 @@ def _conv_nd(nsp, x, weight, bias, stride, padding, dilation, groups,
     if bias is None:
         return out
     # the bias through the registered reshape and add, as in the JAX
-    # package (conv.py:72-76), so a static program records them
-    return add(out, reshape(bias, (1, -1) + (1,) * nsp))
+    # package (conv.py:72-76), so a static program records them; on the
+    # channel axis of data_format
+    shape = (1, -1) + (1,) * nsp
+    if data_format in _LAST.values():
+        shape = (1,) * (nsp + 1) + (-1,)
+    return add(out, reshape(bias, shape))
 
 
 def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCL"):
     """1-D convolution of ``x`` (N, C, L) by ``weight`` (O, C / groups,
-    k), plus ``bias`` (O,) when given; padding as ``conv2d`` takes it."""
+    k), plus ``bias`` (O,) when given; padding as ``conv2d`` takes it.
+    ``data_format="NLC"``: ``x`` (N, L, C), ``weight`` (k, C / groups,
+    O)."""
     return _conv_nd(1, x, weight, bias, stride, padding, dilation, groups,
                     data_format)
 
@@ -220,7 +268,9 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     kh, kw), plus ``bias`` (O,) when given. Padding as Paddle takes it:
     an int, one per axis, ``(top, bottom, left, right)``, pairs, or
     ``"SAME"``/``"VALID"``; an uneven padding is applied to ``x`` first
-    (zeros), an even one by the convolution."""
+    (zeros), an even one by the convolution. ``data_format="NHWC"``:
+    ``x`` (N, H, W, C), ``weight`` (kh, kw, C / groups, O) (HWIO), the
+    output (N, OH, OW, O)."""
     return _conv_nd(2, x, weight, bias, stride, padding, dilation, groups,
                     data_format)
 
@@ -228,7 +278,9 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
 def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCDHW"):
     """3-D convolution of ``x`` (N, C, D, H, W) by ``weight`` (O, C /
-    groups, kd, kh, kw), plus ``bias`` (O,) when given."""
+    groups, kd, kh, kw), plus ``bias`` (O,) when given;
+    ``data_format="NDHWC"``: ``x`` (N, D, H, W, C), ``weight`` (kd, kh,
+    kw, C / groups, O)."""
     return _conv_nd(3, x, weight, bias, stride, padding, dilation, groups,
                     data_format)
 
@@ -492,6 +544,22 @@ def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                        count_include_pad=not exclusive)
 
 
+def pool2d(x, pool_size, pool_type="max", pool_stride=1, pool_padding=0,
+           global_pooling=False, ceil_mode=False, exclusive=True,
+           data_format="NCHW"):
+    """Fluid's pool2d (``conv.py:260-269``): ``max_pool2d`` or
+    ``avg_pool2d`` (the padding counted unless ``exclusive``) of ``x``
+    (N, C, H, W); ``global_pooling`` pools the whole map. ``ceil_mode``
+    and ``data_format`` are taken and not read: the pool is NCHW, as in
+    the JAX package."""
+    if global_pooling:
+        pool_size, pool_padding, pool_stride = tuple(x.shape[2:]), 0, 1
+    if pool_type == "max":
+        return max_pool2d(x, pool_size, pool_stride, pool_padding)
+    return avg_pool2d(x, pool_size, pool_stride, pool_padding,
+                      count_include_pad=not exclusive)
+
+
 def _bins(n, m):
     """The JAX package's adaptive windows: ``m`` of them over ``n``."""
     return [(math.floor(i * n / m), math.ceil((i + 1) * n / m))
@@ -572,6 +640,36 @@ def adaptive_max_pool1d(x, output_size, return_mask=False):
     ``return_mask`` is taken and not read, as in the JAX package."""
     return squeeze(adaptive_max_pool2d(unsqueeze(x, 2),
                                        (1, _one(output_size))), 2)
+
+
+def _bins3d(n, m):
+    """``adaptive_pool3d``'s windows (``conv.py:877-883``): ``(i n) //
+    m`` to ``ceil((i + 1) n / m)``, at least one element wide."""
+    return [((i * n) // m, max(((i + 1) * n + m - 1) // m, (i * n) // m + 1))
+            for i in range(m)]
+
+
+@register("adaptive_pool3d_op", inputs=("x",))
+def _adaptive_pool3d(x, *, output_size, pool_type):
+    reduce = torch.amax if pool_type == "max" else torch.mean
+    d, h, w = x.shape[2:]
+    od, oh, ow = output_size
+    return torch.stack([torch.stack([torch.stack([
+        reduce(x[:, :, d0:d1, h0:h1, w0:w1], dim=(2, 3, 4))
+        for w0, w1 in _bins3d(w, ow)], dim=-1)
+        for h0, h1 in _bins3d(h, oh)], dim=-2)
+        for d0, d1 in _bins3d(d, od)], dim=-3)
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max", require_index=False):
+    """Maxima (``pool_type="max"``) or means of ``input`` (N, C, D, H, W)
+    over a ``pool_size`` grid of windows; ``require_index`` is taken and
+    not read, as in the JAX package."""
+    if isinstance(pool_size, int):
+        pool_size = (pool_size,) * 3
+    return _adaptive_pool3d(input, output_size=tuple(int(s) for s in
+                                                     pool_size),
+                            pool_type=pool_type)
 
 
 # -- resize, shuffle, unfold, sampling grids ---------------------------------
@@ -694,6 +792,75 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
 upsample = interpolate
 
 
+def resize_bilinear(input, out_shape=None, scale=None, actual_shape=None,
+                    align_corners=True, align_mode=1, data_format="NCHW"):
+    """Fluid's bilinear resize of ``input`` (N, C, H, W) to ``out_shape``
+    or by ``scale``: ``interpolate`` with fluid's defaults
+    (``conv.py:538-545``); ``actual_shape`` and ``data_format`` are taken
+    and not read."""
+    return interpolate(input, size=out_shape, scale_factor=scale,
+                       mode="bilinear", align_corners=align_corners,
+                       align_mode=align_mode)
+
+
+def resize_nearest(input, out_shape=None, scale=None, actual_shape=None,
+                   align_corners=True, data_format="NCHW"):
+    """Fluid's nearest resize (``conv.py:548-554``): ``interpolate``
+    ``nearest`` with ``align_mode=1``."""
+    return interpolate(input, size=out_shape, scale_factor=scale,
+                       mode="nearest", align_corners=align_corners,
+                       align_mode=1)
+
+
+@register("resize_trilinear_op", inputs=("x",))
+def _resize_trilinear(x, *, size, align_corners=True, align_mode=1):
+    return _interpolate.raw(x, size=tuple(size), mode="trilinear",
+                            align_corners=align_corners,
+                            align_mode=align_mode)
+
+
+def resize_trilinear(input, out_shape=None, scale=None, actual_shape=None,
+                     align_corners=True, align_mode=1, data_format="NCDHW"):
+    """Trilinear resize of ``input`` (N, C, D, H, W) to ``out_shape``, to
+    the last three of ``actual_shape`` when given, or by ``scale``
+    (``int(n * scale)`` an axis), with fluid's defaults
+    (``conv.py:847-866``)."""
+    if actual_shape is not None:
+        if isinstance(actual_shape, torch.Tensor):
+            actual_shape = actual_shape.tolist()
+        out_shape = [int(v) for v in actual_shape][-3:]
+    if out_shape is None:
+        out_shape = [int(n * scale) for n in input.shape[2:5]]
+    return _resize_trilinear(input, size=tuple(int(v) for v in out_shape),
+                             align_corners=bool(align_corners),
+                             align_mode=int(align_mode))
+
+
+_RESAMPLE = {"BILINEAR": "bilinear", "NEAREST": "nearest",
+             "BICUBIC": "bicubic"}
+
+
+def image_resize(input, out_shape=None, scale=None, resample="BILINEAR",
+                 actual_shape=None, align_corners=True, align_mode=1,
+                 data_format="NCHW"):
+    """Fluid's image_resize (``conv.py:702-722``): ``resample``
+    ``BILINEAR``, ``NEAREST``, ``BICUBIC`` (through ``interpolate``) or
+    ``TRILINEAR`` (``resize_trilinear``); anything else raises
+    ``ValueError``."""
+    key = str(resample).upper()
+    if key == "TRILINEAR":
+        return resize_trilinear(input, out_shape=out_shape, scale=scale,
+                                actual_shape=actual_shape,
+                                align_corners=align_corners,
+                                align_mode=align_mode)
+    if key not in _RESAMPLE:
+        raise ValueError(f"resample={resample!r} not supported (have "
+                         f"{sorted(_RESAMPLE) + ['TRILINEAR']})")
+    return interpolate(input, size=out_shape, scale_factor=scale,
+                       mode=_RESAMPLE[key], align_corners=align_corners,
+                       align_mode=align_mode)
+
+
 @register("pixel_shuffle", inputs=("x",))
 def _pixel_shuffle(x, *, upscale_factor):
     n, c, h, w = x.shape
@@ -707,6 +874,35 @@ def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
     return _pixel_shuffle(x, upscale_factor=int(upscale_factor))
 
 
+@register("pixel_unshuffle", inputs=("x",))
+def _pixel_unshuffle(x, *, downscale_factor):
+    n, c, h, w = x.shape
+    r = downscale_factor
+    x = x.reshape(n, c, h // r, r, w // r, r).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(n, c * r * r, h // r, w // r)
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW"):
+    """(N, C, H r, W r) -> (N, C r², H, W), ``pixel_shuffle``'s
+    inverse."""
+    return _pixel_unshuffle(x, downscale_factor=int(downscale_factor))
+
+
+@register("space_to_depth", inputs=("x",))
+def _space_to_depth(x, *, blocksize):
+    n, c, h, w = x.shape
+    r = blocksize
+    x = x.reshape(n, c, h // r, r, w // r, r).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, r * r * c, h // r, w // r)
+
+
+def space_to_depth(x, blocksize):
+    """(N, C, H, W) -> (N, bs² C, H / bs, W / bs), the block offset the
+    HIGH part of the output channel (``(by bs + bx) C + c``), not
+    ``pixel_unshuffle``'s channel-major order (``conv.py:585-600``)."""
+    return _space_to_depth(x, blocksize=int(blocksize))
+
+
 @register("unfold", inputs=("x",))
 def _unfold(x, *, ksize, stride, padding, dilation):
     return F.unfold(x, ksize, dilation=dilation, padding=padding[:2],
@@ -718,6 +914,31 @@ def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1):
     padding the first two of ``paddings`` (as in the JAX package)."""
     return _unfold(x, ksize=_pair(kernel_sizes, 2), stride=_pair(strides, 2),
                    padding=_pair(paddings, 2), dilation=_pair(dilations, 2))
+
+
+def shuffle_channel(x, group):
+    """ShuffleNet's channel shuffle of ``x`` (N, C, H, W) in ``group``
+    groups (``random_ops.channel_shuffle``'s op, as in the JAX package);
+    C must divide by ``group``."""
+    if x.shape[1] % group:
+        raise ValueError(f"channels {x.shape[1]} not divisible by {group}")
+    return _shuffle_channel(x, group=int(group))
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1):
+    """Image patches as a sequence (``conv.py:819-834``): (N, C, H, W) ->
+    (N, OH OW, C kh kw), patches in row-major order. The per-sample patch
+    grids of ``input_image_size``/``out_stride`` raise
+    ``NotImplementedError``, as in the JAX package."""
+    if input_image_size is not None or out_stride != 1:
+        raise NotImplementedError(
+            "per-sample real-size patch grids (input_image_size/"
+            "out_stride) are not implemented; patches come from the "
+            "padded static H/W")
+    out = unfold(input, _pair(filter_size, 2), strides=_pair(stride, 2),
+                 paddings=padding)
+    return transpose(out, [0, 2, 1])
 
 
 @register("affine_grid", inputs=("theta",))
@@ -797,3 +1018,99 @@ def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
     ``padding_mode`` ``zeros``, ``border`` or ``reflection``."""
     return _grid_sample(x, grid, mode=mode, padding_mode=padding_mode,
                         align_corners=bool(align_corners))
+
+
+grid_sampler = grid_sample
+
+
+def _deformable_conv(x, offset, mask, weight, bias, stride, padding,
+                     dilation, groups, dg):
+    """``conv.py:900-967``: each kernel tap (r, s) samples ``x`` (zero
+    padded) bilinearly at ``p0 + (r, s) d + offset``, a tap outside the
+    padded map 0, times the tap's ``mask`` plane (v2); every one of the
+    ``dg`` channel groups has its own offset and mask planes. The taps
+    (B, C, KH KW, OH OW) then contract with the weight, one matmul a
+    conv group."""
+    B, C, H, W = x.shape
+    O, Cg, KH, KW = weight.shape
+    (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
+    xp = F.pad(x, (pw, pw, ph, ph))
+    Hp, Wp = xp.shape[2:]
+    OH = (H + 2 * ph - (dh * (KH - 1) + 1)) // sh + 1
+    OW = (W + 2 * pw - (dw * (KW - 1) + 1)) // sw + 1
+    dev = x.device
+    oy = (torch.arange(OH, device=dev) * sh)[None, :, None]
+    ox = (torch.arange(OW, device=dev) * sw)[None, None, :]
+    Cd = C // dg
+    chans = torch.arange(B, device=dev)[:, None] * C + torch.arange(
+        Cd, device=dev)[None, :]                        # (B, Cd)
+    cols = []
+    for r in range(KH):
+        for s in range(KW):
+            k = r * KW + s
+            vals = []
+            for d in range(dg):
+                base = d * 2 * KH * KW
+                yy = oy + r * dh + offset[:, base + 2 * k, :OH, :OW]
+                xx = ox + s * dw + offset[:, base + 2 * k + 1, :OH, :OW]
+                y0, x0 = torch.floor(yy), torch.floor(xx)
+                wy, wx = yy - y0, xx - x0
+                first = ((chans + d * Cd) * (Hp * Wp))[:, :, None]
+
+                def tap(yi, xi):
+                    yi = yi.to(torch.int32).clamp(0, Hp - 1).long()
+                    xi = xi.to(torch.int32).clamp(0, Wp - 1).long()
+                    lin = first + (yi * Wp + xi).reshape(B, 1, OH * OW)
+                    return _Take.apply(xp, lin).reshape(B, Cd, OH, OW)
+
+                inb = (yy >= 0) & (yy <= Hp - 1) & (xx >= 0) & (xx <= Wp - 1)
+                val = (tap(y0, x0) * ((1 - wy) * (1 - wx))[:, None]
+                       + tap(y0, x0 + 1) * ((1 - wy) * wx)[:, None]
+                       + tap(y0 + 1, x0) * (wy * (1 - wx))[:, None]
+                       + tap(y0 + 1, x0 + 1) * (wy * wx)[:, None])
+                val = torch.where(inb[:, None], val, 0.0)
+                if mask is not None:
+                    val = val * mask[:, d * KH * KW + k, :OH, :OW][:, None]
+                vals.append(val)
+            cols.append(vals[0] if dg == 1 else torch.cat(vals, dim=1))
+    col = torch.stack(cols, dim=2).reshape(B, groups, (C // groups) * KH * KW,
+                                           OH * OW)
+    out = torch.matmul(weight.reshape(groups, O // groups, Cg * KH * KW), col)
+    out = out.reshape(B, O, OH, OW)
+    return out if bias is None else out + bias.reshape(1, O, 1, 1)
+
+
+@register("deformable_conv_op",
+          inputs=("x", "offset", "mask", "weight", "bias"))
+def _deformable_conv_v2(x, offset, mask, weight, bias, *, stride, padding,
+                        dilation, groups, deformable_groups=1):
+    return _deformable_conv(x, offset, mask, weight, bias, stride, padding,
+                            dilation, groups, deformable_groups)
+
+
+@register("deformable_conv_v1_op", inputs=("x", "offset", "weight", "bias"))
+def _deformable_conv_v1(x, offset, weight, bias, *, stride, padding,
+                        dilation, groups, deformable_groups=1):
+    return _deformable_conv(x, offset, None, weight, bias, stride, padding,
+                            dilation, groups, deformable_groups)
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size, stride=1,
+                    padding=0, dilation=1, groups=1, deformable_groups=1,
+                    im2col_step=1, weight=None, bias=None, param_attr=None,
+                    bias_attr=None, modulated=True):
+    """Deformable convolution (``conv.py:970-989``) of ``input`` (B, C, H,
+    W) by ``weight`` (O, C / groups, KH, KW), plus ``bias`` (O,) when
+    given: ``offset`` (B, 2 dg KH KW, OH, OW) holds each tap's (dy, dx),
+    and ``mask`` (B, dg KH KW, OH, OW) its modulation (v2), ``None`` for
+    v1. ``num_filters``, ``filter_size``, ``im2col_step``, the attrs and
+    ``modulated`` are taken and not read; without ``weight`` it raises
+    ``ValueError``, as in the JAX package."""
+    if weight is None:
+        raise ValueError("pass weight=(num_filters, C//groups, KH, KW)")
+    attrs = dict(stride=_pair(stride, 2), padding=_pair(padding, 2),
+                 dilation=_pair(dilation, 2), groups=int(groups),
+                 deformable_groups=int(deformable_groups))
+    if mask is None:
+        return _deformable_conv_v1(input, offset, weight, bias, **attrs)
+    return _deformable_conv_v2(input, offset, mask, weight, bias, **attrs)

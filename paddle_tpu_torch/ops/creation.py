@@ -279,3 +279,9 @@ def multinomial(x, num_samples=1, replacement=False, name=None):
     or without ``replacement``)."""
     return torch.multinomial(x, int(num_samples), bool(replacement),
                              generator=default_generator(x.device))
+
+
+# fluid's spellings (creation.py:108, 194, 217-218)
+range_ = arange
+uniform_random = uniform
+gaussian = gaussian_random = normal

@@ -799,3 +799,11 @@ def bincount(x, weights=None, minlength=0, name=None):
     with deterministic():
         return torch.zeros(n, dtype=w.dtype, device=w.device).index_put_(
             (x.long(),), w, accumulate=True)
+
+
+# fluid's spellings (manipulation.py:35, 334, 413, 553): ``transpose_`` is
+# ``swapaxes``, not ``transpose``
+reshape_ = reshape
+reverse = flip
+top_k = topk
+transpose_ = swapaxes

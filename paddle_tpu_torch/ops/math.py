@@ -400,3 +400,11 @@ def _unary(name, fn):
 for _name, _fn in _UNARY.items():
     globals()[_name] = _unary(_name, _fn)
 del _name, _fn
+
+# fluid's spellings (math.py:261, 266-269, 336)
+floor_mod = remainder
+elementwise_add = add
+elementwise_sub = subtract
+elementwise_mul = multiply
+elementwise_div = divide
+sums = add_n

@@ -1,6 +1,7 @@
 """Normalization ops: ``layer_norm``, ``batch_norm``, ``group_norm``,
-``instance_norm``, ``normalize``, ``local_response_norm`` and
-``spectral_norm``.
+``instance_norm``, ``normalize``, ``l2_normalize``,
+``local_response_norm`` (also ``lrn``), ``spectral_norm`` and fluid's
+``data_norm``.
 
 The counterparts of ``layer_norm`` and ``batch_norm`` in
 ``paddle_tpu/ops/norm_ops.py``. ``layer_norm`` keeps the JAX package's
@@ -31,14 +32,16 @@ all-ones ``u``, ``v`` (``norm_ops.py:187-241``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ._base import register
 from .kernels.layernorm import fused_layer_norm
 
 __all__ = ["layer_norm", "fused_ln_ok", "batch_norm", "group_norm",
-           "instance_norm", "normalize", "local_response_norm",
-           "spectral_norm"]
+           "instance_norm", "normalize", "l2_normalize", "local_response_norm",
+           "lrn", "spectral_norm", "data_norm"]
 
 
 def fused_ln_ok(shape, begin_norm_axis, weight, bias):
@@ -269,6 +272,18 @@ def normalize(x, p=2, axis=1, epsilon=1e-12):
                         epsilon=float(epsilon))
 
 
+@register("l2_normalize", inputs=("x",))
+def _l2_normalize(x, *, axis, epsilon):
+    norm = torch.sqrt((x * x).sum(dim=axis, keepdim=True))
+    return x / torch.clamp_min(norm, epsilon)
+
+
+def l2_normalize(x, axis=-1, epsilon=1e-12):
+    """``x`` over its L2 norm along ``axis``, the norm at least
+    ``epsilon`` (``norm_ops.py:170-176``)."""
+    return _l2_normalize(x, axis=int(axis), epsilon=float(epsilon))
+
+
 @register("local_response_norm", inputs=("x",))
 def _lrn(x, *, size, alpha, beta, k):
     sq = x * x
@@ -287,6 +302,9 @@ def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
     each (``alpha`` not divided by ``size``)."""
     return _lrn(x, size=int(size), alpha=float(alpha), beta=float(beta),
                 k=float(k))
+
+
+lrn = local_response_norm
 
 
 def power_sigma(mat, u, v, power_iters, eps):
@@ -314,3 +332,51 @@ def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12):
     from all-ones vectors."""
     return _spectral_norm(weight, dim=int(dim), power_iters=int(power_iters),
                           eps=float(eps))
+
+
+@register("data_norm_op",
+          inputs=("x", "batch_size", "batch_sum", "batch_square_sum"))
+def _data_norm(x, batch_size, batch_sum, batch_square_sum, *, epsilon):
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mean = (batch_sum / batch_size).reshape(shape)
+    var = (batch_square_sum / batch_size).reshape(shape) - mean * mean
+    return (x - mean) / torch.sqrt(var + epsilon)
+
+
+@register("_dn_sum", inputs=("x",))
+def _dn_sum(x, *, axes):
+    return x.float().sum(dim=axes)
+
+
+@register("_dn_sqsum", inputs=("x",))
+def _dn_sqsum(x, *, axes):
+    return (x.float() ** 2).sum(dim=axes)
+
+
+def data_norm(input, act=None, epsilon=1e-5, param_attr=None,
+              data_layout="NCHW", in_place=False, moving_mean_name=None,
+              moving_variance_name=None,
+              do_model_average_for_mean_and_var=False, slot_dim=-1,
+              summary_decay_rate=0.9999999, stats=None):
+    """Fluid's data_norm (``norm_ops.py:240-264``): ``input`` (N, C, ...)
+    normalised per channel by accumulated statistics ``stats = (batch
+    size, batch sum, batch square sum)``, each (C,): mean ``sum /
+    size``, variance ``square sum / size - mean²``, then ``(x - mean) /
+    sqrt(var + epsilon)``, and ``act`` (a ``nn.functional`` name) on
+    that. Without ``stats`` the batch's own float32 statistics over
+    every axis but 1. The statistics are read, not updated (the caller
+    keeps them), so ``summary_decay_rate`` and the layer's other
+    arguments are taken and not read, as in the JAX package."""
+    if stats is None:
+        axes = tuple(i for i in range(input.dim()) if i != 1)
+        n = float(math.prod(input.shape[i] for i in axes))
+        bsize = torch.full((input.shape[1],), n, dtype=torch.float32,
+                           device=input.device)
+        stats = (bsize, _dn_sum(input, axes=axes),
+                 _dn_sqsum(input, axes=axes))
+    out = _data_norm(input, *stats, epsilon=float(epsilon))
+    if act is not None:
+        from ..nn import functional as F
+
+        out = getattr(F, act)(out)
+    return out

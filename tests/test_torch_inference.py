@@ -460,10 +460,17 @@ def test_unported_and_foreign_paths_raise(bundles, tmp_path):
     cfg.aot_cache_dir = None
     with pytest.raises(NotImplementedError, match="item 8"):
         cfg.aot_cache_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="NCHW"):
-        _conv2d(torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, 3, 3),
-                stride=(1, 1), padding=[(0, 0), (0, 0)], dilation=(1, 1),
-                groups=1, data_format="NHWC")
+    # a bundle's NHWC conv op (HWIO weight) loads and runs: the JAX op's
+    # result on the same arrays
+    rng = np.random.RandomState(0)
+    x, w = rng.randn(1, 5, 5, 2), rng.randn(3, 3, 2, 4)
+    x, w = x.astype(np.float32), w.astype(np.float32)
+    attrs = dict(stride=(1, 1), padding=[(1, 0), (0, 1)], dilation=(1, 1),
+                 groups=1, data_format="NHWC")
+    want = jpt.ops.OP_REGISTRY["conv2d"](x, w, **attrs)
+    got = _conv2d(torch.from_numpy(x), torch.from_numpy(w), **attrs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
     with open(bundles["port"] + ".pdmodel", "rb") as f:
         desc = pickle.load(f)
     desc["ops"][0] = ("no_such_op",) + tuple(desc["ops"][0][1:])

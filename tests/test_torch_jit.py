@@ -294,6 +294,16 @@ assert pt_api.to_static(net)(ids).shape == (1, 4, 256)
 for name in ("optimizer", "static", "device", "distributed", "regularizer",
              "TrainStep", "save", "jit", "nn", "amp", "serving"):
     getattr(pt_api, name)
+from paddle_tpu_torch.models.vision import MobileNetV1, MobileNetV2, vgg16
+from paddle_tpu_torch.models.vision import mobilenet, vgg
+from paddle_tpu_torch.ops import conv, misc, norm_ops
+net = MobileNetV1(num_classes=3, scale=0.25, device="cpu")
+assert net(torch.zeros(2, 3, 32, 32)).shape == (2, 3)
+assert pt_api.ops.hash(torch.tensor([[1, 2]]), 7).shape == (1, 1)
+assert pt_api.ops.conv2d(torch.ones(1, 4, 4, 2), torch.ones(3, 3, 2, 1),
+                         padding=1, data_format="NHWC").shape == (1, 4, 4, 1)
+assert callable(convert.vgg_params_from_jax) and callable(
+    convert.mobilenet_params_from_jax)
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad

@@ -682,3 +682,197 @@ def test_phase_25_script_reaches_every_kernel_wrapper(monkeypatch):
     want = cs.surface_launches(cfg)
     assert calls == {k: want[k] for k in calls}, calls
     assert np.isfinite(losses[0]) and abs(losses[0] - np.log(256)) < 0.5
+
+
+# -- phase 26: VGG and MobileNet V1/V2, the op library's rest ----------------
+
+# phase 26(b)'s channels-last shapes, cut for the CPU: a plain conv, a
+# depthwise one and a pointwise one
+SMALL_CHANNELS_LAST = (("stem 3x3/2", (2, 3, 16, 16), (4, 3, 3, 3), 2, 1, 1),
+                       ("depthwise 3x3", (2, 6, 8, 8), (6, 1, 3, 3), 1, 1, 6),
+                       ("pointwise", (2, 6, 8, 8), (5, 6, 1, 1), 1, 0, 1))
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one thread for a test of many small CPU ops: with a
+    thread a core they wait on each other when other test processes hold
+    the cores (phase 26's MobileNetV2 forward took 13.7 s beside five
+    other pytest workers, under 1 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _vision_model(name, dtype=torch.float32, **kw):
+    kw = dict(dict(scale=0.25) if name.startswith("mobilenet") else {}, **kw)
+    m = cs.image_model(name, device="cpu", num_classes=10,
+                       generator=torch.Generator().manual_seed(0), **kw)
+    return m.to(dtype)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("name", ["vgg", "mobilenet_v1", "mobilenet_v2"])
+def test_vision_reference_forwards_are_the_port_models(name):
+    """Phase 26's float32 references (``torch.nn.functional`` only) are
+    the port's models: the same logits in training mode with dropout
+    off, within 2^-12 of the largest (BatchNorm over the few values of a
+    batch of 4 small images amplifies float32 roundings through
+    MobileNetV2's 52 convs: seen 1.2e-5 of it; a wrong stride, padding
+    or group is an error of order 1)."""
+    from paddle_tpu_torch.models.vision import VGG
+
+    if name == "vgg":        # VGG-11: the reference walks any depth's layout
+        m = VGG(11, num_classes=10, dropout=0.0, device="cpu",
+                generator=torch.Generator().manual_seed(0))
+    else:
+        m = _vision_model(name, **({"dropout": 0.0} if name ==
+                                   "mobilenet_v2" else {}))
+    init = {k: v.clone() for k, v in m.state_dict().items()}
+    size = 32 if name == "vgg" else 64
+    x = torch.randn(4, 3, size, size,
+                    generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        got = m(x)
+    ref = (cs.vgg_reference_forward(init, x, depth=11) if name == "vgg" else
+           cs.mobilenet_reference_forward(init, x))
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(got, ref, rtol=0, atol=2 ** -12 * scale)
+
+
+def _ulp_once(real):
+    """``real`` whose first call comes back one float32 step up (its
+    gradient kept): the card's side of the planted fault, the check runs
+    the CPU's side first."""
+    calls = []
+
+    def planted(*a, **k):
+        out = real(*a, **k)
+        calls.append(1)
+        if len(calls) > 1:
+            return out
+        return out + (torch.nextafter(out, torch.full_like(
+            out, float("inf"))) - out).detach()
+    return planted
+
+
+def _drop_bn_update(real):
+    """``TrainStep.__call__`` that puts the stem BatchNorm's running mean
+    back as it was before the step: a graph that dropped one buffer's
+    update."""
+    def call(self, *batch):
+        bn = self.model.stem.bn
+        kept = bn._mean.clone()
+        out = real(self, *batch)
+        bn._mean.copy_(kept)
+        return out
+    return call
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("fault", [None, "hwio permute", "bn update dropped",
+                                   "misc op one ulp off"])
+def test_phase_26_checks_reject_planted_faults(monkeypatch, fault):
+    """Phase 26's checks on the CPU (the CPU in the card's place, small
+    shapes) pass as they are, and each fails with the fault it aims at
+    planted: the channels-last conv's weight permuted to (O, I, W, H)
+    instead of OIHW (``channels_last_check``), a step whose running mean
+    update is dropped on the graphed side (``graph_compare_check``:
+    MobileNetV1 at 0.25 width, 2 steps), and ``brelu`` one float32 step
+    off on one side (``ops_rest_card_check``: its output is held bit for
+    bit)."""
+    from paddle_tpu_torch.framework import TrainStep
+    from paddle_tpu_torch.ops import conv, misc
+
+    m = _vision_model("mobilenet_v1", torch.bfloat16)
+    init = {k: v.clone() for k, v in m.state_dict().items()}
+    rng = np.random.RandomState(0)
+    batch = (rng.randn(2, 3, 32, 32).astype(np.float32),
+             rng.randint(0, 10, (2,)).astype(np.int32))
+
+    def graph_check():
+        cs.graph_compare_check("vision mobilenet_v1", "bench_mobilenet_v1",
+                               m, init, cs.resnet_loss, batch, "cpu",
+                               steps=2)
+
+    if fault == "hwio permute":
+        monkeypatch.setattr(conv, "oihw", lambda w: w.permute(3, 2, 1, 0))
+        with pytest.raises(cs.CheckFailed, match="channels-last conv2d"):
+            cs.channels_last_check("cpu", device="cpu",
+                                   shapes=SMALL_CHANNELS_LAST)
+        return
+    if fault == "bn update dropped":
+        monkeypatch.setattr(TrainStep, "__call__",
+                            _drop_bn_update(TrainStep.__call__))
+        with pytest.raises(cs.CheckFailed, match="tensors differ"):
+            graph_check()
+        return
+    if fault == "misc op one ulp off":
+        monkeypatch.setattr(misc, "_brelu", _ulp_once(misc._brelu))
+        with pytest.raises(cs.CheckFailed, match="brelu"):
+            cs.ops_rest_card_check("cpu", device="cpu")
+        return
+    worst, moving, _ = cs.channels_last_check("cpu", device="cpu",
+                                              shapes=SMALL_CHANNELS_LAST)
+    assert worst <= cs.RESNET_CONV_TOL and moving == []
+    graph_check()
+    assert cs.ops_rest_card_check("cpu", device="cpu") == []
+    cs.deformable_check("cpu", device="cpu",
+                        shape=dict(B=1, C=8, H=10, W=10, O=4))
+    assert set(cs.NEW_OP_NAMES) <= {c[0] for c in cs.OPS_REST_CASES}
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_step_ranges_put_each_op_in_its_range_and_restore():
+    """``step_ranges`` (what phases 16 and 26 and
+    ``tools/torch_train_profile.py`` group device time by) names each
+    ``nn.functional`` call and the optimizer's update in a profiler range,
+    a conv of more than one group as ``depthwise_conv2d``, and puts every
+    function back; ``_step_group`` splits a conv's kernels into forward,
+    dgrad and wgrad and BatchNorm's into reductions and elementwise
+    passes."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.framework import TrainStep
+    from paddle_tpu_torch.nn import functional as PF
+
+    m = _vision_model("mobilenet_v1", torch.bfloat16)
+    opt = cs.train_optimizer(m, "bench_mobilenet_v1")
+    step = TrainStep(m, opt, cs.resnet_loss)
+    rng = np.random.RandomState(0)
+    batch = (rng.randn(2, 3, 32, 32).astype(np.float32),
+             rng.randint(0, 10, (2,)).astype(np.int32))
+    real = {n: getattr(PF, n) for n in cs.STEP_RANGES}
+    with cs.step_ranges(opt), profile(
+            activities=[ProfilerActivity.CPU]) as prof:
+        step._eager_step(*batch)
+    names = {e.name for e in prof.events()}
+    assert any("_ConvBackward" in n for n in names)
+    assert {"port::conv2d", "port::depthwise_conv2d", "port::batch_norm",
+            "port::relu", "port::adaptive_avg_pool2d", "port::linear",
+            "port::cross_entropy", "optimizer.step"} <= names
+    assert all(cs.is_step_range(n) for n in names if n.startswith("port::"))
+    assert {n: getattr(PF, n) for n in cs.STEP_RANGES} == real
+    assert "_apply" not in vars(opt)
+
+    def group(stack, kernel):
+        e = None
+        for name in reversed(stack):
+            e = SimpleNamespace(name=name, cpu_parent=e)
+        return cs._step_group(e, kernel)
+
+    assert group(["port::conv2d", "aten::conv2d"], "sm90_fprop") == \
+        "conv_forward"
+    assert group(["_ConvBackward"], "sm90_dgrad_kernel") == \
+        "conv_dgrad"
+    assert group(["port::depthwise_conv2d"], "conv_depthwise2d_forward") == \
+        "depthwise_conv_forward"
+    assert group(["port::batch_norm"], "batch_norm_collect_statistics"
+                 "_welford_kernel") == "batch_norm_reductions"
+    assert group(["port::batch_norm"], "elementwise_kernel") == \
+        "batch_norm_elementwise"
+    assert group(["optimizer.step"], "Memcpy HtoD") == "copy"
+    assert group(["aten::add"], "elementwise_kernel") == "other"

@@ -4,7 +4,8 @@ BatchNorm backwards and the static LeNet step repeatable on the card,
 and what do the repeatable ones cost?
 
     python3 tools/torch_repeatability.py [--runs N]
-                                         [--cases all|embedding|resnet|static]
+                                         [--cases all|embedding|resnet|
+                                                  mobilenet|static]
 
 For the lookups of bench_bert and bench_gpt (8192 or 16384 ids: BERT's
 token types, all 0 of 2; its positions, 0-127 repeated; its words and
@@ -28,6 +29,14 @@ port's ``max_pool2d`` backward on the stem's ReLU output (windows of
 tied zeros), its global ``adaptive_avg_pool2d`` backward and its
 BatchNorm backward, through autograd. Each: whether ``--runs``
 backwards give the same bits, and the time of one.
+
+The MobileNet cases, bfloat16 at batch 128 as phase 26 of
+``chip_smoke.py`` trains MobileNet V1 and V2: the depthwise convs'
+(``groups`` = channels, 3 x 3) dgrad and wgrad at six of their shapes,
+under cuDNN's default flags and the port's, as for ResNet-50's convs.
+PyTorch may take its own depthwise kernels for these rather than
+cuDNN's; either way this says whether a backward gives the same bits
+twice before the convs join a CUDA graph.
 
 The static case: bench_lenet_exec's program (``chip_smoke.lenet_program``,
 B = 256, Momentum) run op by op (``Executor(use_cuda_graph=False)``, as
@@ -61,6 +70,15 @@ CONVS = [("stem 7x7/2", (128, 3, 224, 224), (64, 3, 7, 7), 2, 3),
          ("1x1", (128, 256, 56, 56), (64, 256, 1, 1), 1, 0),
          ("3x3/2", (128, 128, 56, 56), (128, 128, 3, 3), 2, 1),
          ("1x1/2 downsample", (128, 256, 56, 56), (512, 256, 1, 1), 2, 0)]
+# MobileNet V1's and V2's depthwise convs at batch 128 (groups = C):
+# label, x, weight (C, 1, 3, 3), stride, padding
+DEPTHWISE = [("V1 first 3x3", (128, 32, 112, 112), (32, 1, 3, 3), 1, 1),
+             ("V1 512 at 14x14", (128, 512, 14, 14), (512, 1, 3, 3), 1, 1),
+             ("V1 1024 at 7x7", (128, 1024, 7, 7), (1024, 1, 3, 3), 1, 1),
+             ("V2 96 at 112x112 /2", (128, 96, 112, 112), (96, 1, 3, 3), 2,
+              1),
+             ("V2 144 at 56x56", (128, 144, 56, 56), (144, 1, 3, 3), 1, 1),
+             ("V2 960 at 7x7", (128, 960, 7, 7), (960, 1, 3, 3), 1, 1)]
 
 
 def _ms(fn, iters=20):
@@ -88,22 +106,20 @@ def _repeatable(fn, runs):
                for _ in range(runs - 1))
 
 
-def resnet_cases(runs):
+def _conv_rows(convs, runs, randn):
+    """For each conv of ``convs`` (groups: the channels when the weight
+    has one input channel), its dgrad and wgrad under cuDNN's default
+    flags and the port's: repeatable or not over ``runs``, and the time
+    of one."""
     import torch
 
-    from paddle_tpu_torch.nn import functional as PF
     from paddle_tpu_torch.ops.conv import _cudnn
 
-    g = torch.Generator(device="cuda").manual_seed(0)
-
-    def randn(*shape):
-        return torch.randn(shape, device="cuda", generator=g).to(
-            torch.bfloat16)
-
-    for label, xs, ws, stride, pad in CONVS:
+    for label, xs, ws, stride, pad in convs:
+        groups = xs[1] if ws[1] == 1 else 1
         x, w = randn(*xs), randn(*ws) * (2.0 / (ws[1] * ws[2] ** 2)) ** 0.5
-        out = torch.ops.aten.convolution(x, w, None, (stride,) * 2,
-                                         (pad,) * 2, (1, 1), False, (0, 0), 1)
+        args = ((stride,) * 2, (pad,) * 2, (1, 1), False, (0, 0), groups)
+        out = torch.ops.aten.convolution(x, w, None, *args)
         dy = randn(*out.shape)
         row = []
         for setting, flags in (
@@ -115,16 +131,36 @@ def resnet_cases(runs):
                 def bwd(mask=mask, flags=flags):
                     with flags():
                         dx, dw, _ = torch.ops.aten.convolution_backward(
-                            dy, x, w, None, (stride,) * 2, (pad,) * 2,
-                            (1, 1), False, (0, 0), 1, mask)
+                            dy, x, w, None, *args, mask)
                     return [dx if mask[0] else dw]
 
                 same = _repeatable(bwd, runs)
                 row.append(f"{setting} {part} "
                            f"{'repeatable' if same else 'NOT'} "
                            f"{_ms(bwd):.4f} ms")
-        print(f"conv {label} x {xs} w {ws} bf16, {runs} runs: "
-              + "; ".join(row), flush=True)
+        print(f"conv {label} x {xs} w {ws} groups {groups} bf16, {runs} "
+              f"runs: " + "; ".join(row), flush=True)
+
+
+def _randn():
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return lambda *shape: torch.randn(shape, device="cuda",
+                                      generator=g).to(torch.bfloat16)
+
+
+def mobilenet_cases(runs):
+    _conv_rows(DEPTHWISE, runs, _randn())
+
+
+def resnet_cases(runs):
+    import torch
+
+    from paddle_tpu_torch.nn import functional as PF
+
+    randn = _randn()
+    _conv_rows(CONVS, runs, randn)
 
     def autograd(fn, *inputs):
         inputs = [t.requires_grad_() for t in inputs]
@@ -185,9 +221,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--runs", type=int, default=None,
                     help="backward passes compared per case (default 300 "
-                    "for the embedding cases, 20 for the ResNet ones)")
+                    "for the embedding cases, 20 for the conv ones)")
     ap.add_argument("--cases", choices=("all", "embedding", "resnet",
-                                        "static"),
+                                        "mobilenet", "static"),
                     default="all", help="which cases (default all)")
     args = ap.parse_args(argv)
     import torch
@@ -197,6 +233,8 @@ def main(argv=None):
         return 2
     if args.cases in ("all", "resnet"):
         resnet_cases(args.runs or 20)
+    if args.cases in ("all", "mobilenet"):
+        mobilenet_cases(args.runs or 20)
     if args.cases in ("all", "embedding"):
         embedding_cases(args.runs or 300)
     if args.cases in ("all", "static"):

@@ -23,7 +23,9 @@ optimizer and batch):
   ``resnet50()`` cast with ``bfloat16()``, batch 128 x 3 x 224 x 224,
   Momentum(0.1, 0.9, multi_precision) — cuDNN's convs, pooling,
   BatchNorm, the dense cross-entropy over 1000 classes, no kernel of the
-  port;
+  port; ``bench_vgg16``, ``bench_mobilenet_v1`` and
+  ``bench_mobilenet_v2`` the same recipe for ``vgg16()``,
+  ``MobileNetV1()`` and ``MobileNetV2()`` (phase 26 of the smoke);
 
 each but ResNet-50 with AdamW(1e-4, decay 0.01) and global-norm clip
 1.0, on a batch from RandomState(0). After two
@@ -35,11 +37,12 @@ the attention softmax, dropout's random numbers, other elementwise and
 reduction kernels, memory copies and sets), the repo's own kernels one
 by one, and the device's busy share of that step's wall time, and the host's time to issue one LayerNorm
 wrapper call and one ``F.layer_norm`` at the step's shape. For
-bench_resnet50 the groups follow the op that launched each kernel (its
-stack of profiler ranges and autograd nodes; ``RESNET_GROUPS``): the
-conv forward, its data and weight gradients, BatchNorm's elementwise
-passes and its reductions, pooling, ReLU, the loss, the optimizer and
-copies.
+the image models the groups follow the op that launched each kernel (its
+stack of profiler ranges and autograd nodes: ``chip_smoke.step_ranges``
+and ``device_ms_by_op``, which phases 16 and 26 of the smoke log): the
+conv and depthwise conv forwards, their data and weight gradients,
+BatchNorm's elementwise passes and its reductions, the linear layers,
+pooling, activations, dropout, the loss, the optimizer and copies.
 ``lenet_exec`` is ``bench.py:bench_lenet_exec``'s static program
 (``chip_smoke.lenet_program``: LeNet at B = 256, Momentum) through
 ``Executor.run``: after the warm call and the capture it times
@@ -57,6 +60,7 @@ host.
 Needs one CUDA card.
 """
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -81,21 +85,6 @@ GROUPS = (("conv", ("fprop", "dgrad", "wgrad", "convolve")),
           ("elementwise", ("elementwise", "vectorized", "unrolled")),
           ("copy", ("Memcpy", "memcpy", "Memset")))
 OWN = ("flash_attention", "layer_norm", "softmax_ce")   # the repo's kernels
-# bench_resnet50: group, names on the launching op's stack (profiler
-# ranges, aten ops, autograd nodes); the first group that matches wins
-RESNET_GROUPS = (("optimizer", ("optimizer.step",)),
-                 ("loss", ("cross_entropy", "LogSoftmax", "log_softmax",
-                           "Gather", "NllLoss")),
-                 ("batch_norm", ("port::batch_norm", "_BatchNormTrain")),
-                 ("conv", ("port::conv2d", "_Conv")),
-                 ("pooling", ("port::max_pool2d", "MaxPool2D",
-                              "port::adaptive_avg_pool2d", "MeanBackward")),
-                 ("relu", ("port::relu", "ReluBackward")))
-PORT_OPS = ("conv2d", "batch_norm", "max_pool2d", "adaptive_avg_pool2d",
-            "relu")
-RANGES = {"optimizer.step"} | {f"port::{n}" for n in PORT_OPS}
-
-
 def host_us(fn, iters=50):
     """Microseconds the host takes to issue one call of ``fn``, with the
     card kept busy (``chip_smoke.QUEUE_CYCLES``) so that no call waits
@@ -111,67 +100,6 @@ def host_us(fn, iters=50):
     t = time.perf_counter() - t0
     torch.cuda.synchronize()
     return t / iters * 1e6
-
-
-def _resnet_group(event):
-    """The group of the device time of CPU op ``event``'s own kernels,
-    from the names on its stack, and whether an autograd node (the
-    backward) is on it."""
-    stack = []
-    e = event
-    while e is not None:
-        stack.append(e.name)
-        e = e.cpu_parent
-    names = " ".join(stack)
-    backward = "Backward" in names
-    for group, keys in RESNET_GROUPS:
-        if any(k in names for k in keys):
-            return group, backward
-    return "other", backward
-
-
-def _kernel_group(group, backward, kernel):
-    """A conv's kernels split into the forward, dgrad, wgrad and the
-    backward's other kernels (layout transposes); BatchNorm's into
-    reductions and elementwise passes."""
-    if group == "conv":
-        for part in ("dgrad", "wgrad"):
-            if part in kernel:
-                return f"conv_{part}"
-        return "conv_backward_other" if backward else "conv_forward"
-    if group == "batch_norm":
-        return ("batch_norm_reductions" if "reduce" in kernel.lower()
-                or "welford" in kernel.lower() else
-                "batch_norm_elementwise")
-    if any(k in kernel for k in ("Memcpy", "memcpy", "Memset")):
-        return "copy"
-    return group
-
-
-def resnet_breakdown(prof):
-    """Device ms by group for a profiled bench_resnet50 step, each kernel
-    put with the op that launched it; None when the profiler linked no
-    kernel to an op."""
-    out = {}
-    for e in prof.events():
-        for k in getattr(e, "kernels", ()):
-            g = _kernel_group(*_resnet_group(e), k.name)
-            out[g] = out.get(g, 0.0) + k.duration / 1e3
-    return out or None
-
-
-def _ranged(module, names):
-    """Each of ``module``'s functions ``names`` wrapped in a profiler
-    range ``port::<name>``; returns the originals."""
-    from torch.profiler import record_function
-
-    real = {n: getattr(module, n) for n in names}
-    for n, fn in real.items():
-        def wrapped(*a, fn=fn, n=n, **k):
-            with record_function(f"port::{n}"):
-                return fn(*a, **k)
-        setattr(module, n, wrapped)
-    return real
 
 
 def _group(name):
@@ -318,12 +246,9 @@ def main(argv=None):
     from paddle_tpu_torch import core
     from paddle_tpu_torch.ops import kernels
 
-    from torch.profiler import record_function
-
-    from paddle_tpu_torch.nn import functional as PF
-
     torch.backends.cudnn.allow_tf32 = False
-    resnet = chip_smoke.TRAIN_CONFIGS[args.config]["model"] == "resnet50"
+    resnet = chip_smoke.TRAIN_CONFIGS[args.config]["model"] in \
+        chip_smoke.IMAGE_MODELS
     core.seed(1)
     model = chip_smoke.train_model(args.config)
     cfg = getattr(model, "cfg", None)
@@ -345,8 +270,7 @@ def main(argv=None):
         loss.backward()
         if events:
             events[2].record()
-        with record_function("optimizer.step"):
-            opt.step()
+        opt.step()
         if events:
             events[3].record()
         return loss
@@ -366,19 +290,16 @@ def main(argv=None):
             phases[k].append(ev[i].elapsed_time(ev[i + 1]))
     kernels.reset_launches()
     torch.cuda.synchronize()
-    real = _ranged(PF, PORT_OPS) if resnet else {}
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.2)     # see chip_smoke.profiled
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            prof_wall = (time.perf_counter() - t0) * 1e3
-            time.sleep(0.2)
-    finally:
-        for n, fn in real.items():
-            setattr(PF, n, fn)
+    ranges = (chip_smoke.step_ranges(opt) if resnet
+              else contextlib.nullcontext())
+    with ranges, profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)     # see chip_smoke.profiled
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.2)
     launches = kernels.launches()
     issue_us = {}
     if not resnet:
@@ -403,7 +324,8 @@ def main(argv=None):
     for e in prof.key_averages():
         # device-side events only: a CPU op's self device time is its
         # kernels' time again
-        if e.device_type != DeviceType.CUDA or e.key in RANGES:
+        if e.device_type != DeviceType.CUDA or chip_smoke.is_step_range(
+                e.key):
             continue    # (a profiler range shows on the device's timeline)
         us = e.self_device_time_total
         if us > 0:
@@ -427,7 +349,8 @@ def main(argv=None):
         "step_wall_ms": walls,
         "phase_ms_median": med,
         rate: units / wall * 1e3,
-        "device_ms_by_op": resnet_breakdown(prof) if resnet else None,
+        "device_ms_by_op": (chip_smoke.device_ms_by_op(prof)[0]
+                            if resnet else None),
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "profiled_step_wall_ms": prof_wall,
         "launches": launches,
