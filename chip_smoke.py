@@ -6,7 +6,8 @@ static graph, the serve bench, the int8 Predictor, float16 mixed
 precision with recompute, the rest of Paddle's optimizers, initializers
 and run reports, its layer library with the book's sentiment nets, the
 tensor API with the book's word2vec and recommender nets, the Paddle
-user surface and the rest of the op library once on one NVIDIA H100.
+user surface, the rest of the op library and the Paddle ``Tensor``'s
+methods once on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -355,6 +356,21 @@ any failed check:
              map against the CPU, and every name of the op library's rest on
              the card against the CPU, each run twice (bits that move
              printed).
+27. methods — run after 25, from its weights and batches:
+             ``tools/paddle_gpt_script.py`` in method form
+             (``make_model(pt, cfg, methods=True)``: ``t.reshape(s)``,
+             ``a.matmul(b, transpose_y=True)``, the operators,
+             ``x.shape[:2]``, ``labels.astype``, ``loss.numpy()``) at
+             bench_gpt's widths (``methods_phase``): (a) 4 AdamW steps
+             through ``pt.TrainStep``, graphed = op by op bitwise,
+             25/25/1/1/12/12/12 launches a step, the losses phase 25's
+             functional script's bits; (b) the first loss against the
+             plain versions' (``BF16_TRAIN_LOSS_TOL``); (c) every method
+             of the ``Tensor``'s table on card tensors against the CPU,
+             run twice (phase 24(c)'s cases through the method
+             spelling), and ``shape``, ``astype``, ``numpy()``,
+             ``clear_grad`` on card tensors; (d) the op-by-op step and
+             the replay on Paddle ``Tensor`` batches against plain ones.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -6721,11 +6737,13 @@ TENSOR_CASES = [
 
 
 def _tensor_run(call, arrays, flags, device, grads_g, seed=None,
-                watch=None):
+                watch=None, paddle=None):
     """A case's outputs and input gradients on ``device``, as CPU tensors;
     ``watch()`` is a context around the call and its backward only (the
     copies of the inputs and results stay out of it). The output
-    cotangents ``grads_g`` are drawn from ``RandomState(1)`` when None."""
+    cotangents ``grads_g`` are drawn from ``RandomState(1)`` when None.
+    ``paddle``: the package handle to call with (phase 27's
+    ``MethodSpelling``), the inputs as Paddle ``Tensor``s."""
     import contextlib
 
     import torch
@@ -6737,10 +6755,13 @@ def _tensor_run(call, arrays, flags, device, grads_g, seed=None,
         trandom.seed(seed)
     ins = [torch.from_numpy(np.array(a)).to(device).requires_grad_(
         "grad" in flags and a.dtype == np.float32) for a in arrays]
+    if paddle is not None:
+        ins = [torch.Tensor._make_subclass(pt.Tensor, t.detach(),
+                                           t.requires_grad) for t in ins]
     gs = None if grads_g is None else [torch.from_numpy(g).to(device)
                                        for g in grads_g]
     with (watch or contextlib.nullcontext)():
-        outs = _flatten(call(pt, {"device": device}, *ins))
+        outs = _flatten(call(paddle or pt, {"device": device}, *ins))
         floats = [o for o in outs if o.is_floating_point() and
                   o.requires_grad]
         if gs is None:
@@ -7143,7 +7164,7 @@ def surface_train(S, pt, model, init, cfg, data, gpu):
         f"{BF16_TRAIN_LOSS_TOL}); {len(want)} kernel counts each "
         f"{surface_launches(cfg)} a step; step wall graphed "
         f"{g['wall']:.2f} ms vs op by op {e['wall']:.2f} ms [{gpu}]")
-    return g["wall"], e["wall"]
+    return g["wall"], e["wall"], g["losses"]
 
 
 def surface_save_load(S, pt, model, cfg, root, gpu):
@@ -7253,7 +7274,9 @@ def surface_phase(gpu):
     bench_gpt's widths, through the user surface only: (a) 4 AdamW steps
     through ``pt.TrainStep``, graphed = op by op bitwise, 25/25/1/1/12/12/
     12 launches a step; (b) ``pt.save``/``pt.load``/``set_state_dict``;
-    (c) ``pt.to_static`` at two batch sizes; (d) ``set_device``."""
+    (c) ``pt.to_static`` at two batch sizes; (d) ``set_device``.
+    Returns the walls and, for phase 27, the script's initial weights
+    and its graphed losses."""
     import shutil
     import tempfile
 
@@ -7277,7 +7300,7 @@ def surface_phase(gpu):
         f"{n / 1e6:.1f}M parameters ({cfg['layers']} x {cfg['hidden']}, "
         f"{cfg['heads']} heads, vocab {cfg['vocab']}), bfloat16, batch "
         f"{cfg['batch']} x {cfg['seq']}")
-    walls = surface_train(S, pt, model, init, cfg, data, gpu)
+    *walls, losses = surface_train(S, pt, model, init, cfg, data, gpu)
     root = tempfile.mkdtemp(prefix="chip_smoke_surface_")
     try:
         surface_save_load(S, pt, model, cfg, root, gpu)
@@ -7285,10 +7308,238 @@ def surface_phase(gpu):
         shutil.rmtree(root, ignore_errors=True)
     static = surface_static(S, pt, model, cfg, data, gpu)
     surface_places(pt)
-    del model, init
+    del model
     torch.cuda.empty_cache()
     log(f"surface: phase took {time.perf_counter() - t0:.1f} s [{gpu}]")
-    return walls, static
+    return dict(walls=walls, static=static, init=init, losses=losses)
+
+
+# -- phase 27: the Paddle Tensor's methods ------------------------------------
+
+# the method table's names phase 24(c) has no case for, in its form
+METHOD_CASES = [
+    ("mode", lambda m, d, x: m.mode(x, axis=-1), [_ints(3, 4, 6)], ""),
+    ("softmax", lambda m, d, x: m.softmax(x, axis=0), [TENSOR_X], "grad"),
+    ("sigmoid", lambda m, d, x: m.sigmoid(x), [TENSOR_X], "grad"),
+    ("relu", lambda m, d, x: m.relu(x), [TENSOR_X], "grad"),
+]
+
+
+class MethodSpelling:
+    """The package handle a phase 24(c) case calls, spelling
+    ``m.name(x, ...)`` as the method ``x.name(...)`` for the names of the
+    method table when ``x`` is a Paddle ``Tensor``; ``spelled`` collects
+    the names it spelled so."""
+
+    def __init__(self, pt):
+        self._pt = pt
+        self.spelled = set()
+
+    def __getattr__(self, name):
+        pt = self._pt
+        if name not in pt.ops._METHODS:
+            return getattr(pt, name)
+
+        def call(*args, **kwargs):
+            if args and isinstance(args[0], pt.Tensor):
+                self.spelled.add(name)
+                return getattr(args[0], name)(*args[1:], **kwargs)
+            return getattr(pt.ops, name)(*args, **kwargs)
+
+        return call
+
+
+def methods_card_check(gpu, device="cuda"):
+    """Phase 27(c): every method of the ``Tensor``'s table (the phase
+    24(c) case of its name, through the method spelling, on Paddle
+    ``Tensor`` inputs) on the card against the same on the CPU, forward
+    and backward, run twice, as ``tensor_card_check`` holds the
+    functions; then the surface that computes nothing on card tensors:
+    ``shape``, ``astype``, ``numpy()`` of a tensor that requires a
+    gradient, ``stop_gradient``, ``clear_grad``. Returns the names whose
+    bits moved between the two runs. (``device="cpu"`` runs it with the
+    CPU in the card's place.)"""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    cases = {}
+    for case in TENSOR_CASES + METHOD_CASES:
+        if case[0] in pt.ops._METHODS and case[0] not in cases:
+            cases[case[0]] = case
+    check(set(cases) == set(pt.ops._METHODS), f"methods (c): no case for "
+          f"{sorted(set(pt.ops._METHODS) - set(cases))}")
+    worst, moving = 0.0, []
+    for name, call, inputs, flags in cases.values():
+        rng = np.random.RandomState(0)
+        arrays = [make(rng) for make in inputs]
+        runs = []
+        for dev in ("cpu", device, device):
+            m = MethodSpelling(pt)
+            runs.append(_tensor_run(call, arrays, flags, dev,
+                                    None if not runs else runs[0][2],
+                                    paddle=m))
+            check(name in m.spelled, f"methods (c) {name}: the case did "
+                  f"not call the method")
+        want, got = runs[0], runs[1]
+        check(len(got[0]) == len(want[0]) and len(got[1]) == len(want[1]),
+              f"methods (c) {name}: another count of outputs or gradients")
+        for g, w in list(zip(got[0], want[0])) + list(zip(got[1], want[1])):
+            check((g is None) == (w is None) and (
+                w is None or (g.shape == w.shape and g.dtype == w.dtype)),
+                f"methods (c) {name}: another shape or type than the CPU's")
+            if w is None:
+                continue
+            if not w.is_floating_point():
+                check(torch.equal(g, w), f"methods (c) {name}: card "
+                      f"{g.tolist()} != CPU {w.tolist()}")
+                continue
+            scale = float(w.abs().max()) if w.numel() else 1.0
+            err = float((g - w).abs().max()) / (scale or 1.0) \
+                if w.numel() else 0.0
+            worst = max(worst, err)
+            check(err <= LAYER_F32_TOL, f"methods (c) {name}: card vs CPU "
+                  f"{err:.3g} of the largest |value|, limit {LAYER_F32_TOL}")
+        flat = lambda r: [t for t in r[0] + r[1] if t is not None]
+        if not all(torch.equal(a, b) for a, b in zip(flat(runs[1]),
+                                                        flat(runs[2]))):
+            moving.append(name)
+    # the surface that computes nothing, on card tensors
+    x = pt.to_tensor(np.arange(6, dtype=np.float32).reshape(2, 3),
+                     place=device, stop_gradient=False)
+    check(x.shape == [2, 3] and x.size == 6 and not x.stop_gradient and
+          x.device.type == torch.device(device).type,
+          "methods (c): shape, size, stop_gradient of a card tensor")
+    check(x.astype("bfloat16").dtype == torch.bfloat16 and
+          isinstance(x.astype("int64"), pt.Tensor),
+          "methods (c): astype on the card")
+    y = (x * x).sum()
+    y.backward()
+    check(isinstance(y.numpy(), np.ndarray) and float(y.numpy()) == 55.0
+          and x.numpy().tolist() == [[0, 1, 2], [3, 4, 5]],
+          "methods (c): numpy() of card tensors")
+    check(x.grad is not None and x.grad.numpy().tolist() ==
+          [[0, 2, 4], [6, 8, 10]], "methods (c): the gradient on the card")
+    x.clear_grad()
+    check(x.grad is None, "methods (c): clear_grad")
+    log(f"methods (c): {len(cases)} methods on the card = on the CPU within "
+        f"{worst:.3g} of the largest |value| (limit {LAYER_F32_TOL}), "
+        f"forward and backward; bits that changed between two runs on the "
+        f"card: {moving or 'none'}; shape, size, astype, numpy(), "
+        f"stop_gradient and clear_grad on card tensors; took "
+        f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+    return moving
+
+
+def methods_host_cost(S, pt, model, init, cfg, data, gpu):
+    """Phase 27(d): the host cost of the Paddle ``Tensor``. The op-by-op
+    step and the replay (median of ``SURFACE_TIMED`` steps, the runs
+    alternated) of the method-form ``model`` on Paddle ``Tensor``
+    batches, and of the functional script from the same weights on
+    Paddle ``Tensor`` batches and on plain ones (a method-form script
+    needs Paddle tensors). Returns ``{(kind, run): ms}``."""
+    import torch
+
+    x, y = data[0]
+    paddle = (pt.to_tensor(x), pt.to_tensor(y))
+    plain = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    model.set_state_dict(init)
+    _, mstep = _MethodForm(S).train(pt, model, data[:1], cfg)
+    with pt.utils.unique_name.guard():
+        func = S.make_model(pt, cfg)
+    func.set_state_dict(init)
+    _, fstep = S.train(pt, func, data[:1], cfg)
+    runs = {"methods": (mstep, paddle), "functional": (fstep, paddle),
+            "functional-plain": (fstep, plain)}
+    walls = {}
+    for kind in ("replay", "eager"):
+        for step, b in runs.values():      # warm (and capture) each
+            fn = step if kind == "replay" else step._eager_step
+            fn(*b)
+            fn(*b)
+        ms = {k: [] for k in runs}
+        for _ in range(SURFACE_TIMED):
+            for k, (step, b) in runs.items():
+                fn = step if kind == "replay" else step._eager_step
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(*b)
+                torch.cuda.synchronize()
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+        for k, v in ms.items():
+            walls[kind, k] = sorted(v)[len(v) // 2]
+    check(mstep.captures == 1 and fstep.captures == 1,
+          f"methods (d): {mstep.captures} and {fstep.captures} captures for "
+          "one signature (Paddle and plain batches share a graph)")
+    log("methods (d): step wall (ms) method form on Paddle batches / "
+        "functional on Paddle batches / functional on plain: replay "
+        + " / ".join(f"{walls['replay', k]:.3f}" for k in runs)
+        + "; op by op " + " / ".join(f"{walls['eager', k]:.3f}"
+                                     for k in runs) + f" [{gpu}]")
+    del func, fstep, mstep
+    return walls
+
+
+def methods_phase(gpu, surface):
+    """Phase 27: ``tools/paddle_gpt_script.py`` in method form at
+    bench_gpt's widths, from phase 25's weights and batches: (a) 4 AdamW
+    steps through ``pt.TrainStep``, graphed = op by op bitwise,
+    25/25/1/1/12/12/12 launches a step, the losses phase 25's functional
+    script's bits; (b) the first loss against the plain versions'; (c)
+    ``methods_card_check``; (d) ``methods_host_cost``."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    S = surface_script()
+    cfg = S.CONFIGS[SURFACE_CONFIG]
+    pt.set_device("gpu")
+    with pt.utils.unique_name.guard():
+        model = S.make_model(pt, cfg, methods=True)
+    init = surface["init"]
+    check(list(model.state_dict()) == list(init),
+          "methods: the method form's state names differ from the "
+          "functional form's")
+    data = S.batches(cfg, SURFACE_STEPS)
+    # (a) and (b): surface_train with the method-form script
+    M = _MethodForm(S)
+    replay, eager, losses = surface_train(M, pt, model, init, cfg, data, gpu)
+    check(losses == surface["losses"], f"methods (a): the method form's "
+          f"losses {losses} != the functional form's {surface['losses']}")
+    log(f"methods (a): the method-form script's {len(losses)} graphed "
+        f"losses are the functional script's bits {losses} [{gpu}]")
+    moving = methods_card_check(gpu)
+    walls = methods_host_cost(S, pt, model, init, cfg, data, gpu)
+    p25 = surface["walls"][0]
+    log(f"methods (d): the method form's replay "
+        f"{walls['replay', 'methods']:.3f} ms vs phase 25's functional "
+        f"replay {p25:.3f} ms ({walls['replay', 'methods'] / p25 - 1:+.2%})"
+        f"; (a)'s graphed step {replay:.3f} ms, op by op {eager:.3f} ms "
+        f"[{gpu}]")
+    del model
+    torch.cuda.empty_cache()
+    log(f"methods: phase took {time.perf_counter() - t0:.1f} s [{gpu}]")
+    return dict(walls=walls, moving=moving)
+
+
+class _MethodForm:
+    """``tools/paddle_gpt_script.py`` with ``methods=True`` bound, for the
+    phase 25 helpers that take the script as ``S``."""
+
+    def __init__(self, S):
+        self._S = S
+        self.CONFIGS = S.CONFIGS
+
+    def make_model(self, m, cfg):
+        return self._S.make_model(m, cfg, methods=True)
+
+    def loss_fn(self, m, model, ids, labels):
+        return self._S.loss_fn(m, model, ids, labels, methods=True)
+
+    def train(self, m, model, data, cfg, step=None):
+        return self._S.train(m, model, data, cfg, step=step, methods=True)
 
 
 # -- phase 26: VGG-16 and MobileNet V1/V2 as bench_resnet50 trains them ------
@@ -7848,8 +8099,9 @@ def main():
 
 
 def phases(gpu, journals):
-    """Phases 1-26 in order, the journals of 13, 19 and 22 under
-    ``journals``; prints the ``kernels`` and ``ok`` lines."""
+    """Phases 1-27 in order (27 after 25, from its weights), the
+    journals of 13, 19 and 22 under ``journals``; prints the
+    ``kernels`` and ``ok`` lines."""
     import torch
 
     from paddle_tpu_torch.ops import kernels
@@ -7927,7 +8179,10 @@ def phases(gpu, journals):
     torch.cuda.empty_cache()
     tensor_phase(gpu)
     torch.cuda.empty_cache()
-    surface_phase(gpu)
+    surface = surface_phase(gpu)
+    torch.cuda.empty_cache()
+    methods_phase(gpu, surface)
+    del surface
     torch.cuda.empty_cache()
     vision_phase(gpu)
     check(not any(m.split(".")[0] in ("jax", "paddle_tpu", "ml_dtypes")

@@ -71,6 +71,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..core.tensor import plain
 from ..obs import journal as _journal
 from ..obs import lockdep as _lockdep
 from ..obs import metrics as _metrics
@@ -238,7 +239,7 @@ def _host_tree(obj, copy=False):
 
     def walk(o):
         if isinstance(o, torch.Tensor):
-            t = o.detach()
+            t = torch.Tensor.detach(plain(o))
             if t.is_cuda:
                 h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 h.copy_(t, non_blocking=True)
@@ -284,7 +285,7 @@ def load(path, return_numpy=False):
 def _as_tensor(v):
     if isinstance(v, np.ndarray) and v.dtype.name == "bfloat16":
         v = torch.from_numpy(v.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.as_tensor(v)
+    return plain(v) if isinstance(v, torch.Tensor) else torch.as_tensor(v)
 
 
 @torch.no_grad()

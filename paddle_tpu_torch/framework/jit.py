@@ -97,6 +97,7 @@ import torch
 
 from ..amp.autocast import amp_key
 from ..core.random import default_generator
+from ..core.tensor import Tensor, plain, wrap
 from ..ops import control_flow, kernels
 from ..ops.kernels import _route
 from ..utils.nan_guard import NanInfError, nonfinite_summary
@@ -142,11 +143,16 @@ def _signature(batch):
 
 
 def _tensors(batch):
-    """Batch items as tensors: numpy arrays and scalars through
-    ``torch.from_numpy`` (no copy), tensors as they are."""
-    return [b if isinstance(b, torch.Tensor)
+    """Batch items as plain tensors: numpy arrays and scalars through
+    ``torch.from_numpy`` (no copy), Paddle ``Tensor``s as their plain
+    aliases, other tensors as they are."""
+    return [plain(b) if isinstance(b, torch.Tensor)
             else torch.from_numpy(np.require(b, requirements="C"))
             for b in batch]
+
+
+def _any_paddle(items):
+    return any(isinstance(b, Tensor) for b in items)
 
 
 class _Graph:
@@ -168,6 +174,9 @@ class TrainStep:
     ``loss_fn(model, *batch)`` returns a scalar loss tensor. Batch items
     that are numpy arrays (or scalars) are moved to the model's device.
     Returns the loss of this step (computed before the update), detached.
+    A call with Paddle ``Tensor`` batch items hands ``loss_fn`` Paddle
+    ``Tensor``s (aliases of the graph's plain input tensors) and returns
+    the loss as one; the step itself, and its graph, are the same.
     ``scaler`` is an ``amp`` loss scaler (``StaticLossScaler``,
     ``DynamicLossScaler``, ``GradScaler``)."""
 
@@ -178,6 +187,7 @@ class TrainStep:
         self.loss_fn = loss_fn
         self.scaler = scaler
         self.check_nan = check_nan
+        self._paddle = False      # this call's batch held a Paddle Tensor
         self.last_found_inf = None
         self.last_found_inf_per_step = None
         self._scaler_state = (scaler.state(self._device())
@@ -200,7 +210,9 @@ class TrainStep:
         opt.clear_grad()
         buffers = list(self.model.buffers()) if scaler is not None else []
         old = [b.clone() for b in buffers]
-        loss = self.loss_fn(self.model, *batch)
+        if self._paddle:
+            batch = [wrap(b) for b in batch]
+        loss = plain(self.loss_fn(self.model, *batch))
         scale = None if scaler is None else self._scaler_state["scale"]
         (loss if scale is None else loss * scale).backward()
         with torch.no_grad():
@@ -353,12 +365,16 @@ class TrainStep:
 
     def _eager_step(self, *batch):
         """The step op by op on the current stream, with no graph."""
-        return self._finish(*self._run(_tensors(batch), None), None)
+        self._paddle = _any_paddle(batch)
+        loss = self._finish(*self._run(_tensors(batch), None), None)
+        return wrap(loss) if self._paddle else loss
 
     def __call__(self, *batch):
         if self._device().type != "cuda":
             return self._eager_step(*batch)
-        return self._finish(*self._graphed(_tensors(batch), None), None)
+        self._paddle = _any_paddle(batch)
+        loss = self._finish(*self._graphed(_tensors(batch), None), None)
+        return wrap(loss) if self._paddle else loss
 
     step = __call__
 
@@ -391,6 +407,8 @@ class TrainStep:
         if K <= 0:
             raise ValueError(f"steps must be >= 1, got {K}")
         seq = list(batches)
+        self._paddle = any(_any_paddle(row) if isinstance(row, (list, tuple))
+                           else isinstance(row, Tensor) for row in seq)
         if seq and isinstance(seq[0], (list, tuple)):
             if len(seq) != K:
                 raise ValueError(
@@ -414,8 +432,10 @@ class TrainStep:
                         f"{tuple(a.shape)}; expected a leading microbatch "
                         f"axis of {K}")
         if self._device().type != "cuda":
-            return self._finish(*self._run(stacked, K), K)
-        return self._finish(*self._graphed(stacked, K), K)
+            losses = self._finish(*self._run(stacked, K), K)
+        else:
+            losses = self._finish(*self._graphed(stacked, K), K)
+        return wrap(losses) if self._paddle else losses
 
 
 class _Program:
@@ -466,6 +486,7 @@ class ProgramCache:
         return len(self._programs)
 
     def __call__(self, module, signature, fn, inputs, seed=None):
+        inputs = [plain(x) for x in inputs]
         dev = inputs[0].device
         storage = () if module is None else \
             tuple(p.data_ptr() for p in module.parameters())
@@ -562,9 +583,12 @@ class StaticFunction:
 
     def __call__(self, *args):
         dev = self._device()
+        paddle = _any_paddle(args)
         xs = []
         for a in args:
-            if not isinstance(a, torch.Tensor):
+            if isinstance(a, torch.Tensor):
+                a = plain(a)
+            else:
                 a = np.asarray(a)
                 a = torch.from_numpy(np.require(
                     a.astype(np.float32) if a.dtype == np.float64 else a,
@@ -575,14 +599,17 @@ class StaticFunction:
 
         def run(*inputs):
             inputs = inputs[:-1]      # ProgramCache passes its generator
+            if paddle:
+                inputs = [wrap(x) for x in inputs]
             out = self._fn(*inputs) if self._model is None \
                 else self._fn(self._model, *inputs)
             leaves = []
             self._trees[tkey] = _flatten(out, leaves)
-            return tuple(leaves)
+            return tuple(plain(x) for x in leaves)
 
         leaves = self._cache(self._model, sig, run, xs)
-        return _unflatten(self._trees[tkey], list(leaves))
+        out = _unflatten(self._trees[tkey], list(leaves))
+        return wrap(out) if paddle else out
 
 
 def to_static(layer_or_fn=None, input_spec=None, **kwargs):
@@ -591,7 +618,7 @@ def to_static(layer_or_fn=None, input_spec=None, **kwargs):
     with no argument, the decorator."""
     from ..nn.layer import Layer
 
-    def wrap(obj):
+    def make(obj):
         if isinstance(obj, Layer):
             sf = StaticFunction(lambda m, *xs: m(*xs), model=obj)
             obj._static_forward = sf
@@ -599,8 +626,8 @@ def to_static(layer_or_fn=None, input_spec=None, **kwargs):
         return StaticFunction(obj)
 
     if layer_or_fn is None:
-        return wrap
-    return wrap(layer_or_fn)
+        return make
+    return make(layer_or_fn)
 
 
 def jit(fn=None, **kwargs):

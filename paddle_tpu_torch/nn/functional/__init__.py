@@ -31,3 +31,26 @@ from .loss import (binary_cross_entropy, binary_cross_entropy_with_logits,
                    triplet_margin_loss)
 
 __all__ = [n for n in dir() if not n.startswith("_")]
+
+
+def _boundaries():
+    """Every name here, and in ``attention``, ``common`` and ``loss``, as
+    a ``core.tensor.boundary``: Paddle ``Tensor`` arguments reach it as
+    plain tensors, and its result is one again."""
+    from ...core.tensor import boundary
+    from . import attention as _att, common as _com, loss as _loss
+
+    for mod in (_att, _com, _loss):
+        for n in mod.__all__:
+            v = getattr(mod, n)
+            if callable(v) and not isinstance(v, type):
+                setattr(mod, n, boundary(v))
+    g = globals()
+    for n in __all__:
+        v = g[n]
+        if callable(v) and not isinstance(v, type) and \
+                type(v).__name__ != "module":
+            g[n] = boundary(v)
+
+
+_boundaries()

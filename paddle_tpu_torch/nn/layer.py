@@ -31,7 +31,13 @@ follows the JAX package:
   and ``to``/``astype``/``float``/``half``/``bfloat16`` set the dtype
   new parameters take;
 - ``register_forward_post_hook`` is torch's forward hook; both hook
-  kinds return a handle with ``remove()``.
+  kinds return a handle with ``remove()``;
+- calling a layer whose ``forward`` is this package's (not a
+  subclass's own, not ``Sequential``'s) is a boundary
+  (``core.tensor``): Paddle ``Tensor`` inputs reach the forward as
+  plain tensors, and the outputs are Paddle ``Tensor``s again when an
+  input was one. A ``forward`` written outside the package, as a Paddle
+  script's, takes its inputs as they are, methods and all.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ import torch
 
 from .. import _device
 from ..core import dtype as _dtype
-from ..core.tensor import to_tensor
+from ..core.tensor import plain_tensor, unwrap, wrap
 from ..utils import unique_name
 
 __all__ = ["Layer", "Sequential", "LayerList", "ParameterList", "LayerDict"]
@@ -63,6 +69,23 @@ def _camel_to_snake(name):
 
 
 class Layer(torch.nn.Module):
+    # whether ``forward`` is this package's: calls then unwrap (module doc)
+    _port_forward = True
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        fwd = cls.__dict__.get("forward")
+        if fwd is not None and "_port_forward" not in cls.__dict__:
+            cls._port_forward = getattr(fwd, "__module__", "").startswith(
+                __name__.split(".")[0] + ".")
+
+    def __call__(self, *args, **kwargs):
+        if not self._port_forward:
+            return super().__call__(*args, **kwargs)
+        args, kwargs, seen = unwrap(args, kwargs)
+        out = super().__call__(*args, **kwargs)
+        return wrap(out) if seen else out
+
     def __init__(self, name_scope=None, dtype="float32"):
         super().__init__()
         if name_scope is None:
@@ -121,7 +144,7 @@ class Layer(torch.nn.Module):
         ``persistable`` (torch's ``persistent``) stays out of
         ``state_dict``."""
         if tensor is not None and not isinstance(tensor, torch.Tensor):
-            tensor = to_tensor(tensor)
+            tensor = plain_tensor(tensor)
         self.__dict__.pop(name, None)
         keep = persistable if persistent is None else persistent
         super().register_buffer(name, tensor, persistent=bool(keep))
@@ -297,7 +320,10 @@ def _is_dtype_name(s):
 class Sequential(Layer):
     """Layers called one after another (ref: ``dygraph/container.py``);
     ``Sequential(("a", layer), ...)`` or ``Sequential([("a", layer),
-    ...])`` names them, ``Sequential(l0, l1, ...)`` numbers them."""
+    ...])`` names them, ``Sequential(l0, l1, ...)`` numbers them. It
+    passes its input on as it is: each layer is its own boundary."""
+
+    _port_forward = False
 
     def __init__(self, *layers):
         super().__init__()

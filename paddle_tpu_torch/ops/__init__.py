@@ -17,7 +17,16 @@ registry's ``register``, and ``Tensor``/``to_tensor``. Every public name
 of ``paddle_tpu.ops`` resolves here but those of its ``sequence``,
 ``labeling``, ``detection`` and ``rcnn`` modules (ROADMAP Queue 1) and
 its registry's internals (``OP_REGISTRY``, ``apply``,
-``monkey_patch_tensor``)."""
+``monkey_patch_tensor``).
+
+``_METHODS`` is this package's copy of the reference's method table
+(``paddle_tpu/ops/__init__.py:126-198``) and ``_DUNDERS``/``_SWAPPED``
+of its operators (``_rops``, ``:31-71``), bound on ``core.tensor
+.Tensor`` to this package's ops. Every public op here and in its module
+is a ``core.tensor.boundary``: a Paddle ``Tensor`` reaches it as a plain
+tensor and its result is one again (``creation``'s always); the
+control-flow ops take their operands as they are, since they hand them
+to the caller's functions."""
 from .compare import (allclose, bitwise_and, bitwise_not, bitwise_or,
                       bitwise_xor, equal, equal_all, greater_equal,
                       greater_than, is_empty, is_tensor, isclose, less_equal,
@@ -146,3 +155,113 @@ from .random_ops import (alpha_dropout, channel_shuffle,  # noqa: E402,F401
                          dropout, dropout2d, dropout3d)
 from .reduction import mode  # noqa: E402,F401
 from ..core.tensor import Tensor, to_tensor  # noqa: E402,F401
+
+# -- the Paddle ``Tensor``'s methods and the user-facing boundaries --------
+from . import (activation as _a, compare as _cm, conv as _conv,  # noqa: E402
+               creation as _cr, linalg as _la, manipulation as _mp,
+               math as _m, misc as _misc, norm_ops as _norm,
+               random_ops as _rand, reduction as _r)
+from ..core import tensor as _tensor  # noqa: E402
+
+# the reference's method table (``paddle_tpu/ops/__init__.py:126-198``),
+# bound to this package's ops
+_METHODS = dict(
+    # math
+    add=_m.add, subtract=_m.subtract, multiply=_m.multiply,
+    divide=_m.divide, matmul=_m.matmul, mm=_m.mm, bmm=_m.bmm, dot=_m.dot,
+    pow=_m.pow, exp=_m.exp, log=_m.log, log2=_m.log2, log10=_m.log10,
+    log1p=_m.log1p, sqrt=_m.sqrt, rsqrt=_m.rsqrt, abs=_m.abs,
+    floor=_m.floor, ceil=_m.ceil, round=_m.round, trunc=_m.trunc,
+    sin=_m.sin, cos=_m.cos, tan=_m.tan, sinh=_m.sinh, cosh=_m.cosh,
+    asin=_m.asin, acos=_m.acos, atan=_m.atan, erf=_m.erf, sign=_m.sign,
+    reciprocal=_m.reciprocal, square=_m.square, scale=_m.scale,
+    clip=_m.clip, cumsum=_m.cumsum, cumprod=_m.cumprod,
+    maximum=_m.maximum, minimum=_m.minimum, remainder=_m.remainder,
+    mod=_m.remainder, floor_divide=_m.floor_divide, kron=_m.kron,
+    trace=_m.trace, diagonal=_m.diagonal, lerp=_m.lerp, isnan=_m.isnan,
+    isinf=_m.isinf, isfinite=_m.isfinite, nan_to_num=_m.nan_to_num,
+    neg=_m.neg,
+    # reduction
+    sum=_r.sum, mean=_r.mean, max=_r.max, min=_r.min, prod=_r.prod,
+    all=_r.all, any=_r.any, argmax=_r.argmax, argmin=_r.argmin,
+    std=_r.std, var=_r.var, median=_r.median, logsumexp=_r.logsumexp,
+    quantile=_r.quantile, kthvalue=_r.kthvalue, mode=_r.mode,
+    count_nonzero=_r.count_nonzero, nansum=_r.nansum, nanmean=_r.nanmean,
+    # manipulation
+    reshape=_mp.reshape, transpose=_mp.transpose, flatten=_mp.flatten,
+    squeeze=_mp.squeeze, unsqueeze=_mp.unsqueeze, split=_mp.split,
+    chunk=_mp.chunk, unbind=_mp.unbind, gather=_mp.gather,
+    gather_nd=_mp.gather_nd, scatter=_mp.scatter, tile=_mp.tile,
+    expand=_mp.expand, expand_as=_mp.expand_as,
+    broadcast_to=_mp.broadcast_to, flip=_mp.flip, roll=_mp.roll,
+    topk=_mp.topk, sort=_mp.sort, argsort=_mp.argsort,
+    index_select=_mp.index_select, index_sample=_mp.index_sample,
+    masked_select=_mp.masked_select, masked_fill=_mp.masked_fill,
+    where=_mp.where, nonzero=_mp.nonzero, unique=_mp.unique,
+    repeat_interleave=_mp.repeat_interleave, moveaxis=_mp.moveaxis,
+    swapaxes=_mp.swapaxes, take_along_axis=_mp.take_along_axis,
+    put_along_axis=_mp.put_along_axis,
+    # activation
+    tanh=_a.tanh, softmax=_a.softmax, sigmoid=_a.sigmoid, relu=_a.relu,
+    # linalg
+    norm=_la.norm, dist=_la.dist, cholesky=_la.cholesky,
+    inverse=_la.inverse, matrix_power=_la.matrix_power, det=_la.det,
+    slogdet=_la.slogdet, cross=_la.cross, solve=_la.solve, mv=_la.mv,
+    pinv=_la.pinv,
+    # compare
+    equal=_cm.equal, not_equal=_cm.not_equal, less_than=_cm.less_than,
+    less_equal=_cm.less_equal, greater_than=_cm.greater_than,
+    greater_equal=_cm.greater_equal, logical_and=_cm.logical_and,
+    logical_or=_cm.logical_or, logical_not=_cm.logical_not,
+    logical_xor=_cm.logical_xor, isclose=_cm.isclose,
+    allclose=_cm.allclose, equal_all=_cm.equal_all,
+    bitwise_and=_cm.bitwise_and, bitwise_or=_cm.bitwise_or,
+    bitwise_xor=_cm.bitwise_xor, bitwise_not=_cm.bitwise_not,
+    # creation-ish
+    zeros_like=_cr.zeros_like, ones_like=_cr.ones_like,
+    full_like=_cr.full_like, tril=_cr.tril, triu=_cr.triu,
+)
+
+# the reference's operators (``_rops``, ``:31-71``)
+_DUNDERS = dict(
+    __add__=_m.add, __sub__=_m.subtract, __mul__=_m.multiply,
+    __truediv__=_m.divide, __floordiv__=_m.floor_divide,
+    __mod__=_m.remainder, __pow__=_m.pow, __matmul__=_m.matmul,
+    __neg__=_m.neg, __abs__=_m.abs, __invert__=_cm.logical_not,
+    __eq__=_cm.equal, __ne__=_cm.not_equal, __lt__=_cm.less_than,
+    __le__=_cm.less_equal, __gt__=_cm.greater_than,
+    __ge__=_cm.greater_equal, __and__=_cm.logical_and,
+    __or__=_cm.logical_or, __xor__=_cm.logical_xor)
+_SWAPPED = dict(
+    __radd__=_m.add, __rsub__=_m.subtract, __rmul__=_m.multiply,
+    __rtruediv__=_m.divide, __rfloordiv__=_m.floor_divide,
+    __rmod__=_m.remainder, __rpow__=_m.pow, __rmatmul__=_m.matmul)
+
+_tensor.bind_methods(_METHODS, _DUNDERS, _SWAPPED)
+
+
+def _boundaries():
+    """Every public op, here and in its module, as a ``boundary`` (see
+    the module's doc)."""
+    makers = set(_cr.__all__) | {"gaussian", "gaussian_random", "range_",
+                                 "uniform_random"}
+    for mod in (_a, _cm, _conv, _cr, _la, _mp, _m, _misc, _norm, _rand,
+                _r):
+        public = {getattr(mod, n) for n in mod.__all__
+                  if callable(getattr(mod, n)) and
+                  not isinstance(getattr(mod, n), type)}
+        for n, v in list(vars(mod).items()):
+            # the module's ops and their aliases (``range_`` = ``arange``)
+            if not n.startswith("_") and callable(v) and v in public:
+                setattr(mod, n, _tensor.boundary(v, make=mod is _cr))
+    g = globals()
+    skip = {"register", "Tensor", "to_tensor", "cond", "while_loop",
+            "case", "switch_case", "scan"}
+    for n, v in list(g.items()):
+        if n.startswith("_") or n in skip or not callable(v) or \
+                isinstance(v, type) or type(v).__name__ == "module":
+            continue
+        g[n] = _tensor.boundary(v, make=n in makers)
+
+
+_boundaries()

@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from . import _build, _route
+from ...core.tensor import plain
 
 __all__ = ["flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_fwd_reference",
@@ -274,7 +275,8 @@ def flash_attention(q, k, v, causal=False, scale=None):
     """Differentiable attention of q ``(B, H, Lq, D)`` over k and v
     ``(B, H, Lk, D)`` through the kernels (or their plain versions, as
     the wrappers route); ``scale`` defaults to ``1/sqrt(D)``. Views are
-    made contiguous first."""
+    made contiguous first; Paddle ``Tensor``s come in as plain tensors."""
+    q, k, v = plain(q), plain(k), plain(v)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),

@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from . import _build, _route
+from ...core.tensor import plain
 
 __all__ = ["layer_norm_fwd", "layer_norm_bwd", "layer_norm_fwd_reference",
            "layer_norm_bwd_reference", "fused_layer_norm", "SOURCE",
@@ -217,5 +218,7 @@ class _FusedLayerNorm(torch.autograd.Function):
 
 def fused_layer_norm(x, gamma, beta, eps=1e-5):
     """Differentiable LayerNorm of ``x (N, D)`` over its last axis, through
-    the kernels (or their plain versions, as the wrappers route)."""
-    return _FusedLayerNorm.apply(x, gamma, beta, float(eps))
+    the kernels (or their plain versions, as the wrappers route). Paddle
+    ``Tensor``s and ``Parameter``s come in as plain tensors."""
+    return _FusedLayerNorm.apply(plain(x), plain(gamma), plain(beta),
+                                 float(eps))

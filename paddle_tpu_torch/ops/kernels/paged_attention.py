@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from . import _build, _route
+from ...core.tensor import plain
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
            "dense_decode_reference", "check_kernel_args", "SOURCE",
@@ -173,7 +174,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
 
     CPU tensors (or ``plain_versions()``) take the plain version; CUDA
     tensors launch the kernel or raise — there is no fallback between
-    the two."""
+    the two. Paddle ``Tensor``s come in as plain tensors."""
+    q, k_pages, v_pages, page_table, lengths = (
+        plain(t) for t in (q, k_pages, v_pages, page_table, lengths))
     if _route.plain(q):
         return paged_decode_attention_reference(
             q, k_pages, v_pages, page_table, lengths, scale=scale)

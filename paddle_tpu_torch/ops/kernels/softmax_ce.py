@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from . import _build, _route
+from ...core.tensor import plain
 
 __all__ = ["softmax_ce_fwd", "softmax_ce_bwd", "softmax_ce_fwd_reference",
            "softmax_ce_bwd_reference", "softmax_cross_entropy", "SOURCE",
@@ -209,5 +210,7 @@ class _SoftmaxCrossEntropy(torch.autograd.Function):
 def softmax_cross_entropy(logits, labels, ignore_index=-100):
     """Differentiable per-row loss ``(N,)`` float32 of ``logits (N, V)``
     against hard ``labels (N,)``, through the kernels (or their plain
-    versions, as the wrappers route)."""
-    return _SoftmaxCrossEntropy.apply(logits, labels, int(ignore_index))
+    versions, as the wrappers route). Paddle ``Tensor``s come in as plain
+    tensors."""
+    return _SoftmaxCrossEntropy.apply(plain(logits), plain(labels),
+                                      int(ignore_index))

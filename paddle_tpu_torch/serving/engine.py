@@ -169,7 +169,7 @@ class TinyLM(Layer):
 
     def qkv(self, token_ids):
         """(N,) ids -> (emb (N,E), q/k/v (N,H,D))."""
-        emb = self.embedding.index_select(0, token_ids)
+        emb = torch.index_select(self.embedding, 0, token_ids)
         shp = (emb.shape[0], self.num_heads, self.head_dim)
         return (emb, (emb @ self.wq).reshape(shp),
                 (emb @ self.wk).reshape(shp),

@@ -61,6 +61,7 @@ import torch
 
 from .._device import resolve_device
 from ..core.random import default_generator
+from ..core.tensor import plain
 from ..framework.jit import capture, warm
 from ..obs import journal as _journal
 from ..obs import metrics as _metrics
@@ -389,7 +390,7 @@ class Executor:
         return tuple(a.shape), str(a.dtype)
 
     def _as_device(self, v, dtype=None):
-        t = v if isinstance(v, torch.Tensor) else \
+        t = plain(v) if isinstance(v, torch.Tensor) else \
             torch.from_numpy(np.require(np.asarray(v), requirements="C"))
         return t.to(device=self.place, dtype=dtype or t.dtype)
 

@@ -34,6 +34,8 @@ from paddle_tpu_torch import amp, convert, nn, optim
 from paddle_tpu_torch.framework import TrainStep
 from paddle_tpu_torch.models.nlp import gpt
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 CFG = dict(vocab_size=256, hidden=64, layers=2, heads=2, max_seq=32,
            dropout=0.0)
 LOSS_TOL = 5e-5

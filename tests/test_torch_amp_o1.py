@@ -51,6 +51,8 @@ from paddle_tpu_torch.amp import autocast as tac
 from paddle_tpu_torch.framework import TrainStep
 from paddle_tpu_torch.models.nlp import bert, gpt
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 # D = 64, LN's D = 128 and CE's V = 512 route to the kernels at L = 128
 CFG = dict(vocab_size=512, hidden=128, layers=2, heads=2, max_seq=128,
            dropout=0.0)

@@ -33,6 +33,8 @@ from paddle_tpu_torch.ops import _base as tbase
 from paddle_tpu_torch.static_ import program as tprog
 from paddle_tpu_torch.utils import unique_name as tun
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 JAX = types.SimpleNamespace(
     name="jax", pkg=jpt, prog=jprog, ana=jana, F=JF, nn=jnn, optim=joptim,
     names=jun, base=jbase, arr=jnp.asarray, maximum=jnp.maximum,

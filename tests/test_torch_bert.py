@@ -45,6 +45,8 @@ from paddle_tpu_torch.models.nlp import bert
 from paddle_tpu_torch.nn.functional import loss as tloss
 from paddle_tpu_torch.ops import kernels
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 B, L = 8, 64
 LOGIT_TOL = 1e-5
 BF16_LOGIT_STEPS = 2 ** -6
@@ -91,6 +93,21 @@ def _torch(batch):
     return [torch.from_numpy(a) for a in batch]
 
 
+@pytest.fixture(scope="module")
+def port_runs():
+    """The port's side of each comparison, computed once a module: it does
+    not depend on the path the JAX side takes (dense or Pallas), so a
+    test's two ``pallas`` cases share it. Keyed by the test and its
+    parameters."""
+    return {}
+
+
+def _once(cache, key, fn):
+    if key not in cache:
+        cache[key] = fn()
+    return cache[key]
+
+
 @pytest.fixture(params=[False, True], ids=["jax-dense", "jax-pallas"])
 def pallas(request):
     pk.set_enabled(request.param)
@@ -100,13 +117,17 @@ def pallas(request):
 
 @VOCABS
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_logits_match(pallas, vocab, dtype):
+def test_logits_match(pallas, vocab, dtype, port_runs):
     jm, m = _pair(vocab, dtype)
     batch = _batch(vocab)
     want = [np.asarray(t._data).astype(np.float32)
             for t in jm(*_jax(batch[:3]))]
-    with torch.no_grad():
-        got = [t.float().numpy() for t in m(*_torch(batch[:3]))]
+
+    def port():
+        with torch.no_grad():
+            return [t.float().numpy() for t in m(*_torch(batch[:3]))]
+
+    got = _once(port_runs, ("logits", vocab, dtype), port)
     assert got[0].shape == (B, L, vocab) and got[1].shape == (B, 2)
     for g, w in zip(got, want):
         if dtype == "float32":
@@ -117,18 +138,23 @@ def test_logits_match(pallas, vocab, dtype):
 
 
 @VOCABS
-def test_every_gradient_matches(pallas, vocab):
+def test_every_gradient_matches(pallas, vocab, port_runs):
     jm, m = _pair(vocab)
     batch = _batch(vocab)
     jl = jbert.bert_pretrain_loss(jm, *_jax(batch))
     jl.backward()
     want = {n: np.asarray(p.grad._data) for n, p in jm.named_parameters()}
-    loss = bert.bert_pretrain_loss(m, *_torch(batch))
-    loss.backward()
-    got = {n: p.grad.numpy() for n, p in m.named_parameters()}
+
+    def port():
+        loss = bert.bert_pretrain_loss(m, *_torch(batch))
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.numpy()
+                                      for n, p in m.named_parameters()}
+
+    loss, got = _once(port_runs, ("grads", vocab), port)
     assert sorted(got) == sorted(want)
-    np.testing.assert_allclose(float(loss.detach()),
-                               float(np.asarray(jl._data)), rtol=LOGIT_TOL)
+    np.testing.assert_allclose(loss, float(np.asarray(jl._data)),
+                               rtol=LOGIT_TOL)
     for n in want:
         if n.endswith("k_proj.bias"):
             scale = np.abs(want[n.replace(".bias", ".weight")]).max()
@@ -141,7 +167,10 @@ def test_every_gradient_matches(pallas, vocab):
                                    atol=GRAD_TOL * scale, err_msg=n)
 
 
-def _trajectories(vocab, dtype, lr):
+def _trajectories(vocab, dtype, lr, port_runs):
+    """The JAX and the port's 8-step losses, and whether the port's
+    parameters are all bfloat16 after them (the port's side once a
+    module, ``port_runs``)."""
     jm, m = _pair(vocab, dtype)
     batch = _batch(vocab)
     mp = dtype == "bfloat16"
@@ -149,28 +178,33 @@ def _trajectories(vocab, dtype, lr):
                         multi_precision=mp,
                         grad_clip=joptim.ClipGradByGlobalNorm(1.0))
     jstep = pt.TrainStep(jm, jopt, jbert.bert_pretrain_loss)
-    opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=lr,
-                      multi_precision=mp,
-                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
-    step = TrainStep(m, opt, bert.bert_pretrain_loss)
     want = [float(np.asarray(jstep(*batch)._data)) for _ in range(8)]
-    got = [float(step(*batch)) for _ in range(8)]
-    return got, want, m
+
+    def port():
+        opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=lr,
+                          multi_precision=mp,
+                          grad_clip=optim.ClipGradByGlobalNorm(1.0))
+        step = TrainStep(m, opt, bert.bert_pretrain_loss)
+        got = [float(step(*batch)) for _ in range(8)]
+        return got, all(p.dtype == torch.bfloat16 for p in m.parameters())
+
+    got, bf16 = _once(port_runs, ("trajectory", vocab, dtype, lr), port)
+    return got, want, bf16
 
 
 @VOCABS
-def test_train_step_trajectory_matches(pallas, vocab):
-    got, want, _ = _trajectories(vocab, "float32", 1e-3)
+def test_train_step_trajectory_matches(pallas, vocab, port_runs):
+    got, want, _ = _trajectories(vocab, "float32", 1e-3, port_runs)
     np.testing.assert_allclose(got, want, atol=LOSS_TOL, rtol=LOSS_TOL)
     assert got[-1] < got[0] - 1.0          # it learns
 
 
 @VOCABS
-def test_bf16_multi_precision_trajectory_matches(pallas, vocab):
-    got, want, m = _trajectories(vocab, "bfloat16", 1e-4)
+def test_bf16_multi_precision_trajectory_matches(pallas, vocab, port_runs):
+    got, want, bf16 = _trajectories(vocab, "bfloat16", 1e-4, port_runs)
     np.testing.assert_allclose(got, want, atol=BF16_LOSS_TOL, rtol=0)
     assert got[-1] < got[0] - 0.5          # it learns
-    assert all(p.dtype == torch.bfloat16 for p in m.parameters())
+    assert bf16
 
 
 @VOCABS

@@ -20,6 +20,8 @@ from paddle_tpu_torch import convert, optim
 from paddle_tpu_torch.framework import TrainStep
 from paddle_tpu_torch.models.nlp import bert
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 B, L, LAYERS = 8, 128, 2
 LOSS_TOL = 5e-5
 

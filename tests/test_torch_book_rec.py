@@ -28,6 +28,8 @@ from paddle_tpu_torch.models.rec import (DeepFM, TwoTowerRecommender,
                                          rating_loss)
 from paddle_tpu_torch.nn import functional as F
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 VOCAB, N, STEPS = 120, 64, 8
 LOSS_RTOL, PARAM_ATOL = 1e-5, 1e-5
 

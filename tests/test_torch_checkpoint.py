@@ -61,6 +61,8 @@ from paddle_tpu_torch.optim import lr as tlr
 from paddle_tpu_torch.resilience import (SimulatedCrashError, inject,
                                          newest_intact_step)
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(vocab_size=256, hidden=64, layers=2, heads=2, max_seq=32,
            dropout=0.0)

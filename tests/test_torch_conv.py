@@ -32,6 +32,8 @@ import paddle_tpu.nn.functional as JF
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.nn import functional as F
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 DTYPES = ["float32", "bfloat16"]
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -59,6 +59,8 @@ from paddle_tpu_torch.ops.kernels import softmax_ce as ce
 from paddle_tpu_torch.serving import (ManualClock, PagedKVCache,
                                       Scheduler, ServeEngine, TinyLM)
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 pytestmark = pytest.mark.cuda
 
 F32_TOL = 2e-5

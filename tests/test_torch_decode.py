@@ -44,6 +44,8 @@ from paddle_tpu_torch import convert
 from paddle_tpu_torch.models.nlp import gpt
 from paddle_tpu_torch.nn.layers import transformer as tr
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
 E, H, FF = 32, 4, 64

@@ -40,6 +40,8 @@ from paddle_tpu_torch.nn.functional import attention, sdpa_bhld
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 # the module: ``paddle_tpu.ops.pallas`` exports its op under the same name
 jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 

@@ -53,6 +53,8 @@ from paddle_tpu_torch.serving import ManualClock, TinyLM
 from paddle_tpu_torch.serving import fleet
 from paddle_tpu_torch.serving.fleet import drill
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 # the tiny fleet geometry of tests/test_serve_fleet.py
 SPEC = dict(vocab_size=32, pages=64, page_size=4, max_seq_len=32,
             token_budget=128, warm=False)

@@ -44,6 +44,8 @@ from paddle_tpu_torch.serving.fleet import drill
 from paddle_tpu_torch.resilience import elastic
 from paddle_tpu_torch.utils import envspec
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 SPECS = {"ttft_p99_ms": {"threshold_ms": 30.0, "target": 0.9},
          "tpot_p99_ms": {"threshold_ms": 12.0, "target": 0.5},
          "availability": 0.95}

@@ -56,6 +56,8 @@ from paddle_tpu_torch.nn import Dropout
 from paddle_tpu_torch.nn.functional import sdpa_bhld
 from paddle_tpu_torch.ops import kernels
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(vocab_size=512, hidden=128, layers=2, heads=2, max_seq=128,
            dropout=0.0)
@@ -87,6 +89,20 @@ def _pair(seed=0, dtype="float32"):
     return jm, m
 
 
+@pytest.fixture(scope="module")
+def port_runs():
+    """The port's side of each comparison, computed once a module: it does
+    not depend on the path the JAX side takes (dense or Pallas), so a
+    test's two ``pallas`` cases share it. Keyed by the test."""
+    return {}
+
+
+def _once(cache, key, fn):
+    if key not in cache:
+        cache[key] = fn()
+    return cache[key]
+
+
 @pytest.fixture(params=[False, True], ids=["jax-dense", "jax-pallas"])
 def pallas(request):
     pk.set_enabled(request.param)
@@ -94,74 +110,99 @@ def pallas(request):
     pk.set_enabled(None)
 
 
-def test_logits_match(pallas):
+def test_logits_match(pallas, port_runs):
     jm, m = _pair()
     ids, _ = _batch()
     want = np.asarray(jm(pt.to_tensor(ids))._data)
-    with torch.no_grad():
-        got = m(torch.from_numpy(ids)).numpy()
+
+    def port():
+        with torch.no_grad():
+            return m(torch.from_numpy(ids)).numpy()
+
+    got = _once(port_runs, "logits", port)
     assert got.shape == (8, 128, CFG["vocab_size"])
     np.testing.assert_allclose(got, want, atol=LOGIT_TOL, rtol=LOGIT_TOL)
 
 
-def test_every_gradient_matches(pallas):
+def test_every_gradient_matches(pallas, port_runs):
     jm, m = _pair()
     ids, labels = _batch()
     jl = jgpt.gpt_loss(jm, pt.to_tensor(ids), pt.to_tensor(labels))
     jl.backward()
     want = {n: np.asarray(p.grad._data) for n, p in jm.named_parameters()}
-    loss = gpt.gpt_loss(m, torch.from_numpy(ids), torch.from_numpy(labels))
-    loss.backward()
-    got = {n: p.grad.numpy() for n, p in m.named_parameters()}
+
+    def port():
+        loss = gpt.gpt_loss(m, torch.from_numpy(ids),
+                            torch.from_numpy(labels))
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.numpy()
+                                      for n, p in m.named_parameters()}
+
+    loss, got = _once(port_runs, "grads", port)
     assert sorted(got) == sorted(want)
-    np.testing.assert_allclose(float(loss.detach()),
-                               float(np.asarray(jl._data)), rtol=LOGIT_TOL)
+    np.testing.assert_allclose(loss, float(np.asarray(jl._data)),
+                               rtol=LOGIT_TOL)
     for n in want:
         scale = np.abs(want[n]).max()
         np.testing.assert_allclose(got[n], want[n], rtol=GRAD_TOL,
                                    atol=GRAD_TOL * scale, err_msg=n)
 
 
-def test_train_step_trajectory_matches(pallas):
+def test_train_step_trajectory_matches(pallas, port_runs):
     jm, m = _pair()
     ids, labels = _batch()
     jopt = joptim.AdamW(parameters=jm.parameters(), learning_rate=3e-3,
                         grad_clip=joptim.ClipGradByGlobalNorm(1.0))
     jstep = pt.TrainStep(jm, jopt, jgpt.gpt_loss)
-    opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=3e-3,
-                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
-    step = TrainStep(m, opt, gpt.gpt_loss)
     want = [float(np.asarray(jstep(ids, labels)._data)) for _ in range(8)]
-    got = [float(step(ids, labels)) for _ in range(8)]
+
+    def port():
+        opt = optim.AdamW(parameters=m.named_parameters(),
+                          learning_rate=3e-3,
+                          grad_clip=optim.ClipGradByGlobalNorm(1.0))
+        step = TrainStep(m, opt, gpt.gpt_loss)
+        got = [float(step(ids, labels)) for _ in range(8)]
+        return got, bool(step.last_found_inf)
+
+    got, found_inf = _once(port_runs, "trajectory", port)
     np.testing.assert_allclose(got, want, atol=LOSS_TOL, rtol=LOSS_TOL)
     assert got[-1] < got[0] - 0.5          # it learns
-    assert not bool(step.last_found_inf)
+    assert not found_inf
 
 
-def test_bf16_logits_match(pallas):
+def test_bf16_logits_match(pallas, port_runs):
     jm, m = _pair(dtype="bfloat16")
     ids, _ = _batch()
     want = np.asarray(jm(pt.to_tensor(ids))._data)
-    with torch.no_grad():
-        got = m(torch.from_numpy(ids))
+
+    def port():
+        with torch.no_grad():
+            return m(torch.from_numpy(ids))
+
+    got = _once(port_runs, "bf16 logits", port)
     assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
     np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32),
                                atol=BF16_LOGIT_TOL, rtol=0)
 
 
-def test_bf16_multi_precision_trajectory_matches(pallas):
+def test_bf16_multi_precision_trajectory_matches(pallas, port_runs):
     jm, m = _pair(dtype="bfloat16")
     ids, labels = _batch()
     jopt = joptim.AdamW(parameters=jm.parameters(), learning_rate=3e-3,
                         multi_precision=True,
                         grad_clip=joptim.ClipGradByGlobalNorm(1.0))
     jstep = pt.TrainStep(jm, jopt, jgpt.gpt_loss)
-    opt = optim.AdamW(parameters=m.named_parameters(), learning_rate=3e-3,
-                      multi_precision=True,
-                      grad_clip=optim.ClipGradByGlobalNorm(1.0))
-    step = TrainStep(m, opt, gpt.gpt_loss)
     want = [float(np.asarray(jstep(ids, labels)._data)) for _ in range(8)]
-    got = [float(step(ids, labels)) for _ in range(8)]
+
+    def port():
+        opt = optim.AdamW(parameters=m.named_parameters(),
+                          learning_rate=3e-3, multi_precision=True,
+                          grad_clip=optim.ClipGradByGlobalNorm(1.0))
+        step = TrainStep(m, opt, gpt.gpt_loss)
+        got = [float(step(ids, labels)) for _ in range(8)]
+        return got, m, opt
+
+    got, m, opt = _once(port_runs, "bf16 trajectory", port)
     np.testing.assert_allclose(got, want, atol=BF16_LOSS_TOL, rtol=0)
     assert got[-1] < got[0] - 0.5          # it learns
     assert all(p.dtype == torch.bfloat16 for p in m.parameters())

@@ -50,6 +50,8 @@ from paddle_tpu_torch.resilience import (PREEMPTED_EXIT_CODE,
                                          retry_call)
 from paddle_tpu_torch.utils import nan_guard
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NOSLEEP = dict(sleep=lambda s: None)
 LOSS_RTOL = 1e-6

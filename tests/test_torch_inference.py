@@ -50,6 +50,8 @@ from paddle_tpu_torch.quant import quantize_inference_model
 from paddle_tpu_torch.static_ import program as tprog
 from paddle_tpu_torch.utils import unique_name as tun
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 B = 8
 TOL = 1e-5
 

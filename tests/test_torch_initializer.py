@@ -29,6 +29,8 @@ from paddle_tpu_torch import nn
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn.layers.common import create_parameter
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 SHAPE = (512, 768)
 ORTHO_TOL = 1e-5
 STD_RTOL = 0.01

@@ -33,6 +33,8 @@ from paddle_tpu_torch.models.nlp import gpt
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.optim import lr as tlr
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 CFG = dict(vocab_size=256, hidden=64, layers=2, heads=2, max_seq=32,
            dropout=0.0)
 LOSS_TOL = 5e-5
@@ -304,6 +306,17 @@ assert pt_api.ops.conv2d(torch.ones(1, 4, 4, 2), torch.ones(3, 3, 2, 1),
                          padding=1, data_format="NHWC").shape == (1, 4, 4, 1)
 assert callable(convert.vgg_params_from_jax) and callable(
     convert.mobilenet_params_from_jax)
+from paddle_tpu_torch.ops.kernels import (flash_attention, layernorm,
+                                          paged_attention, softmax_ce)
+from paddle_tpu_torch.serving import engine
+from paddle_tpu_torch.static_ import executor
+net = script.make_model(pt_api, cfg, methods=True)
+assert float(script.loss_fn(pt_api, net, pt_api.to_tensor(ids),
+                            pt_api.to_tensor(labels), methods=True)) > 0
+t = pt_api.to_tensor([[3.0, 1.0], [2.0, 4.0]])
+assert isinstance(t, pt_api.Tensor) and t.shape == [2, 2] and t.size == 4
+assert t.transpose([1, 0]).sum(axis=1).numpy().tolist() == [5.0, 5.0]
+assert t.astype("int64").dtype == torch.int64 and t.stop_gradient
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 assert not bad, bad

@@ -21,6 +21,8 @@ import paddle_tpu as jpt
 import paddle_tpu_torch as pt
 from test_torch_layers import LAYERS, numpy_initializers  # noqa: F401
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 CPU = {"device": "cpu"}
 
 

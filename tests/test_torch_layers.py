@@ -32,6 +32,8 @@ from paddle_tpu_torch import convert, ops as tops
 from paddle_tpu_torch.ops import activation as tact
 from paddle_tpu_torch.ops import norm_ops, random_ops
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 R = np.random.RandomState(0)
 
 

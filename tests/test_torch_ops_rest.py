@@ -43,6 +43,8 @@ from torch_tensor_parity import (Case, _floats, arrays_of, c,
                                  check_case, close, f, flat, i, ids,
                                  run_port)
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 IMG = f(2, 4, 6, 6)
 IMG5 = f(2, 3, 5, 6, 7)
 POS = f(4, 5, lo=0.5, hi=1.5)

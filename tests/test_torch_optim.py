@@ -42,6 +42,8 @@ from paddle_tpu.optim import lr as jlr
 from paddle_tpu_torch import convert, optim
 from paddle_tpu_torch.optim import lr as tlr
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 LR = 1e-2
 F32_STEP = 2 ** -23
 LAMB_RTOL = 1e-6

@@ -63,6 +63,8 @@ from paddle_tpu_torch import convert, core, optim
 from paddle_tpu_torch.framework import TrainStep
 from paddle_tpu_torch.models.nlp import gpt
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 LR = 1e-2
 NORM_RTOL = 1e-6
 NORM_ATOL = 2 ** -23

@@ -22,6 +22,8 @@ from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
 

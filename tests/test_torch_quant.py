@@ -50,6 +50,8 @@ from paddle_tpu_torch.quant import passes
 from paddle_tpu_torch.static_ import program as tprog
 from paddle_tpu_torch.utils import unique_name as tun
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 TOL = 1e-5
 # bench_int8_predictor(B=256) in the JAX package on the CPU
 JAX_MAX_PROB_DIFF = 0.011483907699584961

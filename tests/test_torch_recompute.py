@@ -38,6 +38,8 @@ from paddle_tpu_torch.framework import Recompute, TrainStep, recompute
 from paddle_tpu_torch.models.nlp import gpt
 from paddle_tpu_torch.nn import Linear
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 CFG = dict(vocab_size=512, hidden=128, layers=2, heads=2, max_seq=128)
 TOL = 1e-5
 # the module (the package's attribute of that name is the function)

@@ -29,6 +29,8 @@ import torch
 
 from test_torch_fleet import jax_globals_restored
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -75,6 +75,8 @@ from paddle_tpu_torch.framework import TrainStep
 from paddle_tpu_torch.models.vision import resnet
 from paddle_tpu_torch.nn import functional as F
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 B, SIZE, CLASSES = 4, 64, 10
 LR = 0.01
 # XLA's options for the JAX side's jits: excess precision off (below);

@@ -26,6 +26,8 @@ from paddle_tpu_torch import convert, ops
 from paddle_tpu_torch.nn.layers import rnn as trnn
 from paddle_tpu_torch import static_ as sprog
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 B, T, IN, H = 3, 6, 5, 4
 LENGTHS = np.array([6, 2, 4])
 

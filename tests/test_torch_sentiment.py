@@ -29,6 +29,8 @@ from paddle_tpu_torch.framework import TrainStep
 from paddle_tpu_torch.models.nlp import ConvSentiment, StackedLSTMSentiment
 from paddle_tpu_torch.nn import functional as F
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 VOCAB, B, L = 120, 32, 16
 NETS = {"conv": (jsent.ConvSentiment, ConvSentiment, (32, 16)),
         "lstm": (jsent.StackedLSTMSentiment, StackedLSTMSentiment,

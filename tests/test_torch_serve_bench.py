@@ -25,6 +25,8 @@ from paddle_tpu import serving as jserving
 from paddle_tpu_torch import serving
 from test_torch_fleet import jax_globals_restored
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

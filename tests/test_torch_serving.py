@@ -36,6 +36,8 @@ from paddle_tpu_torch.serving import (CANCELLED, FINISHED, ManualClock,
                                       PagedKVCache, Scheduler, ServeEngine,
                                       TinyLM, live_engines, write_tokens)
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 ACT_TOL = 1e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -54,6 +54,8 @@ import chip_smoke as cs
 from paddle_tpu_torch.ops.kernels import KERNELS
 from paddle_tpu_torch.ops.kernels import softmax_ce as ce
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -326,7 +328,7 @@ def _planted(monkeypatch, fault):
     if fault == "transposed conv weight":
         real = F.conv2d
         monkeypatch.setattr(F, "conv2d", lambda x, w, *a, **k: real(
-            x, w.transpose(2, 3), *a, **k))
+            x, torch.transpose(w, 2, 3), *a, **k))
     elif fault == "uneven conv padding":
         real = F.conv2d
 
@@ -682,6 +684,39 @@ def test_phase_25_script_reaches_every_kernel_wrapper(monkeypatch):
     want = cs.surface_launches(cfg)
     assert calls == {k: want[k] for k in calls}, calls
     assert np.isfinite(losses[0]) and abs(losses[0] - np.log(256)) < 0.5
+
+
+# -- phase 27: the Paddle Tensor's methods ------------------------------------
+
+
+def test_phase_27_methods_check_runs_on_the_cpu():
+    """Phase 27(c) dry-run with the CPU in the card's place: every name of
+    the method table has a case that calls it as a method, and none moves
+    its bits here."""
+    assert cs.methods_card_check("cpu", device="cpu") == []
+
+
+def test_phase_27_method_form_is_phase_25s_script_bitwise():
+    """Phase 27(a) holds the method form's losses to phase 25's bits: on
+    the CPU, from the same weights, the two forms give the same losses
+    and make the same state names."""
+    import paddle_tpu_torch as pt
+
+    S = cs.surface_script()
+    M = cs._MethodForm(S)
+    cfg = dict(S.CONFIGS["tiny"], layers=1)
+    data = S.batches(cfg, 2)
+    place = pt._device.CURRENT[0]
+    pt.set_device("cpu")
+    try:
+        func, meth = S.make_model(pt, cfg), M.make_model(pt, cfg)
+        assert list(func.state_dict()) == list(meth.state_dict())
+        meth.set_state_dict(func.state_dict())
+        want, _ = S.train(pt, func, data, cfg)
+        got, _ = M.train(pt, meth, data, cfg)
+    finally:
+        pt._device.CURRENT[0] = place
+    assert got == want
 
 
 # -- phase 26: VGG and MobileNet V1/V2, the op library's rest ----------------

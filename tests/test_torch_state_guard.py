@@ -6,7 +6,8 @@ the test runner shares worker processes between test files: a port
 module or test that changed torch's global state (deterministic
 algorithms, the cuDNN flags, the default dtype, the thread count, the
 default generator) could make one of them fail. In a fresh process,
-this test imports every module of the port and runs a tiny ResNet
+this test imports every module of the port (``torch.Tensor`` must gain
+no attribute: the port's ``Tensor`` is a subclass) and runs a tiny ResNet
 ``TrainStep`` (the state must be as it was), then runs
 ``tests/test_torch_resnet.py`` and, in the same process after it,
 ``tests/test_torch_parity.py`` (``-p no:randomly``): the state must be
@@ -16,6 +17,8 @@ as it was when the ResNet tests end, and every test must pass. About
 import os
 import subprocess
 import sys
+
+from torch_test_threads import torch_threads  # noqa: F401,E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,9 +43,16 @@ def same(a, b):
     return bad + ([] if torch.equal(a["rng"], b["rng"]) else ["rng"])
 
 before = state()
+tensor_attrs = dict(vars(torch.Tensor)), dict(vars(torch._C.TensorBase))
 import paddle_tpu_torch
 for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
+# the port's Tensor is a subclass: torch's class gains no attribute
+for old, cls in zip(tensor_attrs, (torch.Tensor, torch._C.TensorBase)):
+    now = dict(vars(cls))
+    assert set(now) == set(old), sorted(set(now) ^ set(old))
+    assert all(now[k] is old[k] for k in old), [
+        k for k in old if now[k] is not old[k]]
 from paddle_tpu_torch import optim
 from paddle_tpu_torch.framework import TrainStep
 from paddle_tpu_torch.models.vision import resnet

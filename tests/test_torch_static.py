@@ -40,6 +40,8 @@ from paddle_tpu_torch.optim import lr as tlr
 from paddle_tpu_torch.static_ import program as tprog
 from paddle_tpu_torch.utils import unique_name as tun
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 LENET_FWD = ["conv2d", "reshape", "add", "relu", "max_pool2d", "conv2d",
              "reshape", "add", "relu", "max_pool2d", "flatten", "linear",
              "relu", "linear", "relu", "linear", "cross_entropy_hard"]

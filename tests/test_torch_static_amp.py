@@ -59,6 +59,8 @@ from paddle_tpu_torch.utils import unique_name as tun
 
 from test_torch_static import _batch, _recording
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 STEPS = 4
 INF_STEP = 2
 

@@ -42,6 +42,8 @@ from paddle_tpu_torch.utils import unique_name as tun
 
 from test_torch_static import _recording
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 B, FIELDS, VOCAB, L = 16, [10, 20, 30], 50, 6
 STEPS = 3
 

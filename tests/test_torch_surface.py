@@ -17,6 +17,8 @@ import torch
 import paddle_tpu as jpt
 import paddle_tpu_torch as pt
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 # names of paddle_tpu.__all__ the port does not have yet -> ROADMAP item
 ABSENT = {
     **{n: "item 10" for n in (
@@ -71,7 +73,8 @@ def test_to_tensor_types_places_and_gradients_follow_the_jax_package():
     assert x.requires_grad and x.is_leaf
     src = torch.ones(2)
     assert pt.to_tensor(src).data_ptr() != src.data_ptr()   # a copy
-    assert pt.Tensor is torch.Tensor and isinstance(x, pt.Tensor)
+    assert issubclass(pt.Tensor, torch.Tensor) and isinstance(x, pt.Tensor)
+    assert pt.Tensor is not torch.Tensor and type(src) is torch.Tensor
     p = pt.Parameter(np.ones(2, np.float32), name="w", trainable=False)
     assert isinstance(p, torch.nn.Parameter) and p.name == "w"
     assert not p.requires_grad and p.stop_gradient and not p.trainable

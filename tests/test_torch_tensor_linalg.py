@@ -30,6 +30,8 @@ from paddle_tpu_torch.nn import functional as F
 from torch_tensor_parity import (Case, c, check_case, close, f, i, ids,
                                  spd, to_numpy)
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 X = f(3, 4)
 SQ = f(4, 4)
 SPD = spd(4)

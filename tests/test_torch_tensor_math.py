@@ -24,6 +24,8 @@ from paddle_tpu_torch.core import random as trandom
 from torch_tensor_parity import (CPU, Case, c, check_case, close,
                                  covered_names, f, i, ids)
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 X = f(3, 4)
 Y = f(3, 4)
 POS = f(3, 4, lo=0.5, hi=2.0)

@@ -14,6 +14,8 @@ import paddle_tpu_torch as pt
 
 from torch_tensor_parity import Case, b, c, check_case, f, i, ids, to_numpy
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 X = f(3, 4)
 Y = f(3, 4)
 X3 = f(2, 3, 4)

@@ -31,6 +31,8 @@ import paddle_tpu.ops.pallas as pk
 import paddle_tpu_torch as pt
 from test_torch_layers import numpy_initializers  # noqa: F401
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import paddle_gpt_script as S  # noqa: E402
 

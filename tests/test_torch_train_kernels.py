@@ -36,6 +36,8 @@ from paddle_tpu_torch.ops import kernels, norm_ops
 from paddle_tpu_torch.ops.kernels import layernorm as ln
 from paddle_tpu_torch.ops.kernels import softmax_ce as ce
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
 DTYPES = [("float32", F32_TOL), ("bfloat16", BF16_TOL)]

@@ -6,6 +6,8 @@ import pytest
 from torch_vision_parity import (jax_runs, one_torch_thread,  # noqa: F401
                                  parity_tests, port_once)
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 

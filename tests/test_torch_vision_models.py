@@ -16,6 +16,8 @@ from torch_vision_parity import (_port_zero_initializers, _state,  # noqa: F401
                                  _zero_initializers, jax_runs,
                                  one_torch_thread, parity_tests, port_once)
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 

@@ -34,6 +34,8 @@ from paddle_tpu_torch import convert
 from paddle_tpu_torch.inference import decoder as tdec
 from paddle_tpu_torch.models.nlp import transformer as wmt
 
+from torch_test_threads import torch_threads  # noqa: F401,E402
+
 TOL = 1e-5
 SCORE_TOL = 1e-5
 DIMS = dict(d_model=16, nhead=2, num_layers=2, dim_feedforward=32,

@@ -8,11 +8,20 @@ come from ``self.create_parameter``, ``m.nn.LayerNorm``, causal
 of blocks, a head tied to the token embedding,
 ``m.nn.functional.cross_entropy``, ``m.to_tensor``, ``m.optim.AdamW``,
 ``m.TrainStep``, ``m.save``/``m.load`` with ``set_state_dict``, and
-``m.to_static``. At ``CONFIGS["bench_gpt"]`` it is ``bench.py``'s
-bench_gpt model (``gpt_small``'s widths: 12 layers, 12 heads x 64,
-L 1024, vocab 50304), trained in bfloat16 (``model.bfloat16()``) with
-``multi_precision`` AdamW; at ``CONFIGS["tiny"]`` it is small enough
-for the CPU.
+``m.to_static``. ``methods=True`` spells the same model and loss in
+method form, the way most Paddle scripts are written: each functional
+call as its ``Tensor`` method (``m.reshape(t, s)`` as ``t.reshape(s)``,
+``m.matmul(a, b, transpose_y=True)`` as ``a.matmul(b,
+transpose_y=True)``), plus the surface that computes nothing
+(``B, L = x.shape[:2]``, ``labels.astype("int64")`` of int64 labels,
+``ids.stop_gradient``, ``loss.numpy()`` for the log,
+``opt.clear_grad()`` and ``p.clear_grad()``). It makes the same
+parameters, under the same names and in the same order, and runs the
+same ops: the two forms give the same bits. At ``CONFIGS["bench_gpt"]``
+it is ``bench.py``'s bench_gpt model (``gpt_small``'s widths: 12
+layers, 12 heads x 64, L 1024, vocab 50304), trained in bfloat16
+(``model.bfloat16()``) with ``multi_precision`` AdamW; at
+``CONFIGS["tiny"]`` it is small enough for the CPU.
 
 It imports neither package itself; the caller passes one:
 
@@ -21,6 +30,9 @@ It imports neither package itself; the caller passes one:
     m.set_device("cpu")
     model = make_model(m, cfg)
     losses, opt = train(m, model, batches(cfg, steps=8), cfg)
+
+or, in method form, ``make_model(m, cfg, methods=True)`` and
+``train(m, model, data, cfg, methods=True)``.
 """
 from __future__ import annotations
 
@@ -39,8 +51,9 @@ CONFIGS = {
 }
 
 
-def make_model(m, cfg):
-    """The model of ``cfg``, made on the current place."""
+def make_model(m, cfg, methods=False):
+    """The model of ``cfg``, made on the current place; its forwards in
+    method form with ``methods``."""
     nn, F = m.nn, m.nn.functional
     H, nh = cfg["hidden"], cfg["heads"]
     small = m.ParamAttr(initializer=nn.initializer.Normal(0.0, 0.02))
@@ -75,6 +88,21 @@ def make_model(m, cfg):
             x = x + m.matmul(m.reshape(a, [B, L, H]), self.wo) + self.bo
             return x + self.fc2(F.gelu(self.fc1(self.ln2(x))))
 
+    class MethodBlock(Block):
+        """``Block`` with its forward in method form."""
+
+        def forward(self, x):
+            B, L = x.shape[:2]
+            h = self.ln1(x)
+            heads = [B, L, nh, H // nh]
+            q = (h.matmul(self.wq) + self.bq).reshape(heads)
+            k = (h.matmul(self.wk) + self.bk).reshape(heads)
+            v = (h.matmul(self.wv) + self.bv).reshape(heads)
+            a = F.scaled_dot_product_attention(q, k, v, dropout_p=0.0,
+                                               is_causal=True)
+            x = x + a.reshape([B, L, H]).matmul(self.wo) + self.bo
+            return x + self.fc2(F.gelu(self.fc1(self.ln2(x))))
+
     class GPTScript(nn.Layer):
         """Token and position embeddings, the blocks, a final LayerNorm
         and the head tied to the token embedding."""
@@ -85,7 +113,7 @@ def make_model(m, cfg):
             self.wpe = self.create_parameter(
                 [cfg["max_len"], H], default_initializer=nn.initializer
                 .Normal(0.0, 0.02))
-            self.blocks = nn.LayerList([Block()
+            self.blocks = nn.LayerList([(MethodBlock if methods else Block)()
                                         for _ in range(cfg["layers"])])
             self.ln_f = nn.LayerNorm(H)
 
@@ -95,15 +123,29 @@ def make_model(m, cfg):
                 x = block(x)
             return m.matmul(self.ln_f(x), self.wte.weight, transpose_y=True)
 
-    model = GPTScript()
+    class MethodGPTScript(GPTScript):
+        """``GPTScript`` with its forward in method form."""
+
+        def forward(self, ids):
+            assert ids.stop_gradient
+            L = ids.shape[1]
+            x = self.wte(ids) + self.wpe[:L]
+            for block in self.blocks:
+                x = block(x)
+            return self.ln_f(x).matmul(self.wte.weight, transpose_y=True)
+
+    model = (MethodGPTScript if methods else GPTScript)()
     if cfg["dtype"] == "bfloat16":
         model.bfloat16()
     return model
 
 
-def loss_fn(m, model, ids, labels):
+def loss_fn(m, model, ids, labels, methods=False):
     logits = model(ids)
     V = logits.shape[-1]
+    if methods:
+        return m.nn.functional.cross_entropy(
+            logits.reshape([-1, V]), labels.astype("int64").reshape([-1]))
     return m.nn.functional.cross_entropy(m.reshape(logits, [-1, V]),
                                          m.reshape(labels, [-1]))
 
@@ -117,16 +159,25 @@ def batches(cfg, steps, seed=0):
             for _ in range(steps)]
 
 
-def train(m, model, data, cfg, step=None):
+def train(m, model, data, cfg, step=None, methods=False):
     """AdamW (``multi_precision``) over ``data`` through ``m.TrainStep``
     (or ``step``, to go on with one): the losses as floats, and the
-    step."""
+    step; the loss in method form with ``methods``, each step's loss
+    read back with ``loss.numpy()``."""
     if step is None:
         opt = m.optim.AdamW(learning_rate=cfg["lr"],
                             parameters=model.parameters(),
                             multi_precision=True)
-        step = m.TrainStep(model, opt,
-                           lambda mdl, x, y: loss_fn(m, mdl, x, y))
+        step = m.TrainStep(
+            model, opt,
+            lambda mdl, x, y: loss_fn(m, mdl, x, y, methods=methods))
+        if methods:
+            opt.clear_grad()
+            for p in model.parameters():
+                p.clear_grad()
+    if methods:
+        return [float(step(m.to_tensor(x), m.to_tensor(y)).numpy())
+                for x, y in data], step
     losses = [float(step(m.to_tensor(x), m.to_tensor(y))) for x, y in data]
     return losses, step
 

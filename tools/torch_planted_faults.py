@@ -146,7 +146,7 @@ FAULTS = [
 
 
 def _transposed(real):
-    return lambda x, w, *a, **k: real(x, w.transpose(2, 3), *a, **k)
+    return lambda x, w, *a, **k: real(x, torch.transpose(w, 2, 3), *a, **k)
 
 
 def _shifted(real):
