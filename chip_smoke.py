@@ -6,8 +6,9 @@ static graph, the serve bench, the int8 Predictor, float16 mixed
 precision with recompute, the rest of Paddle's optimizers, initializers
 and run reports, its layer library with the book's sentiment nets, the
 tensor API with the book's word2vec and recommender nets, the Paddle
-user surface, the rest of the op library and the Paddle ``Tensor``'s
-methods once on one NVIDIA H100.
+user surface, the rest of the op library, the Paddle ``Tensor``'s
+methods and data-parallel training at two ranks once on one NVIDIA
+H100.
 
     python3 chip_smoke.py
 
@@ -371,6 +372,36 @@ any failed check:
              spelling), and ``shape``, ``astype``, ``numpy()``,
              ``clear_grad`` on card tensors; (d) the op-by-op step and
              the replay on Paddle ``Tensor`` batches against plain ones.
+
+28. dp     — data parallelism (``dp_phase``): bench_gpt's recipe
+             (``bench.py:187-210``: gpt_small, dropout 0, bf16,
+             multi_precision AdamW) at the global batch 16 x 1024, 8 rows
+             a rank, two ranks as two processes on cuda:0 over gloo,
+             started by ``python -m paddle_tpu_torch.dist.launch`` (this
+             process holds no model while they run); each run 4 steps
+             from seed 0's weights and RandomState(0)'s batch: (a) the
+             implicit exchange (``DistributedTrainStep``, one all-reduce
+             a parameter); (b) bucketed fp32 (``DataParallel(model,
+             comm_buffer_size=25)``): (a)'s losses and state bitwise, in
+             fewer all-reduces a step; (c) after every run both ranks'
+             parameters, masters and moments the same bits; (d) (a)'s
+             losses against one process at batch 16 from the same
+             weights within BF16_TRAIN_LOSS_TOL; (e) int8
+             (``CommOptions(quantize="int8")``) within rtol 0.05 / atol
+             0.02 of (b), residuals nonzero, the salt counter at the step
+             count; (f) ``run_fused(accumulate_steps=2)`` over 4 rows a
+             rank a microbatch, each window's mean loss against (a)'s
+             step, 2 exchanges a call of 4 microbatches, and the same in
+             one process (``TrainStep``: the window one graph); (g) (b) graphed
+             (two segments around the host exchange) = (b) op by op
+             bitwise; (h) 25/25/1/1/12/12/12 launches a step on each
+             rank; (i) ``SyncBatchNorm`` at two ranks against BatchNorm
+             on the whole batch in one process (SYNC_BN_TOL), and a
+             conv-SyncBatchNorm net's steps (uncaptured: a collective in
+             its forward) against ``TrainStep``; (j) the launcher over a
+             script whose rank 1 exits 3: it returns 3, rank 0 gone. It
+             prints the replay a step, tokens/s over both ranks, the
+             exchange's ms and bytes a step, peak memory a rank.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -8015,6 +8046,553 @@ def vision_phase(gpu):
     return out
 
 
+
+# -- phase 28: data parallelism, two ranks on one card -----------------------
+
+DP_STEPS = 4                 # each run's checked steps
+DP_TIMED = 5                 # then timed replays
+DP_CONFIG = "bench_gpt"
+DP_RANKS = 2                 # two processes on cuda:0, over gloo
+DP_BUCKET_MB = 25            # DataParallel(comm_buffer_size=25)
+# int8 losses against the fp32 exchange's: the JAX package's own bound
+# (tests/test_gradcomm.py:228-233)
+DP_INT8_RTOL, DP_INT8_ATOL = 0.05, 0.02
+# SyncBatchNorm at two ranks against BatchNorm on the whole batch in one
+# process, float32: sums in another order, relative to the largest
+# magnitude of each compared value
+SYNC_BN_TOL = 1e-5
+SYNC_BN_SHAPE = (8, 16, 32, 32)
+SYNC_BN_STEPS = 3
+# the launcher's survivor must be gone this many seconds after the launch
+# returns (its deadline is a shared 10 s: SIGTERM ends a sleeping rank
+# at once)
+DP_LAUNCH_GONE_S = 15.0
+DP_TIMEOUT_S = 900
+
+
+def state_digest(step):
+    """sha256 of the parameters' bytes, the masters' and the other
+    optimizer state's (the exchange's per-rank error feedback apart), in
+    the optimizer's order: equal digests are equal bits."""
+    import hashlib
+
+    import torch
+
+    def feed(h, t):
+        b = t.detach().reshape(-1).contiguous().cpu().view(torch.uint8)
+        h.update(b.numpy().tobytes())
+
+    hs = {k: hashlib.sha256() for k in ("params", "masters", "moments")}
+    opt = step.optimizer
+    for name, p in opt._named_params:
+        feed(hs["params"], p)
+        for k, v in sorted(opt._accumulators.get(name, {}).items()):
+            feed(hs["masters" if k == "master" else "moments"], v)
+    return {k: h.hexdigest() for k, h in hs.items()}
+
+
+def dp_run(label, comm=None, wrap=False, eager=False, timed=DP_TIMED):
+    """One run of phase 28 on this rank: bench_gpt's model and optimizer
+    from seed 0 through ``DistributedTrainStep`` (``wrap``: inside
+    ``DataParallel(comm_buffer_size=DP_BUCKET_MB)``), ``DP_STEPS`` steps
+    on the global batch (graphed, or ``_eager_step``), launches counted
+    over them, the state's digest, then ``timed`` more steps timed."""
+    import torch
+
+    from paddle_tpu_torch import dist
+    from paddle_tpu_torch.ops import kernels
+
+    model = train_model(DP_CONFIG)
+    opt = train_optimizer(model, DP_CONFIG)
+    loss_fn, batch, first = train_batch(model, DP_CONFIG)
+    m = dist.DataParallel(model, comm_buffer_size=DP_BUCKET_MB) if wrap \
+        else model
+    step = dist.DistributedTrainStep(m, opt, loss_fn, comm_options=comm)
+    fn = step._eager_step if eager else step
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    kernels.reset_launches()
+    losses, walls = [], []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(fn(*batch)))
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = kernels.launches()
+    digest = state_digest(step)
+    exchange = dict(step.last_exchange)
+    timed_walls, exchange_ms = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        fn(*batch)
+        sync()
+        timed_walls.append((time.perf_counter() - t0) * 1e3)
+        exchange_ms.append(step.last_exchange["ms"])
+    acc = opt._accumulators
+    out = dict(label=label, losses=losses, walls=walls,
+               timed=timed_walls, exchange_ms=exchange_ms,
+               exchange=exchange, launches=launches, digest=digest,
+               exchanges=step.exchanges, first=first,
+               captures=step.captures, uncaptured=len(step.uncaptured),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               tokens=int(batch[0].size))
+    if comm is not None and comm.quantize:
+        from paddle_tpu_torch.dist import gradcomm
+
+        out["count"] = int(acc[gradcomm.STEP_VAR]["count"])
+        out["resid_max"] = max(float(s["residual"].abs().max())
+                               for k, s in acc.items()
+                               if k.startswith(gradcomm.EF_PREFIX))
+    del step, opt, m, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_accumulate():
+    """Phase 28(f) on this rank: ``run_fused`` with ``accumulate_steps=2``
+    over microbatches of 8 global rows (4 a rank), rows 0-7 then 8-15 of
+    the global batch, so that each window's gradient is the (a) step's;
+    two calls of 4 microbatches (op by op, then the captured segments).
+    Then a second step from the same weights makes both calls op by op
+    (``_eager_run_fused``): its losses and state are held to the first's
+    bits."""
+    import torch
+
+    from paddle_tpu_torch import dist
+    from paddle_tpu_torch.ops import kernels
+
+    model = train_model(DP_CONFIG)
+    opt = train_optimizer(model, DP_CONFIG)
+    loss_fn, (ids, labels), _ = train_batch(model, DP_CONFIG)
+    half = ids.shape[0] // 2
+    micro = [(ids[:half], labels[:half]), (ids[half:], labels[half:])] * 2
+    step = dist.DistributedTrainStep(model, opt, loss_fn)
+    sync()
+    kernels.reset_launches()
+    losses, exchanges, walls = [], [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        losses += step.run_fused(micro, accumulate_steps=2).tolist()
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        exchanges.append(step.exchanges)
+    out = dict(losses=losses, exchanges=exchanges, walls=walls,
+               launches=kernels.launches(), digest=state_digest(step),
+               captures=step.captures)
+    del step, opt, model
+    torch.cuda.empty_cache()
+    model = train_model(DP_CONFIG)
+    step = dist.DistributedTrainStep(model, train_optimizer(model, DP_CONFIG),
+                                     loss_fn)
+    eager = []
+    for _ in range(2):
+        eager += step._eager_run_fused(micro, accumulate_steps=2).tolist()
+    out.update(eager_losses=eager, eager_digest=state_digest(step))
+    del step, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_sync_bn(rank, world):
+    """Phase 28(i) on this rank: ``SyncBatchNorm(16)`` on this rank's
+    rows of an (8, 16, 32, 32) float32 batch against ``BatchNorm2D`` on
+    the whole batch in this process (the output and input gradient rows,
+    the weight and bias gradients summed over the ranks, the running
+    statistics); then a conv-SyncBatchNorm net's ``SYNC_BN_STEPS`` SGD
+    steps through ``DistributedTrainStep`` against ``TrainStep`` on the
+    whole batch, and two ``run_fused(accumulate_steps=2)`` calls over the
+    batch's halves against ``TrainStep``'s on the same halves. Returns
+    each comparison's largest difference over the largest magnitude."""
+    import torch
+
+    from paddle_tpu_torch import dist, nn, optim
+    from paddle_tpu_torch.framework import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+
+    device = "cuda"
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(*SYNC_BN_SHAPE).astype(np.float32) * 2
+                         + 0.5).to(device)
+    w = torch.from_numpy(rng.randn(*SYNC_BN_SHAPE).astype(
+        np.float32)).to(device)
+    k = x.shape[0] // world
+    rows = slice(rank * k, (rank + 1) * k)
+    C = x.shape[1]
+
+    def layer(cls):
+        m = cls(C, device=device)
+        with torch.no_grad():
+            m.weight.copy_(torch.linspace(0.5, 2.0, C))
+            m.bias.copy_(torch.linspace(-1.0, 1.0, C))
+        return m
+
+    def rel(a, b):
+        a, b = a.detach(), b.detach()
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    sync_l, ref_l = layer(nn.SyncBatchNorm), layer(nn.BatchNorm2D)
+    xs = x[rows].clone().requires_grad_()
+    y = sync_l(xs)
+    (y * w[rows]).sum().backward()
+    xr = x.clone().requires_grad_()
+    yr = ref_l(xr)
+    (yr * w).sum().backward()
+    dw = dist.all_reduce(sync_l.weight.grad.clone())
+    db = dist.all_reduce(sync_l.bias.grad.clone())
+    errs = {"y": rel(y, yr[rows]), "dx": rel(xs.grad, xr.grad[rows]),
+            "dweight": rel(dw, ref_l.weight.grad),
+            "dbias": rel(db, ref_l.bias.grad),
+            "mean": rel(sync_l._mean, ref_l._mean),
+            "variance": rel(sync_l._variance, ref_l._variance)}
+
+    def net(norm):
+        g = torch.Generator(device=device).manual_seed(0)
+        return nn.Sequential(
+            nn.Conv2D(C, C, 3, padding=1, device=device, generator=g),
+            norm(C, device=device), nn.ReLU(), nn.Flatten(),
+            nn.Linear(C * 32 * 32, 10, device=device, generator=g))
+
+    def loss_fn(m, xb, yb):
+        return F.cross_entropy(m(xb), yb)
+
+    def steps():
+        dnet, pnet = net(nn.SyncBatchNorm), net(nn.BatchNorm2D)
+        return (dist.DistributedTrainStep(dnet, optim.SGD(
+                    0.01, parameters=dnet.named_parameters()), loss_fn),
+                TrainStep(pnet, optim.SGD(
+                    0.01, parameters=pnet.named_parameters()), loss_fn))
+
+    def flat(step):
+        # over every value at once: the conv's bias before the BatchNorm
+        # has a zero gradient, and moves by rounding noise (~1e-9) alone
+        return torch.cat([t.reshape(-1)
+                          for t in step.model.state_dict().values()])
+
+    def uncaptured(step):
+        return sorted({op for ops in step.uncaptured.values() for op in ops})
+
+    labels = rng.randint(0, 10, (x.shape[0],)).astype("int64")
+    xh = x.cpu().numpy()
+    dstep, pstep = steps()
+    dl = [float(dstep(xh, labels)) for _ in range(SYNC_BN_STEPS)]
+    pl = [float(pstep(xh, labels)) for _ in range(SYNC_BN_STEPS)]
+    errs["losses"] = max(abs(a - b) / abs(b) for a, b in zip(dl, pl))
+    errs["params"] = rel(flat(dstep), flat(pstep))
+    out = dict(losses=dl, plain_losses=pl, uncaptured=uncaptured(dstep),
+               plain_captures=pstep.captures)
+    # run_fused windows of 2 microbatches (4 global rows, 2 a rank): the
+    # collective in the forward keeps each window op by op; the plain
+    # step's window is one graph
+    h = x.shape[0] // 2
+    micro = [(xh[:h], labels[:h]), (xh[h:], labels[h:])] * 2
+    dstep, pstep = steps()
+    dl, pl = [], []
+    for _ in range(2):
+        dl += dstep.run_fused(micro, accumulate_steps=2).tolist()
+        pl += pstep.run_fused(micro, accumulate_steps=2).tolist()
+    errs["fused_losses"] = max(abs(a - b) / abs(b) for a, b in zip(dl, pl))
+    errs["fused_params"] = rel(flat(dstep), flat(pstep))
+    out.update(errs=errs, fused_losses=dl, fused_plain_losses=pl,
+               fused_uncaptured=uncaptured(dstep),
+               fused_plain_captures=pstep.captures,
+               fused_exchanges=dstep.exchanges)
+    return out
+
+
+def dp_rank_main(out):
+    """A rank of phase 28, started by ``paddle_tpu_torch.dist.launch``:
+    the runs (a)-(i) on this rank, written to ``out/rank_<r>.json``."""
+    import torch
+
+    from paddle_tpu_torch import dist
+    from paddle_tpu_torch.dist import gradcomm
+    from paddle_tpu_torch.ops.kernels import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    env = dist.init_parallel_env()
+    rank, world = env.rank, env.world_size
+    dist.init_mesh({"data": world})
+    t0 = time.perf_counter()
+    res = {"rank": rank, "world": world, "backend": env.backend,
+           "device": str(torch.device("cuda", torch.cuda.current_device())),
+           "name": torch.cuda.get_device_name()}
+    res["a"] = dp_run("a implicit")
+    res["b"] = dp_run("b bucketed", wrap=True)
+    res["g"] = dp_run("g bucketed op by op", wrap=True, eager=True,
+                      timed=0)
+    res["e"] = dp_run("e int8", comm=gradcomm.CommOptions(quantize="int8"))
+    res["f"] = dp_accumulate()
+    res["i"] = dp_sync_bn(rank, world)
+    res["wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(out, f"rank_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.env._shutdown()
+    return 0
+
+
+FAIL_RANK = """
+import os, sys, time
+if os.environ["PADDLE_TRAINER_ID"] == "1":
+    time.sleep(1.0)
+    sys.exit(3)
+with open(sys.argv[1], "w") as f:
+    f.write(str(os.getpid()))
+time.sleep(300)
+"""
+
+
+def dp_launch_check(root):
+    """Phase 28(j): ``paddle_tpu_torch.dist.launch`` over a 2-rank script
+    whose rank 1 exits 3 while rank 0 sleeps: the launcher returns 3 and
+    rank 0 is gone within ``DP_LAUNCH_GONE_S``. Returns the seconds."""
+    script = os.path.join(root, "fail_rank.py")
+    pid_file = os.path.join(root, "rank0.pid")
+    with open(script, "w") as f:
+        f.write(FAIL_RANK)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    rc = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.dist.launch",
+         "--nproc_per_node=2", script, pid_file], cwd=here,
+        timeout=120).returncode
+    took = time.perf_counter() - t0
+    check(rc == 3, f"dp: the launcher returned {rc}, want rank 1's 3")
+    with open(pid_file) as f:
+        pid = int(f.read())
+    gone = False
+    while time.perf_counter() - t0 < DP_LAUNCH_GONE_S:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            gone = True
+            break
+        time.sleep(0.05)
+    check(gone, f"dp: rank 0 (pid {pid}) outlived the failed launch by "
+                f"{DP_LAUNCH_GONE_S} s")
+    return took
+
+
+def dp_single(gpu):
+    """Phase 28(d): bench_gpt in this one process at the global batch
+    from the same weights: ``DP_STEPS`` graphed steps' losses; then the
+    same weights through ``TrainStep.run_fused(accumulate_steps=2)`` over
+    the batch's two halves (one process's exchange: the window is one
+    graph), twice (op by op, then captured): each window's mean loss
+    against the step's, and the two calls the bits of a second step's
+    made op by op (``_eager_run_fused``). Returns the losses, the walls
+    and the windows' losses."""
+    import torch
+
+    from paddle_tpu_torch import core
+    from paddle_tpu_torch.framework import TrainStep
+    from paddle_tpu_torch.ops import kernels
+
+    model = train_model(DP_CONFIG)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    loss_fn, batch, _ = train_batch(model, DP_CONFIG)
+    losses, _, walls = train_run(model, DP_CONFIG, init, loss_fn, batch,
+                                 DP_STEPS, False)
+    model.load_state_dict(init)
+    core.seed(1)
+    step = TrainStep(model, train_optimizer(model, DP_CONFIG), loss_fn)
+    ids, labels = batch
+    half = ids.shape[0] // 2
+    micro = [(ids[:half], labels[:half]), (ids[half:], labels[half:])] * 2
+    kernels.reset_launches()
+    acc = []
+    for _ in range(2):
+        acc += step.run_fused(micro, accumulate_steps=2).tolist()
+    launches = kernels.launches()
+    check(step.captures == 1 and step.exchanges == 4,
+          f"dp (f, one process): {step.captures} captures, "
+          f"{step.exchanges} exchanges")
+    check(launches == train_launches(DP_CONFIG, model.cfg, 2 * DP_STEPS),
+          f"dp (f, one process): launches {launches}")
+    digest = state_digest(step)
+    model.load_state_dict(init)
+    core.seed(1)
+    step = TrainStep(model, train_optimizer(model, DP_CONFIG), loss_fn)
+    eager = []
+    for _ in range(2):
+        eager += step._eager_run_fused(micro, accumulate_steps=2).tolist()
+    check(eager == acc and state_digest(step) == digest,
+          "dp (f, one process): the captured window is not the op-by-op "
+          f"one's bits ({acc} vs {eager})")
+    del model, init, step
+    torch.cuda.empty_cache()
+    return losses, walls, acc
+
+
+def dp_phase(gpu):
+    """Phase 28: bench_gpt's recipe data-parallel over two ranks on this
+    one card (two processes on cuda:0 over gloo), started by the port's
+    launcher; this process holds no model while they run. Checks (a)-(j)
+    of the module's doc and prints the replay, tokens/s, exchange ms and
+    bytes and peak memory a rank."""
+    import shutil
+    import socket
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        logs = os.path.join(root, "logs")
+        t0 = time.perf_counter()
+        rc = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.dist.launch",
+             f"--nproc_per_node={DP_RANKS}", f"--started_port={port}",
+             f"--log_dir={logs}", os.path.abspath(__file__), "--dp-rank",
+             root], cwd=here, timeout=DP_TIMEOUT_S).returncode
+        ranks_s = time.perf_counter() - t0
+        if rc != 0:
+            for r in range(DP_RANKS):
+                p = os.path.join(logs, f"worker.{r}.log")
+                if os.path.exists(p):
+                    log(f"dp: rank {r}'s log ends:\n"
+                        + open(p).read()[-6000:])
+        check(rc == 0, f"dp: the ranks' launch returned {rc}")
+        res = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(root, f"rank_{r}.json")) as f:
+                res.append(json.load(f))
+        dp_checks(res, gpu)
+        single, single_walls, acc = dp_single(gpu)
+        a = res[0]["a"]["losses"]
+        diffs = [abs(x - y) for x, y in zip(a, single)]
+        log(f"dp (d): one process at batch 16 losses {single} (step walls "
+            + " ".join(f"{w:.1f}" for w in single_walls) + " ms); |(a) - "
+            "one process| " + " ".join(f"{d:.2e}" for d in diffs)
+            + f" (tol {BF16_TRAIN_LOSS_TOL})")
+        check(all(d <= BF16_TRAIN_LOSS_TOL for d in diffs),
+              "dp (d): the data-parallel losses differ from one process's")
+        wins = [(acc[2 * w] + acc[2 * w + 1]) / 2 for w in range(DP_STEPS)]
+        log(f"dp (f, one process): run_fused accumulate_steps=2 window "
+            f"means {wins} against the steps' {single}")
+        check(all(abs(p - q) <= BF16_TRAIN_LOSS_TOL
+                  for p, q in zip(wins, single)),
+              "dp (f, one process): the windows differ from the steps")
+        took = dp_launch_check(root)
+        log(f"dp (j): the launcher returned rank 1's 3 in {took:.2f} s; "
+            f"rank 0 gone")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"dp: phase took {time.perf_counter() - t_phase:.1f} s (the ranks' "
+        f"launch {ranks_s:.1f} s) [{gpu}]")
+
+
+def dp_checks(res, gpu):
+    """Phase 28's checks (a)-(c), (e)-(i) on the ranks' results, and its
+    lines."""
+    import math
+
+    from paddle_tpu_torch.models.nlp import gpt
+
+    cfg = gpt.gpt_small(dropout=0.0)
+    for r, x in enumerate(res):
+        check(x["backend"] == "gloo" and x["device"] == "cuda:0",
+              f"dp: rank {r} ran on {x['device']} over {x['backend']}")
+    want1 = train_launches(DP_CONFIG, cfg, 1)
+    want = train_launches(DP_CONFIG, cfg, DP_STEPS)
+    for r, x in enumerate(res):
+        a, b, g, e, f = x["a"], x["b"], x["g"], x["e"], x["f"]
+        tag = f"dp rank {r}"
+        # (a) and (b): losses, launches, the state after DP_STEPS steps
+        for run in (a, b, e):
+            check(all(math.isfinite(v) for v in run["losses"]),
+                  f"{tag} ({run['label']}): non-finite loss")
+            check(abs(run["losses"][0] - run["first"]) < LOSS_NEAR_LN_V,
+                  f"{tag} ({run['label']}): first loss {run['losses'][0]}")
+            check(run["launches"] == want,
+                  f"{tag} ({run['label']}): launches {run['launches']}, "
+                  f"want {want} (h)")
+            check(run["captures"] == 1 and run["uncaptured"] == 0,
+                  f"{tag} ({run['label']}): {run['captures']} captures")
+        check(a["losses"] == b["losses"] and a["digest"] == b["digest"],
+              f"{tag} (b): the bucketed run is not the implicit one's bits")
+        check(b["exchange"]["all_reduce"] < a["exchange"]["all_reduce"],
+              f"{tag} (b): {b['exchange']['all_reduce']} all-reduces a step"
+              f", the implicit {a['exchange']['all_reduce']}")
+        # (g) graphed = op by op
+        check(g["losses"] == b["losses"] and g["digest"] == b["digest"],
+              f"{tag} (g): the graphed bucketed run is not the op-by-op "
+              "one's bits")
+        # (e) int8
+        ok = all(abs(x_ - y_) <= DP_INT8_ATOL + DP_INT8_RTOL * abs(y_)
+                 for x_, y_ in zip(e["losses"], b["losses"]))
+        check(ok, f"{tag} (e): int8 losses {e['losses']} not within rtol "
+                  f"{DP_INT8_RTOL} atol {DP_INT8_ATOL} of {b['losses']}")
+        check(e["resid_max"] > 0, f"{tag} (e): zero residuals")
+        check(e["count"] == DP_STEPS + DP_TIMED,
+              f"{tag} (e): salt counter {e['count']}")
+        # (f) accumulation: window means against (a)
+        wins = [(f["losses"][2 * w] + f["losses"][2 * w + 1]) / 2
+                for w in range(DP_STEPS)]
+        check(all(abs(p - q) <= BF16_TRAIN_LOSS_TOL
+                  for p, q in zip(wins, a["losses"])),
+              f"{tag} (f): window losses {wins} vs (a) {a['losses']}")
+        check(f["exchanges"] == [2, 4],
+              f"{tag} (f): exchanges {f['exchanges']}, want 2 a window "
+              "call")
+        check(f["captures"] == 1,
+              f"{tag} (f): {f['captures']} captures, want the second call's")
+        check(f["eager_losses"] == f["losses"]
+              and f["eager_digest"] == f["digest"],
+              f"{tag} (f): the captured accumulation windows are not the "
+              f"op-by-op ones' bits ({f['losses']} vs {f['eager_losses']})")
+        check(f["launches"] == train_launches(DP_CONFIG, cfg, 2 * DP_STEPS),
+              f"{tag} (f): launches {f['launches']}")
+        # (i) SyncBatchNorm
+        i = x["i"]
+        bad = {k: v for k, v in i["errs"].items() if not v <= SYNC_BN_TOL}
+        check(not bad, f"{tag} (i): SyncBatchNorm off by {bad}")
+        check(i["uncaptured"] == ["collective"] and i["plain_captures"] == 1,
+              f"{tag} (i): uncaptured {i['uncaptured']}")
+        check(i["fused_uncaptured"] == ["collective"]
+              and i["fused_plain_captures"] == 1
+              and i["fused_exchanges"] == 4,
+              f"{tag} (i): run_fused uncaptured {i['fused_uncaptured']}, "
+              f"plain captures {i['fused_plain_captures']}, exchanges "
+              f"{i['fused_exchanges']}")
+    # (c) the replicas: every run's state the same bits on both ranks
+    for k in ("a", "b", "g", "e", "f"):
+        check(res[0][k]["digest"] == res[1][k]["digest"],
+              f"dp (c): run {k}'s replicas differ")
+        if k != "f":
+            check(res[0][k]["losses"] == res[1][k]["losses"],
+                  f"dp (c): run {k}'s losses differ between the ranks")
+    x = res[0]
+    for k in ("a", "b", "e"):
+        run = x[k]
+        steady = sorted(run["timed"])[len(run["timed"]) // 2]
+        ex = sorted(run["exchange_ms"])[len(run["exchange_ms"]) // 2]
+        log(f"dp ({k}) {run['label']}: losses {run['losses']}; step walls "
+            + " ".join(f"{w:.1f}" for w in run["walls"]) + " ms; replay "
+            f"median {steady:.1f} ms = "
+            f"{run['tokens'] / steady * 1e3:.0f} tokens/s over both ranks; "
+            f"exchange {ex:.1f} ms a step ({run['exchange']}), segments "
+            f"{steady - ex:.1f} ms; peak memory {run['peak_gib']:.2f} GiB "
+            f"a rank; launches {run['launches']} [{gpu}]")
+    log(f"dp (g): op-by-op bucketed step walls "
+        + " ".join(f"{w:.1f}" for w in x["g"]["walls"]) + " ms, the graphed "
+        "run's bits")
+    log(f"dp (f): run_fused accumulate_steps=2 losses {x['f']['losses']} "
+        "(captured = op by op bitwise); "
+        f"call walls " + " ".join(f"{w:.1f}" for w in x["f"]["walls"])
+        + f" ms; exchanges {x['f']['exchanges']}; launches "
+        f"{x['f']['launches']}")
+    log(f"dp (i): SyncBatchNorm vs one process {x['i']['errs']} (tol "
+        f"{SYNC_BN_TOL}); uncaptured {x['i']['uncaptured']}, run_fused "
+        f"{x['i']['fused_uncaptured']}")
+    log(f"dp: launches a step a rank {want1}; ranks' phase walls "
+        + " ".join(f"{r['wall_s']:.1f}" for r in res) + " s")
+
+
 def main():
     try:
         import torch
@@ -8052,6 +8630,8 @@ def main():
         import paddle_tpu_torch.models.rec  # noqa: F401
         import paddle_tpu_torch.modules_compat  # noqa: F401
         import paddle_tpu_torch.tensor.math  # noqa: F401
+        import paddle_tpu_torch.dist.launch  # noqa: F401
+        import paddle_tpu_torch.fleet  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -8074,8 +8654,14 @@ def main():
            "paddle_tpu_torch.models.rec.recommender",
            "paddle_tpu_torch.nn.layer", "paddle_tpu_torch.core.device",
            "paddle_tpu_torch.core.dtype", "paddle_tpu_torch.core.tensor",
-           "paddle_tpu_torch.core.autograd", "paddle_tpu_torch.modules_compat"}
+           "paddle_tpu_torch.core.autograd", "paddle_tpu_torch.modules_compat",
+           "paddle_tpu_torch.dist.env", "paddle_tpu_torch.dist.collective",
+           "paddle_tpu_torch.dist.gradcomm", "paddle_tpu_torch.dist.parallel",
+           "paddle_tpu_torch.dist.fleet", "paddle_tpu_torch.dist.utils"}
           <= set(sys.modules), "a module of the fleet path was not imported")
+    if sys.argv[1:2] == ["--dp-rank"]:
+        # a rank of phase 28, started by the port's launcher
+        return dp_rank_main(sys.argv[2])
     # float32 products in full float32: no TF32 anywhere on this path
     torch.backends.cudnn.allow_tf32 = False
     check(torch.backends.cuda.matmul.allow_tf32 is False,
@@ -8099,7 +8685,7 @@ def main():
 
 
 def phases(gpu, journals):
-    """Phases 1-27 in order (27 after 25, from its weights), the
+    """Phases 1-28 in order (27 after 25, from its weights), the
     journals of 13, 19 and 22 under ``journals``; prints the
     ``kernels`` and ``ok`` lines."""
     import torch
@@ -8185,6 +8771,8 @@ def phases(gpu, journals):
     del surface
     torch.cuda.empty_cache()
     vision_phase(gpu)
+    torch.cuda.empty_cache()
+    dp_phase(gpu)
     check(not any(m.split(".")[0] in ("jax", "paddle_tpu", "ml_dtypes")
                   for m in sys.modules),
           "the JAX side was imported by a phase")

@@ -67,8 +67,7 @@ graph, inference and the layer library:
   manipulation, comparison, linear algebra, control flow), every name
   the JAX package exports at its top level from its op modules, also
   here at the top (``pt.sum``, ``pt.topk``, ``pt.scatter``);
-  ``paddle_tpu_torch.dist`` is the tensor-parallel layers' package and
-  calls as the tensor API's ``dist``; ``models.nlp.word2vec`` and
+  ``paddle_tpu_torch.dist`` calls as the tensor API's ``dist``; ``models.nlp.word2vec`` and
   ``models.rec`` (the book's chapters 4 and 5), and the recurrent run
   of a static Program as one ``rnn_scan`` op;
 - ``convert``: weights of the JAX ``TinyLM``, ``GPT``,
@@ -88,6 +87,13 @@ graph, inference and the layer library:
   ``.static``, ``.device``, ``.distributed``, ``.regularizer``;
   ``modules_compat``). Subpackages are imported at first use.
 
+- data parallelism (``dist``, also ``distributed``; ``fleet``): the
+  process group and the mesh, the collectives, the launcher
+  (``python -m paddle_tpu_torch.dist.launch``), ``DataParallel`` and
+  ``DistributedTrainStep`` with the bucketed and int8 gradient exchange
+  and ``run_fused`` accumulation, fleet's collective front end and
+  ``nn.SyncBatchNorm`` across ranks.
+
 Entry points run on the current place: the CUDA card, unless the caller
 passes ``device="cpu"`` or chose the host with ``set_device("cpu")``;
 without a card they raise instead of falling back.
@@ -96,7 +102,7 @@ Not here yet (ROADMAP Queue 1): ``Model``, ``DataLoader``, ``batch``,
 ``reader``, ``summary``, ``flops``, ``metrics``, ``distribution``,
 ``slim``, ``hapi``, ``dataset``, ``vision``, ``fluid``, ``io``,
 ``metric``, ``imperative``, ``compat``, ``version``, ``sysconfig`` and
-``check_import_scipy`` (item 10); ``fleet`` (item 6); ``runtime`` and
+``check_import_scipy`` (item 10); ``runtime`` and
 ``set_compilation_cache`` (item 8).
 """
 from __future__ import annotations

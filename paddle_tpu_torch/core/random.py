@@ -14,7 +14,7 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["seed", "default_generator"]
+__all__ = ["seed", "global_seed", "default_generator"]
 
 _STATE = {"seed": 0, "generators": {}}
 
@@ -24,6 +24,11 @@ def seed(s: int) -> None:
     _STATE["seed"] = int(s)
     for g in _STATE["generators"].values():
         g.manual_seed(_STATE["seed"])
+
+
+def global_seed():
+    """The global seed: ``seed``'s last argument, 0 before any call."""
+    return _STATE["seed"]
 
 
 def default_generator(device=None):

@@ -4,8 +4,11 @@ The counterparts of ``ColumnParallelLinear``, ``RowParallelLinear`` and
 ``VocabParallelEmbedding`` in ``paddle_tpu/dist/tp_layers.py`` as they
 run without a mesh (``tp_layers.py:46-120`` with ``get_mesh()`` None:
 every sharding constraint is a no-op), with the same parameter names
-and layouts, so a JAX state dict maps onto them name by name. Sharding
-over several cards is not ported yet.
+and layouts, so a JAX state dict maps onto them name by name. Under data
+parallelism (``dist.DistributedTrainStep``) they are replicated on every
+rank, as any layer is. Sharding them over a ``model`` axis, and
+``ParallelCrossEntropy`` and ``mark_sharding``, wait for ROADMAP Queue 1
+item 6b (``dist.init_mesh`` refuses such an axis).
 """
 from __future__ import annotations
 

@@ -46,8 +46,9 @@ first call marks its key, ``uncaptured[key]`` names the ops that read
 (the run journal records it once, an ``uncaptured`` event), and every
 call of that key runs the step op by op on the card; the branch is
 chosen on the host before anything could be captured. ``run_fused``
-captures all the same, and its capture raises ``RuntimeError`` at the
-read, as ``ProgramCache``'s and the static ``Executor``'s do.
+captures such a window all the same, and its capture raises
+``RuntimeError`` at the read, as ``ProgramCache``'s and the static
+``Executor``'s do.
 
 Storage that moves (``model.bfloat16()``, a new optimizer state) makes a
 new key, so a new warm step and capture; graphs of storage that moved
@@ -58,10 +59,34 @@ The kernel wrappers count launches in Python, so a capture's counts are
 taken back and added once for each replay (``kernels.add_launches``).
 A capture or replay that fails raises; nothing falls back to the op-by-op
 step. On the CPU there is no graph: every call runs the step op by op,
-which ``_eager_step`` also does on the card, for comparison.
+which ``_eager_step`` (and ``_eager_run_fused``) also does on the card,
+for comparison.
 
 ``run_fused(batches, steps=K)`` runs K microbatches of one signature as
 one graph of K steps, with the learning rate read once for the window.
+``run_fused(..., accumulate_steps=N)`` updates once a window of N
+microbatches: their gradients are added in float32 and the update takes
+their sum over N (a ``dist.gradcomm.Exchange`` of this process alone,
+one flat a parameter), as the JAX step's accumulation does
+(``jit.py:459-520``) with one device.
+
+The gradient exchange of data parallelism (``dist.DistributedTrainStep``)
+runs through the same windows: forward and backward of each microbatch
+write this rank's gradients into the exchange's float32 flats, the flats
+are exchanged once a window, and the update reads them back. Across
+ranks a collective cannot be captured (gloo's are host calls), so there
+the step is two captured segments a window with the exchange between
+them on the host: forward and backward (one graph for a window's first
+microbatch, which copies its gradients into the flats, one for the
+others, which add theirs; the graphs share one memory pool), then the
+exchange op by op, then the update (unscale, finite check, clip,
+update, scaler advance). In a process alone the exchange is device work
+and the whole window stays one graph. A collective inside forward or
+backward (a ``SyncBatchNorm`` across ranks, which records itself in
+``control_flow.DEVICE_READS``) keeps the step's key uncaptured, a
+``run_fused`` window's too: every call of that key runs op by op. The
+exchange's own collectives, between the segments, are not recorded.
+``exchanges`` counts the windows exchanged.
 
 ``ProgramCache`` does the same for an inference program — a model's
 whole decode (``GPT.generate_xla``, ``WMTTransformer
@@ -85,8 +110,7 @@ op. A plain function that closes over a parameter sees the parameter's
 in-place updates here, where the JAX trace bakes its value in as a
 constant (ROADMAP Queue 3, "not port faults").
 
-Not ported: the gradient-exchange paths (``accumulate_steps``) and the
-AOT executable cache.
+Not ported: the AOT executable cache (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -117,20 +141,21 @@ def warm(stream, fn):
     return out
 
 
-def capture(stream, fn, generators):
+def capture(stream, fn, generators, pool=None):
     """``fn()`` captured into a new ``torch.cuda.CUDAGraph`` on ``stream``
     (nothing runs), ``generators`` registered with it so that every
-    replay draws on from their state. Returns ``(graph, fn()'s result,
-    {kernel: launches one replay makes})``: the wrappers counted the
-    capture's launches, which did not run, so they are taken back here
-    and added for each replay (``kernels.add_launches``)."""
+    replay draws on from their state; ``pool`` a memory pool it shares
+    with graphs replayed in their capture order. Returns ``(graph,
+    fn()'s result, {kernel: launches one replay makes})``: the wrappers
+    counted the capture's launches, which did not run, so they are taken
+    back here and added for each replay (``kernels.add_launches``)."""
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
     before = kernels.launches()
     main = torch.cuda.current_stream()
     stream.wait_stream(main)
-    with torch.cuda.graph(graph, stream=stream):
+    with torch.cuda.graph(graph, stream=stream, pool=pool):
         out = fn()
     main.wait_stream(stream)
     launched = {k: n - before[k] for k, n in kernels.launches().items()}
@@ -155,6 +180,17 @@ def _any_paddle(items):
     return any(isinstance(b, Tensor) for b in items)
 
 
+@contextlib.contextmanager
+def _unrecorded():
+    """The exchange between a window's segments: its collectives keep no
+    key uncaptured (``control_flow.DEVICE_READS`` set aside)."""
+    reads, control_flow.DEVICE_READS[0] = control_flow.DEVICE_READS[0], None
+    try:
+        yield
+    finally:
+        control_flow.DEVICE_READS[0] = reads
+
+
 class _Graph:
     """A captured step: the graph, its input tensors (filled before each
     replay), its outputs, the gradients it writes and the kernel launches
@@ -166,6 +202,34 @@ class _Graph:
         self.graph, self.inputs, self.loss, self.found = (graph, inputs,
                                                           loss, found)
         self.grads, self.launches = grads, launches
+
+
+class _Segments:
+    """A window captured as segments around the exchange: one microbatch's
+    input tensors, the forward-and-backward graphs (``fb[first]``: the
+    graph, its loss, its launches, the gradients it writes) and the
+    update's (the graph, its found-inf flag, its launches)."""
+
+    __slots__ = ("inputs", "fb", "update")
+
+    def __init__(self, inputs, fb, update):
+        self.inputs, self.fb, self.update = inputs, fb, update
+
+    def run_fb(self, mb, first):
+        for dst, src in zip(self.inputs, mb):
+            dst.copy_(src)
+        graph, loss, launched, grads = self.fb[first]
+        graph.replay()
+        kernels.add_launches(launched)
+        for p, g in grads:
+            p.grad = g
+        return loss.clone()
+
+    def run_update(self):
+        graph, found, launched = self.update
+        graph.replay()
+        kernels.add_launches(launched)
+        return found.clone()
 
 
 class TrainStep:
@@ -197,6 +261,13 @@ class TrainStep:
         self.captures = 0
         # key -> the ops whose predicate read on the card kept it uncaptured
         self.uncaptured = {}
+        # the gradient exchange (dist.gradcomm.Exchange), made at first use
+        self.exchanges = 0
+        self._exchange = None
+        self._exchange_for = None     # (serial, the names it plans)
+        self._exchange_serial = 0
+        self._win_loss = None         # the window's last global loss
+        self._window_old = []         # buffers at the window's start
 
     def _device(self):
         return next(self.model.parameters()).device
@@ -208,62 +279,178 @@ class TrainStep:
         the device. Reads nothing back to the host."""
         opt, scaler = self.optimizer, self.scaler
         opt.clear_grad()
-        buffers = list(self.model.buffers()) if scaler is not None else []
-        old = [b.clone() for b in buffers]
+        old = [b.clone() for b in self.model.buffers()] \
+            if scaler is not None else []
         if self._paddle:
             batch = [wrap(b) for b in batch]
         loss = plain(self.loss_fn(self.model, *batch))
         scale = None if scaler is None else self._scaler_state["scale"]
         (loss if scale is None else loss * scale).backward()
-        with torch.no_grad():
-            named = [(name, p, p.grad) for name, p in opt._named_params
-                     if p.requires_grad and p.grad is not None]
-            flags = []
-            if scale is not None:
-                # unscale in float32, one finite check over every gradient
-                inv = 1.0 / scale
-                named = [(name, p, g.float() * inv) for name, p, g in named]
-                flags = [~torch.isfinite(g).all() for _, _, g in named]
-            elif self.check_nan:
-                flags = [~torch.isfinite(loss).all()]
-                flags += [~torch.isfinite(g).all() for _, _, g in named]
-            found = (torch.stack(flags).any() if flags else
-                     torch.zeros((), dtype=torch.bool, device=loss.device))
-            opt._apply(named, found if scale is not None else None)
-            if scale is not None:
-                # an overflowed step commits no buffer update either
-                for b, o in zip(buffers, old):
-                    torch.where(found, o, b, out=b)
-                for k, v in scaler.update_state(self._scaler_state,
-                                                found).items():
-                    self._scaler_state[k].copy_(v)
-        return loss.detach(), found
+        named = [(name, p, p.grad) for name, p in opt._named_params
+                 if p.requires_grad and p.grad is not None]
+        return loss.detach(), self._apply_update(named, loss, old)
 
-    def _body(self, batch, K):
+    @torch.no_grad()
+    def _apply_update(self, named, loss, old):
+        """Unscale (float32, one finite check over every gradient) or
+        check, clip and update from ``[(name, parameter, gradient)]``;
+        with a scaler an overflowed step keeps every value and puts the
+        buffers back to ``old``, and the scale advances. Returns
+        ``found_inf``. Device work only."""
+        opt, scaler = self.optimizer, self.scaler
+        scale = None if scaler is None else self._scaler_state["scale"]
+        flags = []
+        if scale is not None:
+            inv = 1.0 / scale
+            named = [(name, p, g.float() * inv) for name, p, g in named]
+            flags = [~torch.isfinite(g).all() for _, _, g in named]
+        elif self.check_nan:
+            flags = [~torch.isfinite(loss).all()]
+            flags += [~torch.isfinite(g).all() for _, _, g in named]
+        found = (torch.stack(flags).any() if flags else
+                 torch.zeros((), dtype=torch.bool, device=loss.device))
+        opt._apply(named, found if scale is not None else None)
+        if scale is not None:
+            # an overflowed step commits no buffer update either
+            for b, o in zip(self.model.buffers(), old):
+                torch.where(found, o, b, out=b)
+            for k, v in scaler.update_state(self._scaler_state,
+                                            found).items():
+                self._scaler_state[k].copy_(v)
+        return found
+
+    # -- the exchange path: accumulation windows, data parallelism -------
+
+    def _ranks(self):
+        """Ranks the gradients are exchanged over: this process alone."""
+        return 1
+
+    def _exchanging(self, N):
+        """Whether a call of N-microbatch windows goes through the
+        exchange: accumulation, or gradients exchanged across ranks."""
+        return N > 1 or self._ranks() > 1
+
+    def _segmented(self, N):
+        """Whether the window is captured as segments around a host
+        exchange: whenever the exchange crosses ranks."""
+        return self._exchanging(N) and self._ranks() > 1
+
+    def _new_exchange(self, named, dev):
+        """The exchange of this process alone: one float32 flat a
+        parameter, no collective."""
+        from ..dist import gradcomm
+
+        entries = [(n, tuple(p.shape), p.dtype) for n, p in reversed(named)]
+        return gradcomm.Exchange(gradcomm.implicit_plan(entries, 1), named,
+                                 self.optimizer, None, dev)
+
+    def _exchange_ready(self, dev):
+        """The exchange for the parameters that train now (a new one, and
+        so new graphs, when that set changes)."""
+        named = [(n, p) for n, p in self.optimizer._named_params
+                 if p.requires_grad]
+        names = tuple(n for n, _ in named)
+        if self._exchange is None or self._exchange_for[1] != names:
+            self._exchange = self._new_exchange(named, dev)
+            self._exchange_serial += 1
+            self._exchange_for = (self._exchange_serial, names)
+            self._win_loss = None
+        return self._exchange
+
+    def _forward_context(self):
+        """The context the loss runs in (data parallelism may sync
+        BatchNorm's statistics in it)."""
+        return contextlib.nullcontext()
+
+    def _sync_buffers(self):
+        """After each microbatch's forward: nothing in a process alone."""
+
+    def _fb(self, batch, first):
+        """Forward and backward of one microbatch, its gradients into the
+        exchange's flats (copied on a window's first microbatch, added
+        after); returns the local loss. Device work only."""
+        opt, scaler = self.optimizer, self.scaler
+        if first and scaler is not None:
+            self._window_old = [b.clone() for b in self.model.buffers()]
+        opt.clear_grad()
+        if self._paddle:
+            batch = [wrap(b) for b in batch]
+        with self._forward_context():
+            loss = plain(self.loss_fn(self.model, *batch))
+        scale = None if scaler is None else self._scaler_state["scale"]
+        (loss if scale is None else loss * scale).backward()
+        self._exchange.gather(first)
+        return loss.detach()
+
+    def _update(self):
+        """The update from the exchanged gradients (``_apply_update``),
+        with the window's global loss (``_win_loss``) and its starting
+        buffers (``_window_old``). Device work only."""
+        return self._apply_update(self._exchange.grads(), self._win_loss,
+                                  self._window_old)
+
+    def _window(self, batch, K, N, segments=None):
+        """One step (``K`` None) or K microbatches in windows of N through
+        the exchange, each segment op by op or replayed from
+        ``segments``: ``(loss, found_inf)`` of shape ``()`` or ``(K,)``,
+        each loss the window's exchanged one."""
+        ex = self._exchange
+        denom = (ex.n if ex.plan.options.gradient_scale == "mean" else 1) * N
+        losses, founds = [], []
+        for w in range((1 if K is None else K) // N):
+            local = []
+            for k in range(N):
+                mb = batch if K is None else [b[w * N + k] for b in batch]
+                local.append(self._fb(mb, k == 0) if segments is None
+                             else segments.run_fb(mb, k == 0))
+                with _unrecorded():
+                    self._sync_buffers()
+            with _unrecorded():
+                wl = ex.reduce(torch.stack(local), denom)
+            if self._win_loss is None:
+                self._win_loss = torch.empty((), dtype=wl.dtype,
+                                             device=wl.device)
+            self._win_loss.copy_(wl[-1])
+            found = self._update() if segments is None \
+                else segments.run_update()
+            losses.append(wl)
+            founds += [found] * N
+        if K is None:
+            return losses[0][0], founds[0]
+        return torch.cat(losses), torch.stack(founds)
+
+    def _body(self, batch, K, N=1):
         """One step (``K`` None) or K steps over stacked microbatches:
         ``(loss, found_inf)``, each of shape ``()`` or ``(K,)``."""
+        if self._exchanging(N):
+            return self._window(batch, K, N)
         if K is None:
             return self._step_body(batch)
         outs = [self._step_body([b[k] for b in batch]) for k in range(K)]
         return (torch.stack([loss for loss, _ in outs]),
                 torch.stack([found for _, found in outs]))
 
-    def _run(self, batch, K):
+    def _run(self, batch, K, N=1):
         """The step(s) op by op on the current stream."""
         dev = self._device()
         batch = [b.to(dev) for b in batch]
         self.optimizer._load_lr(dev)
-        return self._body(batch, K)
+        if self._exchanging(N):
+            self._exchange_ready(dev)
+        return self._body(batch, K, N)
 
     # -- the graphs ---------------------------------------------------------
 
-    def _key(self, batch, K):
+    def _key(self, batch, K, N=1):
         opt = self.optimizer
         storage = (tuple(p.data_ptr() for _, p in opt._named_params),
                    tuple(b.data_ptr() for b in self.model.buffers()),
                    tuple(t.data_ptr() for s in opt._accumulators.values()
                          for t in s.values()))
-        return (K, _signature(batch), _route.forced(), self.model.training,
+        exchange = self._exchange_for[0] if self._exchanging(N) and \
+            self._exchange_for is not None else None
+        return (K, N, exchange, _signature(batch), _route.forced(),
+                self.model.training,
                 tuple(p.requires_grad for _, p in opt._named_params),
                 amp_key(), storage)
 
@@ -272,49 +459,77 @@ class TrainStep:
             self._stream = torch.cuda.Stream(device=self._device())
         return self._stream
 
-    def _warm(self, batch, K):
+    def _warm(self, batch, K, N=1):
         """The first call of a key: the step(s) op by op on the side
         stream that captures them next."""
         loss, found = warm(self._side_stream(),
-                           lambda: self._run(batch, K))
+                           lambda: self._run(batch, K, N))
         for t in (loss, found):
             t.record_stream(torch.cuda.current_stream())
         return loss, found
 
-    def _capture(self, batch, K):
+    def _capture(self, batch, K, N=1):
         dev = self._device()
         opt = self.optimizer
+        if self._segmented(N):
+            return self._capture_segments(batch, K, N)
         inputs = [torch.empty_like(b, device=dev) for b in batch]
         opt.clear_grad()
         graph, (loss, found), launched = capture(
-            self._side_stream(), lambda: self._body(inputs, K),
+            self._side_stream(), lambda: self._body(inputs, K, N),
             [default_generator(dev)])
         grads = [(p, p.grad) for _, p in opt._named_params]
         self.captures += 1
         return _Graph(graph, inputs, loss, found, grads, launched)
 
-    def _replay(self, entry, batch):
+    def _capture_segments(self, batch, K, N):
+        """The window's forward-and-backward graphs (the first
+        microbatch's and, with N > 1, the others') and its update graph,
+        in one memory pool."""
+        dev = self._device()
+        opt = self.optimizer
+        mb = batch if K is None else [b[0] for b in batch]
+        inputs = [torch.empty_like(b, device=dev) for b in mb]
+        gens = [default_generator(dev)]
+        pool = torch.cuda.graph_pool_handle()
+        stream = self._side_stream()
+        fb = {}
+        for first in ((True, False) if N > 1 else (True,)):
+            opt.clear_grad()
+            graph, loss, launched = capture(
+                stream, lambda: self._fb(inputs, first), gens, pool)
+            fb[first] = (graph, loss, launched,
+                         [(p, p.grad) for _, p in opt._named_params])
+        update = capture(stream, self._update, gens, pool)
+        self.captures += 1
+        return _Segments(inputs, fb, update)
+
+    def _replay(self, entry, batch, K=None, N=1):
+        self.optimizer._load_lr(self._device())
+        if isinstance(entry, _Segments):
+            return self._window(batch, K, N, entry)
         for dst, src in zip(entry.inputs, batch):
             dst.copy_(src)
-        self.optimizer._load_lr(self._device())
         entry.graph.replay()
         kernels.add_launches(entry.launches)
         for p, g in entry.grads:
             p.grad = g
         return entry.loss.clone(), entry.found.clone()
 
-    def _graphed(self, batch, K):
-        key = self._key(batch, K)
+    def _graphed(self, batch, K, N=1):
+        key = self._key(batch, K, N)
         if key in self.uncaptured:
-            return self._run(batch, K)
+            return self._run(batch, K, N)
         if key not in self._graphs:
             control_flow.DEVICE_READS[0] = reads = []
             try:
-                out = self._warm(batch, K)
+                out = self._warm(batch, K, N)
             finally:
                 control_flow.DEVICE_READS[0] = None
-            key = self._key(batch, K)     # the optimizer state exists now
-            if reads and K is None:
+            key = self._key(batch, K, N)  # the optimizer state exists now
+            # a window that reads a predicate is captured, and raises at
+            # the read; one that runs a host collective runs op by op
+            if reads and (K is None or "collective" in reads):
                 self._mark_uncaptured(key, reads)
                 return out
             # graphs of storage that has moved can never replay again
@@ -324,8 +539,8 @@ class TrainStep:
             return out
         entry = self._graphs[key]
         if entry is None:
-            entry = self._graphs[key] = self._capture(batch, K)
-        return self._replay(entry, batch)
+            entry = self._graphs[key] = self._capture(batch, K, N)
+        return self._replay(entry, batch, K, N)
 
     def _mark_uncaptured(self, key, reads):
         from ..obs import journal
@@ -363,22 +578,51 @@ class TrainStep:
                 f"{K})")
         return loss
 
+    def _local_batch(self, batch, K):
+        """The rows of the batch this process trains on: all of them."""
+        return batch
+
+    def _window_size(self, accumulate_steps):
+        """N, the microbatches a ``run_fused`` window exchanges once."""
+        N = 1 if accumulate_steps is None else int(accumulate_steps)
+        if N < 1:
+            raise ValueError(f"accumulate_steps must be >= 1, got {N}")
+        return N
+
+    def _count_exchanges(self, K, N):
+        if self._exchanging(N):
+            self.exchanges += 1 if K is None else K // N
+
     def _eager_step(self, *batch):
         """The step op by op on the current stream, with no graph."""
+        self._check_call()
         self._paddle = _any_paddle(batch)
-        loss = self._finish(*self._run(_tensors(batch), None), None)
+        batch = self._local_batch(_tensors(batch), None)
+        loss = self._finish(*self._run(batch, None), None)
+        self._count_exchanges(None, 1)
         return wrap(loss) if self._paddle else loss
+
+    def _check_call(self):
+        """A single step cannot accumulate (``jit.py:403-408``)."""
+        if self._window_size(None) > 1:
+            raise ValueError(
+                "accumulate_steps > 1 exchanges gradients once per N "
+                "microbatches and therefore needs the fused path: call "
+                "run_fused(batches, steps=K) with K a multiple of N")
 
     def __call__(self, *batch):
         if self._device().type != "cuda":
             return self._eager_step(*batch)
+        self._check_call()
         self._paddle = _any_paddle(batch)
-        loss = self._finish(*self._graphed(_tensors(batch), None), None)
+        batch = self._local_batch(_tensors(batch), None)
+        loss = self._finish(*self._graphed(batch, None), None)
+        self._count_exchanges(None, 1)
         return wrap(loss) if self._paddle else loss
 
     step = __call__
 
-    def run_fused(self, batches, steps=None, accumulate_steps=1):
+    def run_fused(self, batches, steps=None, accumulate_steps=None):
         """Run K microbatches as one graph of K steps; returns the (K,)
         losses.
 
@@ -390,12 +634,18 @@ class TrainStep:
         the any-step flag and ``last_found_inf_per_step`` the (K,) flags;
         with ``check_nan`` a non-finite microbatch raises after the
         window. The first call of a window signature runs the K steps op
-        by op, the second captures them. ``accumulate_steps`` other than
-        1 needs the gradient exchange, which is not ported: it raises."""
-        if accumulate_steps != 1:
-            raise NotImplementedError(
-                "accumulate_steps needs the gradient exchange "
-                "(dist.gradcomm), which paddle_tpu_torch does not port")
+        by op, the second captures them. ``accumulate_steps=N`` (which
+        must divide K) updates once every N microbatches from their
+        gradients' mean, with the scaler's skip decided on that mean;
+        each microbatch's loss is its own (``jit.py:459-520``)."""
+        return self._fused(batches, steps, accumulate_steps, True)
+
+    def _eager_run_fused(self, batches, steps=None, accumulate_steps=None):
+        """``run_fused`` op by op on the current stream, with no graph."""
+        return self._fused(batches, steps, accumulate_steps, False)
+
+    def _fused(self, batches, steps, accumulate_steps, graphed):
+        N = self._window_size(accumulate_steps)
         if steps is None:
             try:
                 steps = len(batches)
@@ -431,10 +681,17 @@ class TrainStep:
                         f"pre-stacked batch array has shape "
                         f"{tuple(a.shape)}; expected a leading microbatch "
                         f"axis of {K}")
-        if self._device().type != "cuda":
-            losses = self._finish(*self._run(stacked, K), K)
+        if N > 1 and K % N:
+            raise ValueError(
+                f"accumulate_steps={N} must divide the fused window "
+                f"(steps={K}): partial accumulation windows would "
+                "silently change the effective batch")
+        stacked = self._local_batch(stacked, K)
+        if graphed and self._device().type == "cuda":
+            losses = self._finish(*self._graphed(stacked, K, N), K)
         else:
-            losses = self._finish(*self._graphed(stacked, K), K)
+            losses = self._finish(*self._run(stacked, K, N), K)
+        self._count_exchanges(K, N)
         return wrap(losses) if self._paddle else losses
 
 

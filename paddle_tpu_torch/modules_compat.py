@@ -14,8 +14,11 @@ dotted name, so no module runs twice under two names.
 
 ``_ALIASES`` is the one table; the package's ``__getattr__`` reads it
 (``resolve``), so every alias is imported at first use. The JAX
-package's ``io``, ``metric``, ``imperative`` (ROADMAP Queue 1, item 10)
-and ``fleet`` (item 6) aliases name modules that are not ported.
+package's ``io``, ``metric`` and ``imperative`` (ROADMAP Queue 1, item 10)
+aliases name modules that are not ported. ``fleet`` names
+``dist.fleet``, the collective front end: the JAX package's ``fleet``
+is its auto-parallel planner, which re-exports that front end and waits
+for item 6c here.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ _ALIASES = {
     "optimizer": ".optim",
     "regularizer": ".optim.regularizer",
     "distributed": ".dist",
+    "fleet": ".dist.fleet",
     "static": ".static_",
     "device": ".core.device",
 }

@@ -43,7 +43,8 @@ __all__ = ["cond", "while_loop", "case", "switch_case", "scan",
 
 # None, or the list of ops that read a predicate on the card during the
 # step that ``framework.TrainStep`` is running (it sets the list and
-# reads it after the step)
+# reads it after the step); a host collective across ranks
+# (``dist.collective``) adds "collective"
 DEVICE_READS = [None]
 
 

@@ -18,7 +18,11 @@ without a ``bias`` scales only (the JAX package raises there).
 plain ``jnp``, ``norm_ops.py:18-61``). Training normalises with float32
 statistics of the batch and updates the running statistics in place
 with Paddle's semantics; eval normalises with the running statistics in
-x's type (``_bn_infer``). See ``batch_norm``.
+x's type (``_bn_infer``). See ``batch_norm``. Inside ``sync_stats(group)``
+a training batch norm takes its statistics over every rank of the
+process group (``_BatchNormSyncTrain``): ``nn.SyncBatchNorm`` across
+ranks, and every BatchNorm of the JAX implicit path's data parallelism,
+where GSPMD makes the batch axis's mean a cross-replica sum.
 
 ``group_norm`` and ``instance_norm`` take float32 statistics (mean,
 then the mean of the squared deviations) and return x's type
@@ -32,6 +36,7 @@ all-ones ``u``, ``v`` (``norm_ops.py:187-241``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -41,7 +46,22 @@ from .kernels.layernorm import fused_layer_norm
 
 __all__ = ["layer_norm", "fused_ln_ok", "batch_norm", "group_norm",
            "instance_norm", "normalize", "l2_normalize", "local_response_norm",
-           "lrn", "spectral_norm", "data_norm"]
+           "lrn", "spectral_norm", "data_norm", "sync_stats"]
+
+# the process group a training batch norm takes its statistics over
+# (``sync_stats``), or None for the batch on hand
+_SYNC = [None]
+
+
+@contextlib.contextmanager
+def sync_stats(group):
+    """Training batch norms inside take their statistics over every rank
+    of ``group`` (a ``torch.distributed`` group)."""
+    old, _SYNC[0] = _SYNC[0], group
+    try:
+        yield
+    finally:
+        _SYNC[0] = old
 
 
 def fused_ln_ok(shape, begin_norm_axis, weight, bias):
@@ -157,6 +177,65 @@ class _BatchNormTrain(torch.autograd.Function):
                 None, None)
 
 
+class _BatchNormSyncTrain(torch.autograd.Function):
+    """``_BatchNormTrain`` over the batch of every rank of a process group
+    (the reference's ``sync_batch_norm_op``): the count and the
+    per-channel sums are all-reduced, then the sums of the squared
+    deviations from that mean (two passes, as the global ``var_mean``),
+    in float32. The backward all-reduces the two per-channel sums of the
+    closed form (of ``dy`` and ``dy * xhat``) for ``dx`` and returns this
+    rank's own ``dweight``/``dbias``, which the gradient exchange
+    averages with the other ranks'."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, epsilon, axis, group):
+        from ..dist.collective import raw_all_reduce
+
+        shape = [1] * x.dim()
+        shape[axis] = -1
+        dims = [d for d in range(x.dim()) if d != axis]
+        xf = x.to(torch.float32, copy=True)
+        C = x.shape[axis]
+        sums = torch.cat([xf.sum(dim=dims),
+                          xf.new_full((1,), x.numel() // C)])
+        raw_all_reduce(sums, group=group)
+        n = sums[C]
+        mean = sums[:C] / n
+        dev = xf.sub_(mean.reshape(shape))
+        sq = (dev * dev).sum(dim=dims)
+        raw_all_reduce(sq, group=group)
+        var = sq / n
+        rstd = torch.rsqrt(var + epsilon)
+        out = dev.mul_(rstd.reshape(shape))
+        out.mul_(weight.float().reshape(shape)).add_(
+            bias.float().reshape(shape))
+        ctx.save_for_backward(x, weight, mean, rstd, n)
+        ctx.axis, ctx.group = axis, group
+        ctx.mark_non_differentiable(mean, var, n)
+        return out.to(x.dtype), mean, var, n
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar, _dn):
+        from ..dist.collective import raw_all_reduce
+
+        x, weight, mean, rstd, n = ctx.saved_tensors
+        shape = [1] * x.dim()
+        shape[ctx.axis] = -1
+        dims = [d for d in range(x.dim()) if d != ctx.axis]
+        C = x.shape[ctx.axis]
+        xhat = x.to(torch.float32, copy=True).sub_(
+            mean.reshape(shape)).mul_(rstd.reshape(shape))
+        dyf = dy.to(torch.float32, copy=True)
+        db = dyf.sum(dim=dims)
+        dw = (dyf * xhat).sum(dim=dims)
+        sums = raw_all_reduce(torch.cat([db, dw]), group=ctx.group)
+        dx = dyf.sub_((sums[:C] / n).reshape(shape)).sub_(
+            xhat.mul_((sums[C:] / n).reshape(shape)))
+        dx.mul_((rstd * weight.float()).reshape(shape))
+        return (dx.to(x.dtype), dw.to(weight.dtype), db.to(weight.dtype),
+                None, None, None)
+
+
 def _bn_infer(x, mean, var, weight, bias, epsilon, axis):
     """``_bn_infer`` (``norm_ops.py:18-24``): in x's type (as the JAX
     package promotes it), ``rsqrt`` taken in float32 and cast back."""
@@ -192,9 +271,14 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False,
     if use_global_stats:
         return _bn_infer(x, running_mean, running_var, weight, bias,
                          float(epsilon), axis)
-    out, mean, var = _BatchNormTrain.apply(x, weight, bias, float(epsilon),
-                                           axis)
-    n = x.numel() // x.shape[axis]
+    if _SYNC[0] is not None:
+        out, mean, var, n = _BatchNormSyncTrain.apply(
+            x, weight, bias, float(epsilon), axis, _SYNC[0])
+        n = int(n)
+    else:
+        out, mean, var = _BatchNormTrain.apply(x, weight, bias,
+                                               float(epsilon), axis)
+        n = x.numel() // x.shape[axis]
     with torch.no_grad():
         unbiased = var * (n / max(n - 1, 1))
         for buf, stat in ((running_mean, mean), (running_var, unbiased)):

@@ -85,7 +85,9 @@ reference it writes the parameter, not an inner ``master``.
 ``state_dict``/``set_state_dict`` keep the reference's layout
 (``optimizer.py:166-188``): ``<name>.<slot>`` per state value (a master
 is the slot ``master``), ``@global_step`` and, with a scheduler,
-``@lr``. ``set_state_dict`` copies into the state's storage and never
+``@lr``; a data-parallel step's exchange keeps its error-feedback state
+under ``@comm@ef@<i>.residual`` and ``@comm@step.count``
+(``dist.gradcomm``). ``set_state_dict`` copies into the state's storage and never
 rebinds it, so a captured step goes on replaying after a load.
 
 ``minimize(loss)`` on a static Program's loss Variable appends the
@@ -348,6 +350,8 @@ class Optimizer:
             elif k == "@lr":
                 if isinstance(self._learning_rate, LRScheduler):
                     self._learning_rate.set_state_dict(v)
+            elif k.startswith("@comm@"):
+                self._set_comm_state(k, v)
             else:
                 name, slot = k.rsplit(".", 1)
                 if name not in params:
@@ -364,6 +368,22 @@ class Optimizer:
                 s[slot].copy_(src)
 
     set_dict = set_state_dict
+
+    def _set_comm_state(self, key, value):
+        """The gradient exchange's state (``dist.gradcomm``'s
+        ``@comm@ef@<i>.residual``, ``@comm@step.count``): copied into its
+        storage when the exchange has made it, kept as it is until the
+        exchange takes it up otherwise."""
+        name, slot = key.rsplit(".", 1)
+        s = self._accumulators.setdefault(name, {})
+        src = torch.as_tensor(value)
+        if slot in s:
+            if tuple(src.shape) != tuple(s[slot].shape):
+                raise ValueError(f"{key} has shape {tuple(src.shape)}, "
+                                 f"the state {tuple(s[slot].shape)}")
+            s[slot].copy_(src)
+        else:
+            s[slot] = src.clone()
 
 
 class SGD(Optimizer):

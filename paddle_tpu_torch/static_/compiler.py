@@ -5,8 +5,8 @@ The counterparts of ``paddle_tpu/static_/compiler.py``'s (ref:
 Program does, one CUDA graph per executor cache key; the strategies'
 knobs are taken and inert, as in the JAX package, where XLA owns what
 they tuned (here each replay is the recorded op list).
-``with_data_parallel`` raises until data parallelism is ported (ROADMAP
-Queue 1 item 6).
+``with_data_parallel`` raises until the static program's data
+parallelism is ported (ROADMAP Queue 1 item 6c).
 """
 from __future__ import annotations
 
@@ -50,5 +50,7 @@ class CompiledProgram:
                            exec_strategy=None, share_vars_from=None,
                            places=None, comm_options=None):
         raise NotImplementedError(
-            "CompiledProgram.with_data_parallel is not ported to "
-            "paddle_tpu_torch yet (ROADMAP Queue 1 item 6)")
+            "CompiledProgram.with_data_parallel (the static program's "
+            "data parallelism) is not ported to paddle_tpu_torch yet "
+            "(ROADMAP Queue 1 item 6c); eager data parallelism is "
+            "dist.DistributedTrainStep")

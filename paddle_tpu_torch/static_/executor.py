@@ -47,7 +47,7 @@ float32 ``<param>@OPT@master`` beside each bfloat16 or float16
 parameter, updated in its place.
 
 Raise ``NotImplementedError``, naming their ROADMAP Queue 1 item: data
-parallelism, the gradient exchange and sharding plans (item 6), the
+parallelism, the gradient exchange and sharding plans (item 6c), the
 chaos points (item 7), the AOT executable cache (item 8) and the
 dataset loops (item 10).
 """
@@ -402,10 +402,10 @@ class Executor:
             program = default_main_program()
         if isinstance(program, CompiledProgram):
             if program._data_parallel:
-                raise _not_ported("data-parallel CompiledProgram", 6)
+                raise _not_ported("data-parallel CompiledProgram", "6c")
             program = program._program
         if getattr(program, "_transpiled_dp", False):
-            raise _not_ported("a transpiled data-parallel program", 6)
+            raise _not_ported("a transpiled data-parallel program", "6c")
         return program
 
     @staticmethod

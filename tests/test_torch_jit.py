@@ -119,12 +119,38 @@ def test_run_fused_rejects_what_the_reference_rejects(case):
         "stacked": (((np.stack([ids] * 3), np.stack([labels] * 3)),),
                     {"steps": 4}, ValueError),
         "zero": ((batches,), {"steps": 0}, ValueError),
-        "accumulate": ((batches,), {"accumulate_steps": 2},
-                       NotImplementedError),
+        # accumulate_steps must divide the window (jit.py:590-596)
+        "accumulate": ((batches,), {"accumulate_steps": 3}, ValueError),
     }[case]
     with pytest.raises(err):
         step.run_fused(*args, **kw)
     assert step.optimizer._global_step == 0
+
+
+def test_run_fused_accumulates_as_the_reference_on_a_double_batch():
+    """``accumulate_steps=2`` updates once from the mean gradient of two
+    microbatches: the JAX ``TrainStep`` fed the two batches
+    concatenated (the mean of two 4-row means is the 8-row mean) gives
+    the same updates; each microbatch's loss is its own, so a window's
+    mean loss is the double batch's loss."""
+    batches = _batches(8)
+    jstep, step = _steps()
+    got = step.run_fused(batches, accumulate_steps=2)
+    assert got.shape == (8,) and step.exchanges == 4
+    assert step.optimizer._global_step == 8
+    want = [float(np.asarray(jstep(
+        np.concatenate([batches[2 * w][0], batches[2 * w + 1][0]]),
+        np.concatenate([batches[2 * w][1], batches[2 * w + 1][1]]))._data))
+        for w in range(4)]
+    np.testing.assert_allclose(got.reshape(4, 2).mean(1).numpy(), want,
+                               atol=LOSS_TOL, rtol=LOSS_TOL)
+    for (n, a), (_, b) in zip(step.model.named_parameters(),
+                              jstep.model.named_parameters()):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b._data),
+                                   atol=1e-4, rtol=0, err_msg=n)
+    # the window's four updates, op by op: the same bits again
+    _, again = _steps()
+    assert torch.equal(again.run_fused(batches, accumulate_steps=2), got)
 
 
 def test_run_fused_check_nan_raises_after_the_window():
@@ -293,6 +319,13 @@ ids, labels = script.batches(cfg, 1)[0]
 assert float(script.loss_fn(pt_api, net, pt_api.to_tensor(ids),
                             pt_api.to_tensor(labels))) > 0
 assert pt_api.to_static(net)(ids).shape == (1, 4, 256)
+from paddle_tpu_torch import dist, fleet
+from paddle_tpu_torch.dist import (cloud_utils, collective, env, gradcomm,
+                                   launch, parallel, utils)
+assert pt_api.fleet.fleet is fleet.fleet and callable(dist.launch.launch)
+ids16 = np.random.RandomState(0).randint(0, 256, (4, 16))
+assert step.run_fused([(ids16, np.roll(ids16, -1, 1))] * 2,
+                      accumulate_steps=2).shape == (2,)
 for name in ("optimizer", "static", "device", "distributed", "regularizer",
              "TrainStep", "save", "jit", "nn", "amp", "serving"):
     getattr(pt_api, name)

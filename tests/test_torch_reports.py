@@ -17,7 +17,7 @@ _report.py``) and ``obs/report.py`` against the JAX package's.
   tenant, exactly.
 - Each port tool's ``--self-test`` passes on the CPU; the fleet
   report's hang drill raises ``NotImplementedError`` naming ROADMAP
-  Queue 1 item 6.
+  Queue 1 item 6d.
 """
 import importlib.util
 import json
@@ -321,8 +321,8 @@ def test_port_tool_self_test_passes(tools, name, capsys):
     out = capsys.readouterr().out
     assert "self-test passed" in out
     if name == "fleet":
-        assert "item 6" in out
-        with pytest.raises(NotImplementedError, match="item 6"):
+        assert "item 6d" in out
+        with pytest.raises(NotImplementedError, match="item 6d"):
             tools["fleet"][1]._selftest_drill([])
 
 

@@ -393,7 +393,7 @@ def test_executor_needs_a_card_unless_asked_for_the_cpu():
 
 def test_unported_paths_raise_naming_their_item():
     t = Lenet(False, 4)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 6c"):
         pt.static.CompiledProgram(t.main).with_data_parallel()
     with pytest.raises(NotImplementedError, match="item 10"):
         t.exe.train_from_dataset(t.main)

@@ -26,7 +26,6 @@ ABSENT = {
         "metrics", "distribution", "slim", "hapi", "dataset", "vision",
         "fluid", "io", "io_", "metric", "imperative", "compat", "version",
         "sysconfig", "check_import_scipy")},
-    "fleet": "item 6",
     "runtime": "item 8",
     "set_compilation_cache": "item 8",
 }
@@ -181,11 +180,18 @@ def test_module_spellings_are_the_real_modules():
     a = torch.tensor([0.0, 3.0])
     np.testing.assert_allclose(float(pt.distributed(a, torch.zeros(2))),
                                3.0)   # still the tensor API's dist
-    for alias, item in (("io", 10), ("metric", 10), ("imperative", 10),
-                        ("fleet", 6)):
+    for alias, item in (("io", 10), ("metric", 10), ("imperative", 10)):
         with pytest.raises(ModuleNotFoundError):
             importlib.import_module(f"paddle_tpu_torch.{alias}")
         assert ABSENT[alias] == f"item {item}"
+    # fleet: the collective front end (dist.fleet), as the JAX package's
+    # paddle.fleet re-exports it
+    assert importlib.import_module("paddle_tpu_torch.fleet") is pt.fleet
+    assert pt.fleet.fleet is pt.dist.fleet and "fleet" not in ABSENT
+    for name in ("init", "distributed_optimizer", "worker_num",
+                 "worker_index", "is_first_worker", "build_train_step",
+                 "DistributedStrategy"):
+        assert hasattr(jpt.fleet, name) and hasattr(pt.fleet, name), name
     finder = next(f for f in sys.meta_path
                   if getattr(f, "_pkg_prefix", None) == "paddle_tpu_torch.")
     assert finder.find_spec("paddle_tpu.tensor") is None

@@ -23,7 +23,7 @@ Usage:
 
 The reference's self-test also runs a two-worker ``GangSupervisor``
 drill with an injected ``worker_hang``; here ``_selftest_drill`` raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 6, and the
+``NotImplementedError`` naming ROADMAP Queue 1 item 6d, and the
 self-test reports it as not run. Imports only ``paddle_tpu_torch``.
 """
 from __future__ import annotations
@@ -430,11 +430,11 @@ def _selftest_drill(failures):
     """The reference's acceptance drill (``tools/fleet_report.py``): a
     real two-worker ``GangSupervisor`` run with an injected
     ``worker_hang``, whose journals must name the hung rank. The gang
-    supervisor is ``dist``/``resilience.elastic`` work not ported yet."""
+    supervisor (``resilience.elastic``) is not ported yet."""
     raise NotImplementedError(
         "fleet_report's hang_drill needs resilience.elastic's "
         "GangSupervisor, which is not ported to paddle_tpu_torch yet "
-        "(ROADMAP Queue 1 item 6)")
+        "(ROADMAP Queue 1 item 6d)")
 
 
 def self_test():

@@ -629,7 +629,7 @@ def render_diff(rep, as_json=False):
 class _FixturePlan:
     """The plan of the reference's fixture (a (2, 4) data x model mesh,
     ``tools/run_report.py:664-674``) as its ``event_fields()`` gives it:
-    the planner is ROADMAP Queue 1 item 6, ``record_plan`` takes any
+    the planner is ROADMAP Queue 1 item 6c, ``record_plan`` takes any
     object with ``event_fields()``."""
 
     def __init__(self, predicted, measured):
